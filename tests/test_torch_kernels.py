@@ -7,13 +7,19 @@ only (conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Bar: atol = max|ref|/128 (one bf16 ULP at output scale), rtol = 1e-2, the
-bar tests/test_fused_attn_block.py applies to the Pallas kernels.
+bar tests/test_fused_attn_block.py applies to the Pallas kernels, for
+each output of each kernel. Gradients through a whole block, kernels on
+against kernels off: cosine >= 0.999 per tensor.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from xtagclip_tpu_torch.models.layers import (
+    ResidualAttentionBlock,
+    set_use_kernels,
+)
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
 
 torch.set_num_threads(1)
@@ -94,6 +100,74 @@ def test_mlp_kernel_matches_plain(cuda, n, d, h, act):
     _assert_kernel_bar(out, ref)
 
 
+@pytest.mark.parametrize("b,l,d,h,causal", [
+    (32, 50, 768, 12, False),   # ViT-B/32 vision blocks
+    (32, 77, 512, 8, True),     # text blocks, causal mask
+    (3, 1, 128, 2, False),      # one token
+    (2, 128, 64, 1, True),      # longest L supported_bwd takes
+    (5, 33, 192, 3, False),     # ragged L, odd batch
+])
+def test_attn_bwd_kernel_matches_plain(cuda, b, l, d, h, causal):
+    args = _attn_args(b, l, d, seed=100 + l, device=cuda)
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = args
+    g = _tensors({"x": ((b, l, d), 1.0)}, 7 + l, cuda)["x"]
+    mask = (torch.triu(torch.full((l, l), float("-inf"), device=cuda), 1)
+            if causal else None)
+    assert fab.supported_bwd((b, l, d), h, mask_shape=None if mask is None
+                             else (l, l))
+    bwd_args = (x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, 1e-5)
+    before = fab.fused_attn_half_bwd.launches
+    outs = fab.fused_attn_half_bwd(*bwd_args)
+    assert fab.fused_attn_half_bwd.launches == before + 1
+    refs = fab.reference_attn_half_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    shapes = [(b, l, d), (b, l, 3 * d), (d, d), (d,), (d,), (d,)]
+    for out, ref, shape in zip(outs, refs, shapes):
+        assert tuple(out.shape) == shape and out.dtype == ref.dtype
+        _assert_kernel_bar(out, ref)
+
+
+def _cos(a, b):
+    a, b = a.float().flatten(), b.float().flatten()
+    return (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_block_gradients_kernels_vs_plain(cuda, causal):
+    """One block, bf16 stream over fp32 parameters: autograd through the
+    two Functions (kernels) against autograd through the plain halves."""
+    torch.manual_seed(0)
+    blk = ResidualAttentionBlock(256, 4).to(cuda)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            p.copy_(torch.randn_like(p) * (0.05 if p.dim() == 2 else 0.1)
+                    + (1.0 if name.endswith("ln_1.scale")
+                       or name.endswith("ln_2.scale") else 0.0))
+    x0 = torch.randn(4, 50, 256, device=cuda).bfloat16()
+    ct = torch.randn(4, 50, 256, device=cuda).bfloat16()
+    mask = (torch.triu(torch.full((50, 50), float("-inf"), device=cuda), 1)
+            if causal else None)
+
+    def grads(use_kernels):
+        set_use_kernels(blk, use_kernels)
+        blk.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        blk(x, attn_mask=mask).backward(ct)
+        return [x.grad] + [p.grad for p in blk.parameters()]
+
+    before = (fab.fused_attn_half.launches, fab.fused_attn_half_bwd.launches,
+              fab.fused_mlp_half.launches)
+    on = grads(True)
+    after = (fab.fused_attn_half.launches, fab.fused_attn_half_bwd.launches,
+             fab.fused_mlp_half.launches)
+    off = grads(False)
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 1)
+    for a, r in zip(on, off):
+        assert a.dtype == r.dtype and torch.isfinite(a).all()
+        assert _cos(a, r) >= 0.999
+
+
 def test_kernels_raise_instead_of_falling_back(cuda):
     args = _attn_args(2, 197, 768, seed=1, device=cuda)
     with torch.inference_mode(), pytest.raises(ValueError, match="197"):
@@ -105,7 +179,12 @@ def test_kernels_raise_instead_of_falling_back(cuda):
     margs[3] = margs[3].t().contiguous().t()      # a non-contiguous w1
     with torch.inference_mode(), pytest.raises(ValueError, match="contiguous"):
         fab.fused_mlp_half(*margs, "gelu", 1e-5)
-    margs = _mlp_args(16, 768, 3072, seed=2, device=cuda)
-    margs[3].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        fab.fused_mlp_half(*margs, "gelu", 1e-5)
+    # under grad, a shape the backward kernel cannot take raises at once
+    args[0].requires_grad_(True)
+    with pytest.raises(ValueError, match="fused_attn_half_bwd.*197"):
+        fab.fused_attn_half(*args, None, 12, 1e-5)
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = _attn_args(2, 197, 768, seed=1,
+                                                     device=cuda)
+    with pytest.raises(ValueError, match="197"):
+        fab.fused_attn_half_bwd(x, x, ln_g, ln_b, wqkv, bqkv, wout, None,
+                                12, 1e-5)

@@ -208,13 +208,17 @@ def test_port_name(path, name):
 
 
 def test_bf16_model_on_cpu_runs_plain_halves(cfg_name, pair, inputs):
-    """bf16 on the CPU: every block takes the plain halves (no launch is
-    counted), close to the fp32 model, and the explicit plain switch gives
-    the same numbers on the CPU."""
+    """bf16 on the CPU: the model keeps fp32 masters until the serving
+    cast; then every block takes the plain halves (no launch is counted),
+    close to the fp32 model, and the explicit plain switch gives the same
+    numbers on the CPU."""
     bundle, fp32_model = pair
     model = factory.create_model(cfg_name, device="cpu", precision="bf16",
                                  use_tagging=True, use_fusion=True)
     load_jax_params(model, jax.tree.map(np.asarray, bundle.params))
+    assert model.visual.conv1.kernel.dtype == torch.float32
+    assert all(p.requires_grad for p in model.parameters())
+    factory.cast_for_compute(model, torch.bfloat16)
     assert model.visual.conv1.kernel.dtype == torch.bfloat16
     blk = model.visual.transformer.resblocks[0]
     assert blk.attn.in_proj.bias.dtype == torch.float32

@@ -107,6 +107,7 @@ def main(argv=None):
     from PIL import Image
 
     from xtagclip_tpu_torch.factory import (
+        cast_for_compute,
         create_model_and_transforms,
         get_cast_dtype,
         get_tokenizer,
@@ -125,6 +126,7 @@ def main(argv=None):
         args.model, precision=args.precision, device=args.device,
         use_tagging=True, use_fusion=True)
     dtype = get_cast_dtype(args.precision)
+    cast_for_compute(model, dtype)
     ptable = PromptTable(classnames, tokenizer=get_tokenizer(args.model),
                          templates=[args.prompt_template_setting]).table
     serve = make_xtag_serve_step(

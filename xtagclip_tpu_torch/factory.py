@@ -5,16 +5,17 @@ The built-in architecture JSONs are read by file path from the JAX
 package's ``assets/model_configs``. Only ViT + text-transformer configs are
 ported; other families raise NotImplementedError.
 
-``precision`` has the JAX package's meaning: parameters are fp32 and
-``"bf16"`` sets the compute dtype. Here the matmul weights are cast to the
-compute dtype once, at load (``cast_for_compute``); LayerNorm parameters,
-the logit scales and the biases of the transformer blocks (which the fused
-kernels add in fp32, as the Pallas kernels do) stay fp32. The result is
-the same arithmetic as casting at every use.
+``precision`` has the JAX package's meaning: parameters are fp32 masters
+and ``"bf16"`` sets the compute dtype, to which every module casts its
+weights at use (models/layers.py). The model comes back trainable, with
+fp32 parameters. For serving, ``cast_for_compute`` casts the matmul
+weights to the compute dtype once, so the casts at use cost nothing;
+LayerNorm parameters, the logit scales and the biases of the transformer
+blocks (which the fused kernels add in fp32, as the Pallas kernels do)
+stay fp32. Both give the same arithmetic.
 
 The model is built and initialized on ``device`` (default ``"cuda"``); a
-missing card raises before anything is allocated. The slice is
-inference-only: the model comes back in eval mode with gradients off.
+missing card raises before anything is allocated.
 """
 
 from __future__ import annotations
@@ -116,7 +117,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
 
 @torch.no_grad()
 def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> None:
-    """Cast the matmul weights to the compute dtype, once (module doc)."""
+    """Cast the matmul weights to the compute dtype, once, for serving
+    (module doc). The model then holds no fp32 masters to train."""
     keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
             for p in m.parameters()}
     keep |= {id(p) for m in model.modules()
@@ -161,10 +163,9 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
                                      math.log(1 / 0.07)),
             dtype=dtype)
     init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
-    cast_for_compute(model, dtype)
     model.model_name = model_name
     model.model_cfg = cfg
-    return model.eval().requires_grad_(False)
+    return model
 
 
 def create_model_and_transforms(model_name: str, precision: str = "fp32",

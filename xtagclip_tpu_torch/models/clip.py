@@ -87,12 +87,13 @@ class CLIP(nn.Module):
         return (l2_normalize(projected) if normalize else projected), seq
 
     # ---- XTag pieces -----------------------------------------------------
-    def tag_forward(self, image_tokens):
+    def tag_forward(self, image_tokens, generator=None):
         """The 2*num_tags label queries over the image tokens -> [B, 44]."""
         b = image_tokens.shape[0]
         label = self.tag_labels.embedding.to(self.dtype).expand(
             b, self.num_tags * 2, self.tag_hidden_size)
-        return self.tag_fc(self.tag_head(label, image_tokens))[..., 0]
+        out = self.tag_head(label, image_tokens, generator)
+        return self.tag_fc(out)[..., 0]
 
     def prepare_tag_indices(self, tag_logits):
         """Per-category argmax of paired sigmoid scores -> local [B, 6] and
@@ -109,10 +110,20 @@ class CLIP(nn.Module):
 
     # ---- full forward ----------------------------------------------------
     def forward(self, image, text=None, prompt_table=None, class_ids=None,
-                template_id: int = 0):
-        """prompt_table: [T, C, K, ctx] token ids; class_ids: [B]."""
+                template_id: int = 0, deterministic: bool = True,
+                generator=None):
+        """prompt_table: [T, C, K, ctx] token ids; class_ids: [B].
+
+        ``deterministic=False`` turns on the tag head's and TQN's dropout
+        (the JAX ``__call__``, clip.py:238-247), whose masks are drawn from
+        ``generator``, a ``torch.Generator`` on the model's device."""
+        if deterministic:
+            generator = None
+        elif generator is None:
+            raise ValueError("deterministic=False needs a torch.Generator "
+                             "for the dropout masks")
         image_features, image_tokens = self.encode_image(image, normalize=True)
-        tag_logits = self.tag_forward(image_tokens)
+        tag_logits = self.tag_forward(image_tokens, generator)
         tag_local, tag_global = self.prepare_tag_indices(tag_logits)
 
         if self.use_tagging and prompt_table is not None:
@@ -147,10 +158,10 @@ class CLIP(nn.Module):
             image_g = image_tokens.mean(dim=1)
             i2t = self.fusion_model(
                 torch.cat([image_g[:, None], image_tokens], dim=1), text_g,
-            )[..., 0]
+                generator)[..., 0]
             t2i = self.fusion_model(
                 torch.cat([text_g[:, None], text_tokens], dim=1), image_g,
-            )[..., 0]
+                generator)[..., 0]
             out.update(i2t_cls=i2t, t2i_cls=t2i, text_features_l=text_tokens,
                        text_features_g=text_g, image_features_l=image_tokens,
                        image_features_g=image_g)

@@ -5,10 +5,19 @@ package's param tree loads name for name (convert/from_jax.py): a ``Dense``
 keeps its ``kernel`` as [in, out] (flax layout, which is also the B operand
 layout the CUDA GEMMs read) and ``LayerNorm`` has ``scale``/``bias``.
 
-Compute dtype: the factory casts every matmul weight to the compute dtype
-once at load (see factory.cast_for_compute); a module computes in the
-dtype of its input stream. LayerNorm always takes its statistics in fp32
-and casts the result back.
+Compute dtype: parameters are fp32 masters (the JAX package's
+``param_dtype``) and a module computes in the dtype of its input stream
+(its ``dtype``): it casts its weights to that dtype at use, as flax's
+``nn.Dense(dtype=...)`` does, and autograd carries each gradient back
+into the fp32 parameter as the vjp of JAX's ``astype`` does. The biases
+of the fused block halves stay fp32 (the kernels add them in fp32, as the
+Pallas kernels do). For serving, ``factory.cast_for_compute`` casts the
+weights once, and the casts at use become no-ops. LayerNorm always takes
+its statistics in fp32 and casts the result back.
+
+Dropout (``dropout``) is inverted dropout whose keep mask is drawn from an
+explicit ``torch.Generator``; it is off where the generator is None, the
+``deterministic=True`` of the JAX modules.
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        y = torch.matmul(x, self.kernel)
+        y = torch.matmul(x, self.kernel.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -87,10 +96,22 @@ class Embed(nn.Module):
         return self.embedding[ids]
 
 
-def attention(q, k, v, num_heads: int):
+def dropout(x, rate: float, generator):
+    """Inverted dropout (flax ``nn.Dropout``): each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate). The keep mask comes
+    from ``generator`` (``F.dropout`` takes none); None turns dropout off."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
+              generator=None):
     """Unmasked multi-head attention over [B, L, E] streams
     (``jax.nn.dot_product_attention``): fp32 scores times dh^-0.5, fp32
-    softmax, probabilities in the value dtype for P @ V."""
+    softmax, dropout on the fp32 probabilities when a generator is given
+    (layers.py:117-119), probabilities in the value dtype for P @ V."""
     b, lq, e = q.shape
     lk = k.shape[1]
     dh = e // num_heads
@@ -100,7 +121,7 @@ def attention(q, k, v, num_heads: int):
 
     qh, kh, vh = heads(q, lq), heads(k, lk), heads(v, lk)
     s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * dh**-0.5
-    p = torch.softmax(s, dim=-1)
+    p = dropout(torch.softmax(s, dim=-1), dropout_rate, generator)
     out = torch.matmul(p.to(vh.dtype), vh)
     return out.transpose(1, 2).reshape(b, lq, e).to(q.dtype)
 
@@ -113,22 +134,24 @@ class MultiheadAttention(nn.Module):
     block's self-attention reads the same parameters through the fused
     attention half."""
 
-    def __init__(self, width: int, num_heads: int):
+    def __init__(self, width: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj = Dense(width, 3 * width)
         self.out_proj = Dense(width, width)
 
     def _proj(self, x, lo, hi):
-        kernel = self.in_proj.kernel[:, lo:hi]
+        kernel = self.in_proj.kernel[:, lo:hi].to(x.dtype)
         return torch.matmul(x, kernel) + self.in_proj.bias[lo:hi].to(x.dtype)
 
-    def forward(self, q, kv):
+    def forward(self, q, kv, generator=None):
         """q [B, Lq, E] attends to kv [B, Lk, E]."""
         e = q.shape[-1]
         qh = self._proj(q, 0, e)
         kh, vh = self._proj(kv, e, 3 * e).split(e, dim=-1)
-        return self.out_proj(attention(qh, kh, vh, self.num_heads))
+        return self.out_proj(attention(qh, kh, vh, self.num_heads,
+                                       self.dropout, generator))
 
 
 class MLP(nn.Module):
@@ -147,7 +170,11 @@ class ResidualAttentionBlock(nn.Module):
     Dispatch (layers.py:520-559): a bf16 stream goes through the fused
     halves, ``fab.fused_attn_half`` then ``fab.fused_mlp_half``: their CUDA
     kernels on the card (a shape they cannot take raises), their plain
-    versions on the CPU. Every other stream takes the plain versions
+    versions on the CPU; with grad on, through their autograd Functions
+    (the backward kernel for the attention half). The weight matrices are
+    cast to the stream's dtype at use (layers.py:540-543), the biases and
+    LayerNorm parameters stay fp32. Every other stream takes the plain
+    versions, under autograd when grad is on:
     ``fab.reference_attn_half`` / ``fab.reference_mlp_half``: an fp32
     stream (the JAX gate likewise keeps fp32 off the kernel; there the
     bf16 rounding points are no-ops), and a bf16 stream with
@@ -177,14 +204,14 @@ class ResidualAttentionBlock(nn.Module):
         else:
             attn_half = fab.reference_attn_half
             mlp_half = fab.reference_mlp_half
-        a, m = self.attn, self.mlp
+        a, m, dt = self.attn, self.mlp, x.dtype
         x = attn_half(x, self.ln_1.scale, self.ln_1.bias,
-                      a.in_proj.kernel, a.in_proj.bias,
-                      a.out_proj.kernel, a.out_proj.bias,
+                      a.in_proj.kernel.to(dt), a.in_proj.bias,
+                      a.out_proj.kernel.to(dt), a.out_proj.bias,
                       attn_mask, self.heads, self.norm_eps)
         return mlp_half(x, self.ln_2.scale, self.ln_2.bias,
-                        m.c_fc.kernel, m.c_fc.bias,
-                        m.c_proj.kernel, m.c_proj.bias,
+                        m.c_fc.kernel.to(dt), m.c_fc.bias,
+                        m.c_proj.kernel.to(dt), m.c_proj.bias,
                         self.act, self.norm_eps)
 
 

@@ -3,7 +3,10 @@
 
 [cross-attn(label queries <- image tokens) + FFN] x 2, post-LN at eps
 1e-12, exact gelu. Attention is plain torch (the JAX head uses XLA's
-``jax.nn.dot_product_attention``, not a Pallas kernel).
+``jax.nn.dot_product_attention``, not a Pallas kernel). Dropout 0.1 on the
+attention probabilities, the attention output and the FFN output
+(tag_head.py:44-54, 72), drawn from ``generator`` when one is given (the
+train step's ``deterministic=False``).
 """
 
 from __future__ import annotations
@@ -14,8 +17,11 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     attention,
+    dropout,
     gelu_exact,
 )
+
+DROPOUT = 0.1
 
 
 class BertCrossAttention(nn.Module):
@@ -30,10 +36,12 @@ class BertCrossAttention(nn.Module):
         self.out_dense = Dense(hidden_size, hidden_size)
         self.out_ln = LayerNorm(hidden_size, eps=1e-12)
 
-    def forward(self, hidden, encoder_hidden):
+    def forward(self, hidden, encoder_hidden, generator=None):
         ctx = attention(self.query(hidden), self.key(encoder_hidden),
-                        self.value(encoder_hidden), self.num_heads)
-        return self.out_ln(self.out_dense(ctx) + hidden)
+                        self.value(encoder_hidden), self.num_heads, DROPOUT,
+                        generator)
+        out = dropout(self.out_dense(ctx), DROPOUT, generator)
+        return self.out_ln(out + hidden)
 
 
 class BertFFN(nn.Module):
@@ -43,9 +51,9 @@ class BertFFN(nn.Module):
         self.output = Dense(intermediate_size, hidden_size)
         self.output_ln = LayerNorm(hidden_size, eps=1e-12)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = self.output(gelu_exact(self.intermediate(x)))
-        return self.output_ln(h + x)
+        return self.output_ln(dropout(h, DROPOUT, generator) + x)
 
 
 class TagBertLayer(nn.Module):
@@ -58,8 +66,9 @@ class TagBertLayer(nn.Module):
                                                  encoder_width)
         self.ffn = BertFFN(hidden_size, intermediate_size)
 
-    def forward(self, x, encoder_hidden):
-        return self.ffn(self.crossattention(x, encoder_hidden))
+    def forward(self, x, encoder_hidden, generator=None):
+        return self.ffn(self.crossattention(x, encoder_hidden, generator),
+                        generator)
 
 
 class TagBertHead(nn.Module):
@@ -72,9 +81,9 @@ class TagBertHead(nn.Module):
                          encoder_width)
             for _ in range(num_layers))
 
-    def forward(self, label_embeds, encoder_hidden):
+    def forward(self, label_embeds, encoder_hidden, generator=None):
         """label_embeds [B, Q, hidden], encoder_hidden [B, L, enc_width]."""
         x = label_embeds
         for layer in self.layers:
-            x = layer(x, encoder_hidden)
+            x = layer(x, encoder_hidden, generator)
         return x

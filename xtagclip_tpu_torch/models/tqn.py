@@ -4,7 +4,10 @@
 Queries cross-attend to the memory through pre-norm layers (4 heads, ffn
 1024, relu), then decoder_norm -> MLP head ->1024->512->256->class_num.
 Both the memory and the queries pass through ``decoder_norm`` before the
-decoder (tqn.py:89-98), kept for weight parity.
+decoder (tqn.py:89-98), kept for weight parity. Dropout 0.1 on the
+attention probabilities, both residual branches, the FFN hidden, the
+decoder output and each hidden of the MLP head (tqn.py:40-62, 116-129),
+drawn from ``generator`` when one is given.
 """
 
 from __future__ import annotations
@@ -14,7 +17,14 @@ import math
 import torch
 from torch import nn
 
-from xtagclip_tpu_torch.models.layers import Dense, LayerNorm, MultiheadAttention
+from xtagclip_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    MultiheadAttention,
+    dropout,
+)
+
+DROPOUT = 0.1
 
 
 class TQNDecoderLayer(nn.Module):
@@ -22,15 +32,17 @@ class TQNDecoderLayer(nn.Module):
                  dim_feedforward: int = 1024):
         super().__init__()
         self.norm2 = LayerNorm(d_model)
-        self.multihead_attn = MultiheadAttention(d_model, nhead)
+        self.multihead_attn = MultiheadAttention(d_model, nhead, DROPOUT)
         self.norm3 = LayerNorm(d_model)
         self.linear1 = Dense(d_model, dim_feedforward)
         self.linear2 = Dense(dim_feedforward, d_model)
 
-    def forward(self, tgt, memory):
-        tgt = tgt + self.multihead_attn(self.norm2(tgt), memory)
+    def forward(self, tgt, memory, generator=None):
+        tgt2 = self.multihead_attn(self.norm2(tgt), memory, generator)
+        tgt = tgt + dropout(tgt2, DROPOUT, generator)
         h = torch.relu(self.linear1(self.norm3(tgt)))
-        return tgt + self.linear2(h)
+        h = self.linear2(dropout(h, DROPOUT, generator))
+        return tgt + dropout(h, DROPOUT, generator)
 
 
 class TQNModel(nn.Module):
@@ -52,7 +64,7 @@ class TQNModel(nn.Module):
     def init_params(self, generator):
         nn.init.constant_(self.logit_scale, math.log(1 / 0.07))
 
-    def forward(self, image_features, text_features):
+    def forward(self, image_features, text_features, generator=None):
         """image_features [B, P, D] memory; text_features [Q, D] or
         [B, Q, D] queries -> [B, Q, class_num] scores."""
         memory = self.decoder_norm(image_features)
@@ -61,9 +73,8 @@ class TQNModel(nn.Module):
                 image_features.shape[0], *text_features.shape)
         x = self.decoder_norm(text_features)
         for layer in self.decoder_layers:
-            x = layer(x, memory)
-        x = self.decoder_norm(x)
-        h = torch.relu(self.mlp_0(x))
-        h = torch.relu(self.mlp_1(h))
-        h = torch.relu(self.mlp_2(h))
+            x = layer(x, memory, generator)
+        h = dropout(self.decoder_norm(x), DROPOUT, generator)
+        for fc in (self.mlp_0, self.mlp_1, self.mlp_2):
+            h = dropout(torch.relu(fc(h)), DROPOUT, generator)
         return self.mlp_3(h)

@@ -25,7 +25,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half")
+KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -100,6 +100,13 @@ _ARGTYPES = {
     "xtag_fused_attn_half": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, ln_g, ln_b, wqkv, bqkv, wout, bout, mask
         _VP, _VP, _VP, _VP,                      # xn, qkv, att scratch; out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
+        ctypes.c_float, _VP,                     # eps, stream
+    ],
+    "xtag_fused_attn_half_bwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, g, ln_g, ln_b, wqkv, bqkv, wout, mask
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP,       # xn, qkv, datt, att, dxn, stats, partial scratch
+        _VP, _VP, _VP, _VP, _VP, _VP,            # dx, dqkv, dwout, dbout, dls, dlb
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
         ctypes.c_float, _VP,                     # eps, stream
     ],
