@@ -5,16 +5,21 @@
 Drives the port's main paths at full width in bf16 with a seeded random
 init, through the entry points a user calls: the XTag ViT-B-32
 fusion-classify serving path (create_model, cast_for_compute, PromptTable,
-precompute_prompt_features, make_xtag_serve_step) and the XTag ViT-B-32
+precompute_prompt_features, make_xtag_serve_step), the XTag ViT-B-32
 train step (create_model, make_optimizer, create_train_state,
-make_train_step), in phases that each print one JSON line:
+make_train_step) and the scar training CLI (main_other.main), in phases
+that each print one JSON line:
 
 1. build: compiles the CUDA kernels of xtagclip_tpu_torch/csrc with nvcc;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it, every output within atol =
-   max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale); median
-   device times of kernel and plain version (CUDA events over 10
-   back-to-back calls), and the card's least time for the same work;
+   max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale); the image
+   normalize (kernel #5) within one bf16 ULP on every element, or 2^-22
+   for fp32 output, at the main path's batch and at a ragged odd-sized
+   one; median device times of kernel and plain version (CUDA events over
+   10 back-to-back calls; for the normalize, whose host side outlasts its
+   device side, torch.profiler's device time), and the card's least time
+   for the same work;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -34,10 +39,23 @@ make_train_step), in phases that each print one JSON line:
    grad_norm), each step launching exactly 24 of each of the forward
    halves and 24 attention-half backward kernels (12 vision + 12 text);
 6. train path: one step from the same weights, batch and dropout seed
-   with the kernels on and off (autograd through the plain halves), on
-   the batch's ground-truth prompts: loss within 1e-2 relative, every
-   parameter gradient that is nonzero on the plain side at cosine >= 0.99,
-   global gradient norm within 2%.
+   with the kernels on and off (autograd through the plain halves and the
+   plain normalize), on the batch's ground-truth prompts: loss within 1e-2
+   relative, every parameter gradient that is nonzero on the plain side at
+   cosine >= 0.99 or within its bf16 noise floor (see phase_train_path),
+   global gradient norm within 2%;
+7. trainer: ``main_other.main`` on seeded PNG files (256 train and 96 val
+   rows of a scar split in the reference's layout), batch 32, 4 loader
+   threads: 2 epochs of the plain step, each followed by the scar eval
+   (val and train data) and the checkpoint policy (--save-best,
+   --delete-previous-checkpoint), then a second call with --resume latest
+   and --accum-freq 2 for a third epoch. It prints samples/s, p50 step ms
+   and the loss per epoch, eval img/s, seconds per checkpoint save, the
+   host ms of one loader item, and the launches per plain step, per
+   accumulation step, per eval batch and per classifier build; it fails
+   on a value that is not finite, a last plain epoch whose mean loss is
+   not below the first's, a missing artifact or checkpoint, launches off
+   their expected counts, or a reloaded state that differs in one bit.
 
 With ``--profile`` it then traces one precompute, 20 serve batches and 5
 train steps with torch.profiler and prints, for each window, its wall
@@ -55,23 +73,27 @@ device it exits 1 before doing anything. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-# the card's published dense bf16 peak (FLOP/s) and memory rate (bytes/s)
+# the card's published dense bf16 peak (FLOP/s), fp32 peak outside the
+# tensor cores (FLOP/s) and memory rate (bytes/s)
 _PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H200", 989e12, 4.8e12),
-    ("H100", 989e12, 3.35e12),
+    ("H100 PCIe", 756e12, 51e12, 2.0e12),
+    ("H100 NVL", 835e12, 60e12, 3.9e12),
+    ("H200", 989e12, 67e12, 4.8e12),
+    ("H100", 989e12, 67e12, 3.35e12),
 )
 SERVE_BATCH = 32
 N_SERVE_BATCHES = 200  # the timed window
@@ -87,10 +109,10 @@ N_TRAIN_BATCHES = 4  # distinct seeded batches, cycled
 TRAIN_LR, TRAIN_WD, TRAIN_WARMUP = 5e-5, 0.1, 50
 TRAIN_SCHEDULE_STEPS = 10_000  # nominal length: sets only the cosine decay
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
-# fused_attn_half_bwd.cu)
+# fused_attn_half_bwd.cu, normalize_images.cu)
 PORT_KERNELS = ("gemm_bf16_kernel", "attn_core_kernel", "ln_rows_kernel",
                 "attn_bwd_core_kernel", "ln_bwd_rows_kernel",
-                "ln_bwd_cols_kernel", "col_sum_kernel")
+                "ln_bwd_cols_kernel", "col_sum_kernel", "normalize_u8_kernel")
 
 
 def _card() -> str:
@@ -101,9 +123,10 @@ def _card() -> str:
 
 
 def _peaks(name: str):
-    for key, flops, rate in _PEAKS:
+    """{"bf16": FLOP/s, "fp32": FLOP/s}, bytes/s of the card ``name``."""
+    for key, bf16, fp32, rate in _PEAKS:
         if key in name:
-            return flops, rate
+            return {"bf16": bf16, "fp32": fp32}, rate
     raise RuntimeError(f"no published peak rates for {name!r}")
 
 
@@ -127,6 +150,27 @@ def _median_ms(fn, reps: int = 7, per_rep: int = 10, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_rep)
     return statistics.median(times)
+
+
+def _profiled_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: the summed durations of the
+    kernels and copies it runs on the card (torch.profiler), per call.
+    For a call whose host side takes longer than its device side, where
+    CUDA events would time the host's launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(_device_time_us(e) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    return total_us / 1e3 / calls
 
 
 def _close(out, ref):
@@ -163,7 +207,7 @@ def _kernel_cases(gen):
                   + 4 * (4 * d + 2 * d) + (4 * l * l if causal else 0))
         cases.append(("fused_attn_half", f"{tower} B={SERVE_BATCH} L={l} "
                       f"D={d} H={h}{' causal' if causal else ''}",
-                      args, flops, nbytes))
+                      args, flops, nbytes, "bf16"))
     for tower, l, d in (("vision", 50, 768), ("text", 77, 512)):
         hd = 4 * d
         n = SERVE_BATCH * l
@@ -175,7 +219,7 @@ def _kernel_cases(gen):
             flops = 4 * n * d * hd
             nbytes = 2 * 2 * n * d + 2 * 2 * d * hd + 4 * (3 * d + hd)
             cases.append(("fused_mlp_half", f"{tower} N={n} D={d} "
-                          f"H={hd} {act}", args, flops, nbytes))
+                          f"H={hd} {act}", args, flops, nbytes, "bf16"))
     b = TRAIN_BATCH
     for tower, l, d, h, causal in (("vision", 50, 768, 12, False),
                                    ("text", 77, 512, 8, True)):
@@ -191,7 +235,23 @@ def _kernel_cases(gen):
                   + 4 * (5 * d + 3 * d) + (4 * l * l if causal else 0))
         cases.append(("fused_attn_half_bwd", f"{tower} B={b} L={l} D={d} "
                       f"H={h}{' causal' if causal else ''}", args, flops,
-                      nbytes))
+                      nbytes, "bf16"))
+    # the image normalize: the main path's batch, and a ragged batch whose
+    # element count is odd (the kernel's scalar tail); one FMA an element
+    from xtagclip_tpu_torch.utils.constants import (
+        OPENAI_DATASET_MEAN,
+        OPENAI_DATASET_STD,
+    )
+
+    for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3)):
+        images = torch.randint(0, 256, shape, generator=gen, device=dev,
+                               dtype=torch.uint8)
+        n = images.numel()
+        for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            cases.append(("normalize_images", f"{'x'.join(map(str, shape))} "
+                          f"uint8 -> {str(dtype)[6:]}",
+                          (images, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD,
+                           dtype), 2 * n, n * (1 + size), "fp32"))
     return cases
 
 
@@ -202,30 +262,67 @@ _KERNEL_META = {
                        "xtagclip_tpu/ops/fused_attn_block.py:796"),
     "fused_attn_half_bwd": ("xtagclip_tpu_torch/csrc/fused_attn_half_bwd.cu",
                             "xtagclip_tpu/ops/fused_attn_block.py:543"),
+    "normalize_images": ("xtagclip_tpu_torch/csrc/normalize_images.cu",
+                         "xtagclip_tpu/ops/preprocess.py:47"),
 }
+
+
+def _ordered(t):
+    """Monotonic integer keys of fp32 values (bf16 widened exactly)."""
+    bits = t.float().contiguous().view(torch.int32).long()
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+def _close_normalize(out, ref):
+    """(ok, max_abs_err, bar): bf16 within one bf16 ULP of the plain
+    version on every element; fp32 within one fp32 ulp at the operands'
+    scale, 2^-22 (the kernel's one FMA against a multiply and an add)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if out.dtype == torch.bfloat16:
+        ulps = ((_ordered(out) - _ordered(ref)).abs() >> 16).max().item()
+        ok, bar = ulps <= 1, "1 bf16 ULP"
+    else:
+        ok, bar = err <= 2.0**-22, 2.0**-22
+    return ok and bool(torch.isfinite(out).all().item()), err, bar
 _BWD_OUTPUTS = ("dx", "dqkv", "dwout", "dbout", "dls", "dlb")
+
+
+def _times(name, kernel_fn, plain_fn) -> dict:
+    """ms and plain_ms: CUDA events over back-to-back calls; for the
+    normalize, whose host side outlasts its device side, the profiler's
+    device time, with the event times beside it."""
+    if name != "normalize_images":
+        return {"ms": _median_ms(kernel_fn), "plain_ms": _median_ms(plain_fn)}
+    return {"ms": _profiled_ms(kernel_fn), "plain_ms": _profiled_ms(plain_fn),
+            "event_ms": _median_ms(kernel_fn),
+            "plain_event_ms": _median_ms(plain_fn)}
 
 
 def phase_kernels(card: str):
     from xtagclip_tpu_torch.ops import fused_attn_block as fab
 
+    from xtagclip_tpu_torch.ops import preprocess
+
     peak_flops, peak_rate = _peaks(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
     kernel = {"fused_attn_half": fab.fused_attn_half,
               "fused_mlp_half": fab.fused_mlp_half,
-              "fused_attn_half_bwd": fab.fused_attn_half_bwd}
+              "fused_attn_half_bwd": fab.fused_attn_half_bwd,
+              "normalize_images": preprocess.normalize_images}
     plain = {"fused_attn_half": fab.reference_attn_half,
              "fused_mlp_half": fab.reference_mlp_half,
-             "fused_attn_half_bwd": fab.reference_attn_half_bwd}
+             "fused_attn_half_bwd": fab.reference_attn_half_bwd,
+             "normalize_images": preprocess.normalize_images_reference}
     entries = []
     with torch.inference_mode():
-        for name, shape, args, flops, nbytes in _kernel_cases(gen):
+        for name, shape, args, flops, nbytes, kind in _kernel_cases(gen):
             out = kernel[name](*args)
             ref = plain[name](*args)
             torch.cuda.synchronize()
             outs, refs = ((out, ref) if isinstance(out, tuple)
                           else ((out,), (ref,)))
-            checks = [_close(o, r) for o, r in zip(outs, refs)]
+            close = _close_normalize if name == "normalize_images" else _close
+            checks = [close(o, r) for o, r in zip(outs, refs)]
             bad = [i for i, (ok, _, _) in enumerate(checks) if not ok]
             if bad or len(outs) != len(refs):
                 raise AssertionError(
@@ -235,17 +332,18 @@ def phase_kernels(card: str):
             err = max(c[1] for c in checks)
             atol = (checks[0][2] if len(checks) == 1 else
                     {k: c[2] for k, c in zip(_BWD_OUTPUTS, checks)})
-            t_flops, t_bytes = flops / peak_flops, nbytes / peak_rate
+            t_flops, t_bytes = flops / peak_flops[kind], nbytes / peak_rate
             source, replaces = _KERNEL_META[name]
             entries.append({
                 "name": name, "shape": shape, "card": card, "route": "cuda",
+                "peak_type": kind,
                 "source": source, "replaces": replaces, "launches": None,
                 "max_abs_err": err, "atol": atol,
                 **({"max_abs_err_by_output": {
                     k: c[1] for k, c in zip(_BWD_OUTPUTS, checks)}}
                    if len(checks) > 1 else {}),
-                "ms": _median_ms(lambda: kernel[name](*args)),
-                "plain_ms": _median_ms(lambda: plain[name](*args)),
+                **_times(name, lambda: kernel[name](*args),
+                         lambda: plain[name](*args)),
                 "bound_ms": 1e3 * max(t_flops, t_bytes),
                 "bound_by": "operations" if t_flops >= t_bytes else "bytes",
                 "library_ms": None,
@@ -260,8 +358,10 @@ def _cosine(a, b):
 
 def _wrappers():
     from xtagclip_tpu_torch.ops import fused_attn_block as fab
+    from xtagclip_tpu_torch.ops import preprocess
 
-    return (fab.fused_attn_half, fab.fused_mlp_half, fab.fused_attn_half_bwd)
+    return (fab.fused_attn_half, fab.fused_mlp_half, fab.fused_attn_half_bwd,
+            preprocess.normalize_images)
 
 
 def _reset_counts() -> None:
@@ -286,7 +386,10 @@ def _scar_prompt_table():
 def phase_serve_and_path(card: str):
     from xtagclip_tpu_torch.factory import cast_for_compute, create_model
     from xtagclip_tpu_torch.models.layers import set_use_kernels
-    from xtagclip_tpu_torch.ops.preprocess import normalize_images
+    from xtagclip_tpu_torch.ops.preprocess import (
+        normalize_images,
+        normalize_images_reference,
+    )
     from xtagclip_tpu_torch.serving import (
         make_xtag_serve_step,
         precompute_prompt_features,
@@ -323,9 +426,10 @@ def phase_serve_and_path(card: str):
         for _ in range(N_IMAGE_BATCHES)]
     serve = make_xtag_serve_step(model, table)
 
-    def serve_one(i):
-        images = normalize_images(batches[i % N_IMAGE_BATCHES].to("cuda"),
-                                  dtype=torch.bfloat16)
+    def serve_one(i, plain=False):
+        norm = normalize_images_reference if plain else normalize_images
+        images = norm(batches[i % N_IMAGE_BATCHES].to("cuda"),
+                      dtype=torch.bfloat16)
         return serve(images)
 
     # main path, part 2: warm-up batches, then the timed window, each
@@ -361,17 +465,20 @@ def phase_serve_and_path(card: str):
     n_chunks = math.ceil(n_prompts / PRECOMPUTE_BATCH)
     n_batches = N_WARMUP_BATCHES + N_SERVE_BATCHES
     want_pre = {"fused_attn_half": 2 * 12 * n_chunks,
-                "fused_mlp_half": 2 * 12 * n_chunks, "fused_attn_half_bwd": 0}
+                "fused_mlp_half": 2 * 12 * n_chunks, "fused_attn_half_bwd": 0,
+                "normalize_images": 0}
     want_serve = {"fused_attn_half": 12 * n_batches,
-                  "fused_mlp_half": 12 * n_batches, "fused_attn_half_bwd": 0}
+                  "fused_mlp_half": 12 * n_batches, "fused_attn_half_bwd": 0,
+                  "normalize_images": n_batches}
     if pre_counts != want_pre or serve_counts != want_serve:
         raise AssertionError(
             f"kernel launches: precompute {pre_counts} (want {want_pre}), "
             f"serve {serve_counts} (want {want_serve})")
 
-    # the same serve through the plain versions of the two halves
+    # the same serve through the plain versions of the halves and the
+    # normalize
     set_use_kernels(model, False)
-    plain = [serve_one(i) for i in range(N_IMAGE_BATCHES)]
+    plain = [serve_one(i, plain=True) for i in range(N_IMAGE_BATCHES)]
     rows = torch.from_numpy(ptable[0].reshape(-1, ptable.shape[-1])[:256]
                             .astype(np.int64)).to("cuda")
     with torch.inference_mode():
@@ -447,12 +554,14 @@ def _train_batches(ptable):
     return out
 
 
-def _device_batch(host, keys):
-    """A host batch on the card, its uint8 images normalized there."""
-    from xtagclip_tpu_torch.ops.preprocess import normalize_images
+def _device_batch(host, keys, plain=False):
+    """A host batch on the card, its uint8 images normalized there (by
+    the kernel, or by its plain version)."""
+    from xtagclip_tpu_torch.ops import preprocess
 
-    batch = {"images": normalize_images(host["images"].to("cuda"),
-                                        dtype=torch.bfloat16)}
+    norm = (preprocess.normalize_images_reference if plain
+            else preprocess.normalize_images)
+    batch = {"images": norm(host["images"].to("cuda"), dtype=torch.bfloat16)}
     for k in keys:
         batch[k] = host[k].to("cuda")
     return batch
@@ -533,7 +642,7 @@ def phase_train(card: str, ptable):
               "launches_per_step": per_step}
     _emit(result)
     want = {"fused_attn_half": 24, "fused_mlp_half": 24,
-            "fused_attn_half_bwd": 24}
+            "fused_attn_half_bwd": 24, "normalize_images": 1}
     if not (finite and keys_ok and per_step == want):
         raise AssertionError(f"train step failed its checks: {result}")
     return counts, train_one
@@ -581,15 +690,17 @@ def phase_train_path(card: str, ptable):
     set_use_kernels(plain, False)
     fp32 = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
                         precision="fp32", init_seed=1)
-    batch = _device_batch(_train_batches(ptable)[0], ("additional", "texts"))
+    host = _train_batches(ptable)[0]
+    batch = _device_batch(host, ("additional", "texts"))
+    p_batch = _device_batch(host, ("additional", "texts"), plain=True)
     start = copy.deepcopy(plain.state_dict())
     step = make_train_step({})
-    runs = (("kernels", kernels, batch), ("plain", plain, batch),
-            ("plain_up", plain, dict(batch, images=_bf16_ulp_shift(
-                batch["images"], 1))),
-            ("plain_down", plain, dict(batch, images=_bf16_ulp_shift(
-                batch["images"], -1))),
-            ("fp32", fp32, dict(batch, images=batch["images"].float())))
+    runs = (("kernels", kernels, batch), ("plain", plain, p_batch),
+            ("plain_up", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], 1))),
+            ("plain_down", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], -1))),
+            ("fp32", fp32, dict(p_batch, images=p_batch["images"].float())))
     out = {}
     for name, model, b in runs:
         if model is plain:
@@ -656,6 +767,278 @@ def phase_train_path(card: str, ptable):
             and finite and not result["grads_missing"]):
         raise AssertionError(f"kernel train step disagrees with plain: "
                              f"{result}")
+
+
+# the scar label vocabulary (label_info.json) of the reference data
+SCAR_LABEL_INFO = {
+    "Width": ["Linear", "Widened", "Linear bulging"],
+    "Color": ["Normal", "Pink", "Red", "Purple"],
+    "Pigmentation": ["Normal", "Pigmented", "Hypopigmented"],
+    "Surface": ["Flat", "Hypertrophic", "Keloid", "Atrophic"],
+    "Irregular_color": ["no", "mild", "moderate", "severe"],
+    "Irregular_height": ["no", "mild", "moderate", "severe"],
+}
+TRAINER_ROWS = {"scar_train": 256, "scar_val": 96}
+TRAINER_IMAGE = 240  # the PNG side; both transforms crop IMAGE_SIZE
+TRAINER_WORKERS = 4
+TRAINER_EPOCHS = 2  # plain steps; then one epoch of the accumulation step
+TRAINER_ACCUM = 2
+ARTIFACTS = ("val_data_tagging_output.txt", "val_data_class_output.txt",
+             "traindata_val_tagging_output.txt",
+             "traindata_val_class_output.txt")
+
+
+def _write_scar_split(root, rows: int, rng) -> str:
+    """A scar split in the reference's layout: label_info.json, seeded
+    random PNG images and a labels.csv (Name, Class, Use and the six
+    attribute columns)."""
+    from PIL import Image
+
+    os.makedirs(root)
+    with open(os.path.join(root, "label_info.json"), "w") as f:
+        json.dump(SCAR_LABEL_INFO, f)
+    lines = ["Name,Class,Use," + ",".join(SCAR_LABEL_INFO)]
+    for i in range(rows):
+        name = f"scar_{i:04d}.png"
+        Image.fromarray(rng.integers(
+            0, 256, (TRAINER_IMAGE, TRAINER_IMAGE, 3), dtype=np.uint8)).save(
+                os.path.join(root, name), compress_level=1)
+        attrs = [v[rng.integers(0, len(v))] for v in SCAR_LABEL_INFO.values()]
+        lines.append(f"{name},{rng.integers(1, 4)},yes," + ",".join(attrs))
+    path = os.path.join(root, "labels.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def _loader_item_ms(root, csv_file, n: int = 64) -> dict:
+    """Host ms of one train item, on one thread with nothing else running:
+    all of ScarDataset.__getitem__, and its PNG decode + crop alone."""
+    from xtagclip_tpu_torch.data.scar import ScarDataset
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_train,
+    )
+    from xtagclip_tpu_torch.factory import get_tokenizer
+
+    ds = ScarDataset(root, csv_file=csv_file, tokenizer=get_tokenizer(
+        "ViT-B-32"), transform=image_transform_train(PreprocessCfg(
+            size=IMAGE_SIZE)))
+    ds[0]
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds[i]
+    item = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    for i in range(n):
+        ds.transform(ds.loader(ds.imgs[i]))
+    image = (time.perf_counter() - t0) / n
+    return {"item": 1e3 * item, "decode_and_crop": 1e3 * image,
+            "rest (5 GT prompts tokenized, labels)": 1e3 * (item - image)}
+
+
+@contextlib.contextmanager
+def _probed(targets, log, check=None):
+    """Wrap each ``(module, name)`` function for the block: every call
+    appends its name, seconds, kernel launches and result to ``log``
+    (the launches are read, not counted here), and ``check[name](args,
+    result)``, when given, right after the call."""
+    saved = []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            before, t0 = _counts(), time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            after = _counts()
+            log.append({"what": _name, "s": time.perf_counter() - t0,
+                        "launches": {w: after[w] - before[w] for w in after},
+                        "out": out, "call": len(log),
+                        "check": (check or {}).get(_name, lambda *_: None)(
+                            a, out)})
+            return out
+
+        setattr(mod, name, wrapped)
+        saved.append((mod, name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _per(calls, n):
+    """Launches per unit, summed over ``calls`` and divided by ``n``."""
+    tot = {}
+    for c in calls:
+        for k, v in c["launches"].items():
+            tot[k] = tot.get(k, 0) + v
+    return {k: v / n for k, v in tot.items()}
+
+
+def _same_state(a, b) -> bool:
+    """Bit for bit: parameters, AdamW moments and step counts, update
+    count."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if sa.keys() != sb.keys() or a.step != b.step:
+        return False
+    if not all(torch.equal(sa[k], sb[k]) for k in sa):
+        return False
+    oa = a.tx.optimizer.state_dict()["state"]
+    ob = b.tx.optimizer.state_dict()["state"]
+    return oa.keys() == ob.keys() and all(
+        oa[i].keys() == ob[i].keys()
+        and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa)
+
+
+def phase_trainer(card: str):
+    """Main path, part 4: the scar training CLI, ``main_other.main``, as a
+    user runs it (the recipe of scar_openclip_pretrain.sh at batch 32):
+    seeded PNG files through ScarDataset, the train and eval transforms
+    and the threaded loader; TRAINER_EPOCHS epochs of the plain step with
+    the scar eval after each and the four best checkpoints, then a second
+    call with --resume latest that reloads the state and runs one epoch of
+    the accumulation step. Returns the launches of both calls."""
+    from xtagclip_tpu_torch.cli import main_other
+    from xtagclip_tpu_torch.train import checkpoint, zero_shot
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    log, first_state = [], {}
+    # the state --resume latest restored, held to the one the first call
+    # saved, before the second call trains it further
+    check = {"restore_train_state": lambda a, out: _same_state(
+        a[2], first_state["state"])}
+    targets = ((main_other, "train_one_epoch"), (zero_shot, "run_scar_eval"),
+               (zero_shot, "build_zero_shot_classifier"),
+               (checkpoint, "save_train_state"),
+               (main_other, "restore_train_state"))
+    with tempfile.TemporaryDirectory(prefix="xtag_trainer_") as tmp:
+        rng = np.random.default_rng(0)
+        t0 = time.perf_counter()
+        csvs = {split: _write_scar_split(os.path.join(tmp, split), n, rng)
+                for split, n in TRAINER_ROWS.items()}
+        t_data = time.perf_counter() - t0
+        logs = os.path.join(tmp, "logs")
+        common = [
+            "--model", "ViT-B-32", "--use-tagging", "--use-fusion",
+            "--train-data", os.path.join(tmp, "scar_train"),
+            "--val-data", os.path.join(tmp, "scar_val"),
+            "--scar-train-csv", csvs["scar_train"],
+            "--scar-val-csv", csvs["scar_val"],
+            "--batch-size", str(TRAIN_BATCH), "--workers",
+            str(TRAINER_WORKERS), "--precision", "amp", "--lr",
+            str(TRAIN_LR), "--wd", str(TRAIN_WD), "--warmup",
+            str(TRAIN_WARMUP), "--prompt-template-setting", "total",
+            "--logs", logs, "--name", "trainer", "--log-every-n-steps", "1",
+            "--zeroshot-frequency", "1", "--save-best",
+            "--delete-previous-checkpoint", "--seed", "0"]
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with _probed(targets, log, check):
+                first = main_other.main(common + ["--epochs",
+                                                  str(TRAINER_EPOCHS)])
+                first_state["state"] = first["state"]
+                n_first = len(log)
+                second = main_other.main(common + [
+                    "--epochs", str(TRAINER_EPOCHS + 1), "--resume", "latest",
+                    "--accum-freq", str(TRAINER_ACCUM)])
+        finally:
+            close_logging()
+        t_run = time.perf_counter() - t0
+        counts = _counts()
+        ckpt_dir = os.path.join(logs, "trainer", "checkpoints")
+        listing = sorted(os.listdir(ckpt_dir))
+        missing = [a for a in ARTIFACTS + (
+            f"epoch_{TRAINER_EPOCHS + 1}", "epoch_latest", "last",
+            "best_train_top1", "best_train_loss", "best_val_top1",
+            "best_tag_acc") if a not in listing]
+        stale = [f"epoch_{e}" for e in range(1, TRAINER_EPOCHS + 1)
+                 if f"epoch_{e}" in listing]
+        loader_ms = _loader_item_ms(os.path.join(tmp, "scar_train"),
+                                    csvs["scar_train"])
+        restores = [c for c in log if c["what"] == "restore_train_state"]
+        reload_exact = len(restores) == 1 and restores[0]["check"] is True
+        resumed_epoch = restores[0]["out"] if restores else None
+
+    epochs = first["epochs"] + second["epochs"]
+    trains = [c for c in log if c["what"] == "train_one_epoch"]
+    evals = [c for c in log if c["what"] == "run_scar_eval"]
+    builds = [c for c in log if c["what"] == "build_zero_shot_classifier"]
+    saves = [c["s"] for c in log if c["what"] == "save_train_state"]
+    plain_trains = [c for c in trains if c["call"] < n_first]
+    accum_trains = [c for c in trains if c["call"] >= n_first]
+    steps_per_epoch = TRAINER_ROWS["scar_train"] // TRAIN_BATCH
+    eval_images = sum(c["out"]["n"] for c in evals)
+    eval_batches = sum(math.ceil(c["out"]["n"] / TRAIN_BATCH) for c in evals)
+    per_epoch = []
+    for rec, call in zip(epochs, trains):
+        tm, ev = rec["train"], rec["eval"]
+        per_epoch.append({
+            "epoch": rec["epoch"],
+            "step": "plain" if call["call"] < n_first else "accum",
+            "samples_per_s": tm["samples_per_second"],
+            "p50_step_ms": 1e3 * tm["p50_step_s"],
+            "loss": tm["loss"], "contrastive_loss": tm["contrastive_loss"],
+            "tagging_loss": tm["tagging_loss"],
+            **({"ce_loss": tm["ce_loss"]} if "ce_loss" in tm else {}),
+            "eval_s": rec["eval_s"], "checkpoint_s": rec["checkpoint_s"],
+            "eval": {k: ev[k] for k in sorted(ev) if k.endswith((
+                "top1", "top2", "tag_accuracy", "tag_f1", "-n"))}})
+    values = [v for e in per_epoch for v in (
+        e["loss"], e["samples_per_s"], e["p50_step_ms"],
+        *e["eval"].values())]
+    finite = all(math.isfinite(v) for v in values)
+    falling = per_epoch[TRAINER_EPOCHS - 1]["loss"] < per_epoch[0]["loss"]
+    per_plain_step = _per(plain_trains, steps_per_epoch * len(plain_trains))
+    per_accum_step = _per(accum_trains, steps_per_epoch * len(accum_trains))
+    per_eval_batch = _per(evals, eval_batches)
+    per_build = _per(builds, len(builds))
+    result = {
+        "phase": "trainer", "card": card,
+        "entry": "xtagclip_tpu_torch.cli.main_other.main, twice",
+        "data": f"seeded PNG files {TRAINER_IMAGE}x{TRAINER_IMAGE} "
+                f"({TRAINER_ROWS}), crops {IMAGE_SIZE}, "
+                f"{TRAINER_WORKERS} loader threads",
+        "data_write_s": t_data, "run_s": t_run,
+        "loader_item_ms_one_thread": loader_ms,
+        "model": "ViT-B-32 xtag, bf16 over fp32 masters, seeded random init",
+        "batch": TRAIN_BATCH, "accum_freq": TRAINER_ACCUM,
+        "steps_per_epoch": steps_per_epoch, "epochs": per_epoch,
+        "eval_images": eval_images, "eval_img_per_s":
+            eval_images / sum(c["s"] for c in evals),
+        "classifier_builds": len(builds),
+        "checkpoint_save_s": saves,
+        "resumed_at_epoch": resumed_epoch, "reload_bit_exact": reload_exact,
+        "checkpoints": listing, "missing": missing,
+        "not_deleted": stale, "finite": finite,
+        "plain_loss_falls": falling,
+        "launches": counts,
+        "launches_per_plain_step": per_plain_step,
+        "launches_per_accum_step": per_accum_step,
+        "launches_per_eval_batch": per_eval_batch,
+        "launches_per_classifier_build": per_build}
+    _emit(result)
+    want_plain = {"fused_attn_half": 24, "fused_mlp_half": 24,
+                  "fused_attn_half_bwd": 24, "normalize_images": 1}
+    want_accum = {"fused_attn_half": 48 * TRAINER_ACCUM,
+                  "fused_mlp_half": 48 * TRAINER_ACCUM,
+                  "fused_attn_half_bwd": 24 * TRAINER_ACCUM,
+                  "normalize_images": 1}
+    want_eval = {"fused_attn_half": 12, "fused_mlp_half": 12,
+                 "fused_attn_half_bwd": 0, "normalize_images": 1}
+    want_build = {"fused_attn_half": 12, "fused_mlp_half": 12,
+                  "fused_attn_half_bwd": 0, "normalize_images": 0}
+    if not (finite and falling and reload_exact and not missing
+            and not stale and resumed_epoch == TRAINER_EPOCHS - 1
+            and len(epochs) == TRAINER_EPOCHS + 1
+            and per_plain_step == want_plain
+            and per_accum_step == want_accum
+            and per_eval_batch == want_eval and per_build == want_build):
+        raise AssertionError(f"trainer phase failed its checks: {result}")
+    return counts
 
 
 def _device_time_us(evt) -> float:
@@ -749,6 +1132,7 @@ def main(argv=()) -> int:
     paths, model, ptable, serve_one = phase_serve_and_path(card)
     paths["train"], train_one = phase_train(card, ptable)
     phase_train_path(card, ptable)
+    paths["trainer"] = phase_trainer(card)
     if args.profile:
         phase_profile(card, model, ptable, serve_one, train_one)
     for e in entries:

@@ -9,7 +9,10 @@ only (conftest.py imports jax, hence --noconftest):
 Bar: atol = max|ref|/128 (one bf16 ULP at output scale), rtol = 1e-2, the
 bar tests/test_fused_attn_block.py applies to the Pallas kernels, for
 each output of each kernel. Gradients through a whole block, kernels on
-against kernels off: cosine >= 0.999 per tensor.
+against kernels off: cosine >= 0.999 per tensor. The image normalize
+against its plain version (the kernel's one FMA against a multiply and
+an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
+ulp at the operands' scale (2^-22).
 """
 
 import numpy as np
@@ -21,6 +24,7 @@ from xtagclip_tpu_torch.models.layers import (
     set_use_kernels,
 )
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
+from xtagclip_tpu_torch.ops import preprocess
 
 torch.set_num_threads(1)
 
@@ -188,3 +192,48 @@ def test_kernels_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="197"):
         fab.fused_attn_half_bwd(x, x, ln_g, ln_b, wqkv, bqkv, wout, None,
                                 12, 1e-5)
+
+
+def _ordered(t):
+    """Monotonic integer keys of fp32 values (bf16 widened exactly): the
+    difference of two keys counts fp32 ulps between them."""
+    bits = t.float().contiguous().view(torch.int32).long()
+    return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+
+@pytest.mark.parametrize("shape", [(32, 224, 224, 3),   # the main path's batch
+                                   (5, 33, 47, 3),      # odd element count
+                                   (1, 224, 224, 3)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("offset", [0, 1])            # 1: a misaligned base
+def test_normalize_kernel_matches_plain(cuda, shape, dtype, offset):
+    rng = np.random.default_rng(sum(shape) + offset)
+    n = int(np.prod(shape))
+    flat = torch.from_numpy(rng.integers(0, 256, n + offset, dtype=np.uint8))
+    images = flat.to(cuda)[offset:].view(shape)
+    before = preprocess.normalize_images.launches
+    out = preprocess.normalize_images(images, dtype=dtype)
+    assert preprocess.normalize_images.launches == before + 1
+    ref = preprocess.normalize_images_reference(images, dtype=dtype)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == images.shape
+    assert torch.isfinite(out).all()
+    if dtype == torch.bfloat16:
+        ulps = (_ordered(out) - _ordered(ref)).abs() >> 16
+        assert ulps.max().item() <= 1
+    else:
+        # the product's rounding, which the FMA skips, is one ulp of the
+        # operands (|x * scale|, |bias| < 4), not of a result near zero
+        assert (out - ref).abs().max().item() <= 2.0**-22
+
+
+def test_normalize_kernel_raises_instead_of_falling_back(cuda):
+    images = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        preprocess.normalize_images(images.float())
+    with pytest.raises(ValueError, match=r"\[B, H, W, 3\]"):
+        preprocess.normalize_images(images[..., :2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        preprocess.normalize_images(images.transpose(1, 2))
+    with pytest.raises(ValueError, match="float16"):
+        preprocess.normalize_images(images, dtype=torch.float16)

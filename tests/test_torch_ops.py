@@ -118,6 +118,9 @@ def test_wrappers_never_fall_back_off_cpu():
            _to_torch(_mlp_inputs(1, 16, 128, 512, seed=6), _MLP_BF16)]
     with pytest.raises(ValueError, match="no kernel for device"):
         fab.fused_mlp_half(*mlp, "gelu", 1e-5)
+    images = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        normalize_images(images, dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("shape,heads,dtype,mask_shape,ok", [

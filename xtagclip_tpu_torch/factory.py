@@ -28,7 +28,11 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from xtagclip_tpu_torch.data.transforms import EvalTransform, PreprocessCfg
+from xtagclip_tpu_torch.data.transforms import (
+    PreprocessCfg,
+    image_transform_eval,
+    image_transform_train,
+)
 from xtagclip_tpu_torch.models.clip import CLIP
 from xtagclip_tpu_torch.models.layers import LayerNorm, ResidualAttentionBlock
 from xtagclip_tpu_torch.models.text import TextTransformer
@@ -168,16 +172,34 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
     return model
 
 
-def create_model_and_transforms(model_name: str, precision: str = "fp32",
-                                device="cuda", **kwargs):
-    """(model, None, eval transform): the train transform is not ported.
-    The eval transform yields uint8 HWC crops; normalize on the device with
-    ops.preprocess.normalize_images."""
+def create_model_and_transforms(model_name: str, pretrained=None,
+                                precision: str = "fp32", device="cuda",
+                                image_mean=None, image_std=None,
+                                image_interpolation=None,
+                                image_resize_mode=None, aug_cfg=None,
+                                **kwargs):
+    """(model, train transform, eval transform). Both transforms yield
+    uint8 HWC crops; normalize them on the device with
+    ops.preprocess.normalize_images. ``pretrained`` is a local
+    open_clip-layout .pt file (convert/loader.py); named tags are not
+    ported."""
     model = create_model(model_name, precision=precision, device=device,
                          **kwargs)
-    pp = PreprocessCfg(size=model.model_cfg["vision_cfg"].get("image_size",
-                                                              224))
-    return model, None, EvalTransform(pp)
+    if pretrained:
+        if not Path(pretrained).is_file():
+            raise NotImplementedError(
+                f"pretrained {pretrained!r}: only a local .pt file is ported; "
+                "named tags wait for pretrained.py (ROADMAP Queue 1 item 10)")
+        from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
+
+        load_checkpoint_into(model, str(pretrained))
+    pp = PreprocessCfg(
+        size=model.model_cfg["vision_cfg"].get("image_size", 224),
+        mean=image_mean, std=image_std,
+        interpolation=image_interpolation or "bicubic",
+        resize_mode=image_resize_mode or "shortest")
+    return model, image_transform_train(pp, aug_cfg=aug_cfg), \
+        image_transform_eval(pp)
 
 
 def get_tokenizer(model_name: str = ""):

@@ -25,7 +25,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd")
+KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
+                  "normalize_images")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -115,6 +116,11 @@ _ARGTYPES = {
         _VP, _VP, _VP,                           # xn, hidden scratch; out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, D, Hd, act
         ctypes.c_float, _VP,                     # eps, stream
+    ],
+    "xtag_normalize_images": [
+        _VP, _VP, ctypes.c_longlong, ctypes.c_int,  # x, out, n, out_bf16
+        *[ctypes.c_float] * 6,                       # scale[3], bias[3]
+        _VP,                                         # stream
     ],
 }
 

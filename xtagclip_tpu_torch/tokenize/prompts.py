@@ -107,3 +107,9 @@ class PromptTable:
                         ids[-1] = tok.eot_token_id
                     out[ti, ci, combo, : len(ids)] = ids
         return out
+
+
+def tag_indices_to_words(global_idx, tag_list: Optional[Sequence[str]] = None):
+    """[B, 6] global tag indices -> reference-format 'tag,tag,...' strings."""
+    tags = list(tag_list) if tag_list is not None else read_tag_list()
+    return [",".join(tags[i] for i in row) for row in np.asarray(global_idx)]
