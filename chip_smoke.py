@@ -57,8 +57,9 @@ that each print one JSON line:
    not below the first's, a missing artifact or checkpoint, launches off
    their expected counts, or a reloaded state that differs in one bit.
 
-With ``--profile`` it then traces one precompute, 20 serve batches and 5
-train steps with torch.profiler and prints, for each window, its wall
+With ``--profile`` it also traces the trainer's second plain epoch, and
+then one precompute, 20 serve batches and 5 train steps, with
+torch.profiler, and prints, for each window, its wall
 time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
 split into the port's hand-written kernels and everything else.
@@ -824,6 +825,7 @@ def _loader_item_ms(root, csv_file, n: int = 64) -> dict:
     ds = ScarDataset(root, csv_file=csv_file, tokenizer=get_tokenizer(
         "ViT-B-32"), transform=image_transform_train(PreprocessCfg(
             size=IMAGE_SIZE)))
+    n = min(n, len(ds))
     ds[0]
     t0 = time.perf_counter()
     for i in range(n):
@@ -893,17 +895,34 @@ def _same_state(a, b) -> bool:
         and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa)
 
 
-def phase_trainer(card: str):
+def phase_trainer(card: str, profile: bool = False):
     """Main path, part 4: the scar training CLI, ``main_other.main``, as a
     user runs it (the recipe of scar_openclip_pretrain.sh at batch 32):
     seeded PNG files through ScarDataset, the train and eval transforms
     and the threaded loader; TRAINER_EPOCHS epochs of the plain step with
     the scar eval after each and the four best checkpoints, then a second
     call with --resume latest that reloads the state and runs one epoch of
-    the accumulation step. Returns the launches of both calls."""
+    the accumulation step. Returns the launches of both calls. With
+    ``profile``, the second plain epoch (loader included) runs inside a
+    torch.profiler window, which slows its host side."""
     from xtagclip_tpu_torch.cli import main_other
     from xtagclip_tpu_torch.train import checkpoint, zero_shot
     from xtagclip_tpu_torch.train.logger import close_logging
+
+    train_one_epoch = main_other.train_one_epoch
+    epoch_calls = []
+
+    def profiled_epoch(*a, **k):
+        epoch_calls.append(None)
+        if len(epoch_calls) != TRAINER_EPOCHS:
+            return train_one_epoch(*a, **k)
+        out = []
+        _profile_window(
+            f"trainer epoch {TRAINER_EPOCHS}: "
+            f"{TRAINER_ROWS['scar_train'] // TRAIN_BATCH} plain steps of "
+            f"{TRAIN_BATCH} with the loader",
+            lambda: out.append(train_one_epoch(*a, **k)), card)
+        return out[0]
 
     log, first_state = [], {}
     # the state --resume latest restored, held to the one the first call
@@ -936,6 +955,8 @@ def phase_trainer(card: str):
             "--delete-previous-checkpoint", "--seed", "0"]
         _reset_counts()
         t0 = time.perf_counter()
+        if profile:
+            main_other.train_one_epoch = profiled_epoch
         try:
             with _probed(targets, log, check):
                 first = main_other.main(common + ["--epochs",
@@ -946,6 +967,7 @@ def phase_trainer(card: str):
                     "--epochs", str(TRAINER_EPOCHS + 1), "--resume", "latest",
                     "--accum-freq", str(TRAINER_ACCUM)])
         finally:
+            main_other.train_one_epoch = train_one_epoch
             close_logging()
         t_run = time.perf_counter() - t0
         counts = _counts()
@@ -1005,6 +1027,7 @@ def phase_trainer(card: str):
         "data_write_s": t_data, "run_s": t_run,
         "loader_item_ms_one_thread": loader_ms,
         "model": "ViT-B-32 xtag, bf16 over fp32 masters, seeded random init",
+        "profiled_epoch": TRAINER_EPOCHS if profile else None,
         "batch": TRAIN_BATCH, "accum_freq": TRAINER_ACCUM,
         "steps_per_epoch": steps_per_epoch, "epochs": per_epoch,
         "eval_images": eval_images, "eval_img_per_s":
@@ -1112,7 +1135,8 @@ def main(argv=()) -> int:
     """Run the phases; ``argv`` holds the command-line arguments."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace precompute and serve with torch.profiler")
+                    help="also trace the trainer's second epoch, precompute, "
+                         "serve and train steps with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1132,7 +1156,7 @@ def main(argv=()) -> int:
     paths, model, ptable, serve_one = phase_serve_and_path(card)
     paths["train"], train_one = phase_train(card, ptable)
     phase_train_path(card, ptable)
-    paths["trainer"] = phase_trainer(card)
+    paths["trainer"] = phase_trainer(card, profile=args.profile)
     if args.profile:
         phase_profile(card, model, ptable, serve_one, train_one)
     for e in entries:
