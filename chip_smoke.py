@@ -7,19 +7,26 @@ init, through the entry points a user calls: the XTag ViT-B-32
 fusion-classify serving path (create_model, cast_for_compute, PromptTable,
 precompute_prompt_features, make_xtag_serve_step), the XTag ViT-B-32
 train step (create_model, make_optimizer, create_train_state,
-make_train_step) and the scar training CLI (main_other.main), in phases
-that each print one JSON line:
+make_train_step) and the scar training CLI (main_other.main); then the
+same three for the cls-free GAP tower (XTag ViT-B-16 with the vision
+overrides image_size 256, pool_type avg, no_class_token: L = 256, whose
+vision blocks run flash attention and the fused MLP), in phases that each
+print one JSON line:
 
 1. build: compiles the CUDA kernels of xtagclip_tpu_torch/csrc with nvcc;
 2. kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the main paths give it, every output within atol =
-   max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale); the image
-   normalize (kernel #5) within one bf16 ULP on every element, or 2^-22
-   for fp32 output, at the main path's batch and at a ragged odd-sized
-   one; median device times of kernel and plain version (CUDA events over
-   10 back-to-back calls; for the normalize, whose host side outlasts its
-   device side, torch.profiler's device time), and the card's least time
-   for the same work;
+   the shapes the main paths give it (and, for flash attention, at edge
+   shapes: L = 128, 197, 257, 384, head dim 128), every output within
+   atol = max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale);
+   the image normalize (kernel #5) within one bf16 ULP on every element,
+   or 2^-22 for fp32 output, at the main path's batch and at a ragged
+   odd-sized one; median device times of kernel and plain version (CUDA
+   events over 10 back-to-back calls; for the normalize, whose host side
+   outlasts its device side, torch.profiler's device time), the time of
+   one PyTorch call computing the same function where there is one
+   (scaled_dot_product_attention for flash attention, forward, and
+   forward + backward through autograd for its backward), and the card's
+   least time for the same work;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -55,11 +62,23 @@ that each print one JSON line:
    accumulation step, per eval batch and per classifier build; it fails
    on a value that is not finite, a last plain epoch whose mean loss is
    not below the first's, a missing artifact or checkpoint, launches off
-   their expected counts, or a reloaded state that differs in one bit.
+   their expected counts, or a reloaded state that differs in one bit;
+8. gap_serve, gap_path, gap_train, gap_train_path: phases 3-6 for the GAP
+   tower (batches of 32 seeded uint8 256x256 images), with the same bars;
+   per serve batch 12 flash forwards, 12 fused MLPs and 1 normalize; per
+   train step 12 flash forwards and backwards and 12 fused MLPs (vision),
+   12 of each half and of the attention half's backward (text), 1
+   normalize;
+9. gap_trainer: one ``main_other.main`` call with ``--model`` naming the
+   GAP config through XTAGCLIP_EXTRA_CONFIGS (a JSON written to a
+   temporary directory): one plain epoch on 64 train and 32 val seeded
+   272x272 PNG rows (crops 256), the scar eval and the checkpoints; it
+   fails on a value that is not finite, a missing artifact or checkpoint,
+   or launches off their expected counts.
 
 With ``--profile`` it also traces the trainer's second plain epoch, and
-then one precompute, 20 serve batches and 5 train steps, with
-torch.profiler, and prints, for each window, its wall
+then one precompute, 20 serve batches and 5 train steps of each model,
+with torch.profiler, and prints, for each window, its wall
 time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
 split into the port's hand-written kernels and everything else.
@@ -109,11 +128,21 @@ N_TRAIN_BATCHES = 4  # distinct seeded batches, cycled
 # the paper recipe (scar_openclip_pretrain.sh): AdamW and cosine schedule
 TRAIN_LR, TRAIN_WD, TRAIN_WARMUP = 5e-5, 0.1, 50
 TRAIN_SCHEDULE_STEPS = 10_000  # nominal length: sets only the cosine decay
+# the cls-free GAP tower: ViT-B-16's config with these vision overrides,
+# and the name the CLI phase gives its JSON (XTAGCLIP_EXTRA_CONFIGS)
+GAP_IMAGE_SIZE = 256
+GAP_VISION = {"image_size": GAP_IMAGE_SIZE, "pool_type": "avg",
+              "no_class_token": True}
+GAP_CONFIG = "ViT-B-16-GAP-256"
+GAP_L = (GAP_IMAGE_SIZE // 16) ** 2
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
-# fused_attn_half_bwd.cu, normalize_images.cu)
+# fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
+# flash_attn_bwd.cu)
 PORT_KERNELS = ("gemm_bf16_kernel", "attn_core_kernel", "ln_rows_kernel",
                 "attn_bwd_core_kernel", "ln_bwd_rows_kernel",
-                "ln_bwd_cols_kernel", "col_sum_kernel", "normalize_u8_kernel")
+                "ln_bwd_cols_kernel", "col_sum_kernel", "normalize_u8_kernel",
+                "flash_fwd_kernel", "flash_delta_kernel", "flash_dkv_kernel",
+                "flash_dq_kernel")
 
 
 def _card() -> str:
@@ -208,7 +237,7 @@ def _kernel_cases(gen):
                   + 4 * (4 * d + 2 * d) + (4 * l * l if causal else 0))
         cases.append(("fused_attn_half", f"{tower} B={SERVE_BATCH} L={l} "
                       f"D={d} H={h}{' causal' if causal else ''}",
-                      args, flops, nbytes, "bf16"))
+                      args, flops, nbytes, "bf16", None))
     for tower, l, d in (("vision", 50, 768), ("text", 77, 512)):
         hd = 4 * d
         n = SERVE_BATCH * l
@@ -220,7 +249,7 @@ def _kernel_cases(gen):
             flops = 4 * n * d * hd
             nbytes = 2 * 2 * n * d + 2 * 2 * d * hd + 4 * (3 * d + hd)
             cases.append(("fused_mlp_half", f"{tower} N={n} D={d} "
-                          f"H={hd} {act}", args, flops, nbytes, "bf16"))
+                          f"H={hd} {act}", args, flops, nbytes, "bf16", None))
     b = TRAIN_BATCH
     for tower, l, d, h, causal in (("vision", 50, 768, 12, False),
                                    ("text", 77, 512, 8, True)):
@@ -236,7 +265,7 @@ def _kernel_cases(gen):
                   + 4 * (5 * d + 3 * d) + (4 * l * l if causal else 0))
         cases.append(("fused_attn_half_bwd", f"{tower} B={b} L={l} D={d} "
                       f"H={h}{' causal' if causal else ''}", args, flops,
-                      nbytes, "bf16"))
+                      nbytes, "bf16", None))
     # the image normalize: the main path's batch, and a ragged batch whose
     # element count is odd (the kernel's scalar tail); one FMA an element
     from xtagclip_tpu_torch.utils.constants import (
@@ -252,7 +281,68 @@ def _kernel_cases(gen):
             cases.append(("normalize_images", f"{'x'.join(map(str, shape))} "
                           f"uint8 -> {str(dtype)[6:]}",
                           (images, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD,
-                           dtype), 2 * n, n * (1 + size), "fp32"))
+                           dtype), 2 * n, n * (1 + size), "fp32", None))
+    cases += _gap_kernel_cases(gen)
+    return cases
+
+
+# flash attention's shapes: the GAP tower's (32, 12, 256, 64), then edge
+# shapes (B, H, L, dh): L at one tile, ragged L (ViT-B-16's 197 with its
+# class token, ViT-L-14's 257), several tiles, head dim 128
+FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
+               (1, 12, 197, 64), (1, 12, 257, 64), (1, 12, 384, 64),
+               (2, 4, 256, 128))
+
+
+def _gap_kernel_cases(gen):
+    """Kernels #4 and #6 at the GAP path's shapes (and #6 at edge
+    shapes): q, k, v are column slices of one [B, L, 3 H dh] projection,
+    as the model makes them. Library yardsticks (timed, never called by
+    the port): scaled_dot_product_attention forward, and its forward and
+    backward through autograd."""
+    import torch.nn.functional as F
+
+    from xtagclip_tpu_torch.ops import flash_attn
+
+    dev, bf = "cuda", torch.bfloat16
+    cases = []
+    for b, h, l, dh in FLASH_CASES:
+        d = h * dh
+        qkv = torch.randn((b, l, 3 * d), generator=gen, device=dev).to(bf)
+        q, k, v = (t.reshape(b, l, h, dh) for t in qkv.split(d, dim=-1))
+        shape = f"B={b} H={h} L={l} dh={dh}"
+        elems = b * h * l * dh
+        sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
+        cases.append(("flash_mha", shape, (q, k, v, "blhd"),
+                      4 * b * h * l * l * dh, 4 * 2 * elems, "bf16",
+                      lambda a=sdpa_in: F.scaled_dot_product_attention(*a)))
+        o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(bf)
+        leaves = [t.detach().clone().requires_grad_(True) for t in sdpa_in]
+        do_t = do.transpose(1, 2)
+
+        def sdpa_fwd_bwd(leaves=leaves, do_t=do_t):
+            with torch.inference_mode(False), torch.enable_grad():
+                out = F.scaled_dot_product_attention(*leaves)
+                return torch.autograd.grad(out, leaves, do_t)
+
+        cases.append(("flash_mha_bwd", shape, (q, k, v, o, lse, do, "blhd"),
+                      10 * b * h * l * l * dh,
+                      8 * 2 * elems + 4 * b * h * l, "bf16", sdpa_fwd_bwd))
+    n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
+    for rows in (n, 37):
+        for act in ("gelu", "quick_gelu"):
+            x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
+            w1 = (torch.randn((d, hd), generator=gen, device=dev)
+                  * d**-0.5).to(bf)
+            w2 = (torch.randn((hd, d), generator=gen, device=dev)
+                  * hd**-0.5).to(bf)
+            b1 = torch.randn(hd, generator=gen, device=dev) * 0.1
+            b2 = torch.randn(d, generator=gen, device=dev) * 0.1
+            cases.append(("fused_mlp", f"vision N={rows} D={d} H={hd} {act}",
+                          (x, w1, b1, w2, b2, act), 4 * rows * d * hd,
+                          2 * 2 * rows * d + 2 * 2 * d * hd + 4 * (d + hd),
+                          "bf16", None))
     return cases
 
 
@@ -265,6 +355,12 @@ _KERNEL_META = {
                             "xtagclip_tpu/ops/fused_attn_block.py:543"),
     "normalize_images": ("xtagclip_tpu_torch/csrc/normalize_images.cu",
                          "xtagclip_tpu/ops/preprocess.py:47"),
+    "fused_mlp": ("xtagclip_tpu_torch/csrc/fused_mlp_half.cu",
+                  "xtagclip_tpu/ops/fused_mlp.py:62"),
+    "flash_mha": ("xtagclip_tpu_torch/csrc/flash_attn_fwd.cu",
+                  "xtagclip_tpu/ops/flash_attn.py:93"),
+    "flash_mha_bwd": ("xtagclip_tpu_torch/csrc/flash_attn_bwd.cu",
+                      "xtagclip_tpu/ops/flash_attn.py:93"),
 }
 
 
@@ -285,7 +381,9 @@ def _close_normalize(out, ref):
     else:
         ok, bar = err <= 2.0**-22, 2.0**-22
     return ok and bool(torch.isfinite(out).all().item()), err, bar
-_BWD_OUTPUTS = ("dx", "dqkv", "dwout", "dbout", "dls", "dlb")
+_OUTPUTS = {"fused_attn_half_bwd": ("dx", "dqkv", "dwout", "dbout", "dls",
+                                     "dlb"),
+            "flash_mha_bwd": ("dq", "dk", "dv")}
 
 
 def _times(name, kernel_fn, plain_fn) -> dict:
@@ -299,26 +397,39 @@ def _times(name, kernel_fn, plain_fn) -> dict:
             "plain_event_ms": _median_ms(plain_fn)}
 
 
-def phase_kernels(card: str):
+def _kernel_fns():
+    """{name: (kernel wrapper, plain version)}, both taking a case's args."""
+    from xtagclip_tpu_torch.ops import flash_attn, fused_mlp, preprocess
     from xtagclip_tpu_torch.ops import fused_attn_block as fab
 
-    from xtagclip_tpu_torch.ops import preprocess
+    def plain_flash_bwd(q, k, v, o, lse, do, layout):
+        return flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
 
+    return {
+        "fused_attn_half": (fab.fused_attn_half, fab.reference_attn_half),
+        "fused_mlp_half": (fab.fused_mlp_half, fab.reference_mlp_half),
+        "fused_attn_half_bwd": (fab.fused_attn_half_bwd,
+                                fab.reference_attn_half_bwd),
+        "normalize_images": (preprocess.normalize_images,
+                             preprocess.normalize_images_reference),
+        "fused_mlp": (fused_mlp.fused_mlp, fused_mlp.reference_fused_mlp),
+        "flash_mha": (flash_attn.flash_mha, flash_attn.reference_flash_mha),
+        "flash_mha_bwd": (flash_attn.flash_mha_bwd, plain_flash_bwd),
+    }
+
+
+def phase_kernels(card: str):
     peak_flops, peak_rate = _peaks(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kernel = {"fused_attn_half": fab.fused_attn_half,
-              "fused_mlp_half": fab.fused_mlp_half,
-              "fused_attn_half_bwd": fab.fused_attn_half_bwd,
-              "normalize_images": preprocess.normalize_images}
-    plain = {"fused_attn_half": fab.reference_attn_half,
-             "fused_mlp_half": fab.reference_mlp_half,
-             "fused_attn_half_bwd": fab.reference_attn_half_bwd,
-             "normalize_images": preprocess.normalize_images_reference}
+    fns = _kernel_fns()
     entries = []
+    cases = _kernel_cases(gen)  # outside inference mode: the library rows
+    # of flash attention's backward run autograd on their own leaves
     with torch.inference_mode():
-        for name, shape, args, flops, nbytes, kind in _kernel_cases(gen):
-            out = kernel[name](*args)
-            ref = plain[name](*args)
+        for name, shape, args, flops, nbytes, kind, library in cases:
+            kernel, plain = fns[name]
+            out = kernel(*args)
+            ref = plain(*args)
             torch.cuda.synchronize()
             outs, refs = ((out, ref) if isinstance(out, tuple)
                           else ((out,), (ref,)))
@@ -331,8 +442,9 @@ def phase_kernels(card: str):
                     f"version in outputs {bad}: (ok, max abs err, atol) "
                     f"{checks} (rtol 1e-2)")
             err = max(c[1] for c in checks)
-            atol = (checks[0][2] if len(checks) == 1 else
-                    {k: c[2] for k, c in zip(_BWD_OUTPUTS, checks)})
+            names = _OUTPUTS.get(name)
+            atol = (checks[0][2] if names is None else
+                    {k: c[2] for k, c in zip(names, checks)})
             t_flops, t_bytes = flops / peak_flops[kind], nbytes / peak_rate
             source, replaces = _KERNEL_META[name]
             entries.append({
@@ -341,13 +453,12 @@ def phase_kernels(card: str):
                 "source": source, "replaces": replaces, "launches": None,
                 "max_abs_err": err, "atol": atol,
                 **({"max_abs_err_by_output": {
-                    k: c[1] for k, c in zip(_BWD_OUTPUTS, checks)}}
-                   if len(checks) > 1 else {}),
-                **_times(name, lambda: kernel[name](*args),
-                         lambda: plain[name](*args)),
+                    k: c[1] for k, c in zip(names, checks)}}
+                   if names is not None else {}),
+                **_times(name, lambda: kernel(*args), lambda: plain(*args)),
                 "bound_ms": 1e3 * max(t_flops, t_bytes),
                 "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                "library_ms": None,
+                "library_ms": None if library is None else _median_ms(library),
             })
     return entries
 
@@ -358,11 +469,12 @@ def _cosine(a, b):
 
 
 def _wrappers():
+    from xtagclip_tpu_torch.ops import flash_attn, fused_mlp, preprocess
     from xtagclip_tpu_torch.ops import fused_attn_block as fab
-    from xtagclip_tpu_torch.ops import preprocess
 
     return (fab.fused_attn_half, fab.fused_mlp_half, fab.fused_attn_half_bwd,
-            preprocess.normalize_images)
+            preprocess.normalize_images, fused_mlp.fused_mlp,
+            flash_attn.flash_mha, flash_attn.flash_mha_bwd)
 
 
 def _reset_counts() -> None:
@@ -372,6 +484,43 @@ def _reset_counts() -> None:
 
 def _counts() -> dict:
     return {w.__name__: w.launches for w in _wrappers()}
+
+
+def _want(**nonzero) -> dict:
+    """Launches of every wrapper: ``nonzero``, and 0 for the rest."""
+    out = dict.fromkeys((w.__name__ for w in _wrappers()), 0)
+    out.update(nonzero)
+    return out
+
+
+def _scaled(per, n) -> dict:
+    return {k: v * n for k, v in per.items()}
+
+
+def _paths() -> dict:
+    """The two models the serve and train phases drive: their phase-name
+    prefix, label, create_model name and overrides, image side, and the
+    launches expected per serve batch, per precompute chunk and per train
+    step."""
+    halves = dict(fused_attn_half=12, fused_mlp_half=12)
+    return {
+        "b32": dict(
+            prefix="", label="ViT-B-32", model="ViT-B-32", kwargs={},
+            image=IMAGE_SIZE, per_batch=_want(**halves, normalize_images=1),
+            per_chunk=_want(**halves),
+            per_step=_want(fused_attn_half=24, fused_mlp_half=24,
+                           fused_attn_half_bwd=24, normalize_images=1)),
+        "gap": dict(
+            prefix="gap_",
+            label=f"ViT-B-16 cls-free GAP {GAP_IMAGE_SIZE}px (L={GAP_L})",
+            model="ViT-B-16", kwargs={"vision_cfg": GAP_VISION},
+            image=GAP_IMAGE_SIZE,
+            per_batch=_want(flash_mha=12, fused_mlp=12, normalize_images=1),
+            per_chunk=_want(**halves),
+            per_step=_want(flash_mha=12, flash_mha_bwd=12, fused_mlp=12,
+                           fused_attn_half=12, fused_mlp_half=12,
+                           fused_attn_half_bwd=12, normalize_images=1)),
+    }
 
 
 def _scar_prompt_table():
@@ -384,7 +533,7 @@ def _scar_prompt_table():
                        templates=["sentence_1"]).table
 
 
-def phase_serve_and_path(card: str):
+def phase_serve_and_path(card: str, path: dict):
     from xtagclip_tpu_torch.factory import cast_for_compute, create_model
     from xtagclip_tpu_torch.models.layers import set_use_kernels
     from xtagclip_tpu_torch.ops.preprocess import (
@@ -397,8 +546,8 @@ def phase_serve_and_path(card: str):
     )
 
     t0 = time.perf_counter()
-    model = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
-                         precision="bf16", init_seed=0)
+    model = create_model(path["model"], use_tagging=True, use_fusion=True,
+                         precision="bf16", init_seed=0, **path["kwargs"])
     cast_for_compute(model, torch.bfloat16)
     torch.cuda.synchronize()
     t_model = time.perf_counter() - t0
@@ -422,8 +571,9 @@ def phase_serve_and_path(card: str):
     pre_counts = _counts()
 
     rng = np.random.default_rng(0)
+    side = path["image"]
     batches = [torch.from_numpy(rng.integers(
-        0, 256, (SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8))
+        0, 256, (SERVE_BATCH, side, side, 3), dtype=np.uint8))
         for _ in range(N_IMAGE_BATCHES)]
     serve = make_xtag_serve_step(model, table)
 
@@ -450,7 +600,8 @@ def phase_serve_and_path(card: str):
     serve_counts = _counts()
 
     q = statistics.quantiles(lat, n=100)
-    _emit({"phase": "serve", "card": card, "model": "ViT-B-32 xtag bf16",
+    _emit({"phase": path["prefix"] + "serve", "card": card,
+           "model": f"{path['label']} xtag bf16", "image_size": side,
            "weights": "seeded random init", "model_build_s": t_model,
            "prompt_table_s": t_table, "prompts": n_prompts,
            "precompute_batch": PRECOMPUTE_BATCH,
@@ -465,12 +616,8 @@ def phase_serve_and_path(card: str):
 
     n_chunks = math.ceil(n_prompts / PRECOMPUTE_BATCH)
     n_batches = N_WARMUP_BATCHES + N_SERVE_BATCHES
-    want_pre = {"fused_attn_half": 2 * 12 * n_chunks,
-                "fused_mlp_half": 2 * 12 * n_chunks, "fused_attn_half_bwd": 0,
-                "normalize_images": 0}
-    want_serve = {"fused_attn_half": 12 * n_batches,
-                  "fused_mlp_half": 12 * n_batches, "fused_attn_half_bwd": 0,
-                  "normalize_images": n_batches}
+    want_pre = _scaled(path["per_chunk"], 2 * n_chunks)
+    want_serve = _scaled(path["per_batch"], n_batches)
     if pre_counts != want_pre or serve_counts != want_serve:
         raise AssertionError(
             f"kernel launches: precompute {pre_counts} (want {want_pre}), "
@@ -505,7 +652,7 @@ def phase_serve_and_path(card: str):
     shapes_ok = (tuple(all_logits.shape) == (SERVE_BATCH * N_SERVE_BATCHES, 3)
                  and tuple(tags.shape) == (n_img, 6)
                  and tuple(table.shape) == (3, 2304, 512))
-    result = {"phase": "path", "card": card,
+    result = {"phase": path["prefix"] + "path", "card": card,
               "launches_precompute": pre_counts,
               "launches_serve": serve_counts,
               "launches_per_serve_batch": {
@@ -524,7 +671,7 @@ def phase_serve_and_path(card: str):
         ptable, serve_one
 
 
-def _train_batches(ptable):
+def _train_batches(ptable, side: int = IMAGE_SIZE):
     """N_TRAIN_BATCHES seeded host batches: uint8 images, class ids in
     [0, 3), one tag per category as a [B, 22] multi-hot, and the
     ground-truth prompt (the class's prompt for the batch's own tags)."""
@@ -538,7 +685,7 @@ def _train_batches(ptable):
     out = []
     for i in range(N_TRAIN_BATCHES):
         rng = np.random.default_rng(100 + i)
-        images = rng.integers(0, 256, (TRAIN_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+        images = rng.integers(0, 256, (TRAIN_BATCH, side, side, 3),
                               dtype=np.uint8)
         class_ids = rng.integers(0, 3, TRAIN_BATCH)
         local = np.stack([rng.integers(0, n, TRAIN_BATCH)
@@ -582,20 +729,20 @@ def _new_train_state(model):
     return create_train_state(model, tx)
 
 
-def phase_train(card: str, ptable):
+def phase_train(card: str, ptable, path: dict):
     """Main path, part 3: the XTag train step, warm-up then a timed
     window, counting the kernel launches of every step."""
     from xtagclip_tpu_torch.factory import create_model
     from xtagclip_tpu_torch.train.loop import make_train_step
 
-    model = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
-                         precision="bf16", init_seed=0)
+    model = create_model(path["model"], use_tagging=True, use_fusion=True,
+                         precision="bf16", init_seed=0, **path["kwargs"])
     n_params = sum(p.numel() for p in model.parameters())
     state = _new_train_state(model)
     step = make_train_step({}, prompt_table=torch.from_numpy(
         ptable.astype(np.int64)).to("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    host = _train_batches(ptable)
+    host = _train_batches(ptable, path["image"])
     keys = ("class_ids", "additional")
 
     def train_one(i):
@@ -626,8 +773,9 @@ def phase_train(card: str, ptable):
                   for m in vals)
     per_step = {k: v / n_steps for k, v in counts.items()}
     q = statistics.quantiles(lat, n=10)
-    result = {"phase": "train", "card": card,
-              "model": "ViT-B-32 xtag bf16 over fp32 masters",
+    result = {"phase": path["prefix"] + "train", "card": card,
+              "model": f"{path['label']} xtag bf16 over fp32 masters",
+              "image_size": path["image"],
               "weights": "seeded random init", "params": n_params,
               "batch": TRAIN_BATCH, "warmup_steps": N_TRAIN_WARMUP,
               "steps": N_TRAIN_STEPS, "window_s": t_window,
@@ -642,9 +790,7 @@ def phase_train(card: str, ptable):
               "finite": finite, "launches": counts,
               "launches_per_step": per_step}
     _emit(result)
-    want = {"fused_attn_half": 24, "fused_mlp_half": 24,
-            "fused_attn_half_bwd": 24, "normalize_images": 1}
-    if not (finite and keys_ok and per_step == want):
+    if not (finite and keys_ok and per_step == path["per_step"]):
         raise AssertionError(f"train step failed its checks: {result}")
     return counts, train_one
 
@@ -668,7 +814,7 @@ def _cos(a, b) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
 
 
-def phase_train_path(card: str, ptable):
+def phase_train_path(card: str, ptable, path: dict):
     """One step with the kernels on and off from the same weights, batch
     and dropout seed, on the batch's ground-truth prompts (the argmax
     prompt gather is discontinuous: bf16 ties flip a few picks).
@@ -685,13 +831,13 @@ def phase_train_path(card: str, ptable):
     from xtagclip_tpu_torch.models.layers import set_use_kernels
     from xtagclip_tpu_torch.train.loop import make_train_step
 
-    kernels = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
-                           precision="bf16", init_seed=1)
+    kernels = create_model(path["model"], use_tagging=True, use_fusion=True,
+                           precision="bf16", init_seed=1, **path["kwargs"])
     plain = copy.deepcopy(kernels)
     set_use_kernels(plain, False)
-    fp32 = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
-                        precision="fp32", init_seed=1)
-    host = _train_batches(ptable)[0]
+    fp32 = create_model(path["model"], use_tagging=True, use_fusion=True,
+                        precision="fp32", init_seed=1, **path["kwargs"])
+    host = _train_batches(ptable, path["image"])[0]
     batch = _device_batch(host, ("additional", "texts"))
     p_batch = _device_batch(host, ("additional", "texts"), plain=True)
     start = copy.deepcopy(plain.state_dict())
@@ -745,7 +891,8 @@ def phase_train_path(card: str, ptable):
     norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
     finite = all(math.isfinite(v) for m in (mk, mp) for v in m.values())
     worst = sorted(under.items(), key=lambda kv: kv[1]["cos"])[:8]
-    result = {"phase": "train_path", "card": card, "texts": "ground truth",
+    result = {"phase": path["prefix"] + "train_path", "card": card,
+              "model": path["label"], "texts": "ground truth",
               "kernels": mk, "plain": mp, "fp32": out["fp32"][0],
               "loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
               "grads_compared": len(names),
@@ -787,9 +934,11 @@ TRAINER_ACCUM = 2
 ARTIFACTS = ("val_data_tagging_output.txt", "val_data_class_output.txt",
              "traindata_val_tagging_output.txt",
              "traindata_val_class_output.txt")
+GAP_TRAINER_ROWS = {"scar_train": 64, "scar_val": 32}
+GAP_TRAINER_IMAGE = 272  # the PNG side; both transforms crop GAP_IMAGE_SIZE
 
 
-def _write_scar_split(root, rows: int, rng) -> str:
+def _write_scar_split(root, rows: int, rng, side: int = TRAINER_IMAGE) -> str:
     """A scar split in the reference's layout: label_info.json, seeded
     random PNG images and a labels.csv (Name, Class, Use and the six
     attribute columns)."""
@@ -802,7 +951,7 @@ def _write_scar_split(root, rows: int, rng) -> str:
     for i in range(rows):
         name = f"scar_{i:04d}.png"
         Image.fromarray(rng.integers(
-            0, 256, (TRAINER_IMAGE, TRAINER_IMAGE, 3), dtype=np.uint8)).save(
+            0, 256, (side, side, 3), dtype=np.uint8)).save(
                 os.path.join(root, name), compress_level=1)
         attrs = [v[rng.integers(0, len(v))] for v in SCAR_LABEL_INFO.values()]
         lines.append(f"{name},{rng.integers(1, 4)},yes," + ",".join(attrs))
@@ -1044,16 +1193,13 @@ def phase_trainer(card: str, profile: bool = False):
         "launches_per_eval_batch": per_eval_batch,
         "launches_per_classifier_build": per_build}
     _emit(result)
-    want_plain = {"fused_attn_half": 24, "fused_mlp_half": 24,
-                  "fused_attn_half_bwd": 24, "normalize_images": 1}
-    want_accum = {"fused_attn_half": 48 * TRAINER_ACCUM,
-                  "fused_mlp_half": 48 * TRAINER_ACCUM,
-                  "fused_attn_half_bwd": 24 * TRAINER_ACCUM,
-                  "normalize_images": 1}
-    want_eval = {"fused_attn_half": 12, "fused_mlp_half": 12,
-                 "fused_attn_half_bwd": 0, "normalize_images": 1}
-    want_build = {"fused_attn_half": 12, "fused_mlp_half": 12,
-                  "fused_attn_half_bwd": 0, "normalize_images": 0}
+    want_plain = _paths()["b32"]["per_step"]
+    want_accum = _want(fused_attn_half=48 * TRAINER_ACCUM,
+                       fused_mlp_half=48 * TRAINER_ACCUM,
+                       fused_attn_half_bwd=24 * TRAINER_ACCUM,
+                       normalize_images=1)
+    want_eval = _paths()["b32"]["per_batch"]
+    want_build = _paths()["b32"]["per_chunk"]
     if not (finite and falling and reload_exact and not missing
             and not stale and resumed_epoch == TRAINER_EPOCHS - 1
             and len(epochs) == TRAINER_EPOCHS + 1
@@ -1061,6 +1207,117 @@ def phase_trainer(card: str, profile: bool = False):
             and per_accum_step == want_accum
             and per_eval_batch == want_eval and per_build == want_build):
         raise AssertionError(f"trainer phase failed its checks: {result}")
+    return counts
+
+
+def phase_gap_trainer(card: str):
+    """The GAP tower's main path, part 4: the scar training CLI as a user
+    reaches a config of their own, ``--model`` naming a JSON in an
+    XTAGCLIP_EXTRA_CONFIGS directory (ViT-B-16's config with the GAP
+    vision overrides): one plain epoch with the scar eval and the
+    checkpoint policy. Returns the launches of the call."""
+    from xtagclip_tpu_torch.cli import main_other
+    from xtagclip_tpu_torch.factory import get_model_config
+    from xtagclip_tpu_torch.train import checkpoint, zero_shot
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    path = _paths()["gap"]
+    log = []
+    targets = ((main_other, "train_one_epoch"), (zero_shot, "run_scar_eval"),
+               (zero_shot, "build_zero_shot_classifier"),
+               (checkpoint, "save_train_state"))
+    env_before = os.environ.get("XTAGCLIP_EXTRA_CONFIGS")
+    with tempfile.TemporaryDirectory(prefix="xtag_gap_trainer_") as tmp:
+        cfg = get_model_config(path["model"])
+        cfg["vision_cfg"].update(GAP_VISION)
+        cfg_dir = os.path.join(tmp, "configs")
+        os.makedirs(cfg_dir)
+        with open(os.path.join(cfg_dir, f"{GAP_CONFIG}.json"), "w") as f:
+            json.dump(cfg, f)
+        rng = np.random.default_rng(1)
+        t0 = time.perf_counter()
+        csvs = {split: _write_scar_split(os.path.join(tmp, split), n, rng,
+                                         GAP_TRAINER_IMAGE)
+                for split, n in GAP_TRAINER_ROWS.items()}
+        t_data = time.perf_counter() - t0
+        logs = os.path.join(tmp, "logs")
+        argv = [
+            "--model", GAP_CONFIG, "--use-tagging", "--use-fusion",
+            "--train-data", os.path.join(tmp, "scar_train"),
+            "--val-data", os.path.join(tmp, "scar_val"),
+            "--scar-train-csv", csvs["scar_train"],
+            "--scar-val-csv", csvs["scar_val"],
+            "--batch-size", str(TRAIN_BATCH), "--workers",
+            str(TRAINER_WORKERS), "--precision", "amp", "--lr",
+            str(TRAIN_LR), "--wd", str(TRAIN_WD), "--warmup",
+            str(TRAIN_WARMUP), "--prompt-template-setting", "total",
+            "--logs", logs, "--name", "gap", "--log-every-n-steps", "1",
+            "--zeroshot-frequency", "1", "--save-best", "--seed", "0",
+            "--epochs", "1"]
+        os.environ["XTAGCLIP_EXTRA_CONFIGS"] = cfg_dir
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            with _probed(targets, log):
+                out = main_other.main(argv)
+        finally:
+            if env_before is None:
+                os.environ.pop("XTAGCLIP_EXTRA_CONFIGS", None)
+            else:
+                os.environ["XTAGCLIP_EXTRA_CONFIGS"] = env_before
+            close_logging()
+        t_run = time.perf_counter() - t0
+        counts = _counts()
+        listing = sorted(os.listdir(os.path.join(logs, "gap", "checkpoints")))
+        missing = [a for a in ARTIFACTS + (
+            "epoch_1", "epoch_latest", "last", "best_train_top1",
+            "best_train_loss", "best_val_top1", "best_tag_acc")
+            if a not in listing]
+        cls_free = "visual.class_embedding" not in \
+            out["state"].model.state_dict()
+
+    (rec,) = out["epochs"]
+    tm, ev = rec["train"], rec["eval"]
+    trains = [c for c in log if c["what"] == "train_one_epoch"]
+    evals = [c for c in log if c["what"] == "run_scar_eval"]
+    builds = [c for c in log if c["what"] == "build_zero_shot_classifier"]
+    steps = GAP_TRAINER_ROWS["scar_train"] // TRAIN_BATCH
+    eval_images = sum(c["out"]["n"] for c in evals)
+    eval_batches = sum(math.ceil(c["out"]["n"] / TRAIN_BATCH) for c in evals)
+    per_step = _per(trains, steps)
+    per_eval_batch = _per(evals, eval_batches)
+    per_build = _per(builds, len(builds))
+    evals_kept = {k: ev[k] for k in sorted(ev) if k.endswith((
+        "top1", "top2", "tag_accuracy", "tag_f1", "-n"))}
+    values = [tm["loss"], tm["samples_per_second"], tm["p50_step_s"],
+              *evals_kept.values()]
+    finite = all(math.isfinite(v) for v in values)
+    result = {
+        "phase": "gap_trainer", "card": card,
+        "entry": f"xtagclip_tpu_torch.cli.main_other.main --model "
+                 f"{GAP_CONFIG} (XTAGCLIP_EXTRA_CONFIGS)",
+        "model": f"{path['label']} xtag, bf16 over fp32 masters, seeded "
+                 "random init",
+        "data": f"seeded PNG files {GAP_TRAINER_IMAGE}x{GAP_TRAINER_IMAGE} "
+                f"({GAP_TRAINER_ROWS}), crops {GAP_IMAGE_SIZE}, "
+                f"{TRAINER_WORKERS} loader threads",
+        "data_write_s": t_data, "run_s": t_run, "batch": TRAIN_BATCH,
+        "steps": steps, "samples_per_s": tm["samples_per_second"],
+        "p50_step_ms": 1e3 * tm["p50_step_s"], "loss": tm["loss"],
+        "eval_s": rec["eval_s"], "checkpoint_s": rec["checkpoint_s"],
+        "eval": evals_kept, "eval_images": eval_images,
+        "eval_img_per_s": eval_images / sum(c["s"] for c in evals),
+        "classifier_builds": len(builds), "checkpoints": listing,
+        "missing": missing, "cls_free": cls_free, "finite": finite,
+        "launches": counts, "launches_per_plain_step": per_step,
+        "launches_per_eval_batch": per_eval_batch,
+        "launches_per_classifier_build": per_build}
+    _emit(result)
+    if not (finite and not missing and cls_free
+            and per_step == path["per_step"]
+            and per_eval_batch == path["per_batch"]
+            and per_build == path["per_chunk"]):
+        raise AssertionError(f"GAP trainer phase failed its checks: {result}")
     return counts
 
 
@@ -1106,12 +1363,12 @@ def _profile_window(name, fn, card):
            "host_self_ms_and_calls": {k[:60]: v for k, v in top_host}})
 
 
-def phase_profile(card, model, ptable, serve_one, train_one,
+def phase_profile(card, label, model, ptable, serve_one, train_one,
                   n_batches: int = 20, n_steps: int = 5):
     from xtagclip_tpu_torch.serving import precompute_prompt_features
 
     _profile_window(
-        f"precompute 3x2304 prompts, batch {PRECOMPUTE_BATCH}",
+        f"{label}: precompute 3x2304 prompts, batch {PRECOMPUTE_BATCH}",
         lambda: precompute_prompt_features(model, ptable, template_id=0,
                                            batch_size=PRECOMPUTE_BATCH),
         card)
@@ -1120,15 +1377,15 @@ def phase_profile(card, model, ptable, serve_one, train_one,
         for i in range(n_batches):
             serve_one(i)
 
-    _profile_window(f"serve {n_batches} batches of {SERVE_BATCH}",
+    _profile_window(f"{label}: serve {n_batches} batches of {SERVE_BATCH}",
                     run_serve, card)
 
     def run_train():
         for i in range(n_steps):
             train_one(i)
 
-    _profile_window(f"train {n_steps} steps of {TRAIN_BATCH}", run_train,
-                    card)
+    _profile_window(f"{label}: train {n_steps} steps of {TRAIN_BATCH}",
+                    run_train, card)
 
 
 def main(argv=()) -> int:
@@ -1153,12 +1410,21 @@ def main(argv=()) -> int:
            "kernels": {k: v["path"] for k, v in built.items()}})
 
     entries = phase_kernels(card)
-    paths, model, ptable, serve_one = phase_serve_and_path(card)
-    paths["train"], train_one = phase_train(card, ptable)
-    phase_train_path(card, ptable)
+    b32, gap = _paths()["b32"], _paths()["gap"]
+    paths, model, ptable, serve_one = phase_serve_and_path(card, b32)
+    paths["train"], train_one = phase_train(card, ptable, b32)
+    phase_train_path(card, ptable, b32)
     paths["trainer"] = phase_trainer(card, profile=args.profile)
+    gap_paths, g_model, _, g_serve_one = phase_serve_and_path(card, gap)
+    paths.update({"gap_" + k: v for k, v in gap_paths.items()})
+    paths["gap_train"], g_train_one = phase_train(card, ptable, gap)
+    phase_train_path(card, ptable, gap)
+    paths["gap_trainer"] = phase_gap_trainer(card)
     if args.profile:
-        phase_profile(card, model, ptable, serve_one, train_one)
+        phase_profile(card, b32["label"], model, ptable, serve_one,
+                      train_one)
+        phase_profile(card, gap["label"], g_model, ptable, g_serve_one,
+                      g_train_one)
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())

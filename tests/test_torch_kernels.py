@@ -8,8 +8,9 @@ only (conftest.py imports jax, hence --noconftest):
 
 Bar: atol = max|ref|/128 (one bf16 ULP at output scale), rtol = 1e-2, the
 bar tests/test_fused_attn_block.py applies to the Pallas kernels, for
-each output of each kernel. Gradients through a whole block, kernels on
-against kernels off: cosine >= 0.999 per tensor. The image normalize
+each output of each kernel (flash attention's forward and backward, the
+fused MLP and the fused block halves). Gradients through a whole block,
+kernels on against kernels off: cosine >= 0.999 per tensor. The image normalize
 against its plain version (the kernel's one FMA against a multiply and
 an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
 ulp at the operands' scale (2^-22).
@@ -23,8 +24,8 @@ from xtagclip_tpu_torch.models.layers import (
     ResidualAttentionBlock,
     set_use_kernels,
 )
+from xtagclip_tpu_torch.ops import flash_attn, fused_mlp, preprocess
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
-from xtagclip_tpu_torch.ops import preprocess
 
 torch.set_num_threads(1)
 
@@ -170,6 +171,124 @@ def test_block_gradients_kernels_vs_plain(cuda, causal):
     for a, r in zip(on, off):
         assert a.dtype == r.dtype and torch.isfinite(a).all()
         assert _cos(a, r) >= 0.999
+
+
+# flash attention (kernel #6): the GAP tower's shape, ragged L, dh = 128
+FLASH_SHAPES = [
+    (32, 12, 256, 64),   # ViT-B-16 at 256 px, cls-free: the main path
+    (1, 12, 128, 64),
+    (1, 12, 197, 64),    # ViT-B-16 at 224 px with its class token
+    (1, 12, 257, 64),    # ViT-L-14 length
+    (1, 12, 384, 64),
+    (2, 4, 256, 128),    # head dim 128
+    (3, 2, 1, 64),       # one token
+]
+
+
+def _flash_inputs(b, h, l, dh, layout, seed, device):
+    """q, k, v as the model makes them: column slices of one [B, L, 3 H dh]
+    projection (blhd views with row stride 3 H dh), or bhld tensors."""
+    rng = np.random.default_rng(seed)
+    if layout == "blhd":
+        qkv = torch.from_numpy(rng.standard_normal(
+            (b, l, 3 * h * dh)).astype(np.float32)).to(device, torch.bfloat16)
+        return [t.reshape(b, l, h, dh) for t in qkv.split(h * dh, dim=-1)]
+    return [torch.from_numpy(rng.standard_normal((b, h, l, dh)).astype(
+        np.float32)).to(device, torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,h,l,dh", FLASH_SHAPES)
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_kernels_match_plain(cuda, b, h, l, dh, layout):
+    q, k, v = _flash_inputs(b, h, l, dh, layout, seed=l + dh, device=cuda)
+    before = (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches)
+    with torch.inference_mode():
+        out = flash_attn.flash_mha(q, k, v, layout=layout)
+        ref = flash_attn.reference_flash_mha(q, k, v, layout=layout)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+    o, lse = flash_attn._flash_fwd(q, k, v, layout, with_lse=True)
+    do = torch.randn(o.shape, device=cuda).bfloat16()
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, layout)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
+    torch.cuda.synchronize()
+    assert (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches
+            ) == (before[0] + 2, before[1] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        if l == 1 and name != "dv":
+            # one key: the softmax is constant, so dq and dk are 0 in exact
+            # arithmetic and both sides hold rounding noise (~1e-8)
+            assert g.float().abs().max().item() <= 1e-5
+        else:
+            _assert_kernel_bar(g, r)
+
+
+@pytest.mark.parametrize("n,d,h", [(8192, 768, 3072), (37, 64, 256)])
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+def test_fused_mlp_kernel_matches_plain(cuda, n, d, h, act):
+    x, _, _, w1, b1, w2, b2 = _mlp_args(n, d, h, seed=n + 1, device=cuda)
+    with torch.inference_mode():
+        before = fused_mlp.fused_mlp.launches
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, act)
+        assert fused_mlp.fused_mlp.launches == before + 1
+        ref = fused_mlp.reference_fused_mlp(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def test_gap_block_gradients_kernels_vs_plain(cuda):
+    """One block off the fused halves (L = 256, bf16 stream over fp32
+    parameters): autograd through flash attention's Function and the
+    fused MLP's against autograd through their plain versions."""
+    torch.manual_seed(1)
+    blk = ResidualAttentionBlock(256, 4).to(cuda)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            p.copy_(torch.randn_like(p) * (0.05 if p.dim() == 2 else 0.1)
+                    + (1.0 if name.endswith("scale") else 0.0))
+    x0 = torch.randn(4, 256, 256, device=cuda).bfloat16()
+    ct = torch.randn(4, 256, 256, device=cuda).bfloat16()
+    assert not blk.takes_fused_halves(x0.shape)
+
+    def grads(use_kernels):
+        set_use_kernels(blk, use_kernels)
+        blk.zero_grad(set_to_none=True)
+        x = x0.clone().requires_grad_(True)
+        blk(x).backward(ct)
+        return [x.grad] + [p.grad for p in blk.parameters()]
+
+    wrappers = (flash_attn.flash_mha, flash_attn.flash_mha_bwd,
+                fused_mlp.fused_mlp, fab.fused_attn_half)
+    before = [w.launches for w in wrappers]
+    on = grads(True)
+    after = [w.launches for w in wrappers]
+    off = grads(False)
+    torch.cuda.synchronize()
+    assert [a - b_ for a, b_ in zip(after, before)] == [1, 1, 1, 0]
+    for a, r in zip(on, off):
+        assert a.dtype == r.dtype and torch.isfinite(a).all()
+        assert _cos(a, r) >= 0.999
+
+
+def test_flash_and_mlp_raise_instead_of_falling_back(cuda):
+    q, k, v = _flash_inputs(1, 2, 64, 64, "bhld", seed=3, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attn.flash_mha(q.float(), k.float(), v.float(), layout="bhld")
+    q80 = torch.zeros((1, 2, 64, 80), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attn.flash_mha(q80, q80, q80, layout="bhld")
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_attn.flash_mha(q.transpose(2, 3), k.transpose(2, 3),
+                             v.transpose(2, 3), layout="bhld")
+    x, _, _, w1, b1, w2, b2 = _mlp_args(16, 96, 256, seed=4, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+    blk = ResidualAttentionBlock(256, 4).to(cuda).bfloat16()
+    mask = torch.zeros((256, 256), device=cuda)
+    with pytest.raises(ValueError, match="neither the fused attention half"):
+        blk(torch.zeros((1, 256, 256), device=cuda, dtype=torch.bfloat16),
+            attn_mask=mask)
 
 
 def test_kernels_raise_instead_of_falling_back(cuda):

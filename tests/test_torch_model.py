@@ -1,7 +1,8 @@
 """The PyTorch port's XTag model and serving path against the JAX package.
 
 A toy XTag-CLIP (the tests/test_serving.py geometry: 2 layers, width 64,
-image 32, patch 8, ctx 16, vocab 1024) is built once in JAX; its flax
+image 32, patch 8, ctx 16, vocab 1024; one head of 64 in each tower, so
+its blocks take the fused halves) is built once in JAX; its flax
 params are loaded into the port with convert/from_jax.load_jax_params and
 both run in fp32 on the CPU on the same numpy inputs. Bar: 1e-3 (the
 repo's parity contract, BASELINE.md:18); tag picks exactly.
@@ -36,9 +37,10 @@ torch.set_num_threads(1)
 CFG = dict(
     embed_dim=64,
     fusion_dim=64,
-    vision_cfg=dict(layers=2, width=64, head_width=32, patch_size=8,
+    # head dim 64 in both towers: the fused halves take their streams
+    vision_cfg=dict(layers=2, width=64, head_width=64, patch_size=8,
                     image_size=32),
-    text_cfg=dict(context_length=16, vocab_size=1024, width=64, heads=2,
+    text_cfg=dict(context_length=16, vocab_size=1024, width=64, heads=1,
                   layers=2),
 )
 TOL = dict(rtol=1e-3, atol=1e-3)

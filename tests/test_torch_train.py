@@ -6,7 +6,8 @@ the schedules, the decay/lock masks, the optimizer step and the whole XTag
 loss with its gradients, on the same numpy inputs and weights in both
 packages. The JAX side runs as the JAX package's own tests run it: the
 Pallas backward kernel in TPU interpret mode, the rest on the CPU. The
-toy model is the tests/test_torch_model.py geometry (2 layers, width 64).
+toy model is the tests/test_torch_model.py geometry (2 layers, width 64,
+head dim 64).
 
 Bars: fp32 gradients 1e-4 normalized per tensor (the backward tests of
 tests/test_fused_attn_block.py), the Function against autograd of the
@@ -51,9 +52,10 @@ torch.set_num_threads(1)
 CFG = dict(
     embed_dim=64,
     fusion_dim=64,
-    vision_cfg=dict(layers=2, width=64, head_width=32, patch_size=8,
+    # head dim 64 in both towers: the fused halves take their streams
+    vision_cfg=dict(layers=2, width=64, head_width=64, patch_size=8,
                     image_size=32),
-    text_cfg=dict(context_length=16, vocab_size=1024, width=64, heads=2,
+    text_cfg=dict(context_length=16, vocab_size=1024, width=64, heads=1,
                   layers=2),
 )
 B = 4

@@ -10,7 +10,8 @@ The port's parameter names mirror the flax tree; a leaf's path joined with
 - ``layer_{i}_ffn``            -> ``layers.{i}.ffn``
 
 Layouts need no change: flax Dense kernels are [in, out] and the MHA
-in_proj is [E, 3E] in both. Loading is strict: every port parameter is
+in_proj is [E, 3E] in both. A cls-free GAP tower has no
+``class_embedding`` and a [gh * gw, D] ``positional_embedding`` in both. Loading is strict: every port parameter is
 filled and every JAX leaf is used, with matching shapes; values are cast
 to each parameter's dtype (so a bf16 model takes fp32 JAX params as the
 JAX package casts them at use).

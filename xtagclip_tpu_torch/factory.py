@@ -2,8 +2,14 @@
 (port of the CLIP-family path of xtagclip_tpu/factory.py).
 
 The built-in architecture JSONs are read by file path from the JAX
-package's ``assets/model_configs``. Only ViT + text-transformer configs are
-ported; other families raise NotImplementedError.
+package's ``assets/model_configs``. As in the JAX factory, the
+':'-separated directories of ``XTAGCLIP_EXTRA_CONFIGS`` are scanned after
+them (a config there extends or overrides the built-in ones; a malformed
+file there warns and is skipped, where a malformed built-in one raises),
+and ``add_model_config`` registers a file over both. The variable is read
+at each lookup, so a process may set it after import. Only ViT +
+text-transformer configs are ported; other families raise
+NotImplementedError.
 
 ``precision`` has the JAX package's meaning: parameters are fp32 masters
 and ``"bf16"`` sets the compute dtype, to which every module casts its
@@ -22,6 +28,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import warnings
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -51,8 +59,32 @@ def _builtin_config(name: str) -> Optional[dict]:
         return json.load(f)
 
 
+def _user_config(name: str) -> Optional[dict]:
+    """``name`` from the XTAGCLIP_EXTRA_CONFIGS directories (the last one
+    that has it wins, as in the JAX scan), with the nested ``model_cfg``
+    schema flattened; None if no directory has a valid one."""
+    found = None
+    for d in os.environ.get("XTAGCLIP_EXTRA_CONFIGS", "").split(":"):
+        path = Path(d) / f"{name}.json" if d else None
+        if path is None or not path.is_file():
+            continue
+        try:
+            with open(path) as f:
+                cfg = json.load(f)
+        except (OSError, ValueError) as e:
+            warnings.warn(f"XTAGCLIP_EXTRA_CONFIGS: skipping {path}: {e}")
+            continue
+        if "model_cfg" in cfg:  # nested schema (e.g. BiomedCLIP hub cfg)
+            cfg = dict(cfg["model_cfg"],
+                       preprocess_cfg=cfg.get("preprocess_cfg", {}))
+        if all(k in cfg for k in ("embed_dim", "vision_cfg", "text_cfg")):
+            found = cfg
+    return found
+
+
 def get_model_config(model_name: str) -> Optional[dict]:
-    cfg = _EXTRA_CONFIGS.get(model_name) or _builtin_config(model_name)
+    cfg = (_EXTRA_CONFIGS.get(model_name) or _user_config(model_name)
+           or _builtin_config(model_name))
     return json.loads(json.dumps(cfg)) if cfg is not None else None
 
 

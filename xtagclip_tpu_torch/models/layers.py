@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xtagclip_tpu_torch.ops import flash_attn
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
+from xtagclip_tpu_torch.ops import fused_mlp
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution has stddev sqrt(1 / fan_in)
@@ -107,10 +109,11 @@ def dropout(x, rate: float, generator):
 
 
 def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
-              generator=None):
-    """Unmasked multi-head attention over [B, L, E] streams
-    (``jax.nn.dot_product_attention``): fp32 scores times dh^-0.5, fp32
-    softmax, dropout on the fp32 probabilities when a generator is given
+              generator=None, mask=None):
+    """Multi-head attention over [B, L, E] streams
+    (``jax.nn.dot_product_attention``): fp32 scores times dh^-0.5, plus
+    the additive [Lq, Lk] ``mask`` if one is given, fp32 softmax, dropout
+    on the fp32 probabilities when a generator is given
     (layers.py:117-119), probabilities in the value dtype for P @ V."""
     b, lq, e = q.shape
     lk = k.shape[1]
@@ -121,6 +124,8 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 
     qh, kh, vh = heads(q, lq), heads(k, lk), heads(v, lk)
     s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * dh**-0.5
+    if mask is not None:
+        s = s + mask.float()
     p = dropout(torch.softmax(s, dim=-1), dropout_rate, generator)
     out = torch.matmul(p.to(vh.dtype), vh)
     return out.transpose(1, 2).reshape(b, lq, e).to(q.dtype)
@@ -129,10 +134,11 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention-style attention with a fused [E, 3E]
     ``in_proj`` and an ``out_proj``. The forward is the cross-attention of
-    TQN: the query and the shared key/value stream project through their
-    own column slices (``_FusedQKVProj``, layers.py:181-214). A residual
-    block's self-attention reads the same parameters through the fused
-    attention half."""
+    TQN and the tag head: the query and the shared key/value stream project
+    through their own column slices (``_FusedQKVProj``, layers.py:181-214)
+    into the plain ``attention`` (XLA's in JAX; Lq != Lk never reaches
+    flash). ``self_attention`` is a residual block's self-attention off the
+    fused half: one [E, 3E] product, then ``flash_attn``."""
 
     def __init__(self, width: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -153,33 +159,78 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(attention(qh, kh, vh, self.num_heads,
                                        self.dropout, generator))
 
+    def self_attention(self, x, use_kernels: bool = True, mask=None):
+        """out_proj(MHA(x, x, x)) over [B, L, E] without dropout, as JAX's
+        non-fused block computes it (layers.py:204-206, :295-319): one
+        [E, 3E] product plus the bias in x's dtype (two roundings in bf16,
+        as flax's Dense), the attention core through
+        ``flash_attn.flash_mha`` (its kernel, or with ``use_kernels`` off
+        its plain version) where ``flash_attn.supported`` takes it, else
+        through the plain ``attention`` with the additive ``mask`` (XLA's
+        attention in JAX), then ``out_proj`` in x's dtype."""
+        b, l, e = x.shape
+        dh = e // self.num_heads
+        qkv = self._proj(x, 0, 3 * e)
+        if not flash_attn.supported(l, l, mask, dh):
+            return self.out_proj(attention(*qkv.split(e, dim=-1),
+                                           self.num_heads, mask=mask))
+        q, k, v = (t.reshape(b, l, self.num_heads, dh)
+                   for t in qkv.split(e, dim=-1))
+        core = (flash_attn.flash_mha if use_kernels
+                else flash_attn.reference_flash_mha)
+        return self.out_proj(core(q, k, v).reshape(b, l, e))
+
 
 class MLP(nn.Module):
-    """The parameters of a CLIP block MLP (c_fc -> act -> c_proj), which
-    the fused MLP half reads."""
+    """A CLIP block MLP (c_fc -> act -> c_proj). The fused MLP half reads
+    its parameters; off the fused half, the forward is ``fused_mlp``
+    (JAX's MLP under ``XTAG_FUSED_MLP``, layers.py:409-425): its kernel,
+    or with ``use_kernels`` off its plain version. The weight matrices are
+    cast to x's dtype at use, the biases stay fp32."""
 
-    def __init__(self, width: int, mlp_width: int):
+    def __init__(self, width: int, mlp_width: int, act: str = "gelu"):
         super().__init__()
+        self.act = act
         self.c_fc = Dense(width, mlp_width)
         self.c_proj = Dense(mlp_width, width)
+
+    def forward(self, x, use_kernels: bool = True):
+        fn = fused_mlp.fused_mlp if use_kernels else \
+            fused_mlp.reference_fused_mlp
+        dt = x.dtype
+        return fn(x, self.c_fc.kernel.to(dt), self.c_fc.bias,
+                  self.c_proj.kernel.to(dt), self.c_proj.bias, self.act)
 
 
 class ResidualAttentionBlock(nn.Module):
     """Pre-norm transformer block (layers.py:478-588), self-attention only.
 
-    Dispatch (layers.py:520-559): a bf16 stream goes through the fused
-    halves, ``fab.fused_attn_half`` then ``fab.fused_mlp_half``: their CUDA
-    kernels on the card (a shape they cannot take raises), their plain
-    versions on the CPU; with grad on, through their autograd Functions
-    (the backward kernel for the attention half). The weight matrices are
-    cast to the stream's dtype at use (layers.py:540-543), the biases and
-    LayerNorm parameters stay fp32. Every other stream takes the plain
-    versions, under autograd when grad is on:
-    ``fab.reference_attn_half`` / ``fab.reference_mlp_half``: an fp32
-    stream (the JAX gate likewise keeps fp32 off the kernel; there the
-    bf16 rounding points are no-ops), and a bf16 stream with
-    ``use_kernels = False`` (set through ``set_use_kernels``), the
-    yardstick the chip smoke holds the kernels against."""
+    Two routes, chosen by the stream's shape alone:
+
+    - the fused halves (layers.py:528-559), for every stream that
+      ``fab.supported`` and ``fab.supported_mlp`` take (L <= 128, head dim
+      64, D and the MLP width multiples of 64; the ViT-B-32 towers and the
+      text tower): ``fab.fused_attn_half`` then ``fab.fused_mlp_half``;
+    - the non-fused block (layers.py:560-588) for the rest, such as a
+      cls-free GAP tower at L = 256: ``x = x + out_proj(attn(LN1(x)))``
+      then ``x = x + MLP(LN2(x))``, with the adds in x's dtype, the
+      attention core through ``flash_attn.flash_mha`` and the MLP through
+      ``fused_mlp.fused_mlp`` (JAX's ``XTAG_FLASH_ATTN`` and
+      ``XTAG_FUSED_MLP`` paths). A stream flash attention does not take (a
+      mask, another head dim) runs the plain ``attention`` there; it has
+      no kernel, so a bf16 one raises on the card.
+
+    Inside a route, a bf16 stream with ``use_kernels`` on (the default;
+    ``set_use_kernels``) runs the route's kernel wrappers: their CUDA
+    kernels on the card, where a stream the kernels cannot take raises
+    before anything runs, their plain versions on the CPU, through their
+    autograd Functions when grad is on. Every other stream runs the plain
+    versions, under autograd when grad is on: an fp32 stream (the JAX
+    gates likewise keep fp32 off the kernels; there the bf16 rounding
+    points are no-ops) and a bf16 stream with ``use_kernels`` off, the
+    yardstick the chip smoke holds the kernels against. The fused halves
+    take the weight matrices cast to the stream's dtype and the biases and
+    LayerNorm parameters in fp32 (layers.py:540-543)."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "gelu", norm_eps: float = 1e-5,
@@ -196,10 +247,26 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_1 = LayerNorm(width, norm_eps)
         self.attn = MultiheadAttention(width, heads)
         self.ln_2 = LayerNorm(width, norm_eps)
-        self.mlp = MLP(width, int(width * mlp_ratio))
+        self.mlp = MLP(width, int(width * mlp_ratio), act)
+
+    def takes_fused_halves(self, shape, attn_mask=None) -> bool:
+        """The route of a stream of this shape: the fused halves (True) or
+        the non-fused block (False)."""
+        mshape = None if attn_mask is None else tuple(attn_mask.shape)
+        mlp_width = self.mlp.c_fc.kernel.shape[1]
+        return (fab.supported(shape, self.heads, torch.bfloat16, mshape)
+                and fab.supported_mlp(shape, mlp_width, self.act))
 
     def forward(self, x, attn_mask=None):
-        if self.use_kernels and x.dtype == torch.bfloat16:
+        kernels = self.use_kernels and x.dtype == torch.bfloat16
+        if self.takes_fused_halves(x.shape, attn_mask):
+            return self._fused_halves(x, attn_mask, kernels)
+        if kernels and x.device.type != "cpu":
+            self._check_kernels_take(x.shape, attn_mask)
+        return self._non_fused(x, attn_mask, kernels)
+
+    def _fused_halves(self, x, attn_mask, kernels):
+        if kernels:
             attn_half, mlp_half = fab.fused_attn_half, fab.fused_mlp_half
         else:
             attn_half = fab.reference_attn_half
@@ -213,6 +280,26 @@ class ResidualAttentionBlock(nn.Module):
                         m.c_fc.kernel.to(dt), m.c_fc.bias,
                         m.c_proj.kernel.to(dt), m.c_proj.bias,
                         self.act, self.norm_eps)
+
+    def _check_kernels_take(self, shape, attn_mask):
+        """Raise if the non-fused route's kernels cannot take a stream:
+        nothing falls back to a plain version on the card."""
+        _, l, d = shape
+        mlp_width = self.mlp.c_fc.kernel.shape[1]
+        if not flash_attn.supported(l, l, attn_mask, d // self.heads):
+            raise ValueError(
+                f"no kernel for stream {tuple(shape)} with {self.heads} heads"
+                f" and mask {None if attn_mask is None else tuple(attn_mask.shape)}"
+                ": neither the fused attention half (L <= 128, head dim 64) "
+                "nor flash attention (no mask, head dim 64 or 128) takes it")
+        if not fused_mlp.supported(shape, mlp_width, self.act):
+            raise ValueError(
+                f"no kernel for MLP rows {tuple(shape)}, hidden width "
+                f"{mlp_width}, act {self.act!r}")
+
+    def _non_fused(self, x, attn_mask, kernels):
+        x = x + self.attn.self_attention(self.ln_1(x), kernels, attn_mask)
+        return x + self.mlp(self.ln_2(x), kernels)
 
 
 def set_use_kernels(module: nn.Module, enabled: bool) -> None:

@@ -26,7 +26,9 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
-                  "normalize_images")
+                  "normalize_images", "flash_attn_fwd", "flash_attn_bwd")
+# the C entry points of each library (default: xtag_<name>)
+ENTRY_POINTS = {"fused_mlp_half": ("xtag_fused_mlp_half", "xtag_fused_mlp")}
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -97,6 +99,7 @@ def build_all() -> dict:
 
 
 _VP = ctypes.c_void_p
+_I64P = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     "xtag_fused_attn_half": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, ln_g, ln_b, wqkv, bqkv, wout, bout, mask
@@ -117,6 +120,25 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, D, Hd, act
         ctypes.c_float, _VP,                     # eps, stream
     ],
+    "xtag_fused_mlp": [
+        _VP, _VP, _VP, _VP, _VP,                 # x, w1, b1, w2, b2
+        _VP, _VP,                                # hidden scratch; out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, D, Hd, act
+        _VP,                                     # stream
+    ],
+    "xtag_flash_attn_fwd": [
+        _VP, _VP, _VP, _VP, _VP,                 # q, k, v, o, lse (or null)
+        _I64P,                                   # (b, h, l) strides of q, k, v, o
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, dh
+        ctypes.c_float, _VP,                     # scale, stream
+    ],
+    "xtag_flash_attn_bwd": [
+        _VP, _VP, _VP, _VP, _VP, _VP,            # q, k, v, o, dout, lse
+        _VP, _VP, _VP, _VP,                      # delta scratch; dq, dk, dv
+        _I64P,                                   # strides of the eight views
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, dh
+        ctypes.c_float, _VP,                     # scale, stream
+    ],
     "xtag_normalize_images": [
         _VP, _VP, ctypes.c_longlong, ctypes.c_int,  # x, out, n, out_bf16
         *[ctypes.c_float] * 6,                       # scale[3], bias[3]
@@ -128,17 +150,23 @@ _ARGTYPES = {
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name`` (built first if needed), with argtypes
-    declared for its entry point and ``xtag_error_string``."""
+    declared for its entry points and ``xtag_error_string``."""
     if name not in KERNEL_SOURCES:
         raise KeyError(name)
     path = build_all()[name]["path"]
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, f"xtag_{name}")
-    fn.argtypes = _ARGTYPES[f"xtag_{name}"]
-    fn.restype = ctypes.c_int
+    for entry in ENTRY_POINTS.get(name, (f"xtag_{name}",)):
+        fn = getattr(lib, entry)
+        fn.argtypes = _ARGTYPES[entry]
+        fn.restype = ctypes.c_int
     lib.xtag_error_string.argtypes = [ctypes.c_int]
     lib.xtag_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def int64_array(values) -> ctypes.Array:
+    """A C array of int64 (strides handed to a launcher)."""
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
