@@ -20,13 +20,14 @@ print one JSON line:
    atol = max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale);
    the image normalize (kernel #5) within one bf16 ULP on every element,
    or 2^-22 for fp32 output, at the main path's batch and at a ragged
-   odd-sized one; median device times of kernel and plain version (CUDA
-   events over 10 back-to-back calls; for the normalize, whose host side
-   outlasts its device side, torch.profiler's device time), the time of
-   one PyTorch call computing the same function where there is one
-   (scaled_dot_product_attention for flash attention, forward, and
-   forward + backward through autograd for its backward), and the card's
-   least time for the same work;
+   odd-sized one; the device time of kernel and plain version
+   (torch.profiler: the summed durations of the kernels one call runs,
+   over 20 calls, so a wrapper whose host side outlasts its kernel is
+   timed by its kernel; the median CUDA-event time of 10 back-to-back
+   calls beside it), the same for one PyTorch call computing the same
+   function where there is one (scaled_dot_product_attention for flash
+   attention, forward, and forward + backward through autograd for its
+   backward), and the card's least time for the same work;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -137,8 +138,9 @@ GAP_CONFIG = "ViT-B-16-GAP-256"
 GAP_L = (GAP_IMAGE_SIZE // 16) ** 2
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
-# flash_attn_bwd.cu)
-PORT_KERNELS = ("gemm_bf16_kernel", "attn_core_kernel", "ln_rows_kernel",
+# flash_attn_bwd.cu, fused_mlp.cu)
+PORT_KERNELS = ("gemm_bf16_kernel", "gemm_sm90_kernel", "attn_core_kernel",
+                "ln_rows_kernel",
                 "attn_bwd_core_kernel", "ln_bwd_rows_kernel",
                 "ln_bwd_cols_kernel", "col_sum_kernel", "normalize_u8_kernel",
                 "flash_fwd_kernel", "flash_delta_kernel", "flash_dkv_kernel",
@@ -183,24 +185,32 @@ def _median_ms(fn, reps: int = 7, per_rep: int = 10, warmup: int = 3) -> float:
 
 
 def _profiled_ms(fn, calls: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: the summed durations of the
-    kernels and copies it runs on the card (torch.profiler), per call.
-    For a call whose host side takes longer than its device side, where
-    CUDA events would time the host's launch gaps."""
+    """Device time of one call of ``fn``: the durations of the kernels and
+    copies it runs on the card (torch.profiler), per call. For a call whose
+    host side takes longer than its device side, where CUDA events would
+    time the host's launch gaps. The profiler can drop events: each kind
+    counts as its mean duration times its launches per call (its count
+    over ``calls``, rounded, at least one), and a window that recorded no
+    device event is traced again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(_device_time_us(e) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    return total_us / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kinds = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.count > 0]
+        if kinds:
+            return sum(_device_time_us(e) / e.count
+                       * max(1, round(e.count / calls)) for e in kinds) / 1e3
+    raise RuntimeError("torch.profiler recorded no device event in 3 windows")
 
 
 def _close(out, ref):
@@ -355,7 +365,7 @@ _KERNEL_META = {
                             "xtagclip_tpu/ops/fused_attn_block.py:543"),
     "normalize_images": ("xtagclip_tpu_torch/csrc/normalize_images.cu",
                          "xtagclip_tpu/ops/preprocess.py:47"),
-    "fused_mlp": ("xtagclip_tpu_torch/csrc/fused_mlp_half.cu",
+    "fused_mlp": ("xtagclip_tpu_torch/csrc/fused_mlp.cu",
                   "xtagclip_tpu/ops/fused_mlp.py:62"),
     "flash_mha": ("xtagclip_tpu_torch/csrc/flash_attn_fwd.cu",
                   "xtagclip_tpu/ops/flash_attn.py:93"),
@@ -386,15 +396,19 @@ _OUTPUTS = {"fused_attn_half_bwd": ("dx", "dqkv", "dwout", "dbout", "dls",
             "flash_mha_bwd": ("dq", "dk", "dv")}
 
 
-def _times(name, kernel_fn, plain_fn) -> dict:
-    """ms and plain_ms: CUDA events over back-to-back calls; for the
-    normalize, whose host side outlasts its device side, the profiler's
-    device time, with the event times beside it."""
-    if name != "normalize_images":
-        return {"ms": _median_ms(kernel_fn), "plain_ms": _median_ms(plain_fn)}
-    return {"ms": _profiled_ms(kernel_fn), "plain_ms": _profiled_ms(plain_fn),
-            "event_ms": _median_ms(kernel_fn),
-            "plain_event_ms": _median_ms(plain_fn)}
+def _times(kernel_fn, plain_fn, library_fn) -> dict:
+    """ms, plain_ms, library_ms: torch.profiler's device time per call (the
+    kernels' summed durations), so a wrapper whose host side outlasts its
+    kernel (flash attention's, the normalize's) is timed by its kernel; the
+    CUDA-event times of back-to-back calls beside them."""
+    out = {"ms": _profiled_ms(kernel_fn), "plain_ms": _profiled_ms(plain_fn),
+           "library_ms": (None if library_fn is None
+                          else _profiled_ms(library_fn)),
+           "event_ms": _median_ms(kernel_fn),
+           "plain_event_ms": _median_ms(plain_fn)}
+    if library_fn is not None:
+        out["library_event_ms"] = _median_ms(library_fn)
+    return out
 
 
 def _kernel_fns():
@@ -455,10 +469,9 @@ def phase_kernels(card: str):
                 **({"max_abs_err_by_output": {
                     k: c[1] for k, c in zip(names, checks)}}
                    if names is not None else {}),
-                **_times(name, lambda: kernel(*args), lambda: plain(*args)),
+                **_times(lambda: kernel(*args), lambda: plain(*args), library),
                 "bound_ms": 1e3 * max(t_flops, t_bytes),
                 "bound_by": "operations" if t_flops >= t_bytes else "bytes",
-                "library_ms": None if library is None else _median_ms(library),
             })
     return entries
 

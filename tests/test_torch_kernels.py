@@ -9,7 +9,12 @@ only (conftest.py imports jax, hence --noconftest):
 Bar: atol = max|ref|/128 (one bf16 ULP at output scale), rtol = 1e-2, the
 bar tests/test_fused_attn_block.py applies to the Pallas kernels, for
 each output of each kernel (flash attention's forward and backward, the
-fused MLP and the fused block halves). Gradients through a whole block,
+fused MLP and the fused block halves). Flash attention's forward is also
+held at every edge of its 64-key tiles (L = 1, 63, 64, 65) and at the
+model lengths, at head dim 64 and 128, with its fp32 log-sum-exp within
+1e-4 of logsumexp of the plain scores; the fused MLP at rows short of, at
+and past its 128-row tiles and at widths that end on half a 128-column
+tile. Gradients through a whole block,
 kernels on against kernels off: cosine >= 0.999 per tensor. The image normalize
 against its plain version (the kernel's one FMA against a multiply and
 an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
@@ -224,9 +229,59 @@ def test_flash_kernels_match_plain(cuda, b, h, l, dh, layout):
             _assert_kernel_bar(g, r)
 
 
-@pytest.mark.parametrize("n,d,h", [(8192, 768, 3072), (37, 64, 256)])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 197, 256, 257, 384])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_fwd_kernel_and_lse_match_plain(cuda, dh, l, layout):
+    """The forward alone at every edge of its 64-key tiles (one key, one
+    short of a tile, a tile, one past it) and the model's lengths: the
+    output at the bar, and the fp32 log-sum-exp the backward reads against
+    logsumexp of the plain fp32 scores within 1e-4 (the kernel sums the
+    same exponentials in another order)."""
+    b, h = 2, 3
+    q, k, v = _flash_inputs(b, h, l, dh, layout, seed=7 * l + dh, device=cuda)
+    before = flash_attn.flash_mha.launches
+    with torch.inference_mode():
+        o, lse = flash_attn._flash_fwd(q, k, v, layout, with_lse=True)
+        ref = flash_attn.reference_flash_mha(q, k, v, layout=layout)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_mha.launches == before + 1
+    assert o.shape == q.shape and lse.shape == (b, h, l)
+    _assert_kernel_bar(o, ref)
+    qh, kh = (flash_attn._bhld(t, layout).float() for t in (q, k))
+    s = (qh @ kh.transpose(-1, -2)) * dh**-0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_function_grads_match_plain_bwd(cuda, dh):
+    """Gradients through ``_FlashMHA`` (the forward kernel's output and
+    lse feeding the backward kernels) against the plain backward."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _flash_inputs(
+        2, 4, 197, dh, "blhd", seed=dh, device=cuda))
+    ct = torch.randn(q.shape, device=cuda).bfloat16()
+    before = (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches)
+    o = flash_attn.flash_mha(q, k, v)
+    got = torch.autograd.grad(o, (q, k, v), ct)
+    torch.cuda.synchronize()
+    assert (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches
+            ) == (before[0] + 1, before[1] + 1)
+    refs = flash_attn.reference_flash_mha_bwd(q.detach(), k.detach(),
+                                              v.detach(), o.detach(), ct)
+    for g, r in zip(got, refs):
+        assert g.dtype == torch.bfloat16
+        _assert_kernel_bar(g, r)
+
+
+@pytest.mark.parametrize("n", [1, 37, 127, 8192, 8256])
+@pytest.mark.parametrize("d,h", [(768, 3072), (512, 2048), (64, 256),
+                                 (832, 3328)])
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_fused_mlp_kernel_matches_plain(cuda, n, d, h, act):
+    """Rows short of, at and past the GEMM's 128-row tiles, widths whose
+    column count is a whole number of 128-column tiles or ends on a half
+    tile (832 = 6.5 x 128; 64)."""
     x, _, _, w1, b1, w2, b2 = _mlp_args(n, d, h, seed=n + 1, device=cuda)
     with torch.inference_mode():
         before = fused_mlp.fused_mlp.launches

@@ -1,6 +1,7 @@
-// Shared device code of the flash attention forward (flash_attn_fwd.cu) and
-// backward (flash_attn_bwd.cu): tile sizes, the shared-memory layout of a
-// head's 64-row tiles and the strided tile load.
+// Device code of the flash attention backward (flash_attn_bwd.cu): tile
+// sizes, the shared-memory layout of a head's 64-row tiles and the strided
+// tile load; and the Strides of a view, which the forward
+// (flash_attn_fwd.cu) shares.
 //
 // A tensor is read as [B, H, L, dh] through its element strides over b, h
 // and l, with dh contiguous, so the model's q/k/v views of one [B, L, 3D]

@@ -11,17 +11,6 @@
 //      too, before c_proj);
 //   3. hidden @ w2 in fp32, then x + (acc + b2) in fp32, rounded once.
 // Bound on the H100: operations (two GEMMs of 2*N*D*4D FLOP each).
-//
-// A second entry point, xtag_fused_mlp, is the same kernel without LN and
-// residual:  y = c_proj(act(c_fc(x))). It replaces the Pallas kernel
-// xtagclip_tpu/ops/fused_mlp.py::_fused_mlp_fwd (:62, pallas_call :78),
-// which keeps the [256, 4D] hidden tile in VMEM. Two launches: launch 2
-// above on x itself, then hidden @ w2 in fp32, + b2, rounded once
-// (EPI_BIAS). The hidden rounds to bf16 where the Pallas kernel rounds it
-// (:74), so its round trip through device memory changes no number. Bound
-// on the H100 at the slice's shape (N = 32 * 256, 768 / 3072): operations,
-// 77.3 GFLOP, 0.078 ms at 989 TFLOP/s; its bytes (34.6 MB) take 0.010 ms.
-// It runs on the same plain WMMA GEMM as the MLP half, far from that bound.
 #include "block_common.cuh"
 
 extern "C" {
@@ -54,29 +43,6 @@ int xtag_fused_mlp_half(const void* x, const float* ln_g, const float* ln_b,
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_gemm<EPI_BIAS_RESID>(hid, static_cast<const bf16*>(w2), b2, xb,
                                   static_cast<bf16*>(out), N, D, Hd, s);
-  return static_cast<int>(e);
-}
-
-// x, out: [N, D] bf16; w1: [D, Hd] bf16; b1: [Hd] fp32; w2: [Hd, D] bf16;
-// b2: [D] fp32; act: 0 = gelu, 1 = quick_gelu. Scratch from the caller:
-// hidden [N, Hd] bf16. Returns a cudaError_t (0 = launched).
-int xtag_fused_mlp(const void* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, void* hid_ws, void* out, int N, int D, int Hd,
-                   int act, void* stream) {
-  using namespace xtag;
-  if (D % GEMM_BN != 0 || Hd % GEMM_BN != 0 || (act != 0 && act != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  bf16* hid = static_cast<bf16*>(hid_ws);
-  cudaError_t e;
-  if (act == 0)
-    e = launch_gemm<EPI_BIAS_GELU>(xb, static_cast<const bf16*>(w1), b1, nullptr, hid, N, Hd, D, s);
-  else
-    e = launch_gemm<EPI_BIAS_QGELU>(xb, static_cast<const bf16*>(w1), b1, nullptr, hid, N, Hd, D, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<EPI_BIAS>(hid, static_cast<const bf16*>(w2), b2, nullptr,
-                            static_cast<bf16*>(out), N, D, Hd, s);
   return static_cast<int>(e);
 }
 

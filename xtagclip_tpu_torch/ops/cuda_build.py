@@ -26,9 +26,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
-                  "normalize_images", "flash_attn_fwd", "flash_attn_bwd")
-# the C entry points of each library (default: xtag_<name>)
-ENTRY_POINTS = {"fused_mlp_half": ("xtag_fused_mlp_half", "xtag_fused_mlp")}
+                  "normalize_images", "flash_attn_fwd", "flash_attn_bwd",
+                  "fused_mlp")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -150,15 +149,14 @@ _ARGTYPES = {
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The kernel library ``name`` (built first if needed), with argtypes
-    declared for its entry points and ``xtag_error_string``."""
+    declared for its entry point ``xtag_<name>`` and ``xtag_error_string``."""
     if name not in KERNEL_SOURCES:
         raise KeyError(name)
     path = build_all()[name]["path"]
     lib = ctypes.CDLL(path)
-    for entry in ENTRY_POINTS.get(name, (f"xtag_{name}",)):
-        fn = getattr(lib, entry)
-        fn.argtypes = _ARGTYPES[entry]
-        fn.restype = ctypes.c_int
+    fn = getattr(lib, f"xtag_{name}")
+    fn.argtypes = _ARGTYPES[f"xtag_{name}"]
+    fn.restype = ctypes.c_int
     lib.xtag_error_string.argtypes = [ctypes.c_int]
     lib.xtag_error_string.restype = ctypes.c_char_p
     return lib

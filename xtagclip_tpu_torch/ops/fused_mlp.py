@@ -6,9 +6,10 @@ Port of xtagclip_tpu/ops/fused_mlp.py (the MLP of a block that leaves the
 fused halves, behind ``XTAG_FUSED_MLP`` there):
 
 - ``fused_mlp``: the wrapper. On a CUDA tensor it launches the sm_90a
-  kernel, the ``xtag_fused_mlp`` mode of ``csrc/fused_mlp_half.cu`` (the
-  MLP half's GEMMs without LN and residual), or raises; on a CPU tensor it
-  runs the plain version. It counts its launches in ``fused_mlp.launches``.
+  kernel of ``csrc/fused_mlp.cu`` (two launches of the TMA + wgmma GEMM of
+  ``csrc/gemm_sm90.cuh``: c_fc with bias and activation, then c_proj with
+  bias), or raises; on a CPU tensor it runs the plain version. It counts
+  its launches in ``fused_mlp.launches``.
 - ``reference_fused_mlp``: the plain version, ``maybe_fused_mlp``'s
   fallback chain (:143-148): act(x @ w1 + b1) with an fp32 product and
   fp32 bias and act, the hidden rounded to x's dtype, then @ w2 + b2 in
@@ -94,7 +95,7 @@ def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
     n = x.numel() // d
     hid = torch.empty((n, hd), dtype=bf, device=x.device)
     out = torch.empty_like(x)
-    lib = cuda_build.load("fused_mlp_half")
+    lib = cuda_build.load("fused_mlp")
     err = lib.xtag_fused_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), hid.data_ptr(), out.data_ptr(), n, d, hd,
