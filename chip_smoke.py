@@ -13,7 +13,8 @@ overrides image_size 256, pool_type avg, no_class_token: L = 256, whose
 vision blocks run flash attention and the fused MLP), in phases that each
 print one JSON line:
 
-1. build: compiles the CUDA kernels of xtagclip_tpu_torch/csrc with nvcc;
+1. build: compiles the CUDA kernels of xtagclip_tpu_torch/csrc with nvcc,
+   with ptxas's registers and spill bytes for every kernel entry;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it (and, for flash attention, at edge
    shapes: L = 128, 197, 257, 384, head dim 128), every output within
@@ -23,11 +24,15 @@ print one JSON line:
    odd-sized one; the device time of kernel and plain version
    (torch.profiler: the summed durations of the kernels one call runs,
    over 20 calls, so a wrapper whose host side outlasts its kernel is
-   timed by its kernel; the median CUDA-event time of 10 back-to-back
+   timed by its kernel, and the kernel's split by the kernels its
+   wrapper launches; the median CUDA-event time of 10 back-to-back
    calls beside it), the same for one PyTorch call computing the same
    function where there is one (scaled_dot_product_attention for flash
-   attention, forward, and forward + backward through autograd for its
-   backward), and the card's least time for the same work;
+   attention's forward; for its backward, SDPA's backward alone through
+   autograd from a forward run outside the timing, and its forward +
+   backward beside it), and the card's least time for the same work; the
+   MLP half and flash attention's backward launched twice on the same
+   inputs must give the same bits;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -184,14 +189,14 @@ def _median_ms(fn, reps: int = 7, per_rep: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def _profiled_ms(fn, calls: int = 20, warmup: int = 3) -> float:
-    """Device time of one call of ``fn``: the durations of the kernels and
-    copies it runs on the card (torch.profiler), per call. For a call whose
-    host side takes longer than its device side, where CUDA events would
-    time the host's launch gaps. The profiler can drop events: each kind
-    counts as its mean duration times its launches per call (its count
-    over ``calls``, rounded, at least one), and a window that recorded no
-    device event is traced again, up to three times."""
+def _profiled_split(fn, calls: int = 20, warmup: int = 3) -> dict:
+    """{kernel: device ms} of one call of ``fn``: the durations of the
+    kernels and copies it runs on the card (torch.profiler), per call. For
+    a call whose host side takes longer than its device side, where CUDA
+    events would time the host's launch gaps. The profiler can drop events:
+    each kind counts as its mean duration times its launches per call (its
+    count over ``calls``, rounded, at least one), and a window that recorded
+    no device event is traced again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
@@ -208,9 +213,14 @@ def _profiled_ms(fn, calls: int = 20, warmup: int = 3) -> float:
                  and not getattr(e, "is_user_annotation", False)
                  and e.count > 0]
         if kinds:
-            return sum(_device_time_us(e) / e.count
-                       * max(1, round(e.count / calls)) for e in kinds) / 1e3
+            return {e.key: _device_time_us(e) / e.count
+                    * max(1, round(e.count / calls)) / 1e3 for e in kinds}
     raise RuntimeError("torch.profiler recorded no device event in 3 windows")
+
+
+def _profiled_ms(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time of one call of ``fn`` (see _profiled_split)."""
+    return sum(_profiled_split(fn, calls, warmup).values())
 
 
 def _close(out, ref):
@@ -248,11 +258,15 @@ def _kernel_cases(gen):
         cases.append(("fused_attn_half", f"{tower} B={SERVE_BATCH} L={l} "
                       f"D={d} H={h}{' causal' if causal else ''}",
                       args, flops, nbytes, "bf16", None))
-    for tower, l, d in (("vision", 50, 768), ("text", 77, 512)):
+    # the MLP half at a serve batch's vision and text rows, and at a
+    # precompute chunk's text rows (512 prompts of 77 tokens)
+    for tower, batch, l, d in (("vision", SERVE_BATCH, 50, 768),
+                               ("text", SERVE_BATCH, 77, 512),
+                               ("text", PRECOMPUTE_BATCH, 77, 512)):
         hd = 4 * d
-        n = SERVE_BATCH * l
+        n = batch * l
         for act in ("gelu", "quick_gelu"):
-            x = rnd((SERVE_BATCH, l, d), dtype=bf)
+            x = rnd((batch, l, d), dtype=bf)
             args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, hd), d**-0.5, bf),
                     rnd(hd, 0.1), rnd((hd, d), hd**-0.5, bf), rnd(d, 0.1),
                     act, 1e-5)
@@ -330,6 +344,13 @@ def _gap_kernel_cases(gen):
         do = torch.randn(o.shape, generator=gen, device=dev).to(bf)
         leaves = [t.detach().clone().requires_grad_(True) for t in sdpa_in]
         do_t = do.transpose(1, 2)
+        with torch.inference_mode(False), torch.enable_grad():
+            sdpa_out = F.scaled_dot_product_attention(*leaves)
+
+        def sdpa_bwd(out=sdpa_out, leaves=leaves, do_t=do_t):
+            with torch.inference_mode(False), torch.enable_grad():
+                return torch.autograd.grad(out, leaves, do_t,
+                                           retain_graph=True)
 
         def sdpa_fwd_bwd(leaves=leaves, do_t=do_t):
             with torch.inference_mode(False), torch.enable_grad():
@@ -338,7 +359,8 @@ def _gap_kernel_cases(gen):
 
         cases.append(("flash_mha_bwd", shape, (q, k, v, o, lse, do, "blhd"),
                       10 * b * h * l * l * dh,
-                      8 * 2 * elems + 4 * b * h * l, "bf16", sdpa_fwd_bwd))
+                      8 * 2 * elems + 4 * b * h * l, "bf16",
+                      {"library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd}))
     n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
     for rows in (n, 37):
         for act in ("gelu", "quick_gelu"):
@@ -391,23 +413,33 @@ def _close_normalize(out, ref):
     else:
         ok, bar = err <= 2.0**-22, 2.0**-22
     return ok and bool(torch.isfinite(out).all().item()), err, bar
+# kernels whose outputs a run checks for bit-for-bit repeats
+_REPEATS = ("fused_mlp_half", "flash_mha_bwd")
 _OUTPUTS = {"fused_attn_half_bwd": ("dx", "dqkv", "dwout", "dbout", "dls",
                                      "dlb"),
             "flash_mha_bwd": ("dq", "dk", "dv")}
 
 
-def _times(kernel_fn, plain_fn, library_fn) -> dict:
+def _times(kernel_fn, plain_fn, library) -> dict:
     """ms, plain_ms, library_ms: torch.profiler's device time per call (the
     kernels' summed durations), so a wrapper whose host side outlasts its
-    kernel (flash attention's, the normalize's) is timed by its kernel; the
-    CUDA-event times of back-to-back calls beside them."""
-    out = {"ms": _profiled_ms(kernel_fn), "plain_ms": _profiled_ms(plain_fn),
-           "library_ms": (None if library_fn is None
-                          else _profiled_ms(library_fn)),
+    kernel (flash attention's, the normalize's) is timed by its kernel;
+    ms_by_kernel: ms split by the kernels the wrapper launches; the
+    CUDA-event times of back-to-back calls beside them. ``library`` is None,
+    one PyTorch call, or {key: call} timed as ``<key>_ms`` (``library`` is
+    the yardstick; flash attention's backward also times SDPA's forward and
+    backward together as ``library_fwd_bwd``)."""
+    libs = library if isinstance(library, dict) else {"library": library}
+    split = _profiled_split(kernel_fn)
+    out = {"ms": sum(split.values()),
+           "ms_by_kernel": {k[:90]: v for k, v in split.items()},
+           "plain_ms": _profiled_ms(plain_fn),
            "event_ms": _median_ms(kernel_fn),
            "plain_event_ms": _median_ms(plain_fn)}
-    if library_fn is not None:
-        out["library_event_ms"] = _median_ms(library_fn)
+    for key, fn in libs.items():
+        out[f"{key}_ms"] = None if fn is None else _profiled_ms(fn)
+        if fn is not None:
+            out[f"{key}_event_ms"] = _median_ms(fn)
     return out
 
 
@@ -455,6 +487,12 @@ def phase_kernels(card: str):
                     f"{name} [{shape}]: kernel disagrees with its plain "
                     f"version in outputs {bad}: (ok, max abs err, atol) "
                     f"{checks} (rtol 1e-2)")
+            if name in _REPEATS:  # no atomics: a second launch, same bits
+                again = kernel(*args)
+                again = again if isinstance(again, tuple) else (again,)
+                if not all(torch.equal(a, o) for a, o in zip(again, outs)):
+                    raise AssertionError(f"{name} [{shape}]: two launches "
+                                         "on the same inputs differ")
             err = max(c[1] for c in checks)
             names = _OUTPUTS.get(name)
             atol = (checks[0][2] if names is None else
@@ -466,6 +504,7 @@ def phase_kernels(card: str):
                 "peak_type": kind,
                 "source": source, "replaces": replaces, "launches": None,
                 "max_abs_err": err, "atol": atol,
+                **({"repeats_bit_for_bit": True} if name in _REPEATS else {}),
                 **({"max_abs_err_by_output": {
                     k: c[1] for k, c in zip(names, checks)}}
                    if names is not None else {}),
@@ -1334,6 +1373,31 @@ def phase_gap_trainer(card: str):
     return counts
 
 
+def _ptxas_report(built: dict) -> dict:
+    """{kernel entry: [registers, spill store bytes, spill load bytes]} from
+    nvcc's -Xptxas -v report of one library (its .log beside it)."""
+    import re
+    from pathlib import Path
+
+    log = built["log"] or Path(built["path"]).with_suffix(".log").read_text()
+    out, entry, spills = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = [int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            out[entry] = [int(m.group(1)), *(spills or [0, 0])]
+            entry, spills = None, None
+    return out
+
+
 def _device_time_us(evt) -> float:
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, attr):
@@ -1420,7 +1484,8 @@ def main(argv=()) -> int:
     built = cuda_build.build_all()
     _emit({"phase": "build", "card": card,
            "seconds": time.perf_counter() - t0,
-           "kernels": {k: v["path"] for k, v in built.items()}})
+           "kernels": {k: v["path"] for k, v in built.items()},
+           "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
 
     entries = phase_kernels(card)
     b32, gap = _paths()["b32"], _paths()["gap"]

@@ -9,12 +9,14 @@ only (conftest.py imports jax, hence --noconftest):
 Bar: atol = max|ref|/128 (one bf16 ULP at output scale), rtol = 1e-2, the
 bar tests/test_fused_attn_block.py applies to the Pallas kernels, for
 each output of each kernel (flash attention's forward and backward, the
-fused MLP and the fused block halves). Flash attention's forward is also
-held at every edge of its 64-key tiles (L = 1, 63, 64, 65) and at the
-model lengths, at head dim 64 and 128, with its fp32 log-sum-exp within
-1e-4 of logsumexp of the plain scores; the fused MLP at rows short of, at
-and past its 128-row tiles and at widths that end on half a 128-column
-tile. Gradients through a whole block,
+fused MLP and the fused block halves). Flash attention's forward and
+backward are also held at every edge of their 64-row tiles (L = 1, 63,
+64, 65) and at the model lengths, at head dim 64 and 128, the forward's
+fp32 log-sum-exp within 1e-4 of logsumexp of the plain scores; the fused
+MLP at rows short of, at and past its 128-row tiles and at widths that
+end on half a 128-column tile; the MLP half at every row count of the
+main paths and under a large residual. The flash backward and the MLP
+half repeat bit for bit. Gradients through a whole block,
 kernels on against kernels off: cosine >= 0.999 per tensor. The image normalize
 against its plain version (the kernel's one FMA against a multiply and
 an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
@@ -96,10 +98,13 @@ def test_attn_kernel_matches_plain(cuda, b, l, d, h, causal):
     _assert_kernel_bar(out, ref)
 
 
-@pytest.mark.parametrize("n,d,h", [(1600, 768, 3072), (2464, 512, 2048),
-                                   (37, 64, 256)])
+@pytest.mark.parametrize("n", [1, 37, 1600, 2464, 39424])
+@pytest.mark.parametrize("d,h", [(768, 3072), (512, 2048), (64, 256)])
 @pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
 def test_mlp_kernel_matches_plain(cuda, n, d, h, act):
+    """Every row count the main paths give #2 (one row, a ragged 37, the
+    ViT-B-32 vision and text rows of a serve batch, a 512-prompt precompute
+    chunk) at every width, so both the 128- and 64-wide output tiles run."""
     args = _mlp_args(n, d, h, seed=n, device=cuda)
     with torch.inference_mode():
         before = fab.fused_mlp_half.launches
@@ -108,6 +113,28 @@ def test_mlp_kernel_matches_plain(cuda, n, d, h, act):
         ref = fab.reference_mlp_half(*args, act, 1e-5)
     torch.cuda.synchronize()
     _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("n,d,h", [(1600, 768, 3072), (2464, 512, 2048)])
+def test_mlp_kernel_matches_plain_with_large_residual(cuda, n, d, h):
+    """A residual stream 100x the MLP's output (LN takes its scale away):
+    the epilogue adds x + (acc + b2) in fp32 and rounds once."""
+    args = _mlp_args(n, d, h, seed=n + 5, device=cuda)
+    args[0] = (args[0].float() * 100).bfloat16()
+    with torch.inference_mode():
+        out = fab.fused_mlp_half(*args, "gelu", 1e-5)
+        ref = fab.reference_mlp_half(*args, "gelu", 1e-5)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def test_mlp_kernel_repeats_bit_for_bit(cuda):
+    args = _mlp_args(2464, 512, 2048, seed=11, device=cuda)
+    with torch.inference_mode():
+        a = fab.fused_mlp_half(*args, "gelu", 1e-5)
+        b = fab.fused_mlp_half(*args, "gelu", 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("b,l,d,h,causal", [
@@ -252,6 +279,56 @@ def test_flash_fwd_kernel_and_lse_match_plain(cuda, dh, l, layout):
     s = (qh @ kh.transpose(-1, -2)) * dh**-0.5
     torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=1e-5,
                                atol=1e-4)
+
+
+def _flash_slices(b, h, l, dh, layout, seed, device):
+    """q, k, v as strided column-slice views in either layout: slices of
+    one [B, L, 3 H dh] projection (blhd) or of one [B, H, L, 3 dh] tensor
+    (bhld)."""
+    if layout == "blhd":
+        return _flash_inputs(b, h, l, dh, layout, seed, device)
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.standard_normal((b, h, l, 3 * dh)).astype(
+        np.float32)).to(device, torch.bfloat16)
+    return list(qkv.split(dh, dim=-1))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 197, 256, 257, 384])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_bwd_kernel_matches_plain(cuda, dh, l, layout):
+    """The backward alone at every length the forward is held at, both
+    head dims and both layouts, q, k, v strided column slices: dq, dk, dv
+    at the bar (for one key, dq and dk are 0 up to rounding noise)."""
+    b, h = 2, 3
+    q, k, v = _flash_slices(b, h, l, dh, layout, seed=5 * l + dh, device=cuda)
+    assert q.stride(-1) == 1 and not q.is_contiguous()
+    o, lse = flash_attn._flash_fwd(q, k, v, layout, with_lse=True)
+    do = torch.from_numpy(np.random.default_rng(l).standard_normal(
+        tuple(o.shape)).astype(np.float32)).to(cuda, torch.bfloat16)
+    before = flash_attn.flash_mha_bwd.launches
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, layout)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_mha_bwd.launches == before + 1
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        if l == 1 and name != "dv":
+            assert g.float().abs().max().item() <= 1e-5
+        else:
+            _assert_kernel_bar(g, r)
+
+
+def test_flash_bwd_kernel_repeats_bit_for_bit(cuda):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v = _flash_inputs(4, 12, 256, 64, "blhd", seed=9, device=cuda)
+    o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+    do = torch.randn(o.shape, device=cuda).bfloat16()
+    first = flash_attn.flash_mha_bwd(q, k, v, o, lse, do)
+    second = flash_attn.flash_mha_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("dh", [64, 128])

@@ -1,7 +1,7 @@
-// Shared device code for the fused block halves (fused_attn_half.cu,
-// fused_mlp_half.cu) and the attention half's backward
-// (fused_attn_half_bwd.cu): a row LayerNorm and a bf16 tensor-core GEMM
-// with the operand layouts and epilogues they need. Numerics follow the contract of the Pallas
+// Shared device code for the fused attention half (fused_attn_half.cu)
+// and its backward (fused_attn_half_bwd.cu): the row LayerNorm of
+// ln_rows.cuh and a bf16 tensor-core GEMM with the operand layouts and
+// epilogues they need. Numerics follow the contract of the Pallas
 // kernels in xtagclip_tpu/ops/fused_attn_block.py:20-25: LN statistics in
 // fp32 (two-pass variance), every product accumulated in fp32, biases,
 // activations and residual adds in fp32, one rounding to bf16 per output.
@@ -26,16 +26,12 @@
 
 #include <type_traits>
 
+#include "ln_rows.cuh"
+
 namespace xtag {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -43,41 +39,11 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// y[r] = bf16(((x[r] - mean) * rsqrt(var + eps)) * g + b), one warp a row.
-// Two-pass variance over the fp32 row, as fused_attn_block.py:458-463.
-constexpr int LN_THREADS = 128;
-
-__global__ void __launch_bounds__(LN_THREADS)
-ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ b, bf16* __restrict__ y,
-               int n_rows, int d, float eps) {
-  const int row = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= n_rows) return;
-  const bf16* xr = x + (size_t)row * d;
-  bf16* yr = y + (size_t)row * d;
-  float s = 0.f;
-  for (int i = lane; i < d; i += 32) s += __bfloat162float(xr[i]);
-  const float mean = warp_sum(s) / (float)d;
-  float v = 0.f;
-  for (int i = lane; i < d; i += 32) {
-    const float t = __bfloat162float(xr[i]) - mean;
-    v += t * t;
-  }
-  const float rstd = rsqrtf(warp_sum(v) / (float)d + eps);
-  for (int i = lane; i < d; i += 32) {
-    const float t = (__bfloat162float(xr[i]) - mean) * rstd;
-    yr[i] = __float2bfloat16(t * g[i] + b[i]);
-  }
-}
-
 enum Epilogue : int {
   EPI_BIAS = 0,        // C = bf16(acc + bias)
-  EPI_BIAS_GELU = 1,   // C = bf16(gelu(acc + bias)), exact erf gelu
-  EPI_BIAS_QGELU = 2,  // C = bf16(quick_gelu(acc + bias))
-  EPI_BIAS_RESID = 3,  // C = bf16(resid + (acc + bias))
-  EPI_NONE = 4,        // C = bf16(acc)
-  EPI_F32 = 5,         // C = acc, fp32
+  EPI_BIAS_RESID = 1,  // C = bf16(resid + (acc + bias))
+  EPI_NONE = 2,        // C = bf16(acc)
+  EPI_F32 = 3,         // C = acc, fp32
 };
 
 constexpr int GEMM_BM = 64;
@@ -97,13 +63,6 @@ constexpr int GEMM_TILE_ELEMS = GEMM_BM * GEMM_A_LD > GEMM_BK * GEMM_AT_LD
                                     ? GEMM_BM * GEMM_A_LD : GEMM_BK * GEMM_AT_LD;
 static_assert(GEMM_BK * GEMM_B_LD <= GEMM_TILE_ELEMS &&
               GEMM_BN * GEMM_BT_LD <= GEMM_TILE_ELEMS, "tile buffer size");
-
-template <int EPI>
-__device__ __forceinline__ float epilogue(float v) {
-  if (EPI == EPI_BIAS_GELU) return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-  if (EPI == EPI_BIAS_QGELU) return v / (1.0f + expf(-1.702f * v));
-  return v;
-}
 
 // C[M,N] = epi(op(A) @ op(B) + bias[N] (+ resid[M,N])). op(A) is A [M,K]
 // row-major, or with A_T the transpose of A given as [K,M] row-major; op(B)
@@ -226,11 +185,7 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
       continue;
     }
     if (EPI != EPI_NONE) v += bias[n0 + c];
-    if (EPI == EPI_BIAS_RESID) {
-      v = __bfloat162float(resid[off]) + v;
-    } else {
-      v = epilogue<EPI>(v);
-    }
+    if (EPI == EPI_BIAS_RESID) v = __bfloat162float(resid[off]) + v;
     static_cast<bf16*>(C)[off] = __float2bfloat16(v);
   }
 }
@@ -241,14 +196,6 @@ inline cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias,
                                cudaStream_t stream) {
   dim3 grid(N / GEMM_BN, (M + GEMM_BM - 1) / GEMM_BM);
   gemm_bf16_kernel<EPI, A_T, B_T><<<grid, GEMM_THREADS, 0, stream>>>(A, B, bias, resid, C, M, N, K);
-  return cudaGetLastError();
-}
-
-inline cudaError_t launch_ln(const bf16* x, const float* g, const float* b, bf16* y,
-                             int n_rows, int d, float eps, cudaStream_t stream) {
-  const int rows_per_block = LN_THREADS / 32;
-  dim3 grid((n_rows + rows_per_block - 1) / rows_per_block);
-  ln_rows_kernel<<<grid, LN_THREADS, 0, stream>>>(x, g, b, y, n_rows, d, eps);
   return cudaGetLastError();
 }
 

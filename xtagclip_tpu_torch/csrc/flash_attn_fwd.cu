@@ -44,7 +44,6 @@
 //   as 16-byte stores; the lse as fp32.
 // Shared memory: 65 KB a block at dh = 64, 97 KB at dh = 128.
 #include "flash_common.cuh"
-#include "hopper.cuh"
 
 namespace xtag {
 namespace fa_fwd {
@@ -72,39 +71,6 @@ struct Smem {
   static constexpr size_t BYTES =
       (size_t)2 * Q_BYTES + 2 * STAGES * KV_BYTES + (4 + 2 * STAGES) * 8 + 1024;
 };
-
-// A tile of ``rows`` rows of one (b, h) slice is DH / 64 TMA boxes of
-// [rows x 64] (128-byte rows, 128-byte swizzle), panel after panel: the
-// canonical layout wgmma reads, K-major along a row and N-major down the
-// rows. Element offset of (row, col) in such a tile:
-template <int ROWS>
-__device__ __forceinline__ int pan(int row, int col) {
-  return (col >> 6) * (ROWS * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) +
-         (col & 7);
-}
-
-// The tensor map of a [B, H, L, dh] view lists its dims by stride: dh, then
-// h before l when h's stride is the smaller (the model's [B, L, 3D]
-// projection), b last.
-__device__ __forceinline__ void load_box(const CUtensorMap* map, bool h_first, void* dst,
-                                         uint64_t* bar, int col, int row, int h, int b) {
-  if (h_first)
-    sm90::tma_load_4d(dst, map, bar, col, h, row, b);
-  else
-    sm90::tma_load_4d(dst, map, bar, col, row, h, b);
-}
-
-// 2^x (the MUFU instruction; exp(y) is computed as 2^(y log2 e))
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int DH>
 __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
@@ -393,28 +359,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     __syncwarp();
     if (lane == 0) mbar_arrive(&q_empty[qb]);
   }
-}
-
-// The tensor map of a [B, H, L, DH] bf16 view with element strides ``st``,
-// read in boxes of [rows x 64]; sets ``h_first`` when h's stride is below
-// l's (see load_box). False if cuTensorMapEncodeTiled refuses it.
-inline bool make_view_map(CUtensorMap* map, const bf16* ptr, const Strides& st, int B, int H,
-                          int L, int DH, int rows, bool* h_first) {
-  sm90::EncodeTiledFn encode = sm90::encode_tiled();
-  if (encode == nullptr) return false;
-  *h_first = st.h < st.l;
-  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)(*h_first ? H : L),
-                              (cuuint64_t)(*h_first ? L : H), (cuuint64_t)B};
-  const long long s1 = *h_first ? st.h : st.l;
-  const long long s2 = *h_first ? st.l : st.h;
-  const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)(*h_first ? 1 : rows),
-                             (cuuint32_t)(*h_first ? rows : 1), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

@@ -1,73 +1,73 @@
-// Device code of the flash attention backward (flash_attn_bwd.cu): tile
-// sizes, the shared-memory layout of a head's 64-row tiles and the strided
-// tile load; and the Strides of a view, which the forward
-// (flash_attn_fwd.cu) shares.
+// Device code that flash attention's forward (flash_attn_fwd.cu) and
+// backward (flash_attn_bwd.cu) share: the Strides of a [B, H, L, dh] view,
+// the tensor maps that TMA reads such views through, the shared-memory
+// layout of the tiles it writes, and two register helpers.
 //
 // A tensor is read as [B, H, L, dh] through its element strides over b, h
 // and l, with dh contiguous, so the model's q/k/v views of one [B, L, 3D]
 // projection (BLHD) and BHLD tensors both load without a copy. Rows past L
-// load as zero; the kernels mask the scores of keys past L themselves.
+// load as zero (TMA's out-of-bounds fill).
 #pragma once
 
-#include "block_common.cuh"
+#include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace xtag {
 
-constexpr int FA_TILE = 64;     // query rows and key rows per tile
-constexpr int FA_THREADS = 128; // four warps, 16 rows each
-constexpr int FA_WARPS = FA_THREADS / 32;
+using bf16 = __nv_bfloat16;
 
 struct Strides {  // element strides of a [B, H, L, dh] view
   long long b, h, l;
 };
 
-// Padded leading dimensions (elements): multiples of 8 bf16 / 4 fp32 as
-// WMMA needs, every 16-row fragment start on a 32-byte boundary.
-template <int DH>
-struct FaLayout {
-  static constexpr int LD = DH + 8;         // bf16 [64 x DH] tiles (q, k, v, dO)
-  static constexpr int S_LD = FA_TILE + 4;  // fp32 [64 x 64] scores
-  static constexpr int P_LD = FA_TILE + 8;  // bf16 [64 x 64] probabilities
-  static constexpr int O_LD = DH + 4;       // fp32 [64 x DH] accumulators
-  static constexpr size_t TILE_BYTES = (size_t)FA_TILE * LD * 2;
-  static constexpr size_t S_BYTES = (size_t)FA_TILE * S_LD * 4;
-  static constexpr size_t P_BYTES = (size_t)FA_TILE * P_LD * 2;
-  static constexpr size_t O_BYTES = (size_t)FA_TILE * O_LD * 4;
-};
+// A tile of rows of one (b, h) slice is DH / 64 TMA boxes of [rows x 64]
+// (hopper.cuh's pan layout).
+using sm90::pan;
 
-// Rows row0..row0+63 of one (b, h) slice into a [64 x DH] smem tile with
-// leading dimension ld: 16-byte vectors, neighbouring threads on
-// neighbouring addresses within a row; rows >= L are zero.
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long long row_stride, int row0, int L) {
-  constexpr int VPR = DH / 8;  // vectors per row
-  for (int v = threadIdx.x; v < FA_TILE * VPR; v += FA_THREADS) {
-    const int r = v / VPR;
-    const int c = (v % VPR) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
+// The tensor map of a [B, H, L, dh] view lists its dims by stride: dh, then
+// h before l when h's stride is the smaller (the model's [B, L, 3D]
+// projection), b last.
+__device__ __forceinline__ void load_box(const CUtensorMap* map, bool h_first, void* dst,
+                                         uint64_t* bar, int col, int row, int h, int b) {
+  if (h_first)
+    sm90::tma_load_4d(dst, map, bar, col, h, row, b);
+  else
+    sm90::tma_load_4d(dst, map, bar, col, row, h, b);
 }
 
-// A warp's 16 x 16 product tile of two [64 x DH] smem tiles, A rows times
-// B rows transposed (S = Q K^T, dP = dO V^T), stored fp32 at dst.
-template <int DH>
-__device__ __forceinline__ void tile_abt(const bf16* a, const bf16* b, float* dst, int ld_dst) {
-  constexpr int LD = FaLayout<DH>::LD;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-    wmma::load_matrix_sync(fa, a + kk, LD);
-    wmma::load_matrix_sync(fb, b + kk, LD);
-    wmma::mma_sync(acc, fa, fb, acc);
-  }
-  wmma::store_matrix_sync(dst, acc, ld_dst, wmma::mem_row_major);
+// 2^x (the MUFU instruction; exp(y) is computed as 2^(y log2 e))
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The tensor map of a [B, H, L, DH] bf16 view with element strides ``st``,
+// read in boxes of [rows x 64]; sets ``h_first`` when h's stride is below
+// l's (see load_box). False if cuTensorMapEncodeTiled refuses it.
+inline bool make_view_map(CUtensorMap* map, const bf16* ptr, const Strides& st, int B, int H,
+                          int L, int DH, int rows, bool* h_first) {
+  sm90::EncodeTiledFn encode = sm90::encode_tiled();
+  if (encode == nullptr) return false;
+  *h_first = st.h < st.l;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)(*h_first ? H : L),
+                              (cuuint64_t)(*h_first ? L : H), (cuuint64_t)B};
+  const long long s1 = *h_first ? st.h : st.l;
+  const long long s2 = *h_first ? st.l : st.h;
+  const cuuint64_t strides[3] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)(*h_first ? 1 : rows),
+                             (cuuint32_t)(*h_first ? rows : 1), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace xtag

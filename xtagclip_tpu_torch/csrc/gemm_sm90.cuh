@@ -1,31 +1,50 @@
-// A Hopper bf16 GEMM with a fused epilogue, for the fused MLP (fused_mlp.cu):
+// A Hopper bf16 GEMM with a fused epilogue, for the fused MLP (fused_mlp.cu)
+// and the MLP half of the fused block (fused_mlp_half.cu):
 //   C[M, N] = epi(A[M, K] @ B[K, N] + bias[N])
 // A row-major (K contiguous), B row-major (N contiguous, the flax [in, out]
 // weight as it is stored), bias fp32, C bf16 row-major. The epilogue adds the
-// bias in fp32 and applies the exact erf gelu or quick_gelu in fp32 (or
-// nothing), then rounds once to bf16: the numerics of block_common.cuh's
+// bias in fp32 and applies the exact erf gelu or quick_gelu in fp32, or adds
+// a bf16 residual R[M, N] in fp32 as resid + (acc + bias) (the Pallas
+// kernel's (x32 + (dot + b2)), xtagclip_tpu/ops/fused_attn_block.py:826-829),
+// or nothing, then rounds once to bf16: the numerics of block_common.cuh's
 // WMMA GEMM, which the fused halves keep.
 //
 // Design (what the card offers that the WMMA GEMM did not use):
-// - a persistent grid, one block an SM, walking 128 x 128 output tiles
-//   (128 x 256 was no faster);
-// - a ring of 4 shared-memory stages (128 KB), each a 128 x 64 tile of A
-//   and a 64 x 128 tile of B, filled by TMA (cp.async.bulk.tensor,
+// - a persistent grid, one block an SM, walking 128 x BN output tiles
+//   (BN 128, or 64 where pick_bn finds the narrower tiles faster; 128 x
+//   256 was no faster). Each output element sums its K products in the
+//   same order whatever BN is (no split of K), so BN changes no number;
+// - a ring of 4 shared-memory stages (128 KB at BN 128, and 64 KB of
+//   output tiles beside it), each a 128 x 64
+//   tile of A and a 64 x BN tile of B, filled by TMA (cp.async.bulk.tensor,
 //   128-byte swizzle) from one producer thread, with mbarrier completion
-//   (full barriers: TMA bytes; empty barriers: one arrival per consumer
-//   warp); the producer runs ahead across tiles, so the next tile's loads
-//   overlap this tile's epilogue (a 192 KB ring was slower);
-// - two consumer warpgroups, 64 rows each, running wgmma m64n128k16 with the
-//   sums in registers and one wgmma group kept in flight; setmaxnreg moves
+//   (full barriers: TMA bytes; empty barriers: one arrival per warp of the
+//   warpgroup that consumes the stage); the producer runs ahead across
+//   tiles, so the next tile's loads overlap this tile's epilogue (a 192 KB
+//   ring was slower);
+// - two consumer warpgroups in ping-pong: each takes every other tile of
+//   the block and runs all 128 rows of it (two wgmma m64nBNk16 a k-step,
+//   the sums in registers, one wgmma group kept in flight), so one
+//   warpgroup's epilogue overlaps the other's products; setmaxnreg moves
 //   registers from the producer to them;
 // - B read N-major through wgmma's transpose bit (a 16-bit type allows it),
 //   so the weights are used as stored, with no transposed copy;
-// - the epilogue in registers: bias, activation, one bf16 rounding, 4-byte
-//   stores masked to rows < M and columns < N. TMA zero-fills what lies
-//   past M, N or K, so ragged edges need no special path.
-// What holds it back: the epilogue does not overlap the same block's
-// products, which costs the c_fc product with its erff gelu most (short K
-// of 768, a [N, 3072] output).
+// - the epilogue: bias, activation or residual in fp32 on the registers,
+//   one bf16 rounding, written into a [128 x BN] output tile in shared
+//   memory (one per consumer) that TMA stores, so the warpgroup goes on to
+//   its next tile while the store drains (4-byte stores straight from the
+//   registers had held the warpgroup up); the residual tile arrives in the
+//   same buffer by TMA under the products. TMA zero-fills what lies past
+//   M, N or K on loads and clips stores, so ragged edges need no special
+//   path.
+// What holds it back (measured on the H100, chip_smoke.py's ms_by_kernel):
+// at #2's precompute chunk (M = 39424) c_proj (K = 2048, bias + residual)
+// reaches 55% of the bf16 peak at 128 x 128 tiles (152 us). c_fc does the
+// same products at K = 512 and takes 263 us (32%): its epilogue, the exact
+// erff gelu on the CUDA cores over 4x c_proj's output elements, costs
+// about as much as their 1024 tensor-core FLOP each, and the ping-pong
+// hides little of it. A block with a single tile (the serve shapes'
+// c_proj) has no second tile to overlap its epilogue with.
 // Needs K % 64 == 0, N % 64 == 0, 16-byte aligned rows (checked by the
 // caller). The tensor maps are encoded on the host through
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint: no -lcuda.
@@ -41,19 +60,28 @@ namespace sm90 {
 using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;          // output rows per tile: two warpgroups of 64
-constexpr int BN = 128;          // output columns per tile
 constexpr int BK = 64;           // K per stage: one 128-byte swizzle row
 constexpr int CONSUMERS = 2;     // consumer warpgroups
 constexpr int THREADS = 128 * (CONSUMERS + 1);  // + one producer warpgroup
 constexpr int A_BYTES = BM * BK * 2;            // 16 KB
+constexpr int STAGES = 4;
 constexpr int B_HALF_BYTES = BK * 64 * 2;       // 8 KB: 64 k rows x 64 columns
-constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * B_HALF_BYTES;
-constexpr int STAGES = 4;                       // a 128 KB ring
-constexpr size_t SMEM_BYTES = (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
 constexpr int PRODUCER_REGS = 40;               // registers a thread after setmaxnreg
 constexpr int CONSUMER_REGS = 232;
 
-enum Epilogue : int { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_QGELU = 2 };
+// a stage: the A tile and BN / 64 column blocks of the B tile; an output
+// tile staged for its TMA store: [BM x BN] bf16, one per consumer
+template <int BN>
+__host__ __device__ constexpr int stage_bytes() { return A_BYTES + (BN / 64) * B_HALF_BYTES; }
+template <int BN>
+__host__ __device__ constexpr int out_bytes() { return BM * BN * 2; }
+template <int BN>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return (size_t)STAGES * stage_bytes<BN>() + (size_t)CONSUMERS * out_bytes<BN>() +
+         (2 * STAGES + 2 * CONSUMERS) * 8 + 1024;
+}
+
+enum Epilogue : int { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_QGELU = 2, EPI_BIAS_RESID = 3 };
 
 template <int EPI>
 __device__ __forceinline__ float activate(float v) {
@@ -62,17 +90,37 @@ __device__ __forceinline__ float activate(float v) {
   return v;
 }
 
+// The epilogue of a pair (c0, c1) of an output row, in place at ``out``:
+// the residual pair there (EPI_BIAS_RESID) + (acc + bias), or act(acc +
+// bias), rounded once to bf16.
 template <int EPI>
+__device__ __forceinline__ void finish(float a0, float a1, float b0, float b1, bf16* out) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out);
+  if (EPI == EPI_BIAS_RESID) {
+    const float2 r = __bfloat1622float2(*o);
+    *o = __floats2bfloat162_rn(r.x + (a0 + b0), r.y + (a1 + b1));
+  } else {
+    *o = __floats2bfloat162_rn(activate<EPI>(a0 + b0), activate<EPI>(a1 + b1));
+  }
+}
+
+template <int EPI, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
-                 const float* __restrict__ bias, bf16* __restrict__ C, int M, int N, int K) {
+                 const __grid_constant__ CUtensorMap map_c,
+                 const __grid_constant__ CUtensorMap map_r, const float* __restrict__ bias,
+                 int M, int N, int K) {
+  constexpr int STAGE_BYTES = stage_bytes<BN>();
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: stage bases on that grid
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  unsigned char* outs = smem + STAGES * STAGE_BYTES;  // [CONSUMERS] output tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(outs + CONSUMERS * out_bytes<BN>());
   uint64_t* empty = full + STAGES;
+  uint64_t* turn = empty + STAGES;       // [CONSUMERS]: whose products run next
+  uint64_t* resid_full = turn + CONSUMERS;  // [CONSUMERS]: a residual tile has landed
 
   const int wg = threadIdx.x >> 7;
   const int n_tiles = (N + BN - 1) / BN;
@@ -82,7 +130,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS * 4);
+      mbar_init(&empty[s], 4);  // one arrival per warp of the consuming warpgroup
+    }
+    for (int w = 0; w < CONSUMERS; ++w) {
+      mbar_init(&turn[w], 4);
+      mbar_init(&resid_full[w], 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -114,73 +166,102 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       }
     }
   } else {
-    // consumers: warpgroup wg owns rows wg * 64 .. wg * 64 + 63 of a tile
+    // consumers, in ping-pong: warpgroup wg takes every other tile of the
+    // block's sequence and computes all 128 rows of it, so one warpgroup's
+    // epilogue runs while the other's products run. The turn barriers
+    // order the two main loops: a warpgroup waits on the ring's stages of
+    // its tile only once the other has passed those of the tile before
+    // (an mbarrier parity wait must not run more than one phase ahead).
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
     const int warp = (threadIdx.x >> 5) & 3;
     const int lane = threadIdx.x & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    int stage = 0;
-    uint32_t phase = 0;
-    float d[BN / 2];
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float d[2][BN / 2];  // rows 0-63 and 64-127 of the tile
+    bf16* out = reinterpret_cast<bf16*>(outs + wg * out_bytes<BN>());
+    const bool leader = (threadIdx.x & 127) == 0;
+    for (int n = wg, tile = blockIdx.x + wg * gridDim.x; tile < tiles;
+         n += CONSUMERS, tile += CONSUMERS * gridDim.x) {
       const int m0 = (tile / n_tiles) * BM;
       const int n0 = (tile % n_tiles) * BN;
-      int prev = -1;
+      const int panels = (N - n0) / 64 < BN / 64 ? (N - n0) / 64 : BN / 64;  // inside N
+      if (leader) {
+        // the previous tile's store has read the output tile; for
+        // EPI_BIAS_RESID the residual tile lands there under the products
+        bulk_wait<0, true>();
+        if (EPI == EPI_BIAS_RESID) {
+          mbar_expect_tx(&resid_full[wg], panels * BM * 64 * 2);
+          for (int p = 0; p < panels; ++p)
+            tma_load_2d(out + p * BM * 64, &map_r, &resid_full[wg], n0 + 64 * p, m0);
+        }
+      }
+      if (n > 0) mbar_wait(&turn[wg], ((n - 1) / CONSUMERS) & 1);
+      const int pos0 = n * k_steps;  // the tile's first stage in the ring's sequence
       for (int ks = 0; ks < k_steps; ++ks) {
-        mbar_wait(&full[stage], phase);
-        const uint32_t a_addr = smem_u32(smem + stage * STAGE_BYTES) + wg * (64 * 128);
+        const int pos = pos0 + ks;
+        const int stage = pos % STAGES;
+        mbar_wait(&full[stage], (pos / STAGES) & 1);
+        const uint32_t a_addr = smem_u32(smem + stage * STAGE_BYTES);
         const uint32_t b_addr = smem_u32(smem + stage * STAGE_BYTES + A_BYTES);
-        fence_operands(d);
+        fence_operands(d[0]);
+        fence_operands(d[1]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
-          // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart;
-          //    a k-step of 16 is 32 bytes along the swizzled row.
+          // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart, the
+          //    second 64 rows 8 KB on; a k-step of 16 is 32 bytes along the
+          //    swizzled row.
           // B: N-major; 64-column blocks 8 KB apart (leading offset), 8-row
           //    k groups 1024 bytes apart (stride offset); a k-step is 16
           //    rows, 2048 bytes.
-          wgmma_ss<1>(d, wgmma_desc(a_addr + kk * 32, 16, 1024),
-                       wgmma_desc(b_addr + kk * 2048, B_HALF_BYTES, 1024),
-                       (ks > 0 || kk > 0) ? 1 : 0);
+          const uint64_t db = wgmma_desc(b_addr + kk * 2048, B_HALF_BYTES, 1024);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            wgmma_ss<1>(d[h], wgmma_desc(a_addr + h * (64 * 128) + kk * 32, 16, 1024), db,
+                        (ks > 0 || kk > 0) ? 1 : 0);
         }
         wgmma_commit();
-        fence_operands(d);
-        if (prev >= 0) {
+        fence_operands(d[0]);
+        fence_operands(d[1]);
+        if (ks > 0) {
           wgmma_wait<1>();  // the previous stage's products are done
-          if (lane == 0) mbar_arrive(&empty[prev]);
-        }
-        prev = stage;
-        if (++stage == STAGES) {
-          stage = 0;
-          phase ^= 1;
+          if (lane == 0) mbar_arrive(&empty[(pos - 1) % STAGES]);
         }
       }
+      if (lane == 0) mbar_arrive(&turn[(wg + 1) % CONSUMERS]);  // the other's turn
       wgmma_wait<0>();
-      fence_operands(d);
-      if (lane == 0) mbar_arrive(&empty[prev]);
+      fence_operands(d[0]);
+      fence_operands(d[1]);
+      if (lane == 0) mbar_arrive(&empty[(pos0 + k_steps - 1) % STAGES]);
 
       // epilogue: fragment (row g or g + 8, columns 8 j + 2 t, + 1) of this
-      // warp's 16 rows
-      const int row = m0 + wg * 64 + warp * 16 + g;
+      // warp's 16 rows in each half, into the output tile (pan layout,
+      // conflict-free under the swizzle), then TMA stores it, clipped to M
+      if (EPI == EPI_BIAS_RESID)
+        mbar_wait(&resid_full[wg], ((n - wg) / CONSUMERS) & 1);
+      else
+        named_barrier(1 + wg, 128);  // the leader saw the last store read the tile
 #pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int col = n0 + 8 * j + 2 * t;
-        if (col >= N) continue;
-        const float b0 = __ldg(bias + col);
-        const float b1 = __ldg(bias + col + 1);
-        if (row < M)
-          *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
-              __floats2bfloat162_rn(activate<EPI>(d[4 * j] + b0),
-                                    activate<EPI>(d[4 * j + 1] + b1));
-        if (row + 8 < M)
-          *reinterpret_cast<__nv_bfloat162*>(C + (size_t)(row + 8) * N + col) =
-              __floats2bfloat162_rn(activate<EPI>(d[4 * j + 2] + b0),
-                                    activate<EPI>(d[4 * j + 3] + b1));
+      for (int h = 0; h < 2; ++h) {
+        const int row = h * 64 + warp * 16 + g;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          const bool in_n = n0 + col < N;
+          const float b0 = in_n ? __ldg(bias + n0 + col) : 0.0f;
+          const float b1 = in_n ? __ldg(bias + n0 + col + 1) : 0.0f;
+          finish<EPI>(d[h][4 * j], d[h][4 * j + 1], b0, b1, out + pan<BM>(row, col));
+          finish<EPI>(d[h][4 * j + 2], d[h][4 * j + 3], b0, b1, out + pan<BM>(row + 8, col));
+        }
+      }
+      fence_proxy_async();  // the tile's writes, visible to the TMA store
+      named_barrier(1 + wg, 128);
+      if (leader) {
+        for (int p = 0; p < panels; ++p) tma_store_2d(&map_c, out + p * BM * 64, n0 + 64 * p, m0);
+        bulk_commit();
       }
     }
+    if (leader) bulk_wait<0, false>();  // the stores are done before the block ends
   }
 }
 
@@ -201,24 +282,57 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C = epi(A @ B + bias); see the file note for the layouts and limits.
-template <int EPI>
-inline cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias, bf16* C,
-                               int M, int N, int K, cudaStream_t stream) {
-  if (M < 1 || N % 64 != 0 || K % BK != 0 || N < 64 || K < BK)
-    return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_b;
-  if (!make_map(&map_a, A, (uint64_t)K, (uint64_t)M, BK, BM) ||
-      !make_map(&map_b, B, (uint64_t)N, (uint64_t)K, 64, BK))
-    return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(gemm_sm90_kernel<EPI>,
+// The tile width: 64 where the narrower tiles finish first, counting waves
+// of tiles over the SMs and each 64-wide wave as 0.55 of a 128-wide one
+// (its wgmma reads as much A for half the columns; measured on the H100 at
+// #2's shapes); else 128. 64 wins where 128-wide tiles leave most SMs idle
+// (a few rows) or cut a ragged last wave (the serve shapes' c_fc); it
+// loses on grids of fewer 128-wide tiles than SMs that a second wave of
+// 64-wide ones would follow (the serve shapes' c_proj). 192-wide tiles
+// spilled and ran slower.
+inline int pick_bn(int M, int N) {
+  const long long sms = sm_count();
+  const long long rows = (M + BM - 1) / BM;
+  const long long waves128 = (rows * ((N + 127) / 128) + sms - 1) / sms;
+  const long long waves64 = (rows * (N / 64) + sms - 1) / sms;
+  return waves64 * 11 < waves128 * 20 ? 64 : 128;
+}
+
+template <int EPI, int BN>
+inline cudaError_t launch_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                const CUtensorMap& map_c, const CUtensorMap& map_r,
+                                const float* bias, int M, int N, int K, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<BN>();
+  cudaError_t e = cudaFuncSetAttribute(gemm_sm90_kernel<EPI, BN>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(SMEM_BYTES));
+                                       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_sm90_kernel<EPI><<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, bias, C, M, N, K);
+  gemm_sm90_kernel<EPI, BN><<<grid, THREADS, smem, stream>>>(map_a, map_b, map_c, map_r, bias,
+                                                             M, N, K);
   return cudaGetLastError();
+}
+
+// C = epi(A @ B + bias), with resid [M, N] for EPI_BIAS_RESID (else
+// unread); see the file note for the layouts and limits.
+template <int EPI>
+inline cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias,
+                               const bf16* resid, bf16* C, int M, int N, int K,
+                               cudaStream_t stream) {
+  if (M < 1 || N % 64 != 0 || K % BK != 0 || N < 64 || K < BK ||
+      (EPI == EPI_BIAS_RESID && resid == nullptr))
+    return cudaErrorInvalidValue;
+  // C and the residual in [BM x 64] boxes, as the output tile's panels
+  CUtensorMap map_a, map_b, map_c, map_r;
+  if (!make_map(&map_a, A, (uint64_t)K, (uint64_t)M, BK, BM) ||
+      !make_map(&map_b, B, (uint64_t)N, (uint64_t)K, 64, BK) ||
+      !make_map(&map_c, C, (uint64_t)N, (uint64_t)M, 64, BM) ||
+      !make_map(&map_r, EPI == EPI_BIAS_RESID ? resid : C, (uint64_t)N, (uint64_t)M, 64, BM))
+    return cudaErrorInvalidValue;
+  return pick_bn(M, N) == 64
+             ? launch_tiles<EPI, 64>(map_a, map_b, map_c, map_r, bias, M, N, K, stream)
+             : launch_tiles<EPI, 128>(map_a, map_b, map_c, map_r, bias, M, N, K, stream);
 }
 
 }  // namespace sm90

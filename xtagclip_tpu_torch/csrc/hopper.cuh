@@ -1,7 +1,10 @@
-// Hopper primitives for the port's sm_90a kernels (fused_mlp.cu through
-// gemm_sm90.cuh, flash_attn_fwd.cu):
+// Hopper primitives for the port's sm_90a kernels (fused_mlp.cu and
+// fused_mlp_half.cu through gemm_sm90.cuh, flash_attn_fwd.cu,
+// flash_attn_bwd.cu):
 // - mbarriers (init, arrive, arrive with an expected TMA byte count, parity
-//   wait) and TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D);
+//   wait), TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D) and stores
+//   (2-D) with their bulk groups, plain bulk copies (cp.async.bulk), named
+//   barriers, and the 128-byte-swizzled layout of a TMA tile (pan);
 // - warpgroup matrix multiply (wgmma): shared-memory descriptors for
 //   128-byte-swizzled operands, the fence, commit and wait instructions,
 //   and wgmma.mma_async m64nNk16 with bf16 inputs and fp32 accumulators, A
@@ -77,6 +80,58 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// One 2-D box from shared memory to the tensor map's tensor (a bulk async
+// group of this thread; boxes past the tensor's edge are clipped).
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c_inner,
+                                             int c_outer) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c_inner), "r"(c_outer)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (READ) or are still in flight at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A barrier of ``threads`` threads on hardware barrier ``id`` (0 is
+// __syncthreads').
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A tile of ``ROWS`` rows loaded (or stored) as [ROWS x 64] TMA boxes with
+// the 128-byte swizzle, panel after panel: the canonical layout wgmma
+// reads, K-major along a row and N-major down the rows. Element offset of
+// (row, col) in such a tile:
+template <int ROWS>
+__device__ __forceinline__ int pan(int row, int col) {
+  return (col >> 6) * (ROWS * 64) + row * 64 + ((((col >> 3) & 7) ^ (row & 7)) << 3) +
+         (col & 7);
+}
+
+// ``bytes`` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+// into shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -133,7 +133,7 @@ _ARGTYPES = {
     ],
     "xtag_flash_attn_bwd": [
         _VP, _VP, _VP, _VP, _VP, _VP,            # q, k, v, o, dout, lse
-        _VP, _VP, _VP, _VP,                      # delta scratch; dq, dk, dv
+        _VP, _VP, _VP, _VP,                      # stat scratch; dq, dk, dv
         _I64P,                                   # strides of the eight views
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, dh
         ctypes.c_float, _VP,                     # scale, stream

@@ -172,7 +172,9 @@ def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd"):
         raise ValueError(f"{what}: lse must be a contiguous fp32 [B, H, L] = "
                          f"{(b, h, l)} tensor on {q.device}")
     dev = q.device
-    delta = torch.empty((b, h, l), dtype=torch.float32, device=dev)
+    # per 64-row query tile: lse * log2 e and D = rowsum(dO o), 64 each
+    stat = torch.empty((b, h, -(-l // 64) * 128), dtype=torch.float32,
+                       device=dev)
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=dev)
                   for _ in range(3))
     strides = cuda_build.int64_array(
@@ -181,7 +183,7 @@ def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd"):
     lib = cuda_build.load("flash_attn_bwd")
     err = lib.xtag_flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        lse.data_ptr(), stat.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), strides, b, h, l, dh, float(dh**-0.5),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, what)
