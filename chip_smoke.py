@@ -31,8 +31,8 @@ print one JSON line:
    attention's forward; for its backward, SDPA's backward alone through
    autograd from a forward run outside the timing, and its forward +
    backward beside it), and the card's least time for the same work; the
-   MLP half and flash attention's backward launched twice on the same
-   inputs must give the same bits;
+   fused attention half, its backward, the MLP half and flash attention's
+   backward launched twice on the same inputs must give the same bits;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -143,9 +143,10 @@ GAP_CONFIG = "ViT-B-16-GAP-256"
 GAP_L = (GAP_IMAGE_SIZE // 16) ** 2
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
-# flash_attn_bwd.cu, fused_mlp.cu)
+# flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
+# earlier commits' fused halves, for their packages run under this script
 PORT_KERNELS = ("gemm_bf16_kernel", "gemm_sm90_kernel", "attn_core_kernel",
-                "ln_rows_kernel",
+                "ln_rows_kernel", "mask_by_thread_kernel",
                 "attn_bwd_core_kernel", "ln_bwd_rows_kernel",
                 "ln_bwd_cols_kernel", "col_sum_kernel", "normalize_u8_kernel",
                 "flash_fwd_kernel", "flash_delta_kernel", "flash_dkv_kernel",
@@ -245,17 +246,21 @@ def _kernel_cases(gen):
 
     bf = torch.bfloat16
     cases = []
-    for tower, l, d, h, causal in (("vision", 50, 768, 12, False),
-                                   ("text", 77, 512, 8, True)):
-        x = rnd((SERVE_BATCH, l, d), dtype=bf)
+    # the attention half at a serve batch's vision and text blocks, and at
+    # a precompute chunk's text blocks (512 prompts of 77 tokens)
+    for tower, batch, l, d, h, causal in (
+            ("vision", SERVE_BATCH, 50, 768, 12, False),
+            ("text", SERVE_BATCH, 77, 512, 8, True),
+            ("text", PRECOMPUTE_BATCH, 77, 512, 8, True)):
+        x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
                 rnd((d, d), d**-0.5, bf), rnd(d, 0.1),
                 build_causal_mask(l, dev) if causal else None, h, 1e-5)
-        flops = 2 * SERVE_BATCH * l * d * (4 * d + 2 * l)
-        nbytes = (2 * 2 * SERVE_BATCH * l * d + 2 * 4 * d * d
+        flops = 2 * batch * l * d * (4 * d + 2 * l)
+        nbytes = (2 * 2 * batch * l * d + 2 * 4 * d * d
                   + 4 * (4 * d + 2 * d) + (4 * l * l if causal else 0))
-        cases.append(("fused_attn_half", f"{tower} B={SERVE_BATCH} L={l} "
+        cases.append(("fused_attn_half", f"{tower} B={batch} L={l} "
                       f"D={d} H={h}{' causal' if causal else ''}",
                       args, flops, nbytes, "bf16", None))
     # the MLP half at a serve batch's vision and text rows, and at a
@@ -414,7 +419,8 @@ def _close_normalize(out, ref):
         ok, bar = err <= 2.0**-22, 2.0**-22
     return ok and bool(torch.isfinite(out).all().item()), err, bar
 # kernels whose outputs a run checks for bit-for-bit repeats
-_REPEATS = ("fused_mlp_half", "flash_mha_bwd")
+_REPEATS = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
+            "flash_mha_bwd")
 _OUTPUTS = {"fused_attn_half_bwd": ("dx", "dqkv", "dwout", "dbout", "dls",
                                      "dlb"),
             "flash_mha_bwd": ("dq", "dk", "dv")}

@@ -29,14 +29,17 @@ def _port_modules():
     return mods
 
 
+SCRIPTS = ("chip_smoke", "probe_attn_numerics")  # the port's scripts at the root
+
+
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / f"{s}.py" for s in SCRIPTS]
 
 
 def test_port_modules_import_without_jax():
     code = (
         "import importlib, json, sys\n"
-        f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
+        f"for m in {_port_modules() + list(SCRIPTS)!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n")

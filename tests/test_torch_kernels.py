@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Every test here needs a CUDA device and skips without one. The file
+Every test here but one needs a CUDA device and skips without one (the
+one checks on the CPU that the precision bars below separate fp32 sums
+from bf16 ones). The file
 imports nothing of JAX, so it runs on a machine with a card and torch
 only (conftest.py imports jax, hence --noconftest):
 
@@ -15,8 +17,16 @@ backward are also held at every edge of their 64-row tiles (L = 1, 63,
 fp32 log-sum-exp within 1e-4 of logsumexp of the plain scores; the fused
 MLP at rows short of, at and past its 128-row tiles and at widths that
 end on half a 128-column tile; the MLP half at every row count of the
-main paths and under a large residual. The flash backward and the MLP
-half repeat bit for bit. Gradients through a whole block,
+main paths and under a large residual; the attention half and its
+backward at key counts on both sides of their 64- and 128-key tiles
+(L = 16, 17, 63, 64, 65, 80, 127, 128, with and without the causal mask)
+and at a precompute chunk (B = 512, L = 77). Tighter, where the
+backward's design rests on precision: its dQ, dK and dV near the plain
+version's bits (ds taken in fp32), and gemm_sm90.cuh's modes
+as the backward runs them (B read K-major; A read M-major with an fp32
+output at a ragged K = B L) against fp32 products of the same bf16
+operands, read from the backward's own buffers. The flash backward, the MLP half, the
+attention half and its backward repeat bit for bit. Gradients through a whole block,
 kernels on against kernels off: cosine >= 0.999 per tensor. The image normalize
 against its plain version (the kernel's one FMA against a multiply and
 an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
@@ -81,6 +91,7 @@ def _assert_kernel_bar(out, ref):
 @pytest.mark.parametrize("b,l,d,h,causal", [
     (32, 50, 768, 12, False),   # ViT-B/32 vision blocks
     (32, 77, 512, 8, True),     # text blocks, causal mask
+    (512, 77, 512, 8, True),    # a precompute chunk's text blocks
     (3, 1, 128, 2, False),      # one token
     (2, 128, 64, 1, True),      # longest L the kernel takes
     (5, 33, 192, 3, False),     # ragged L, odd batch
@@ -162,6 +173,237 @@ def test_attn_bwd_kernel_matches_plain(cuda, b, l, d, h, causal):
     for out, ref, shape in zip(outs, refs, shapes):
         assert tuple(out.shape) == shape and out.dtype == ref.dtype
         _assert_kernel_bar(out, ref)
+
+
+# key counts at the edges of the attention cores' key tiles (64 and 128
+# keys) and of their 16-key wgmma steps
+KEY_TILE_LENGTHS = [16, 17, 63, 64, 65, 80, 127, 128]
+
+
+def _causal(l, device):
+    return torch.triu(torch.full((l, l), float("-inf"), device=device), 1)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", KEY_TILE_LENGTHS)
+def test_attn_kernel_matches_plain_at_key_tiles(cuda, l, causal):
+    args = _attn_args(2, l, 128, seed=200 + l, device=cuda)
+    mask = _causal(l, cuda) if causal else None
+    with torch.inference_mode():
+        out = fab.fused_attn_half(*args, mask, 2, 1e-5)
+        ref = fab.reference_attn_half(*args, mask, 2, 1e-5)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def _attn_bwd_args(b, l, d, h, causal, seed, device):
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = _attn_args(b, l, d, seed, device)
+    g = _tensors({"x": ((b, l, d), 1.0)}, seed + 1, device)["x"]
+    mask = _causal(l, device) if causal else None
+    return (x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, 1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("l", KEY_TILE_LENGTHS)
+def test_attn_bwd_kernel_matches_plain_at_key_tiles(cuda, l, causal):
+    bwd_args = _attn_bwd_args(2, l, 128, 2, causal, 300 + l, cuda)
+    outs = fab.fused_attn_half_bwd(*bwd_args)
+    refs = fab.reference_attn_half_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert out.dtype == ref.dtype
+        _assert_kernel_bar(out, ref)
+
+
+def test_attn_kernels_repeat_bit_for_bit(cuda):
+    """No atomics in the attention half or its backward: two launches on
+    the same inputs give the same bits, every output."""
+    args = _attn_args(32, 77, 512, seed=13, device=cuda)
+    bwd_args = _attn_bwd_args(32, 77, 512, 8, True, 13, cuda)
+    with torch.inference_mode():
+        fwd = [fab.fused_attn_half(*args, _causal(77, cuda), 8, 1e-5)
+               for _ in range(2)]
+        bwd = [fab.fused_attn_half_bwd(*bwd_args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0], fwd[1])
+    assert all(torch.equal(a, b) for a, b in zip(*bwd))
+
+
+def _bf16_ulps(out, ref):
+    """|out - ref| per element in bf16 ULPs at the element's scale,
+    taken no lower than max|ref| / 8 (an element far below the output's
+    scale is a difference of larger terms)."""
+    out, ref = out.float(), ref.float()
+    scale = ref.abs().clamp_min(ref.abs().max() / 8)
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    return (out - ref).abs() / ulp
+
+
+# (most bf16 ULPs an element may differ by, largest share of elements
+# whose bits may differ) for a bf16 output against one that rounds the
+# same sums in fp32 in another order. A product of the same bf16 operands
+# rounds once: one ULP. The backward's dQ, dK and dV, whose plain version
+# also rounds its own qkv, datt, dp and p on the way, move further where
+# one of those flips. test_precision_bars_separate_exact_sums_from_bf16_ones
+# holds both bars: float64 arithmetic passes them, and one bf16 rounding
+# where a sum takes fp32 (a bf16 ds in dQ and dK, a bf16 partial sum)
+# fails them: it moves a large share of the elements.
+PRODUCT_BAR = (1.0, 0.01)
+DQKV_BAR = (4.0, 0.05)
+
+
+def _near_bits(out, ref, max_ulps, max_share):
+    assert out.dtype == ref.dtype == torch.bfloat16
+    return (_bf16_ulps(out, ref).max().item() <= max_ulps
+            and (out != ref).float().mean().item() <= max_share)
+
+
+def _dwout_near(out, ref, k):
+    """An fp32 sum of k products against the same sum in another order:
+    within 1e-5 sqrt(k) max|ref|. A bf16 rounding on the way is up to
+    2^-9 of the largest elements."""
+    return (out - ref).abs().max().item() <= 1e-5 * k**0.5 * ref.abs().max().item()
+
+
+def _dqkv_float64(x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, eps,
+                  ds_bf16=False):
+    """dqkv of reference_attn_half_bwd's arithmetic and rounding points in
+    float64 (another order, more precision), with ds rounded to one bf16
+    where ds_bf16."""
+    b, l, d = x.shape
+    dh, f64, bf = d // h, torch.float64, torch.bfloat16
+    rstd, xhat = fab._ln_stats(x.float(), eps)
+    xn = (xhat * ln_g.float() + ln_b.float()).to(bf)
+    qkv = (xn.to(f64) @ wqkv.to(f64) + bqkv.to(f64)).to(bf)
+
+    def heads(t):
+        return t.reshape(b, l, h, dh).transpose(1, 2).to(f64)
+
+    q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+    do = heads((g.to(f64) @ wout.to(f64).t()).to(bf))
+    s = (q @ k.transpose(-1, -2)) * dh**-0.5
+    p = torch.softmax(s if mask is None else s + mask.to(f64), dim=-1)
+    dp = (do @ v.transpose(-1, -2)).to(bf).to(f64)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True)) * dh**-0.5
+    if ds_bf16:
+        ds = ds.to(bf).to(f64)
+    dv = p.to(bf).to(f64).transpose(-1, -2) @ do
+    return torch.cat([t.to(bf).transpose(1, 2).reshape(b, l, d)
+                      for t in (ds @ k, ds.transpose(-1, -2) @ q, dv)], -1)
+
+
+@pytest.mark.parametrize("planted", [False, True])
+@pytest.mark.parametrize("k", [37, 2464])
+def test_precision_bars_separate_exact_sums_from_bf16_ones(k, planted):
+    """Runs on the CPU: the bars below pass arithmetic that keeps every
+    sum in fp32 or better and fail one bf16 rounding planted where a sum
+    takes fp32. The backward's dQ, dK (ds as one bf16 when planted) and
+    dV at two key tiles; a product of K = k bf16 operands (summed as two
+    bf16 halves when planted) and an fp32 one (rounded to bf16)."""
+    for l, causal in ((65, False), (128, True)):
+        args = _attn_bwd_args(2, l, 128, 2, causal, 500 + l, "cpu")
+        ref = fab.reference_attn_half_bwd(*args)[1].split(128, -1)
+        out = _dqkv_float64(*args, ds_bf16=planted).split(128, -1)
+        held = [_near_bits(o, r, *DQKV_BAR) for o, r in zip(out, ref)]
+        assert held == [not planted, not planted, True]
+    rng = np.random.default_rng(k)
+    a, w = (torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32))
+            .bfloat16().double() for rows in (192, 256))
+    with fab._full_fp32_matmul():
+        prod = a.float() @ w.float().t()
+    if planted:
+        half = k // 2
+        out = sum((a[:, i].float() @ w[:, i].float().t()).bfloat16().float()
+                  for i in (slice(0, half), slice(half, k)))
+        out32 = prod.bfloat16().float()
+    else:
+        out = out32 = (a @ w.t()).float()
+    assert _near_bits(out.bfloat16(), prod.bfloat16(), *PRODUCT_BAR) != planted
+    assert _dwout_near(out32, prod, k) != planted
+
+
+def _attn_bwd_buffers(x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, eps):
+    """The backward's C entry point with buffers of the test's own, so the
+    products it leaves in its scratch can be read: {datt, att, dxn, dqkv,
+    dwout}."""
+    from xtagclip_tpu_torch.ops import cuda_build
+
+    b, l, d = x.shape
+    n, dev = b * l, x.device
+    bf, f32 = torch.bfloat16, torch.float32
+    buf = {k: torch.empty((n, w), dtype=bf, device=dev) for k, w in (
+        ("xn", d), ("qkv", 3 * d), ("datt", d), ("att", d), ("dxn", d))}
+    stats = torch.empty(2 * n, dtype=f32, device=dev)
+    partial = torch.empty(fab._COL_SPLITS * 3 * d, dtype=f32, device=dev)
+    mask_ws = fab._mask_scratch(mask)
+    dx = torch.empty_like(x)
+    buf["dqkv"] = torch.empty((n, 3 * d), dtype=bf, device=dev)
+    buf["dwout"] = torch.empty((d, d), dtype=f32, device=dev)
+    sums = [torch.empty(d, dtype=f32, device=dev) for _ in range(3)]
+    lib = cuda_build.load("fused_attn_half_bwd")
+    err = lib.xtag_fused_attn_half_bwd(
+        x.data_ptr(), g.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
+        wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), fab._ptr(mask),
+        *(buf[k].data_ptr() for k in ("xn", "qkv", "datt", "att", "dxn")),
+        stats.data_ptr(), partial.data_ptr(), fab._ptr(mask_ws),
+        dx.data_ptr(), buf["dqkv"].data_ptr(), buf["dwout"].data_ptr(),
+        *(t.data_ptr() for t in sums), b, l, d, h, float(eps),
+        torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(lib, err, "xtag_fused_attn_half_bwd")
+    torch.cuda.synchronize()
+    return buf
+
+
+# the backward's shapes on the main path, and ragged K = B L of dwout
+# (2 * 17 = 34 and 37, below one 64-deep k-step; 2464)
+BWD_PRODUCT_SHAPES = [
+    (32, 50, 768, 12, False),   # ViT-B/32 vision blocks, K = 1600
+    (32, 77, 512, 8, True),     # text blocks, K = 2464
+    (2, 17, 128, 2, True),
+    (1, 37, 192, 3, False),
+]
+
+
+@pytest.mark.parametrize("b,l,d,h,causal", BWD_PRODUCT_SHAPES)
+def test_attn_bwd_products_match_fp32_products(cuda, b, l, d, h, causal):
+    """gemm_sm90.cuh's modes as the backward runs them, read from its own
+    buffers, against the fp32 product of the same bf16 operands: datt = g
+    wout^T (K = D) and dxn = dqkv wqkv^T (K = 3D), B read K-major, each
+    within PRODUCT_BAR of the rounded fp32 product; dwout = att^T g, A
+    read M-major at the ragged K = B L, fp32 out, within 1e-5 sqrt(K)
+    max|ref|."""
+    x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, eps = _attn_bwd_args(
+        b, l, d, h, causal, 400 + l, cuda)
+    buf = _attn_bwd_buffers(x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, eps)
+    g2 = g.reshape(-1, d).float()
+    with fab._full_fp32_matmul():
+        datt = (g2 @ wout.float().t()).bfloat16()
+        dxn = (buf["dqkv"].float() @ wqkv.float().t()).bfloat16()
+        dwout = buf["att"].float().t() @ g2
+    assert _near_bits(buf["datt"], datt, *PRODUCT_BAR)
+    assert _near_bits(buf["dxn"], dxn, *PRODUCT_BAR)
+    assert _dwout_near(buf["dwout"], dwout, b * l)
+
+
+@pytest.mark.parametrize("b,l,d,h,causal", [
+    (2, 17, 128, 2, False),
+    (2, 64, 128, 2, True),
+    (2, 65, 128, 2, False),
+    (2, 128, 128, 2, True),
+    (32, 50, 768, 12, False),   # ViT-B/32 vision blocks
+    (32, 77, 512, 8, True),     # text blocks
+])
+def test_attn_bwd_dqkv_near_plain_bits(cuda, b, l, d, h, causal):
+    """dQ = ds K and dK = ds^T Q take ds in fp32, as the plain version
+    does (the core's three bf16 terms hi + mid + lo carry it), and dV =
+    P^T dO sums bf16 products in fp32: each within DQKV_BAR of the plain
+    version's, which one bf16 ds fails."""
+    args = _attn_bwd_args(b, l, d, h, causal, 500 + l, cuda)
+    dqkv = fab.fused_attn_half_bwd(*args)[1]
+    ref = fab.reference_attn_half_bwd(*args)[1]
+    torch.cuda.synchronize()
+    for part, part_ref in zip(dqkv.split(d, -1), ref.split(d, -1)):
+        assert _near_bits(part, part_ref, *DQKV_BAR)
 
 
 def _cos(a, b):

@@ -1,15 +1,22 @@
-// A Hopper bf16 GEMM with a fused epilogue, for the fused MLP (fused_mlp.cu)
-// and the MLP half of the fused block (fused_mlp_half.cu):
-//   C[M, N] = epi(A[M, K] @ B[K, N] + bias[N])
-// A row-major (K contiguous), B row-major (N contiguous, the flax [in, out]
-// weight as it is stored), bias fp32, C bf16 row-major. The epilogue adds the
-// bias in fp32 and applies the exact erf gelu or quick_gelu in fp32, or adds
-// a bf16 residual R[M, N] in fp32 as resid + (acc + bias) (the Pallas
-// kernel's (x32 + (dot + b2)), xtagclip_tpu/ops/fused_attn_block.py:826-829),
-// or nothing, then rounds once to bf16: the numerics of block_common.cuh's
-// WMMA GEMM, which the fused halves keep.
+// A Hopper bf16 GEMM with a fused epilogue, for the fused MLP (fused_mlp.cu),
+// the MLP half of the fused block (fused_mlp_half.cu), the attention half
+// (fused_attn_half.cu) and its backward (fused_attn_half_bwd.cu):
+//   C[M, N] = epi(op(A)[M, K] @ op(B)[K, N] + bias[N])
+// op(A) is A [M, K] row-major (K contiguous), or with A_T its transpose
+// given as [K, M] row-major (M contiguous, wgmma's M-major A); op(B) is B
+// [K, N] row-major (N contiguous, the flax [in, out] weight as it is
+// stored), or with B_T its transpose given as [N, K] row-major (K
+// contiguous: a weight used transposed, as stored). bias fp32, C bf16
+// row-major, or fp32 with EPI_F32. The epilogue adds the bias in fp32 and
+// applies the exact erf gelu or quick_gelu in fp32, or adds a bf16
+// residual R[M, N] in fp32 as resid + (acc + bias) (the Pallas kernel's
+// (x32 + (dot + b2)), xtagclip_tpu/ops/fused_attn_block.py:826-829), or
+// nothing (EPI_NONE), then rounds once to bf16; EPI_F32 stores the fp32
+// sums as they are. The transposed operands and the fp32 output serve the
+// attention half's backward: datt = g wout^T and dxn = dqkv wqkv^T (B_T),
+// dwout = att^T g (A_T, EPI_F32, K = B L rows).
 //
-// Design (what the card offers that the WMMA GEMM did not use):
+// Design:
 // - a persistent grid, one block an SM, walking 128 x BN output tiles
 //   (BN 128, or 64 where pick_bn finds the narrower tiles faster; 128 x
 //   256 was no faster). Each output element sums its K products in the
@@ -28,7 +35,12 @@
 //   warpgroup's epilogue overlaps the other's products; setmaxnreg moves
 //   registers from the producer to them;
 // - B read N-major through wgmma's transpose bit (a 16-bit type allows it),
-//   so the weights are used as stored, with no transposed copy;
+//   so the weights are used as stored, with no transposed copy; with B_T
+//   B is read K-major (one [BN x 64] TMA box a stage, the layout of A),
+//   and with A_T A is read M-major through the transpose bit for A (two
+//   [64 k x 64 m] boxes a stage): a transposed operand costs no copy and
+//   changes no number, since every output element sums its K products in
+//   the same order whatever the layouts;
 // - the epilogue: bias, activation or residual in fp32 on the registers,
 //   one bf16 rounding, written into a [128 x BN] output tile in shared
 //   memory (one per consumer) that TMA stores, so the warpgroup goes on to
@@ -36,7 +48,12 @@
 //   registers had held the warpgroup up); the residual tile arrives in the
 //   same buffer by TMA under the products. TMA zero-fills what lies past
 //   M, N or K on loads and clips stores, so ragged edges need no special
-//   path.
+//   path: a K that is no multiple of 64 (dwout's K = B L) ends on a
+//   k-step whose products past K multiply zeros. EPI_F32 (dwout: M = N =
+//   D, a few dozen tiles) stores its fp32 pairs straight from the
+//   registers, with 64-wide tiles: a [128 x 128] fp32 output tile per
+//   consumer would not fit beside the ring. No split of K, no atomics:
+//   runs repeat bit for bit.
 // What holds it back (measured on the H100, chip_smoke.py's ms_by_kernel):
 // at #2's precompute chunk (M = 39424) c_proj (K = 2048, bias + residual)
 // reaches 55% of the bf16 peak at 128 x 128 tiles (152 us). c_fc does the
@@ -45,8 +62,10 @@
 // about as much as their 1024 tensor-core FLOP each, and the ping-pong
 // hides little of it. A block with a single tile (the serve shapes'
 // c_proj) has no second tile to overlap its epilogue with.
-// Needs K % 64 == 0, N % 64 == 0, 16-byte aligned rows (checked by the
-// caller). The tensor maps are encoded on the host through
+// Needs N % 64 == 0, dense row-major operands with 16-byte aligned rows
+// and bases (checked by the caller): a K-contiguous operand's K is a
+// multiple of 8; a ragged K (dwout's B L) is the outer dimension of the
+// M-major A and of B. The tensor maps are encoded on the host through
 // cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint: no -lcuda.
 #pragma once
 
@@ -56,8 +75,6 @@
 
 namespace xtag {
 namespace sm90 {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int BM = 128;          // output rows per tile: two warpgroups of 64
 constexpr int BK = 64;           // K per stage: one 128-byte swizzle row
@@ -81,7 +98,14 @@ __host__ __device__ constexpr size_t smem_bytes() {
          (2 * STAGES + 2 * CONSUMERS) * 8 + 1024;
 }
 
-enum Epilogue : int { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_QGELU = 2, EPI_BIAS_RESID = 3 };
+enum Epilogue : int {
+  EPI_BIAS = 0,        // C = bf16(acc + bias)
+  EPI_BIAS_GELU = 1,   // C = bf16(gelu(acc + bias))
+  EPI_BIAS_QGELU = 2,  // C = bf16(quick_gelu(acc + bias))
+  EPI_BIAS_RESID = 3,  // C = bf16(resid + (acc + bias))
+  EPI_NONE = 4,        // C = bf16(acc)
+  EPI_F32 = 5,         // C = acc, fp32
+};
 
 template <int EPI>
 __device__ __forceinline__ float activate(float v) {
@@ -99,18 +123,20 @@ __device__ __forceinline__ void finish(float a0, float a1, float b0, float b1, b
   if (EPI == EPI_BIAS_RESID) {
     const float2 r = __bfloat1622float2(*o);
     *o = __floats2bfloat162_rn(r.x + (a0 + b0), r.y + (a1 + b1));
+  } else if (EPI == EPI_NONE) {
+    *o = __floats2bfloat162_rn(a0, a1);
   } else {
     *o = __floats2bfloat162_rn(activate<EPI>(a0 + b0), activate<EPI>(a1 + b1));
   }
 }
 
-template <int EPI, int BN>
+template <int EPI, int BN, bool A_T, bool B_T>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
                  const __grid_constant__ CUtensorMap map_b,
                  const __grid_constant__ CUtensorMap map_c,
                  const __grid_constant__ CUtensorMap map_r, const float* __restrict__ bias,
-                 int M, int N, int K) {
+                 float* __restrict__ c32, int M, int N, int K) {
   constexpr int STAGE_BYTES = stage_bytes<BN>();
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: stage bases on that grid
@@ -125,7 +151,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
   const int wg = threadIdx.x >> 7;
   const int n_tiles = (N + BN - 1) / BN;
   const int tiles = ((M + BM - 1) / BM) * n_tiles;
-  const int k_steps = K / BK;
+  const int k_steps = (K + BK - 1) / BK;  // past K: zero-filled
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -153,11 +179,20 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = smem + stage * STAGE_BYTES;
           mbar_expect_tx(&full[stage], STAGE_BYTES);
-          tma_load_2d(st, &map_a, &full[stage], ks * BK, m0);
+          if (A_T) {  // [64 k x 64 m] boxes, one per 64 rows of the tile
+            tma_load_2d(st, &map_a, &full[stage], m0, ks * BK);
+            tma_load_2d(st + A_BYTES / 2, &map_a, &full[stage], m0 + 64, ks * BK);
+          } else {
+            tma_load_2d(st, &map_a, &full[stage], ks * BK, m0);
+          }
+          if (B_T) {  // one [BN x 64 k] box
+            tma_load_2d(st + A_BYTES, &map_b, &full[stage], ks * BK, n0);
+          } else {
 #pragma unroll
-          for (int half = 0; half < BN / 64; ++half)
-            tma_load_2d(st + A_BYTES + half * B_HALF_BYTES, &map_b, &full[stage],
-                        n0 + 64 * half, ks * BK);
+            for (int half = 0; half < BN / 64; ++half)
+              tma_load_2d(st + A_BYTES + half * B_HALF_BYTES, &map_b, &full[stage],
+                          n0 + 64 * half, ks * BK);
+          }
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -185,7 +220,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       const int m0 = (tile / n_tiles) * BM;
       const int n0 = (tile % n_tiles) * BN;
       const int panels = (N - n0) / 64 < BN / 64 ? (N - n0) / 64 : BN / 64;  // inside N
-      if (leader) {
+      if (leader && EPI != EPI_F32) {
         // the previous tile's store has read the output tile; for
         // EPI_BIAS_RESID the residual tile lands there under the products
         bulk_wait<0, true>();
@@ -210,15 +245,20 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
         for (int kk = 0; kk < BK / 16; ++kk) {
           // A: K-major rows of 128 bytes, 8-row groups 1024 bytes apart, the
           //    second 64 rows 8 KB on; a k-step of 16 is 32 bytes along the
-          //    swizzled row.
+          //    swizzled row. A_T: M-major, each 64 rows one [64 k x 64 m]
+          //    box (8 KB), 8-row k groups 1024 bytes apart; a k-step is 16
+          //    k rows, 2048 bytes.
           // B: N-major; 64-column blocks 8 KB apart (leading offset), 8-row
           //    k groups 1024 bytes apart (stride offset); a k-step is 16
-          //    rows, 2048 bytes.
-          const uint64_t db = wgmma_desc(b_addr + kk * 2048, B_HALF_BYTES, 1024);
+          //    rows, 2048 bytes. B_T: K-major as A, BN rows.
+          const uint64_t db = B_T ? wgmma_desc(b_addr + kk * 32, 16, 1024)
+                                  : wgmma_desc(b_addr + kk * 2048, B_HALF_BYTES, 1024);
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            wgmma_ss<1>(d[h], wgmma_desc(a_addr + h * (64 * 128) + kk * 32, 16, 1024), db,
-                        (ks > 0 || kk > 0) ? 1 : 0);
+          for (int h = 0; h < 2; ++h) {
+            const uint64_t da = A_T ? wgmma_desc(a_addr + h * (64 * 128) + kk * 2048, 64 * 128, 1024)
+                                    : wgmma_desc(a_addr + h * (64 * 128) + kk * 32, 16, 1024);
+            wgmma_ss<B_T ? 0 : 1, A_T ? 1 : 0>(d[h], da, db, (ks > 0 || kk > 0) ? 1 : 0);
+          }
         }
         wgmma_commit();
         fence_operands(d[0]);
@@ -234,6 +274,25 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
       fence_operands(d[1]);
       if (lane == 0) mbar_arrive(&empty[(pos0 + k_steps - 1) % STAGES]);
 
+      if (EPI == EPI_F32) {
+        // fp32 pairs (row g or g + 8, columns 8 j + 2 t, + 1) straight to C
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = m0 + h * 64 + warp * 16 + g + 8 * r;
+            if (row >= M) continue;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              const int col = n0 + 8 * j + 2 * t;
+              if (col < N)
+                *reinterpret_cast<float2*>(c32 + (size_t)row * N + col) =
+                    make_float2(d[h][4 * j + 2 * r], d[h][4 * j + 2 * r + 1]);
+            }
+          }
+        }
+        continue;
+      }
       // epilogue: fragment (row g or g + 8, columns 8 j + 2 t, + 1) of this
       // warp's 16 rows in each half, into the output tile (pan layout,
       // conflict-free under the swizzle), then TMA stores it, clipped to M
@@ -247,7 +306,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int col = 8 * j + 2 * t;
-          const bool in_n = n0 + col < N;
+          const bool in_n = EPI != EPI_NONE && n0 + col < N;
           const float b0 = in_n ? __ldg(bias + n0 + col) : 0.0f;
           const float b1 = in_n ? __ldg(bias + n0 + col + 1) : 0.0f;
           finish<EPI>(d[h][4 * j], d[h][4 * j + 1], b0, b1, out + pan<BM>(row, col));
@@ -261,11 +320,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
         bulk_commit();
       }
     }
-    if (leader) bulk_wait<0, false>();  // the stores are done before the block ends
+    if (leader && EPI != EPI_F32) bulk_wait<0, false>();  // the stores are done before the block ends
   }
 }
 
-// A 2-D bf16 row-major [outer, inner] tensor read in boxes of
+// A dense 2-D bf16 row-major [outer, inner] tensor read in boxes of
 // [box_outer, box_inner] with the 128-byte swizzle; out-of-bounds reads
 // fill zeros.
 inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t inner, uint64_t outer,
@@ -298,41 +357,58 @@ inline int pick_bn(int M, int N) {
   return waves64 * 11 < waves128 * 20 ? 64 : 128;
 }
 
-template <int EPI, int BN>
+template <int EPI, int BN, bool A_T, bool B_T>
 inline cudaError_t launch_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                 const CUtensorMap& map_c, const CUtensorMap& map_r,
-                                const float* bias, int M, int N, int K, cudaStream_t stream) {
+                                const float* bias, float* c32, int M, int N, int K,
+                                cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<BN>();
-  cudaError_t e = cudaFuncSetAttribute(gemm_sm90_kernel<EPI, BN>,
+  cudaError_t e = cudaFuncSetAttribute(gemm_sm90_kernel<EPI, BN, A_T, B_T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_sm90_kernel<EPI, BN><<<grid, THREADS, smem, stream>>>(map_a, map_b, map_c, map_r, bias,
-                                                             M, N, K);
+  gemm_sm90_kernel<EPI, BN, A_T, B_T><<<grid, THREADS, smem, stream>>>(
+      map_a, map_b, map_c, map_r, bias, c32, M, N, K);
   return cudaGetLastError();
 }
 
-// C = epi(A @ B + bias), with resid [M, N] for EPI_BIAS_RESID (else
-// unread); see the file note for the layouts and limits.
-template <int EPI>
+// C = epi(op(A) @ op(B) + bias), with resid [M, N] for EPI_BIAS_RESID (else
+// unread) and bias unread for EPI_NONE and EPI_F32; C is bf16, or fp32 for
+// EPI_F32. See the file note for the layouts and limits.
+template <int EPI, bool A_T = false, bool B_T = false>
 inline cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias,
-                               const bf16* resid, bf16* C, int M, int N, int K,
+                               const bf16* resid, void* C, int M, int N, int K,
                                cudaStream_t stream) {
-  if (M < 1 || N % 64 != 0 || K % BK != 0 || N < 64 || K < BK ||
+  if (M < 1 || K < 1 || N % 64 != 0 || N < 64 ||
       (EPI == EPI_BIAS_RESID && resid == nullptr))
     return cudaErrorInvalidValue;
-  // C and the residual in [BM x 64] boxes, as the output tile's panels
-  CUtensorMap map_a, map_b, map_c, map_r;
-  if (!make_map(&map_a, A, (uint64_t)K, (uint64_t)M, BK, BM) ||
-      !make_map(&map_b, B, (uint64_t)N, (uint64_t)K, 64, BK) ||
-      !make_map(&map_c, C, (uint64_t)N, (uint64_t)M, 64, BM) ||
-      !make_map(&map_r, EPI == EPI_BIAS_RESID ? resid : C, (uint64_t)N, (uint64_t)M, 64, BM))
-    return cudaErrorInvalidValue;
-  return pick_bn(M, N) == 64
-             ? launch_tiles<EPI, 64>(map_a, map_b, map_c, map_r, bias, M, N, K, stream)
-             : launch_tiles<EPI, 128>(map_a, map_b, map_c, map_r, bias, M, N, K, stream);
+  // A in [BM x 64 k] boxes, or [64 k x 64 m] with A_T; B in [64 k x 64 n]
+  // boxes, or [BN x 64 k] with B_T (its box height set below with BN); C
+  // and the residual in [BM x 64] boxes, as the output tile's panels
+  const int bn = EPI == EPI_F32 ? 64 : pick_bn(M, N);
+  CUtensorMap map_a, map_b, map_c{}, map_r{};  // EPI_F32 stores from the registers
+  const bool ok =
+      (A_T ? make_map(&map_a, A, (uint64_t)M, (uint64_t)K, 64, BK)
+           : make_map(&map_a, A, (uint64_t)K, (uint64_t)M, BK, BM)) &&
+      (B_T ? make_map(&map_b, B, (uint64_t)K, (uint64_t)N, BK, bn)
+           : make_map(&map_b, B, (uint64_t)N, (uint64_t)K, 64, BK)) &&
+      (EPI == EPI_F32 ||
+       (make_map(&map_c, C, (uint64_t)N, (uint64_t)M, 64, BM) &&
+        make_map(&map_r, EPI == EPI_BIAS_RESID ? resid : C, (uint64_t)N, (uint64_t)M, 64, BM)));
+  if (!ok) return cudaErrorInvalidValue;
+  float* c32 = EPI == EPI_F32 ? static_cast<float*>(C) : nullptr;
+  if constexpr (EPI == EPI_F32) {
+    return launch_tiles<EPI, 64, A_T, B_T>(map_a, map_b, map_c, map_r, bias, c32, M, N, K,
+                                           stream);
+  } else {
+    return bn == 64
+               ? launch_tiles<EPI, 64, A_T, B_T>(map_a, map_b, map_c, map_r, bias, c32, M, N, K,
+                                                stream)
+               : launch_tiles<EPI, 128, A_T, B_T>(map_a, map_b, map_c, map_r, bias, c32, M, N,
+                                                 K, stream);
+  }
 }
 
 }  // namespace sm90

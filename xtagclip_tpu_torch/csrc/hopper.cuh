@@ -1,6 +1,7 @@
-// Hopper primitives for the port's sm_90a kernels (fused_mlp.cu and
-// fused_mlp_half.cu through gemm_sm90.cuh, flash_attn_fwd.cu,
-// flash_attn_bwd.cu):
+// Hopper primitives for the port's sm_90a kernels (fused_mlp.cu,
+// fused_mlp_half.cu, fused_attn_half.cu and fused_attn_half_bwd.cu through
+// gemm_sm90.cuh, flash_attn_fwd.cu, flash_attn_bwd.cu, and the attention
+// cores of the fused halves):
 // - mbarriers (init, arrive, arrive with an expected TMA byte count, parity
 //   wait), TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D) and stores
 //   (2-D) with their bulk groups, plain bulk copies (cp.async.bulk), named
@@ -9,8 +10,9 @@
 //   128-byte-swizzled operands, the fence, commit and wait instructions,
 //   and wgmma.mma_async m64nNk16 with bf16 inputs and fp32 accumulators, A
 //   from shared memory (wgmma_ss) or from registers (wgmma_rs). B is
-//   K-major with TRANS_B = 0 and N-major with TRANS_B = 1 (allowed for
-//   16-bit types). scale_d = 0 overwrites d;
+//   K-major with TRANS_B = 0 and N-major with TRANS_B = 1, and A from
+//   shared memory K-major with TRANS_A = 0 and M-major with TRANS_A = 1
+//   (both allowed for 16-bit types). scale_d = 0 overwrites d;
 // - cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so
 //   no library links -lcuda.
 //
@@ -21,11 +23,14 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace xtag {
 namespace sm90 {
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -183,7 +188,7 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
@@ -193,7 +198,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
       "{"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n"
+      "%32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -201,10 +206,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n"
@@ -216,7 +221,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n"
+      "%64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -229,7 +234,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 template <int TRANS_B>

@@ -102,13 +102,13 @@ _I64P = ctypes.POINTER(ctypes.c_longlong)
 _ARGTYPES = {
     "xtag_fused_attn_half": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, ln_g, ln_b, wqkv, bqkv, wout, bout, mask
-        _VP, _VP, _VP, _VP,                      # xn, qkv, att scratch; out
+        _VP, _VP, _VP, _VP, _VP,                 # xn, qkv, att, mask scratch; out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
         ctypes.c_float, _VP,                     # eps, stream
     ],
     "xtag_fused_attn_half_bwd": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, g, ln_g, ln_b, wqkv, bqkv, wout, mask
-        _VP, _VP, _VP, _VP, _VP, _VP, _VP,       # xn, qkv, datt, att, dxn, stats, partial scratch
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # xn, qkv, datt, att, dxn, stats, partial, mask scratch
         _VP, _VP, _VP, _VP, _VP, _VP,            # dx, dqkv, dwout, dbout, dls, dlb
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
         ctypes.c_float, _VP,                     # eps, stream

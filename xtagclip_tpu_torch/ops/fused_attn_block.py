@@ -69,9 +69,9 @@ def supported(shape, num_heads: int, dtype=torch.bfloat16,
 def supported_bwd(shape, num_heads: int, dtype=torch.bfloat16,
                   mask_shape=None) -> bool:
     """Streams the backward kernel takes: those of ``supported``. Its
-    attention core holds q, k, v, dO, the fp32 p/ds and the bf16 p/dp of a
-    head at padded L in shared memory, 181 KB at L = 128 of the 227 KB a
-    block may have. A shape outside this set raises under grad on the
+    attention core holds q, k, v, dO of a head and bf16 copies of p and of
+    ds's three terms at L padded to 128 in shared memory, 193 KB of the 227
+    KB a block may have. A shape outside this set raises under grad on the
     card; nothing falls back to the plain version."""
     return supported(shape, num_heads, dtype, mask_shape)
 
@@ -268,6 +268,19 @@ def _check_args(what, x, named, dtypes, shapes):
                              "aligned")
 
 
+def _mask_scratch(mask):
+    """The attention cores' scratch for the mask laid out by thread, or
+    None without a mask."""
+    if mask is None:
+        return None
+    return torch.empty(_MAX_LEN * _MAX_LEN, dtype=torch.float32,
+                       device=mask.device)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -321,13 +334,14 @@ def _attn_half_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask,
     xn = torch.empty((n, d), dtype=bf, device=x.device)
     qkv = torch.empty((n, 3 * d), dtype=bf, device=x.device)
     att = torch.empty((n, d), dtype=bf, device=x.device)
+    mask_ws = _mask_scratch(mask)
     out = torch.empty_like(x)
     lib = cuda_build.load("fused_attn_half")
     err = lib.xtag_fused_attn_half(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        xn.data_ptr(), qkv.data_ptr(), att.data_ptr(), out.data_ptr(),
+        _ptr(mask), xn.data_ptr(), qkv.data_ptr(), att.data_ptr(),
+        _ptr(mask_ws), out.data_ptr(),
         b, l, d, num_heads, float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, what)
@@ -365,6 +379,7 @@ def fused_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
                for w in (d, 3 * d, d, d, d)]     # xn, qkv, datt, att, dxn
     stats = torch.empty(2 * n, dtype=f32, device=dev)
     partial = torch.empty(_COL_SPLITS * 3 * d, dtype=f32, device=dev)
+    mask_ws = _mask_scratch(mask)
     dx = torch.empty_like(x)
     dqkv = torch.empty((b, l, 3 * d), dtype=bf, device=dev)
     dwout = torch.empty((d, d), dtype=f32, device=dev)
@@ -374,9 +389,8 @@ def fused_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
     err = lib.xtag_fused_attn_half_bwd(
         x.data_ptr(), g.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        *(t.data_ptr() for t in scratch), stats.data_ptr(),
-        partial.data_ptr(), dx.data_ptr(), dqkv.data_ptr(),
+        _ptr(mask), *(t.data_ptr() for t in scratch), stats.data_ptr(),
+        partial.data_ptr(), _ptr(mask_ws), dx.data_ptr(), dqkv.data_ptr(),
         dwout.data_ptr(), dbout.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
         b, l, d, num_heads, float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
