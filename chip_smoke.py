@@ -7,11 +7,12 @@ init, through the entry points a user calls: the XTag ViT-B-32
 fusion-classify serving path (create_model, cast_for_compute, PromptTable,
 precompute_prompt_features, make_xtag_serve_step), the XTag ViT-B-32
 train step (create_model, make_optimizer, create_train_state,
-make_train_step) and the scar training CLI (main_other.main); then the
-same three for the cls-free GAP tower (XTag ViT-B-16 with the vision
-overrides image_size 256, pool_type avg, no_class_token: L = 256, whose
-vision blocks run flash attention and the fused MLP), in phases that each
-print one JSON line:
+make_train_step), the scar training CLI (main_other.main) and the predict
+CLI (predict.main, with weights and its serving artifact); then the serve,
+train and CLI paths and the serving artifact for the cls-free GAP tower
+(XTag ViT-B-16 with the vision overrides image_size 256, pool_type avg,
+no_class_token: L = 256, whose vision blocks run flash attention and the
+fused MLP), in phases that each print one JSON line:
 
 1. build: compiles the CUDA kernels of xtagclip_tpu_torch/csrc with nvcc,
    with ptxas's registers and spill bytes for every kernel entry;
@@ -80,7 +81,27 @@ print one JSON line:
    temporary directory): one plain epoch on 64 train and 32 val seeded
    272x272 PNG rows (crops 256), the scar eval and the checkpoints; it
    fails on a value that is not finite, a missing artifact or checkpoint,
-   or launches off their expected counts.
+   or launches off their expected counts;
+10. predict (after the trainer): the phase-3 model written as an open_clip
+   .pt (convert/export.py; reloaded bit for bit) and 70 seeded 224x224
+   PNGs (batches 32, 32, 6), then ``predict.main`` five times:
+   --pretrained --fusion-classify --export-serving (the torch.export
+   artifact: encode_image, encode_text, forward, serve_classify), the same
+   from the artifact (--serving-artifact: same classes and tags, probs
+   within 0.05), the zero-shot head (--use-tagging, then --fusion-scoring)
+   and --resume on the trainer's last tag (finite records, scar classes).
+   Each call serves every batch from one CUDA graph: its first serve call
+   launches one eager warm-up and one capture (twice one batch's
+   launches), later calls launch nothing. The exported serve_classify
+   holds 12 + 12 block-half and 1 normalize custom-op nodes. Then the
+   serve step on uint8 batches on the card, captured and replayed against
+   its eager calls (tag picks equal, features and logits within
+   max|ref|/128; bit equality printed) and both timed over the serve
+   window (200 batches of 32);
+11. gap_predict (last): the GAP tower's serve_classify exported, loaded
+   and replayed as a graph against the live eager step, with the same
+   bars (12 flash attention, 12 fused MLP and 1 normalize node), both
+   timed.
 
 With ``--profile`` it also traces the trainer's second plain epoch, and
 then one precompute, 20 serve batches and 5 train steps of each model,
@@ -101,9 +122,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -581,6 +604,15 @@ def _paths() -> dict:
     }
 
 
+def _serve_batches(side: int):
+    """The N_IMAGE_BATCHES seeded host uint8 batches every serve window
+    cycles over."""
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(rng.integers(
+        0, 256, (SERVE_BATCH, side, side, 3), dtype=np.uint8))
+        for _ in range(N_IMAGE_BATCHES)]
+
+
 def _scar_prompt_table():
     from xtagclip_tpu_torch.factory import get_tokenizer
     from xtagclip_tpu_torch.tokenize.prompts import PromptTable
@@ -628,11 +660,8 @@ def phase_serve_and_path(card: str, path: dict):
     table, t_pre = precompute()
     pre_counts = _counts()
 
-    rng = np.random.default_rng(0)
     side = path["image"]
-    batches = [torch.from_numpy(rng.integers(
-        0, 256, (SERVE_BATCH, side, side, 3), dtype=np.uint8))
-        for _ in range(N_IMAGE_BATCHES)]
+    batches = _serve_batches(side)
     serve = make_xtag_serve_step(model, table)
 
     def serve_one(i, plain=False):
@@ -726,7 +755,7 @@ def phase_serve_and_path(card: str, path: dict):
             and tag_agree >= 0.95 and finite and shapes_ok):
         raise AssertionError(f"kernel path disagrees with plain path: {result}")
     return {"precompute": pre_counts, "serve": serve_counts}, model, \
-        ptable, serve_one
+        ptable, serve_one, table
 
 
 def _train_batches(ptable, side: int = IMAGE_SIZE):
@@ -1102,14 +1131,15 @@ def _same_state(a, b) -> bool:
         and all(torch.equal(oa[i][k], ob[i][k]) for k in oa[i]) for i in oa)
 
 
-def phase_trainer(card: str, profile: bool = False):
+def phase_trainer(card: str, keep_tag: str, profile: bool = False):
     """Main path, part 4: the scar training CLI, ``main_other.main``, as a
     user runs it (the recipe of scar_openclip_pretrain.sh at batch 32):
     seeded PNG files through ScarDataset, the train and eval transforms
     and the threaded loader; TRAINER_EPOCHS epochs of the plain step with
     the scar eval after each and the four best checkpoints, then a second
     call with --resume latest that reloads the state and runs one epoch of
-    the accumulation step. Returns the launches of both calls. With
+    the accumulation step. Returns the launches of both calls, and keeps
+    the last checkpoint tag (hard links) at ``keep_tag``. With
     ``profile``, the second plain epoch (loader included) runs inside a
     torch.profiler window, which slows its host side."""
     from xtagclip_tpu_torch.cli import main_other
@@ -1191,6 +1221,8 @@ def phase_trainer(card: str, profile: bool = False):
         restores = [c for c in log if c["what"] == "restore_train_state"]
         reload_exact = len(restores) == 1 and restores[0]["check"] is True
         resumed_epoch = restores[0]["out"] if restores else None
+        shutil.copytree(os.path.join(ckpt_dir, "last"), keep_tag,
+                        copy_function=os.link)
 
     epochs = first["epochs"] + second["epochs"]
     trains = [c for c in log if c["what"] == "train_one_epoch"]
@@ -1379,6 +1411,304 @@ def phase_gap_trainer(card: str):
     return counts
 
 
+PREDICT_IMAGES = 70  # two batches of 32 and a ragged one of 6
+SERVED_OPS = {  # custom-op nodes of each exported serve_classify program
+    "b32": {"fused_attn_half": 12, "fused_mlp_half": 12,
+            "normalize_images": 1},
+    "gap": {"flash_mha": 12, "fused_mlp": 12, "normalize_images": 1}}
+
+
+def _write_pngs(root, n: int, side: int, rng) -> None:
+    from PIL import Image
+
+    os.makedirs(root)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+                        ).save(os.path.join(root, f"img_{i:03d}.png"),
+                               compress_level=1)
+
+
+def _decode_ms(root, side: int) -> float:
+    """Host ms per image of the CLI's decode and eval crop, one thread."""
+    from PIL import Image
+
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_eval,
+    )
+
+    transform = image_transform_eval(PreprocessCfg(size=side))
+    names = sorted(os.listdir(root))
+    t0 = time.perf_counter()
+    for n in names:
+        np.asarray(transform(Image.open(os.path.join(root, n)).convert("RGB")))
+    return 1e3 * (time.perf_counter() - t0) / len(names)
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _op_nodes(program) -> dict:
+    """{custom op: nodes} of an exported program's graph module."""
+    out = {}
+    for n in program.graph.nodes:
+        target = str(n.target)
+        if n.op == "call_function" and target.startswith("xtagclip_tpu_torch."):
+            name = target.split(".")[1]
+            out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _step_window(fn, batches, n: int = N_SERVE_BATCHES) -> dict:
+    """img/s and p50 batch ms of ``fn`` over ``n`` batches cycling
+    ``batches`` (uint8 on the device in, results on the device out), each
+    ending in a synchronize, after N_WARMUP_BATCHES calls."""
+    for i in range(N_WARMUP_BATCHES):
+        fn(batches[i % len(batches)])
+    torch.cuda.synchronize()
+    lat = []
+    t_window = time.perf_counter()
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    t_window = time.perf_counter() - t_window
+    return {"img_per_s": SERVE_BATCH * n / t_window,
+            "p50_batch_ms": 1e3 * statistics.median(lat),
+            "window_s": t_window}
+
+
+def _within(out, ref) -> tuple:
+    """(ok, max abs err, atol) under atol = max|ref|/128."""
+    out, ref = out.float(), ref.float()
+    atol = ref.abs().max().item() / 128
+    err = (out - ref).abs().max().item()
+    return bool(err <= atol and torch.isfinite(out).all().item()), err, atol
+
+
+def _graph_vs_eager(eager, graphed, batches) -> dict:
+    """Each batch through the replayed graph and through an eager call of
+    the same step: tag picks equal, features and logits within
+    max|ref|/128, and whether every output held bit for bit."""
+    ok, bits, errs = True, True, {"feat": 0.0, "logits": 0.0}
+    for x in batches:
+        got = [t.clone() for t in graphed(x)]  # the graph's static outputs
+        want = eager(x)
+        torch.cuda.synchronize()
+        ok &= torch.equal(got[1], want[1])
+        for key, j in (("feat", 0), ("logits", 2)):
+            close, err, _ = _within(got[j], want[j])
+            ok &= close
+            errs[key] = max(errs[key], err)
+        bits &= all(torch.equal(g, w) for g, w in zip(got, want))
+    return {"ok": bool(ok), "bit_equal": bool(bits),
+            "feat_max_abs_err": errs["feat"],
+            "logits_max_abs_err": errs["logits"]}
+
+
+def _graphed_serve(runner, eager, batches, per_batch) -> dict:
+    """Warm up and capture ``runner`` on the first batch, counting the
+    launches of each; then the replays against ``eager`` and both timed
+    over the same window. Raises if the launches at capture are not one
+    batch's ``per_batch`` or a replay counts one."""
+    x0 = batches[0]
+    _reset_counts()
+    runner.warm_up(x0)
+    warm = _counts()
+    _reset_counts()
+    runner.capture(x0)
+    capture = _counts()
+    _reset_counts()
+    graphed = _step_window(runner, batches)
+    replays = _counts()
+    eager_t = _step_window(eager, batches)
+    check = _graph_vs_eager(eager, runner, batches)
+    zero = _want()
+    if warm != per_batch or capture != per_batch or replays != zero:
+        raise AssertionError(
+            f"CUDA graph launches: warm-up {warm}, capture {capture} (want "
+            f"{per_batch} each), replays {replays} (want none)")
+    return {"launches_warm_up": warm, "launches_at_capture": capture,
+            "launches_in_replays": replays, "graph_vs_eager": check,
+            "eager": eager_t, "graphed": graphed,
+            "speedup": graphed["img_per_s"] / eager_t["img_per_s"]}
+
+
+def phase_predict(card: str, model, table, resume_tag: str, tmp: str):
+    """Main path, part 5: the predict CLI, ``predict.main``, as a user runs
+    it on XTag ViT-B-32 at full width in bf16: the seeded model written as
+    an open_clip .pt (convert/export.py), 70 seeded 224x224 PNGs (batches
+    of 32, 32 and a ragged 6), then the CLI with --pretrained and
+    --fusion-classify --export-serving, from the artifact
+    (--serving-artifact), on the zero-shot head (--use-tagging, then
+    --fusion-scoring), and with --resume on the trainer phase's last tag.
+    Then the serve step (uint8 on the card in) as a CUDA graph against its
+    eager calls, both timed over the serve phase's window. Returns the
+    CLI calls' launches."""
+    from xtagclip_tpu_torch.cli import predict
+    from xtagclip_tpu_torch.convert import serving as cs
+    from xtagclip_tpu_torch.convert.export import save_open_clip_checkpoint
+    from xtagclip_tpu_torch.factory import (
+        cast_for_compute,
+        create_model,
+        load_checkpoint,
+    )
+    from xtagclip_tpu_torch.serving import CudaGraphRunner, make_serve_classify
+    from xtagclip_tpu_torch.train import metadata
+
+    path = _paths()["b32"]
+    root = os.path.join(tmp, "predict")
+    os.makedirs(root)
+    pt = os.path.join(root, "vit_b32_xtag.pt")
+    t0 = time.perf_counter()
+    save_open_clip_checkpoint(model, pt)
+    t_pt = time.perf_counter() - t0
+    back = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
+                        precision="bf16", init_seed=1)
+    load_checkpoint(back, pt)
+    cast_for_compute(back, torch.bfloat16)
+    theirs = dict(back.named_parameters())
+    reload_exact = all(torch.equal(p, theirs[n])
+                       for n, p in model.named_parameters())
+    del back, theirs
+    images = os.path.join(root, "images")
+    _write_pngs(images, PREDICT_IMAGES, IMAGE_SIZE, np.random.default_rng(7))
+    decode_ms = _decode_ms(images, IMAGE_SIZE)
+
+    art = os.path.join(root, "artifact")
+    runs = {
+        "live": ["--model", "ViT-B-32", "--pretrained", pt,
+                 "--fusion-classify", "--export-serving", art],
+        "artifact": ["--serving-artifact", art, "--fusion-classify"],
+        "zero_shot": ["--model", "ViT-B-32", "--pretrained", pt,
+                      "--use-tagging"],
+        "fusion_scoring": ["--model", "ViT-B-32", "--pretrained", pt,
+                           "--use-tagging", "--fusion-scoring"],
+        "resume": ["--model", "ViT-B-32", "--resume", resume_tag,
+                   "--fusion-classify"],
+    }
+    log, recs, cli = [], {}, {}
+    targets = ((cs, "save_serving"), (cs, "load_serving"),
+               (CudaGraphRunner, "__call__"))
+    _reset_counts()
+    with _probed(targets, log):
+        for name, flags in runs.items():
+            out = os.path.join(root, f"{name}.jsonl")
+            n_before = len(log)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                predict.main(["--input", images, "--batch-size",
+                              str(SERVE_BATCH), "--output", out, *flags])
+            wall = time.perf_counter() - t0
+            recs[name] = _jsonl(out)
+            calls = [c for c in log[n_before:] if c["what"] == "__call__"]
+            cli[name] = {
+                "s": wall, "img_per_s": len(recs[name]) / wall,
+                "serve_calls": len(calls),
+                "first_call_ms": 1e3 * calls[0]["s"],
+                "later_calls_ms": [1e3 * c["s"] for c in calls[1:]],
+                "launches_first_call": calls[0]["launches"],
+                "launches_later_calls": _per(calls[1:], 1),
+                "printed": said.getvalue().strip().splitlines()}
+    cli_counts = _counts()
+    manifest = cs.read_manifest(art)
+    loads = [c for c in log if c["what"] == "load_serving"]
+    program = loads[0]["out"]["serve_classify"].fn
+
+    names = metadata.SCAR_CLASSNAMES
+    live, from_art = recs["live"], recs["artifact"]
+    art_ok = len(live) == len(from_art) == PREDICT_IMAGES and all(
+        (a["image"], a["class"], a["tags"]) == (b["image"], b["class"],
+                                                b["tags"])
+        and all(abs(a["probs"][c] - p) < 0.05 for c, p in b["probs"].items())
+        for a, b in zip(from_art, live))
+    art_max_prob_err = max(abs(a["probs"][c] - p) for a, b in zip(
+        from_art, live) for c, p in b["probs"].items())
+    recs_ok = all(
+        len(r) == PREDICT_IMAGES and all(
+            x["class"] in names and len(x["tags"]) == 6
+            and all(math.isfinite(p) for p in x["probs"].values())
+            for x in r) for r in recs.values())
+    twice = _scaled(path["per_batch"], 2)  # an eager warm-up + the capture
+    launches_ok = all(
+        c["serve_calls"] == math.ceil(PREDICT_IMAGES / SERVE_BATCH)
+        and c["launches_first_call"] == twice
+        and not any(c["launches_later_calls"].values()) for c in cli.values())
+    nodes = _op_nodes(program)
+
+    # the serve step as a CUDA graph against its eager calls
+    batches = [b.to("cuda") for b in _serve_batches(IMAGE_SIZE)]
+    eager = make_serve_classify(model, table)
+    graph = _graphed_serve(CudaGraphRunner(eager), eager, batches,
+                           path["per_batch"])
+    result = {
+        "phase": "predict", "card": card,
+        "entry": "xtagclip_tpu_torch.cli.predict.main, five calls",
+        "model": "ViT-B-32 xtag bf16, seeded random init via an open_clip .pt",
+        "pt_write_s": t_pt, "pt_bytes": os.path.getsize(pt),
+        "pt_reload_bit_exact": reload_exact,
+        "images": PREDICT_IMAGES, "host_decode_ms_per_image": decode_ms,
+        "cli": cli,
+        "artifact_entries": {k: {f: v[f] for f in (
+            "bytes", "export_s", "save_s", "in_avals", "out_avals")}
+            for k, v in manifest["entries"].items()},
+        "artifact_load_s": loads[0]["s"],
+        "artifact_vs_live": {"ok": art_ok, "max_prob_err": art_max_prob_err},
+        "records_ok": recs_ok, "launches_ok": launches_ok,
+        "serve_classify_op_nodes": nodes, "graph": graph,
+        "launches": cli_counts}
+    _emit(result)
+    if not (reload_exact and art_ok and recs_ok and launches_ok
+            and nodes == SERVED_OPS["b32"] and graph["graph_vs_eager"]["ok"]):
+        raise AssertionError(f"predict phase failed its checks: {result}")
+    return cli_counts
+
+
+def phase_gap_predict(card: str, model, table, tmp: str):
+    """The GAP tower's serving artifact: serve_classify exported
+    (convert/serving.py), loaded and replayed as a CUDA graph against the
+    live eager step, with the predict phase's bars; its program holds 12
+    flash attention, 12 fused MLP and one normalize custom-op nodes.
+    Returns the launches of the artifact's warm-up and capture (its
+    export and load launch none, its replays count none)."""
+    from xtagclip_tpu_torch.convert import serving as cs
+    from xtagclip_tpu_torch.serving import make_serve_classify
+    from xtagclip_tpu_torch.train import metadata
+
+    path = _paths()["gap"]
+    art = os.path.join(tmp, "gap_artifact")
+    batches = [b.to("cuda") for b in _serve_batches(GAP_IMAGE_SIZE)]
+    eager = make_serve_classify(model, table)
+    _reset_counts()
+    t0 = time.perf_counter()
+    manifest = cs.save_serving(model, art, model_name=GAP_CONFIG, entries=(),
+                               serve_classify_table=table,
+                               classnames=metadata.SCAR_CLASSNAMES)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner = cs.load_serving(art)["serve_classify"]
+    t_load = time.perf_counter() - t0
+    graph = _graphed_serve(runner, eager, batches, path["per_batch"])
+    counts = {k: v + graph["launches_at_capture"][k]  # replays count none
+              for k, v in graph["launches_warm_up"].items()}
+    nodes = _op_nodes(runner.fn)
+    entry = manifest["entries"]["serve_classify"]
+    result = {"phase": "gap_predict", "card": card,
+              "model": f"{path['label']} xtag bf16, seeded random init",
+              "export_s": entry["export_s"], "save_s": entry["save_s"],
+              "bytes": entry["bytes"], "save_serving_s": t_save,
+              "load_s": t_load, "in_avals": entry["in_avals"],
+              "out_avals": entry["out_avals"],
+              "serve_classify_op_nodes": nodes, "graph": graph}
+    _emit(result)
+    if not (nodes == SERVED_OPS["gap"] and graph["graph_vs_eager"]["ok"]):
+        raise AssertionError(f"gap_predict phase failed its checks: {result}")
+    return counts
+
+
 def _ptxas_report(built: dict) -> dict:
     """{kernel entry: [registers, spill store bytes, spill load bytes]} from
     nvcc's -Xptxas -v report of one library (its .log beside it)."""
@@ -1495,15 +1825,21 @@ def main(argv=()) -> int:
 
     entries = phase_kernels(card)
     b32, gap = _paths()["b32"], _paths()["gap"]
-    paths, model, ptable, serve_one = phase_serve_and_path(card, b32)
-    paths["train"], train_one = phase_train(card, ptable, b32)
-    phase_train_path(card, ptable, b32)
-    paths["trainer"] = phase_trainer(card, profile=args.profile)
-    gap_paths, g_model, _, g_serve_one = phase_serve_and_path(card, gap)
-    paths.update({"gap_" + k: v for k, v in gap_paths.items()})
-    paths["gap_train"], g_train_one = phase_train(card, ptable, gap)
-    phase_train_path(card, ptable, gap)
-    paths["gap_trainer"] = phase_gap_trainer(card)
+    with tempfile.TemporaryDirectory(prefix="xtag_smoke_") as tmp:
+        paths, model, ptable, serve_one, table = phase_serve_and_path(
+            card, b32)
+        paths["train"], train_one = phase_train(card, ptable, b32)
+        phase_train_path(card, ptable, b32)
+        last_tag = os.path.join(tmp, "trainer_last")
+        paths["trainer"] = phase_trainer(card, last_tag, profile=args.profile)
+        paths["predict"] = phase_predict(card, model, table, last_tag, tmp)
+        gap_paths, g_model, _, g_serve_one, g_table = phase_serve_and_path(
+            card, gap)
+        paths.update({"gap_" + k: v for k, v in gap_paths.items()})
+        paths["gap_train"], g_train_one = phase_train(card, ptable, gap)
+        phase_train_path(card, ptable, gap)
+        paths["gap_trainer"] = phase_gap_trainer(card)
+        paths["gap_predict"] = phase_gap_predict(card, g_model, g_table, tmp)
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

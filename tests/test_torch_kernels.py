@@ -30,7 +30,9 @@ attention half and its backward repeat bit for bit. Gradients through a whole bl
 kernels on against kernels off: cosine >= 0.999 per tensor. The image normalize
 against its plain version (the kernel's one FMA against a multiply and
 an add): bf16 within one bf16 ULP on every element, fp32 within one fp32
-ulp at the operands' scale (2^-22).
+ulp at the operands' scale (2^-22). The forward kernels' custom ops:
+``torch.library.opcheck`` of each, and each captured in a CUDA graph and
+replayed on fresh inputs, bit for bit an eager launch.
 """
 
 import numpy as np
@@ -730,3 +732,76 @@ def test_normalize_kernel_raises_instead_of_falling_back(cuda):
         preprocess.normalize_images(images.transpose(1, 2))
     with pytest.raises(ValueError, match="float16"):
         preprocess.normalize_images(images, dtype=torch.float16)
+
+
+# -- the forward kernels as custom ops: opcheck and CUDA graphs --------------
+
+_OP_WRAPPERS = {"fused_attn_half": fab.fused_attn_half,
+                "fused_attn_half_causal": fab.fused_attn_half,
+                "fused_mlp_half": fab.fused_mlp_half,
+                "fused_mlp": fused_mlp.fused_mlp,
+                "flash_mha": flash_attn.flash_mha,
+                "normalize_images": preprocess.normalize_images}
+
+
+def _op_case(name, seed, device):
+    """(custom op, its arguments) at a served shape (a smaller batch)."""
+    if name == "fused_attn_half":
+        return fab.fused_attn_half_op, (
+            *_attn_args(4, 50, 768, seed, device), None, 12, 1e-5)
+    if name == "fused_attn_half_causal":
+        return fab.fused_attn_half_op, (
+            *_attn_args(4, 77, 512, seed, device), _causal(77, device), 8,
+            1e-5)
+    if name == "fused_mlp_half":
+        return fab.fused_mlp_half_op, (
+            *_mlp_args(200, 768, 3072, seed, device), "gelu", 1e-5)
+    if name == "fused_mlp":
+        x, _, _, w1, b1, w2, b2 = _mlp_args(512, 768, 3072, seed, device)
+        return fused_mlp.fused_mlp_op, (x, w1, b1, w2, b2, "quick_gelu")
+    if name == "flash_mha":
+        return flash_attn.flash_mha_op, (
+            *_flash_inputs(2, 12, 256, 64, "blhd", seed, device), "blhd")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    images = torch.randint(0, 256, (4, 224, 224, 3), generator=gen,
+                           device=device, dtype=torch.uint8)
+    return preprocess.normalize_images_op, (
+        images, [0.48145466, 0.4578275, 0.40821073],
+        [0.26862954, 0.26130258, 0.27577711], torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", sorted(_OP_WRAPPERS))
+def test_custom_op_opcheck(cuda, name):
+    """Schema, fake implementation and dispatch of each forward op
+    (torch.library.opcheck)."""
+    op, args = _op_case(name, 910, cuda)
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("name", sorted(_OP_WRAPPERS))
+def test_custom_op_replays_as_cuda_graph(cuda, name):
+    """Each forward kernel captured in a CUDA graph, replayed on fresh
+    inputs copied into the captured buffers: bit for bit an eager launch
+    on those inputs. The capture counts one launch, the replay none."""
+    op, static = _op_case(name, 920, cuda)
+    _, fresh = _op_case(name, 921, cuda)
+    wrapper = _OP_WRAPPERS[name]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op(*static)  # first use: the library loads, the attributes are set
+    torch.cuda.current_stream().wait_stream(side)
+    before = wrapper.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op(*static)
+    assert wrapper.launches == before + 1
+    for s, f in zip(static, fresh):
+        if isinstance(s, torch.Tensor):
+            s.copy_(f)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = op(*fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

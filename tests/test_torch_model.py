@@ -279,14 +279,40 @@ def test_predict_cli_fusion_classify_on_cpu(tmp_path):
         assert len(r["tags"]) == 6
 
 
-@pytest.mark.parametrize("flags", [
-    ["--fusion-classify", "--serving-artifact", "x"],
-    ["--fusion-classify", "--export-serving", "x"],
-    ["--fusion-classify", "--pretrained", "x.pt"],
-    [],  # the zero-shot path
+@pytest.mark.parametrize("case", [
+    "named_pretrained_tag",
+    "artifact_without_fusion_classify",
+    "artifact_without_serve_classify",
+    "big_vision_npz",
 ])
-def test_predict_cli_unported_paths_fail_clearly(flags):
+def test_predict_cli_unported_paths_fail_clearly(case, tmp_path):
+    """What the predict CLI still refuses, each with a clear error: a named
+    --pretrained tag (pretrained.py is not ported), --serving-artifact
+    without --fusion-classify (as JAX's CLI), an artifact without a
+    serve_classify entry, and a big_vision .npz."""
     from xtagclip_tpu_torch.cli import predict
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        predict.main(["--input", "x.png", "--device", "cpu", *flags])
+    path = tmp_path / "torchtinyrefuse.json"
+    path.write_text(json.dumps(CFG))
+    factory.add_model_config(path)
+    art = tmp_path / "art"
+    art.mkdir()
+    (art / "serving_manifest.json").write_text(json.dumps(
+        {"model": path.stem, "entries": {}, "preprocess": {"size": 32}}))
+    npz = tmp_path / "big_vision.npz"
+    np.savez(npz, x=np.zeros(1))
+    flags, err, match = {
+        "named_pretrained_tag": (["--pretrained", "openai"],
+                                 NotImplementedError, "named tags"),
+        "artifact_without_fusion_classify": (
+            ["--serving-artifact", str(art)], SystemExit,
+            "--serving-artifact requires --fusion-classify"),
+        "artifact_without_serve_classify": (
+            ["--serving-artifact", str(art), "--fusion-classify"],
+            SystemExit, "no serve_classify entry"),
+        "big_vision_npz": (["--pretrained", str(npz)], NotImplementedError,
+                           "big_vision .npz checkpoints are not ported"),
+    }[case]
+    with pytest.raises(err, match=match):
+        predict.main(["--model", path.stem, "--input", "x.png", "--device",
+                      "cpu", "--precision", "fp32", *flags])

@@ -26,7 +26,9 @@ missing card raises before anything is allocated.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import logging
 import math
 import os
 import warnings
@@ -214,14 +216,15 @@ def create_model_and_transforms(model_name: str, pretrained=None,
     uint8 HWC crops; normalize them on the device with
     ops.preprocess.normalize_images. ``pretrained`` is a local
     open_clip-layout .pt file (convert/loader.py); named tags are not
-    ported."""
+    ported. The preprocess config is kept on the model
+    (``get_model_preprocess_cfg``), for a serving artifact's manifest."""
     model = create_model(model_name, precision=precision, device=device,
                          **kwargs)
     if pretrained:
         if not Path(pretrained).is_file():
             raise NotImplementedError(
                 f"pretrained {pretrained!r}: only a local .pt file is ported; "
-                "named tags wait for pretrained.py (ROADMAP Queue 1 item 10)")
+                "named tags wait for pretrained.py (ROADMAP Queue 1 item 9)")
         from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
 
         load_checkpoint_into(model, str(pretrained))
@@ -230,8 +233,50 @@ def create_model_and_transforms(model_name: str, pretrained=None,
         mean=image_mean, std=image_std,
         interpolation=image_interpolation or "bicubic",
         resize_mode=image_resize_mode or "shortest")
+    set_model_preprocess_cfg(model, dataclasses.asdict(pp))
     return model, image_transform_train(pp, aug_cfg=aug_cfg), \
         image_transform_eval(pp)
+
+
+def get_model_preprocess_cfg(model) -> dict:
+    """The preprocess config kept on a model (JAX factory.py:455), with
+    its image size filled in."""
+    pp = dict(getattr(model, "preprocess_cfg", None) or {})
+    pp.setdefault("size", model.model_cfg["vision_cfg"].get("image_size", 224))
+    return pp
+
+
+def set_model_preprocess_cfg(model, preprocess_cfg: dict) -> None:
+    """Keep ``preprocess_cfg`` on the model (JAX factory.py:464)."""
+    model.preprocess_cfg = dict(preprocess_cfg)
+
+
+@torch.no_grad()
+def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """Load weights into a built model in place (JAX factory.py:519): one
+    of the port's own checkpoint tags (a directory holding
+    train/checkpoint.py's ``state.pt``, or that file) loads its
+    ``state["model"]``; any other file goes through the open_clip loader
+    (convert/loader.py). As in JAX (strict=False), a parameter the
+    checkpoint lacks keeps its value and an extra one is ignored; both are
+    logged."""
+    from xtagclip_tpu_torch.train.checkpoint import STATE_FILE
+
+    path = str(path)
+    if os.path.isdir(path):
+        path = os.path.join(path, STATE_FILE)
+    if os.path.basename(path) != STATE_FILE:
+        from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
+
+        return load_checkpoint_into(model, path)
+    tree = torch.load(path, map_location="cpu", weights_only=True)
+    result = model.load_state_dict(tree["state"]["model"], strict=False)
+    if result.missing_keys or result.unexpected_keys:
+        logging.info("checkpoint %s: %d parameters kept (%s), %d ignored "
+                     "(%s)", path, len(result.missing_keys),
+                     result.missing_keys[:5], len(result.unexpected_keys),
+                     result.unexpected_keys[:5])
+    return model
 
 
 def get_tokenizer(model_name: str = ""):

@@ -73,6 +73,11 @@ class CLIP(nn.Module):
         self.tag_labels = Embed(num_tags * 2, tag_hidden_size, init_std=1.0)
         self.tag_fc = Dense(tag_hidden_size, 1)
         self.fusion_model = TQNModel(fusion_dim) if use_fusion else None
+        # on the device once, so that a pick reads no host memory (a CUDA
+        # graph or an exported program holds no host-to-device copy)
+        self.register_buffer(
+            "tag_offsets", torch.tensor(TAG_CATEGORY_OFFSETS),
+            persistent=False)
 
     def init_params(self, generator):
         nn.init.constant_(self.logit_scale, self.init_logit_scale)
@@ -105,8 +110,7 @@ class CLIP(nn.Module):
             [scores[:, off:off + size].argmax(dim=-1)
              for size, off in zip(TAG_CATEGORY_SIZES, TAG_CATEGORY_OFFSETS)],
             dim=-1)
-        offsets = torch.tensor(TAG_CATEGORY_OFFSETS, device=local.device)
-        return local, local + offsets
+        return local, local + self.tag_offsets
 
     # ---- full forward ----------------------------------------------------
     def forward(self, image, text=None, prompt_table=None, class_ids=None,

@@ -32,6 +32,11 @@ dh] (the model's) or "bhld" [B, H, L, dh]; the output in the same layout
 and q's dtype; scale dh^-0.5. The kernels read any view whose head dim is
 contiguous (the model's q, k, v are column slices of one [B, L, 3D]
 projection) and write the output contiguous in the given layout.
+
+Without grad ``flash_mha`` calls the forward through the custom op
+``xtagclip_tpu_torch::flash_mha`` (the launcher without the log-sum-exp;
+a fake implementation for ``torch.export``); ``_FlashMHA`` calls the
+launcher itself, for the log-sum-exp its backward reads.
 """
 
 from __future__ import annotations
@@ -39,7 +44,11 @@ from __future__ import annotations
 import torch
 
 from xtagclip_tpu_torch.ops import cuda_build
-from xtagclip_tpu_torch.ops.fused_attn_block import _full_fp32_matmul, _needs_grad
+from xtagclip_tpu_torch.ops.fused_attn_block import (
+    _full_fp32_matmul,
+    _needs_grad,
+    check_device,
+)
 
 _HEAD_DIMS = (64, 128)
 LAYOUTS = ("blhd", "bhld")
@@ -127,9 +136,10 @@ def flash_mha(q, k, v, layout: str = "blhd"):
     a CUDA tensor, the plain version on a CPU tensor (module doc);
     differentiable through ``_FlashMHA`` when an input requires grad."""
     _bhld(q, layout)
+    check_device("flash_mha", q)
     if _needs_grad(q, k, v):
         return _FlashMHA.apply(q, k, v, layout)
-    return _flash_fwd(q, k, v, layout, with_lse=False)[0]
+    return flash_mha_op(q, k, v, layout)
 
 
 def _flash_fwd(q, k, v, layout, with_lse):
@@ -155,6 +165,20 @@ def _flash_fwd(q, k, v, layout, with_lse):
 
 
 flash_mha.launches = 0
+
+
+@torch.library.custom_op("xtagclip_tpu_torch::flash_mha", mutates_args=())
+def flash_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 layout: str) -> torch.Tensor:
+    """Attention's forward as a custom op: the kernel on a CUDA tensor (or
+    a raise), the plain version on a CPU tensor; the output contiguous in
+    q's layout."""
+    return _flash_fwd(q, k, v, layout, with_lse=False)[0]
+
+
+@flash_mha_op.register_fake
+def _flash_mha_fake(q, k, v, layout):
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
 def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd"):

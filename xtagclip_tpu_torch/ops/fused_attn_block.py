@@ -33,11 +33,20 @@ dbqkv in PyTorch; ``fused_mlp_half`` runs ``_FusedMLPHalf``, the forward
 kernel and ``mlp_half_bwd``, a PyTorch backward that recomputes the half
 from x (the JAX MLP backward is XLA, not Pallas). Under ``no_grad`` or
 ``inference_mode`` the wrappers launch only the forward kernels.
+
+Custom ops: without grad the wrappers call the forward kernels through
+``torch.library`` custom ops, ``xtagclip_tpu_torch::fused_attn_half`` and
+``xtagclip_tpu_torch::fused_mlp_half``, so that ``torch.export`` and CUDA
+graphs see one opaque node per half (convert/serving.py). An op's
+implementation is the launcher above (the plain version on a CPU tensor)
+and its fake implementation gives only the output's shape and dtype. The
+autograd Functions call the launchers themselves, as before.
 """
 
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -281,6 +290,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def check_device(what: str, t) -> None:
+    """Raise for a device that has neither a kernel nor the plain version
+    (the custom ops would answer a meta tensor with their fake
+    implementation)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for device {t.device}")
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -309,9 +326,11 @@ def fused_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     gradient)."""
     args = (x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask, num_heads,
             eps)
+    check_device("fused_attn_half", x)
     if _needs_grad(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout):
         return _FusedAttnHalf.apply(*args)
-    return _attn_half_fwd(*args)
+    return fused_attn_half_op(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                              mask, int(num_heads), float(eps))
 
 
 def _attn_half_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask,
@@ -350,6 +369,25 @@ def _attn_half_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask,
 
 
 fused_attn_half.launches = 0
+
+
+@torch.library.custom_op("xtagclip_tpu_torch::fused_attn_half",
+                         mutates_args=())
+def fused_attn_half_op(x: torch.Tensor, ln_scale: torch.Tensor,
+                       ln_bias: torch.Tensor, wqkv: torch.Tensor,
+                       bqkv: torch.Tensor, wout: torch.Tensor,
+                       bout: torch.Tensor, mask: Optional[torch.Tensor],
+                       num_heads: int, eps: float) -> torch.Tensor:
+    """The attention half's forward as a custom op: the kernel on a CUDA
+    tensor (or a raise), the plain version on a CPU tensor."""
+    return _attn_half_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                          mask, num_heads, eps)
+
+
+@fused_attn_half_op.register_fake
+def _fused_attn_half_fake(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
+                          mask, num_heads, eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def fused_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
@@ -446,9 +484,11 @@ def fused_mlp_half(x, ln_scale, ln_bias, w1, b1, w2, b2,
     x [..., D] bf16; w1 [D, Hd], w2 [Hd, D] bf16 (flax layout [in, out]);
     ln_scale/ln_bias/b2 [D], b1 [Hd] fp32; act_name gelu|quick_gelu."""
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps)
+    check_device("fused_mlp_half", x)
     if _needs_grad(x, ln_scale, ln_bias, w1, b1, w2, b2):
         return _FusedMLPHalf.apply(*args)
-    return _mlp_half_fwd(*args)
+    return fused_mlp_half_op(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name,
+                             float(eps))
 
 
 def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps):
@@ -490,6 +530,23 @@ def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps):
 
 
 fused_mlp_half.launches = 0
+
+
+@torch.library.custom_op("xtagclip_tpu_torch::fused_mlp_half",
+                         mutates_args=())
+def fused_mlp_half_op(x: torch.Tensor, ln_scale: torch.Tensor,
+                      ln_bias: torch.Tensor, w1: torch.Tensor,
+                      b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                      act_name: str, eps: float) -> torch.Tensor:
+    """The MLP half's forward as a custom op: the kernel on a CUDA tensor
+    (or a raise), the plain version on a CPU tensor."""
+    return _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps)
+
+
+@fused_mlp_half_op.register_fake
+def _fused_mlp_half_fake(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name,
+                         eps):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 class _FusedMLPHalf(torch.autograd.Function):

@@ -21,6 +21,10 @@ fused halves, behind ``XTAG_FUSED_MLP`` there):
   ``_bwd`` casts to bf16 runs as a bf16 tensor-core product with an fp32
   result on the card (``_mm_f32``), not as an fp32 product of upcast
   operands.
+
+Without grad the wrapper calls the forward through the custom op
+``xtagclip_tpu_torch::fused_mlp`` (the launcher; a fake implementation
+for ``torch.export``), as ops/fused_attn_block.py does for its halves.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from xtagclip_tpu_torch.ops.fused_attn_block import (
     _check_args,
     _full_fp32_matmul,
     _needs_grad,
+    check_device,
     supported_mlp as supported,
 )
 
@@ -69,9 +74,10 @@ def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu"):
     x [..., D] bf16; w1 [D, Hd], w2 [Hd, D] bf16 (flax layout [in, out]);
     b1 [Hd], b2 [D] fp32; act gelu|quick_gelu."""
     args = (x, w1, b1, w2, b2, act)
+    check_device("fused_mlp", x)
     if _needs_grad(x, w1, b1, w2, b2):
         return _FusedMLP.apply(*args)
-    return _fused_mlp_fwd(*args)
+    return fused_mlp_op(*args)
 
 
 def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
@@ -106,6 +112,20 @@ def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
 
 
 fused_mlp.launches = 0
+
+
+@torch.library.custom_op("xtagclip_tpu_torch::fused_mlp", mutates_args=())
+def fused_mlp_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor,
+                 act: str) -> torch.Tensor:
+    """The MLP's forward as a custom op: the kernel on a CUDA tensor (or a
+    raise), the plain version on a CPU tensor."""
+    return _fused_mlp_fwd(x, w1, b1, w2, b2, act)
+
+
+@fused_mlp_op.register_fake
+def _fused_mlp_fake(x, w1, b1, w2, b2, act):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def fused_mlp_bwd(x, g, w1, b1, w2, act: str = "gelu"):

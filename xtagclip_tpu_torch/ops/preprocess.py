@@ -15,14 +15,21 @@ images are, as one multiply-add with folded scale and bias.
   an add in fp32. The kernel fuses them into one FMA, so the two may
   differ by one fp32 ulp before the downcast, which moves a bf16 result by
   one ULP only where it sits at a rounding tie.
+
+The wrapper calls the custom op ``xtagclip_tpu_torch::normalize_images``
+(the launcher above; a fake implementation for ``torch.export``), so an
+exported serving program holds it as one node (convert/serving.py).
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from xtagclip_tpu_torch.ops import cuda_build
+from xtagclip_tpu_torch.ops.fused_attn_block import check_device
 from xtagclip_tpu_torch.utils.constants import (
     OPENAI_DATASET_MEAN,
     OPENAI_DATASET_STD,
@@ -57,6 +64,20 @@ def normalize_images(images_u8: torch.Tensor, mean=OPENAI_DATASET_MEAN,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """[B,H,W,3] uint8 -> normalized ``dtype``: the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor (see the module doc)."""
+    check_device("normalize_images", images_u8)
+    return normalize_images_op(images_u8, [float(v) for v in mean],
+                               [float(v) for v in std], dtype)
+
+
+normalize_images.launches = 0
+
+
+@torch.library.custom_op("xtagclip_tpu_torch::normalize_images",
+                         mutates_args=())
+def normalize_images_op(images_u8: torch.Tensor, mean: Sequence[float],
+                        std: Sequence[float],
+                        dtype: torch.dtype) -> torch.Tensor:
+    """The normalize as a custom op (``normalize_images``)."""
     if images_u8.device.type == "cpu":
         return normalize_images_reference(images_u8, mean, std, dtype)
     what = "normalize_images"
@@ -86,4 +107,6 @@ def normalize_images(images_u8: torch.Tensor, mean=OPENAI_DATASET_MEAN,
     return out
 
 
-normalize_images.launches = 0
+@normalize_images_op.register_fake
+def _normalize_images_fake(images_u8, mean, std, dtype):
+    return torch.empty(images_u8.shape, dtype=dtype, device=images_u8.device)

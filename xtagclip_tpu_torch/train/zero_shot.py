@@ -78,13 +78,19 @@ def _pick_classnames_templates(data_key: str):
     return metadata.IMAGENET_CLASSNAMES, metadata.OPENAI_IMAGENET_TEMPLATES
 
 
-def make_eval_forward(model, fusion_scoring: bool = False):
+def make_eval_forward(model, fusion_scoring: bool = False,
+                      tagging: bool = True):
     """The eval forward shared by run_scar_eval and the CLIs: encode_image
     -> tag head -> zero-shot logits (100 * img @ W) or the fusion-aware
     token-mix similarity (train_other_simple.py:442-455).
 
     Returns fn(images_u8 [B, H, W, 3] on the model's device, classifier
-    [D, C]) -> (img_feat, logits fp32, tag_global)."""
+    [D, C]) -> (img_feat, logits fp32, tag_global). With ``tagging`` off,
+    or for a model without a tag head (no ``tag_forward``), the tag head
+    does not run and tag_global is None (JAX's predict without
+    --use-tagging emits no tags). The picks stay on the device, so the
+    forward can be captured as a CUDA graph."""
+    picks = tagging and hasattr(model, "tag_forward")
 
     @torch.no_grad()
     def forward(images_u8, classifier):
@@ -92,8 +98,10 @@ def make_eval_forward(model, fusion_scoring: bool = False):
         model.eval()
         images = normalize_images(images_u8, dtype=model.dtype)
         img_feat, tokens = model.encode_image(images, normalize=True)
-        tag_logits = model.tag_forward(tokens)
-        _, tag_global = model.prepare_tag_indices(tag_logits)
+        tag_global = None
+        if picks:
+            _, tag_global = model.prepare_tag_indices(
+                model.tag_forward(tokens))
         if fusion_scoring:
             tokens = tokens.float()
             g_sim = _l2(tokens.mean(dim=1)) @ classifier
