@@ -18,7 +18,8 @@ fused MLP), in phases that each print one JSON line:
    with ptxas's registers and spill bytes for every kernel entry;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it (and, for flash attention, at edge
-   shapes: L = 128, 197, 257, 384, head dim 128), every output within
+   shapes: L = 128, 197, 257, 384, head dim 128; ViT-H-14's head dim 80
+   at L = 257 and 37, and head dims 72, 88, 104, 112), every output within
    atol = max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale);
    the image normalize (kernel #5) within one bf16 ULP on every element,
    or 2^-22 for fp32 output, at the main path's batch and at a ragged
@@ -98,13 +99,37 @@ fused MLP), in phases that each print one JSON line:
    its eager calls (tag picks equal, features and logits within
    max|ref|/128; bit equality printed) and both timed over the serve
    window (200 batches of 32);
-11. gap_predict (last): the GAP tower's serve_classify exported, loaded
+11. gap_predict: the GAP tower's serve_classify exported, loaded
    and replayed as a graph against the live eager step, with the same
    bars (12 flash attention, 12 fused MLP and 1 normalize node), both
-   timed.
+   timed;
+12. clipa: the CLIPA ViT-H/14 GAP recipe (BASELINE config 5:
+   scripts/h14_84_8_pretrain.sh, scripts/h14_224_32_finetune.sh) through
+   ``cli.main.main`` at full width and depth (986M parameters; vision 32
+   blocks of width 1280, 16 heads of 80; text 24 blocks of width 1024),
+   --grad-checkpointing, batch 256 (not the scripts' 4096: one card's 80
+   GB) and no --fsdp (one process): stage 1 (syntax-mask CL8 tokenizer,
+   84 px, L = 37) for 2 steps; stage 2 (CL32, 224 px, L = 257, squash,
+   bilinear, ImageNet mean/std) from stage 1's checkpoint for 2 warm-up +
+   5 timed steps; ``evaluate`` on a CSV of 128 seeded PNGs. It prints
+   samples/s, p50 step ms, peak memory, checkpoint bytes and save
+   seconds, eval img/s and metrics, and fails on launches off
+   CLIPA_PER_STEP / CLIPA_PER_EVAL_BATCH, a value that is not finite or
+   syntax-mask ids off the front-truncation fallback;
+13. clipa_path (last): stage 2's model at batch 32: one step with
+   --grad-checkpointing on and off (loss and gradients bit for bit, peak
+   memory of each), one with the kernels on and off (phase 6's bars), a
+   kernels-on step at --force-patch-dropout 0.5 (finite), and eval image
+   features kernels vs plain (cosine >= 0.999).
 
-With ``--profile`` it also traces the trainer's second plain epoch, and
-then one precompute, 20 serve batches and 5 train steps of each model,
+After phase 2, flash_poison: flash attention at head dims 80 and 112 on
+q, k, v, dO whose columns past dh hold NaN (rows of dh + 48): outputs
+finite and equal bit for bit to those of the same inputs copied
+contiguous.
+
+With ``--profile`` it also traces the trainer's second plain epoch, 3
+CLIPA stage-2 train steps of 256, and then one precompute, 20 serve
+batches and 5 train steps of each model,
 with torch.profiler, and prints, for each window, its wall
 time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
@@ -164,6 +189,15 @@ GAP_VISION = {"image_size": GAP_IMAGE_SIZE, "pool_type": "avg",
               "no_class_token": True}
 GAP_CONFIG = "ViT-B-16-GAP-256"
 GAP_L = (GAP_IMAGE_SIZE // 16) ** 2
+# the CLIPA ViT-H/14 recipe (BASELINE config 5; scripts/h14_84_8_pretrain.sh,
+# scripts/h14_224_32_finetune.sh) through cli.main: the per-device batch
+# (the scripts' 4096 cut to what one card's 80 GB holds), 2 warm-up + 5
+# timed stage-2 steps, the eval CSV's rows, and the batch of the clipa_path
+# comparisons and of the kernel rows at ViT-H widths
+CLIPA_BATCH = 256
+CLIPA_WARMUP, CLIPA_STEPS = 2, 5
+CLIPA_VAL_ROWS = 128
+CLIPA_PATH_BATCH = 32
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -274,7 +308,8 @@ def _kernel_cases(gen):
     for tower, batch, l, d, h, causal in (
             ("vision", SERVE_BATCH, 50, 768, 12, False),
             ("text", SERVE_BATCH, 77, 512, 8, True),
-            ("text", PRECOMPUTE_BATCH, 77, 512, 8, True)):
+            ("text", PRECOMPUTE_BATCH, 77, 512, 8, True),
+            ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True)):
         x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
@@ -290,7 +325,8 @@ def _kernel_cases(gen):
     # precompute chunk's text rows (512 prompts of 77 tokens)
     for tower, batch, l, d in (("vision", SERVE_BATCH, 50, 768),
                                ("text", SERVE_BATCH, 77, 512),
-                               ("text", PRECOMPUTE_BATCH, 77, 512)):
+                               ("text", PRECOMPUTE_BATCH, 77, 512),
+                               ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024)):
         hd = 4 * d
         n = batch * l
         for act in ("gelu", "quick_gelu"):
@@ -304,7 +340,8 @@ def _kernel_cases(gen):
                           f"H={hd} {act}", args, flops, nbytes, "bf16", None))
     b = TRAIN_BATCH
     for tower, l, d, h, causal in (("vision", 50, 768, 12, False),
-                                   ("text", 77, 512, 8, True)):
+                                   ("text", 77, 512, 8, True),
+                                   ("ViT-H-14 text", 32, 1024, 16, True)):
         args = (rnd((b, l, d), dtype=bf), rnd((b, l, d), dtype=bf),
                 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, 3 * d), d**-0.5, bf),
                 rnd(3 * d, 0.1), rnd((d, d), d**-0.5, bf),
@@ -340,10 +377,15 @@ def _kernel_cases(gen):
 
 # flash attention's shapes: the GAP tower's (32, 12, 256, 64), then edge
 # shapes (B, H, L, dh): L at one tile, ragged L (ViT-B-16's 197 with its
-# class token, ViT-L-14's 257), several tiles, head dim 128
+# class token, ViT-L-14's 257), several tiles, head dim 128; then
+# ViT-H-14's dh 80 at the CLIPA path's two shapes (stage 2 at 224 px, L =
+# 257, at the train-path batch; stage 1 at 84 px, L = 37, at the recipe's
+# batch) and the other head dims the 128-wide instantiation takes
 FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (1, 12, 197, 64), (1, 12, 257, 64), (1, 12, 384, 64),
-               (2, 4, 256, 128))
+               (2, 4, 256, 128), (CLIPA_PATH_BATCH, 16, 257, 80),
+               (CLIPA_BATCH, 16, 37, 80), (2, 4, 257, 72), (2, 4, 257, 88),
+               (2, 4, 257, 104), (2, 4, 257, 112))
 
 
 def _gap_kernel_cases(gen):
@@ -390,8 +432,12 @@ def _gap_kernel_cases(gen):
                       8 * 2 * elems + 4 * b * h * l, "bf16",
                       {"library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd}))
     n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
-    for rows in (n, 37):
-        for act in ("gelu", "quick_gelu"):
+    for rows, d, hd, acts in ((n, d, hd, ("gelu", "quick_gelu")),
+                              (37, d, hd, ("gelu", "quick_gelu")),
+                              # ViT-H-14's vision MLP at the train-path batch
+                              (CLIPA_PATH_BATCH * 257, 1280, 5120,
+                               ("gelu",))):
+        for act in acts:
             x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             w1 = (torch.randn((d, hd), generator=gen, device=dev)
                   * d**-0.5).to(bf)
@@ -542,6 +588,46 @@ def phase_kernels(card: str):
                 "bound_by": "operations" if t_flops >= t_bytes else "bytes",
             })
     return entries
+
+
+def phase_flash_poison(card: str):
+    """Each head's q, k, v and dO at head dims 80 and 112 sit in rows of
+    dh + 48 columns whose 48 past dh hold NaN (b=4, h=16, L=257): the
+    kernels read 128-wide boxes through tensor maps that end at dh, so the
+    columns past it must load as zero. A read of any of them turns the
+    outputs NaN; the outputs must also equal those of the same inputs
+    copied contiguous, bit for bit."""
+    from xtagclip_tpu_torch.ops import flash_attn
+
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    b, h, l = 4, 16, 257
+    res = {}
+    for dh in (80, 112):
+        def poisoned():
+            full = torch.full((b, l, h, dh + 48), float("nan"),
+                              device="cuda", dtype=torch.bfloat16)
+            full[..., :dh] = torch.randn((b, l, h, dh), generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+            return full[..., :dh]
+
+        q, k, v, do = (poisoned() for _ in range(4))
+        dense = [t.contiguous() for t in (q, k, v, do)]
+        o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+        got = (o, lse, *flash_attn.flash_mha_bwd(q, k, v, o, lse, do))
+        o2, lse2 = flash_attn._flash_fwd(*dense[:3], "blhd", with_lse=True)
+        want = (o2, lse2, *flash_attn.flash_mha_bwd(*dense[:3], o2, lse2,
+                                                    dense[3]))
+        torch.cuda.synchronize()
+        res[dh] = {"finite": all(bool(torch.isfinite(t).all().item())
+                                 for t in got),
+                   "equal_to_contiguous": all(torch.equal(x, y)
+                                              for x, y in zip(got, want))}
+    result = {"phase": "flash_poison", "card": card,
+              "shape": f"B={b} H={h} L={l}, NaN past dh", "by_head_dim": res}
+    _emit(result)
+    if not all(r["finite"] and r["equal_to_contiguous"] for r in res.values()):
+        raise AssertionError(f"flash attention read past the head dim: "
+                             f"{result}")
 
 
 def _cosine(a, b):
@@ -901,6 +987,72 @@ def _cos(a, b) -> float:
     return (a @ b / (a.norm() * b.norm()).clamp_min(1e-30)).item()
 
 
+def _dist(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _steps_vs_plain(runs, step, plain, start, seed: int = 1) -> dict:
+    """{run name: (metrics, {parameter: gradient})} of one step of each of
+    ``runs`` ((name, model, batch), ...): each from a new train state, the
+    dropout generator seeded with ``seed``, the ``plain`` model reloaded
+    with ``start`` first."""
+    out = {}
+    for name, model, b in runs:
+        if model is plain:
+            plain.load_state_dict(start)
+        state = _new_train_state(model)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        _, m = step(state, b, gen)
+        torch.cuda.synchronize()
+        out[name] = ({k: v.item() for k, v in m.items()},
+                     {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+        model.zero_grad(set_to_none=True)
+    return out
+
+
+def _judge_steps(out) -> dict:
+    """The train-path bars on ``_steps_vs_plain``'s kernels, plain,
+    plain_up and plain_down runs (see phase_train_path): the fields of the
+    printed result, with ``ok``."""
+    (mk, gk), (mp, gp) = out["kernels"], out["plain"]
+    names = [n for n in gp if gp[n].abs().max().item() > 0
+             and not any(z in n for z in ZERO_GRAD_PARAMS)]
+    cos = {n: _cos(gk[n], gp[n]) for n in names}
+    under = {}
+    for n in names:
+        if cos[n] >= 0.99:
+            continue
+        floor = max(_dist(out[k][1][n], gp[n]) for k in ("plain_up",
+                                                          "plain_down"))
+        under[n] = {"cos": cos[n], "dist": _dist(gk[n], gp[n]),
+                    "noise_dist": floor}
+    failed = [n for n, v in under.items()
+              if v["cos"] < 0.95 or v["dist"] > 2 * v["noise_dist"]]
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    finite = all(math.isfinite(v) for m in (mk, mp) for v in m.values())
+    worst = sorted(under.items(), key=lambda kv: kv[1]["cos"])[:8]
+    res = {"kernels": mk, "plain": mp,
+           "loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
+           "grads_compared": len(names),
+           "grads_missing": sorted(set(gp) - set(gk)),
+           "zero_grad_params_max_abs": {
+               n: [gk[n].abs().max().item(), gp[n].abs().max().item()]
+               for n in gp if any(z in n for z in ZERO_GRAD_PARAMS)},
+           "grad_cos_min": min(cos.values()),
+           "grads_cos_at_least_0.99": len(names) - len(under),
+           "grads_under_0.99": len(under),
+           "worst_under_0.99": dict(worst),
+           "max_dist_over_noise": max(
+               (v["dist"] / v["noise_dist"] for v in under.values()),
+               default=0.0),
+           "grads_failed": failed, "finite": finite}
+    res["ok"] = (loss_rel <= 1e-2 and norm_rel <= 2e-2 and not failed
+                 and finite and not res["grads_missing"])
+    return res, names
+
+
 def phase_train_path(card: str, ptable, path: dict):
     """One step with the kernels on and off from the same weights, batch
     and dropout seed, on the batch's ground-truth prompts (the argmax
@@ -928,42 +1080,14 @@ def phase_train_path(card: str, ptable, path: dict):
     batch = _device_batch(host, ("additional", "texts"))
     p_batch = _device_batch(host, ("additional", "texts"), plain=True)
     start = copy.deepcopy(plain.state_dict())
-    step = make_train_step({})
     runs = (("kernels", kernels, batch), ("plain", plain, p_batch),
             ("plain_up", plain, dict(p_batch, images=_bf16_ulp_shift(
                 p_batch["images"], 1))),
             ("plain_down", plain, dict(p_batch, images=_bf16_ulp_shift(
                 p_batch["images"], -1))),
             ("fp32", fp32, dict(p_batch, images=p_batch["images"].float())))
-    out = {}
-    for name, model, b in runs:
-        if model is plain:
-            plain.load_state_dict(start)
-        state = _new_train_state(model)
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        _, m = step(state, b, gen)
-        torch.cuda.synchronize()
-        out[name] = ({k: v.item() for k, v in m.items()},
-                     {n: p.grad.clone() for n, p in model.named_parameters()
-                      if p.grad is not None})
-    (mk, gk), (mp, gp) = out["kernels"], out["plain"]
-    names = [n for n in gp if gp[n].abs().max().item() > 0
-             and not any(z in n for z in ZERO_GRAD_PARAMS)]
-
-    def dist(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
-    cos = {n: _cos(gk[n], gp[n]) for n in names}
-    under = {}
-    for n in names:
-        if cos[n] >= 0.99:
-            continue
-        floor = max(dist(out[k][1][n], gp[n]) for k in ("plain_up",
-                                                         "plain_down"))
-        under[n] = {"cos": cos[n], "dist": dist(gk[n], gp[n]),
-                    "noise_dist": floor}
-    failed = [n for n, v in under.items()
-              if v["cos"] < 0.95 or v["dist"] > 2 * v["noise_dist"]]
+    out = _steps_vs_plain(runs, make_train_step({}), plain, start)
+    judged, names = _judge_steps(out)
 
     def tower_cos(g):
         ref = out["fp32"][1]
@@ -974,32 +1098,14 @@ def phase_train_path(card: str, ptable, path: dict):
                               torch.cat([ref[n].float().flatten() for n in ks]))
         return res
 
-    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
-    norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
-    finite = all(math.isfinite(v) for m in (mk, mp) for v in m.values())
-    worst = sorted(under.items(), key=lambda kv: kv[1]["cos"])[:8]
+    ok = judged.pop("ok")
     result = {"phase": path["prefix"] + "train_path", "card": card,
               "model": path["label"], "texts": "ground truth",
-              "kernels": mk, "plain": mp, "fp32": out["fp32"][0],
-              "loss_rel_err": loss_rel, "grad_norm_rel_err": norm_rel,
-              "grads_compared": len(names),
-              "grads_missing": sorted(set(gp) - set(gk)),
-              "zero_grad_params_max_abs": {
-                  n: [gk[n].abs().max().item(), gp[n].abs().max().item()]
-                  for n in gp if any(z in n for z in ZERO_GRAD_PARAMS)},
-              "grad_cos_min": min(cos.values()),
-              "grads_cos_at_least_0.99": len(names) - len(under),
-              "grads_under_0.99": len(under),
-              "worst_under_0.99": dict(worst),
-              "max_dist_over_noise": max(
-                  (v["dist"] / v["noise_dist"] for v in under.values()),
-                  default=0.0),
-              "cos_to_fp32_kernels": tower_cos(gk),
-              "cos_to_fp32_plain": tower_cos(gp),
-              "grads_failed": failed, "finite": finite}
+              "fp32": out["fp32"][0], **judged,
+              "cos_to_fp32_kernels": tower_cos(out["kernels"][1]),
+              "cos_to_fp32_plain": tower_cos(out["plain"][1])}
     _emit(result)
-    if not (loss_rel <= 1e-2 and norm_rel <= 2e-2 and not failed
-            and finite and not result["grads_missing"]):
+    if not ok:
         raise AssertionError(f"kernel train step disagrees with plain: "
                              f"{result}")
 
@@ -1709,6 +1815,403 @@ def phase_gap_predict(card: str, model, table, tmp: str):
     return counts
 
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+# launches of each wrapper per ViT-H-14 CLIPA train step under
+# --grad-checkpointing: every forward kernel of the 32 vision blocks (flash
+# attention at dh 80, the fused MLP) and of the 24 text blocks (the two
+# halves) runs twice, once in the forward and once in the recompute of
+# its block's backward; the backward kernels once; one normalize
+CLIPA_PER_STEP = dict(flash_mha=64, flash_mha_bwd=32, fused_mlp=64,
+                      fused_attn_half=48, fused_mlp_half=48,
+                      fused_attn_half_bwd=24, normalize_images=1)
+# per eval batch: each forward kernel once
+CLIPA_PER_EVAL_BATCH = dict(flash_mha=32, fused_mlp=32, fused_attn_half=24,
+                            fused_mlp_half=24, normalize_images=1)
+CLIPA_EVAL_BATCH = 64
+CLIPA_WORDS = ("red", "small", "dog", "cat", "tree", "house", "blue", "car",
+               "on", "grass", "near", "water", "old", "photo", "of", "a")
+CLIPA_LONG_CAPTION = ("a photo of a very large fluffy orange cat sitting on "
+                      "an old wooden table")
+
+
+def _clipa_args(stage: int, logs: str) -> list:
+    """cli.main's flags of scripts/h14_84_8_pretrain.sh (stage 1) and
+    scripts/h14_224_32_finetune.sh (stage 2), with the one-process cuts:
+    no --fsdp, the per-device batch CLIPA_BATCH instead of 4096, one epoch
+    of synthetic data (2 steps; 2 + 5 steps), and stage 2's preprocessing
+    flags of the JAX package's CLIPA test (tests/test_clipa_path.py)."""
+    common = ["--dataset-type", "synthetic", "--batch-size", str(CLIPA_BATCH),
+              "--precision", "amp_bf16", "--beta1", "0.9", "--beta2", "0.95",
+              "--wd", "0.2", "--eps", "1e-8", "--epochs", "1",
+              "--grad-checkpointing", "--local-loss", "--gather-with-grad",
+              "--workers", "4", "--log-every-n-steps", "1", "--logs", logs,
+              "--name", f"stage{stage}", "--seed", "0"]
+    if stage == 1:
+        return ["--model", "ViT-H-14-CL8-SyntaxMask-GAP", *common,
+                "--train-num-samples", str(2 * CLIPA_BATCH),
+                "--lr", "2.048e-3", "--warmup", "3200",
+                "--force-image-size", "84"]
+    return ["--model", "ViT-H-14-CL32-GAP", *common,
+            "--train-num-samples",
+            str((CLIPA_WARMUP + CLIPA_STEPS) * CLIPA_BATCH),
+            "--lr", "2.048e-4", "--warmup", "800",
+            "--force-image-size", "224",
+            "--pretrained", os.path.join(logs, "stage1", "checkpoints",
+                                         "epoch_1"),
+            "--image-resize-mode", "squash", "--image-interpolation",
+            "bilinear", "--image-mean", *map(str, IMAGENET_MEAN),
+            "--image-std", *map(str, IMAGENET_STD)]
+
+
+def _clipa_tokens() -> dict:
+    """Stage 1's syntax-mask tokenizer: nltk's tagger where its data is on
+    disk, else the front-truncation fallback, whose ids are checked."""
+    from xtagclip_tpu_torch.factory import get_tokenizer
+    from xtagclip_tpu_torch.tokenize import masking
+
+    tok = get_tokenizer("ViT-H-14-CL8-SyntaxMask-GAP")
+    texts = ["Dummy caption", CLIPA_LONG_CAPTION]
+    got = tok(texts)
+    fallback = masking.nltk_tagger() is None
+    want = []
+    for text in texts:  # words[:context - 2], then BPE with SOT and EOT
+        ids = ([tok.sot_token_id] + tok.encode(" ".join(text.split()[:6]))
+               + [tok.eot_token_id])
+        if len(ids) > 8:
+            ids = ids[:8]
+            ids[-1] = tok.eot_token_id
+        want.append(ids + [0] * (8 - len(ids)))
+    return {"path": "fallback" if fallback else "nltk",
+            "ids": got.tolist(),
+            "ok": (not fallback) or got.tolist() == want}
+
+
+def _write_val_csv(root: str, n: int, rng) -> str:
+    """``n`` seeded 224x224 PNGs and a tab-separated CSV of their paths
+    and five-word captions."""
+    _write_pngs(root, n, IMAGE_SIZE, rng)
+    rows = ["filepath\ttitle"]
+    for i in range(n):
+        rows.append(f"{os.path.join(root, f'img_{i:03d}.png')}\t"
+                    + " ".join(rng.choice(CLIPA_WORDS, 5)))
+    path = os.path.join(root, "val.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return path
+
+
+def _ckpt_bytes(tag_dir: str) -> int:
+    return sum(os.path.getsize(os.path.join(tag_dir, f))
+               for f in os.listdir(tag_dir))
+
+
+def _profile_clipa_step(card: str, state, n_steps: int = 3) -> None:
+    """torch.profiler window of ``n_steps`` stage-2 train steps of
+    CLIPA_BATCH (the CLI's step: contrastive loss, AdamW) on seeded
+    batches already on the card."""
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    rng = np.random.default_rng(300)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (CLIPA_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+        dtype=np.uint8)).to("cuda")
+    texts = torch.from_numpy(rng.integers(
+        1, 49000, (CLIPA_BATCH, 32))).to("cuda")
+    step = make_train_step({"use_tagging_loss": False})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        nonlocal state
+        for _ in range(n_steps):
+            batch = {"images": preprocess.normalize_images(
+                images, IMAGENET_MEAN, IMAGENET_STD, dtype=torch.bfloat16),
+                "texts": texts}
+            state, _ = step(state, batch, gen)
+
+    _profile_window(f"ViT-H-14-CL32-GAP stage 2: train {n_steps} steps of "
+                    f"{CLIPA_BATCH} (--grad-checkpointing)", run, card,
+                    top=25)
+
+
+def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
+    """The CLIPA ViT-H/14 recipe through cli.main at full width and depth:
+    stage 1 (CL8 syntax mask, 84 px, L = 37) for 2 steps, then stage 2
+    (CL32, 224 px, L = 257) from stage 1's checkpoint (--pretrained: the
+    vision table resized 6x6 -> 16x16, the text table 8 -> 32) for 2 + 5
+    steps, then ``evaluate`` on a val CSV of seeded PNGs. Launch counts per
+    step and per eval batch are asserted; the checkpoints are deleted."""
+    import gc
+
+    from xtagclip_tpu_torch.cli import main as clipa_main
+    from xtagclip_tpu_torch.data.datasets import CsvDataset
+    from xtagclip_tpu_torch.data.registry import _loader
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_eval,
+    )
+    from xtagclip_tpu_torch.factory import get_tokenizer
+    from xtagclip_tpu_torch.train.evaluate import evaluate
+    from xtagclip_tpu_torch.train.logger import close_logging
+    from xtagclip_tpu_torch.train.params import parse_args
+
+    logs = os.path.join(tmp, "clipa")
+    tokens = _clipa_tokens()
+    counts, stages = {}, {}
+    try:
+        for stage in (1, 2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            resident = torch.cuda.memory_allocated()  # earlier phases'
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            out = clipa_main.main(_clipa_args(stage, logs))
+            wall = time.perf_counter() - t0
+            counts[f"clipa_stage{stage}"] = _counts()
+            rec = out["epochs"][0]
+            tm = rec["train"]
+            steps = len(tm["interval_step_s"])
+            timed = tm["interval_step_s"][CLIPA_WARMUP:] if stage == 2 \
+                else tm["interval_step_s"]
+            tag = os.path.join(logs, f"stage{stage}", "checkpoints",
+                               "epoch_1")
+            model = out["state"].model
+            stages[stage] = {
+                "model": model.model_name, "wall_s": wall, "steps": steps,
+                "step_s": tm["interval_step_s"],
+                "samples_per_s": CLIPA_BATCH * len(timed) / sum(timed),
+                "p50_step_ms": 1e3 * statistics.median(timed),
+                "loss": tm["loss"], "logit_scale": tm["logit_scale"],
+                "grad_norm": tm["grad_norm"],
+                "peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                - resident) / 1e9,
+                "resident_before_gb": resident / 1e9,
+                "checkpoint_bytes": _ckpt_bytes(tag),
+                "checkpoint_save_s": rec["checkpoint_s"],
+                "launches": counts[f"clipa_stage{stage}"],
+                "launches_ok": counts[f"clipa_stage{stage}"]
+                == _want(**_scaled(CLIPA_PER_STEP, steps)),
+                "vision_tokens": model.visual.positional_embedding.shape[0],
+                "text_context": model.text.positional_embedding.shape[0],
+                "grad_checkpointing":
+                    model.visual.transformer.grad_checkpointing,
+                "finite": all(math.isfinite(tm[k])
+                              for k in ("loss", "grad_norm"))}
+            if stage == 1:
+                del out, model
+                close_logging()
+                continue
+            if profile:
+                _profile_clipa_step(card, out["state"])
+            # evaluate on the val CSV (stage 2's preprocessing)
+            val_root = os.path.join(tmp, "clipa_val")
+            csv = _write_val_csv(val_root, CLIPA_VAL_ROWS,
+                                 np.random.default_rng(9))
+            args = parse_args(["--val-data", csv, "--dataset-type", "csv",
+                               "--batch-size", str(CLIPA_EVAL_BATCH),
+                               "--workers", "4", "--model",
+                               "ViT-H-14-CL32-GAP"], include_xtag=False)
+            args.checkpoint_path = None
+            tok = get_tokenizer("ViT-H-14-CL32-GAP")
+            pp = PreprocessCfg(**model.preprocess_cfg)
+            data = {"val": _loader(CsvDataset(
+                csv, image_transform_eval(pp), img_key="filepath",
+                caption_key="title", tokenizer=tok), args, is_train=False)}
+            evaluate(model, data, 1, args, tok)  # warm-up
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = evaluate(model, data, 1, args, tok)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            counts["clipa_eval"] = _counts()
+            n_batches = -(-CLIPA_VAL_ROWS // CLIPA_EVAL_BATCH)
+            stages["eval"] = {
+                "rows": CLIPA_VAL_ROWS, "seconds": eval_s,
+                "img_per_s": CLIPA_VAL_ROWS / eval_s, "metrics": metrics,
+                "launches": counts["clipa_eval"],
+                "launches_ok": counts["clipa_eval"]
+                == _want(**_scaled(CLIPA_PER_EVAL_BATCH, n_batches)),
+                "preprocess": {k: model.preprocess_cfg[k] for k in
+                               ("mean", "std", "interpolation",
+                                "resize_mode")},
+                "finite": all(math.isfinite(v) for v in metrics.values()
+                              if isinstance(v, float))}
+            del out, model, data
+            close_logging()
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    s1, s2, ev = stages[1], stages[2], stages["eval"]
+    ok = (tokens["ok"] and s1["launches_ok"] and s2["launches_ok"]
+          and ev["launches_ok"] and s1["finite"] and s2["finite"]
+          and ev["finite"] and s1["steps"] == 2
+          and s2["steps"] == CLIPA_WARMUP + CLIPA_STEPS
+          and (s1["vision_tokens"], s1["text_context"]) == (37, 8)
+          and (s2["vision_tokens"], s2["text_context"]) == (257, 32)
+          and tuple(ev["preprocess"]["mean"]) == IMAGENET_MEAN
+          and ev["metrics"]["num_samples"] == CLIPA_VAL_ROWS)
+    result = {"phase": "clipa", "card": card,
+              "recipe": "CLIPA ViT-H/14 GAP (BASELINE config 5) via cli.main",
+              "weights": "seeded random init", "batch": CLIPA_BATCH,
+              "cuts": "no --fsdp (one process); batch 256 not 4096; 1 epoch "
+                      "of synthetic data",
+              "tokenizer": tokens, "stage1": s1, "stage2": s2, "eval": ev,
+              "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"clipa phase failed its checks: {result}")
+    return counts
+
+
+def _fwd_bwd_memory(model, batch) -> dict:
+    """GB a forward leaves held for its backward (``held_after_forward``)
+    and the peak of forward + backward (``peak``), both over what was
+    resident before; the model's gradients are cleared after."""
+    from xtagclip_tpu_torch.losses import clip_loss
+
+    model.zero_grad(set_to_none=True)
+    gc_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = model(batch["images"], text=batch["texts"], deterministic=True)
+    loss = clip_loss(out["image_features"], out["text_features"],
+                     out["logit_scale"])
+    held = torch.cuda.memory_allocated() - gc_base
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - gc_base
+    del out, loss
+    model.zero_grad(set_to_none=True)
+    return {"held_after_forward": held / 1e9, "peak": peak / 1e9}
+
+
+def phase_clipa_path(card: str):
+    """At stage 2's full width, batch CLIPA_PATH_BATCH: (1) one step with
+    --grad-checkpointing on and off from the same weights, batch and
+    dropout seed: loss and every gradient bit for bit (deterministic
+    PyTorch algorithms on, for the token embedding's scatter-add), with
+    each run's peak memory; (2) one step with the kernels on and off,
+    held to phase 6's bars (_judge_steps); (3) a kernels-on step at
+    --force-patch-dropout 0.5 (L = 129): finite; (4) eval image features,
+    kernels vs plain: cosine >= 0.999."""
+    import gc
+
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.models.layers import (
+        set_grad_checkpointing,
+        set_use_kernels,
+    )
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    model = create_model("ViT-H-14-CL32-GAP", precision="bf16", init_seed=1)
+    start = {k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items()}
+    rng = np.random.default_rng(200)
+    b = CLIPA_PATH_BATCH
+    images = torch.from_numpy(rng.integers(0, 256, (b, IMAGE_SIZE,
+                                                    IMAGE_SIZE, 3),
+                                           dtype=np.uint8)).to("cuda")
+    texts = np.zeros((b, 32), np.int64)
+    texts[:, 0] = 49406
+    texts[:, 1:21] = rng.integers(1, 49000, (b, 20))
+    texts[:, 21] = 49407
+    texts = torch.from_numpy(texts).to("cuda")
+    norm = dict(mean=IMAGENET_MEAN, std=IMAGENET_STD, dtype=torch.bfloat16)
+    batch = {"images": preprocess.normalize_images(images, **norm),
+             "texts": texts}
+    p_batch = {"images": preprocess.normalize_images_reference(images,
+                                                                **norm),
+               "texts": texts}
+    step = make_train_step({"use_tagging_loss": False})
+
+    # (1) checkpointing on vs off: the step's loss and gradients, and the
+    # memory of a forward and backward alone (the step's own peak is the
+    # optimizer's, once the activations are gone): what the forward
+    # leaves held for the backward, and the peak over what was resident
+    remat, memory = {}, {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for on in (False, True):
+            set_grad_checkpointing(model, on)
+            model.load_state_dict(start)
+            gc.collect()
+            torch.cuda.empty_cache()
+            _reset_counts()
+            out = _steps_vs_plain((("run", model, batch),), step, None,
+                                  None)["run"]
+            remat[on] = (out, _counts())
+            memory[on] = _fwd_bwd_memory(model, batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        set_grad_checkpointing(model, False)
+    (m_off, g_off), c_off = remat[False]
+    (m_on, g_on), c_on = remat[True]
+    same_bits = (m_off["loss"] == m_on["loss"] and g_off.keys() == g_on.keys()
+                 and all(torch.equal(g_off[n], g_on[n]) for n in g_off))
+    differ = [n for n in g_off if n in g_on
+              and not torch.equal(g_off[n], g_on[n])][:8]
+    del remat, g_off, g_on
+
+    # (2) kernels on vs off
+    model.load_state_dict(start)
+    plain = copy.deepcopy(model)
+    set_use_kernels(plain, False)
+    runs = (("kernels", model, batch), ("plain", plain, p_batch),
+            ("plain_up", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], 1))),
+            ("plain_down", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], -1))))
+    judged, _ = _judge_steps(_steps_vs_plain(runs, step, plain, start))
+    gc.collect()
+
+    # (3) patch dropout 0.5 on the kernels
+    model.load_state_dict(start)
+    model.visual.patch_dropout = 0.5
+    _reset_counts()
+    (m_pd, _), = _steps_vs_plain((("pd", model, batch),), step, None,
+                                 None).values()
+    c_pd = _counts()
+    model.visual.patch_dropout = 0.0
+
+    # (4) eval image features, kernels vs plain
+    model.load_state_dict(start)
+    plain.load_state_dict(start)
+    model.eval()
+    plain.eval()
+    with torch.no_grad():
+        f_k, _ = model.encode_image(batch["images"], normalize=True)
+        f_p, _ = plain.encode_image(p_batch["images"], normalize=True)
+    feat_cos = _cosine(f_k, f_p).min().item()
+    del model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ok_judged = judged.pop("ok")
+    pd_finite = all(math.isfinite(v) for v in m_pd.values())
+    result = {"phase": "clipa_path", "card": card,
+              "model": "ViT-H-14-CL32-GAP bf16 over fp32 masters, 224 px",
+              "batch": b,
+              "grad_checkpointing": {
+                  "loss_off": m_off["loss"], "loss_on": m_on["loss"],
+                  "bit_for_bit": same_bits, "differing": differ,
+                  "memory_gb_off": memory[False],
+                  "memory_gb_on": memory[True],
+                  "launches_off": c_off, "launches_on": c_on},
+              "kernels_vs_plain": judged,
+              "patch_dropout_0.5": {"metrics": m_pd, "finite": pd_finite,
+                                    "launches": c_pd},
+              "eval_feature_cos_min": feat_cos}
+    _emit(result)
+    if not (same_bits and ok_judged and pd_finite and feat_cos >= 0.999
+            and c_on["flash_mha"] == 2 * c_off["flash_mha"] == 64
+            and c_pd["flash_mha"] == 32):
+        raise AssertionError(f"clipa_path failed its checks: {result}")
+
+
 def _ptxas_report(built: dict) -> dict:
     """{kernel entry: [registers, spill store bytes, spill load bytes]} from
     nvcc's -Xptxas -v report of one library (its .log beside it)."""
@@ -1741,7 +2244,7 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def _profile_window(name, fn, card):
+def _profile_window(name, fn, card, top: int = 12):
     """Trace ``fn`` with torch.profiler and print where its time went."""
     from collections import defaultdict
 
@@ -1766,7 +2269,7 @@ def _profile_window(name, fn, card):
     kernel_ms = sum(by_kernel.values())
     port_ms = sum(v for k, v in by_kernel.items()
                   if any(p in k for p in PORT_KERNELS))
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]
     top_host = sorted(host.items(), key=lambda kv: -kv[1][0])[:10]
     _emit({"phase": "profile", "window": name, "card": card,
            "wall_ms": wall_ms, "device_kernel_ms": kernel_ms,
@@ -1824,6 +2327,7 @@ def main(argv=()) -> int:
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
 
     entries = phase_kernels(card)
+    phase_flash_poison(card)
     b32, gap = _paths()["b32"], _paths()["gap"]
     with tempfile.TemporaryDirectory(prefix="xtag_smoke_") as tmp:
         paths, model, ptable, serve_one, table = phase_serve_and_path(
@@ -1840,6 +2344,8 @@ def main(argv=()) -> int:
         phase_train_path(card, ptable, gap)
         paths["gap_trainer"] = phase_gap_trainer(card)
         paths["gap_predict"] = phase_gap_predict(card, g_model, g_table, tmp)
+        paths.update(phase_clipa(card, tmp, profile=args.profile))
+        phase_clipa_path(card)
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

@@ -396,20 +396,18 @@ def test_no_class_token_needs_avg_pool():
     ("pos_embed_type", "learnable"), ("no_ln_pre", False),
     ("final_ln_after_pool", False), ("n_learnable_tokens", 0),
     ("attn_pooler_heads", 8), ("output_tokens", True),
-    # set and not ported: raise
-    ("attentional_pool", True), ("ls_init_value", 1e-4),
-    ("n_learnable_tokens", 2), ("patch_dropout", 0.5), ("no_ln_pre", True),
+    # set and ported since (tests/test_torch_clipa.py holds them to JAX):
+    # accepted
+    ("ls_init_value", 1e-4), ("n_learnable_tokens", 2),
+    ("patch_dropout", 0.5), ("no_ln_pre", True),
     ("final_ln_after_pool", True), ("pos_embed_type", "sin_cos_2d"),
+    # set and not ported: raise
+    ("attentional_pool", True),
 ])
 def test_vision_options_raise_only_when_set_and_unported(option, value):
     kw = dict(image_size=32, patch_size=8, width=64, layers=1, heads=1)
-    defaults = {"pool_type": "tok", "no_class_token": False,
-                "patch_dropout": 0.0, "attentional_pool": False,
-                "ls_init_value": None, "pos_embed_type": "learnable",
-                "no_ln_pre": False, "final_ln_after_pool": False,
-                "n_learnable_tokens": 0, "attn_pooler_heads": 8,
-                "output_tokens": True}
-    if value == defaults[option]:
+    unported = {"attentional_pool": True}
+    if unported.get(option, object()) != value:
         VisionTransformer(**kw, **{option: value})
     else:
         with pytest.raises(NotImplementedError, match=option):

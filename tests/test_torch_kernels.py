@@ -595,6 +595,93 @@ def test_flash_function_grads_match_plain_bwd(cuda, dh):
         _assert_kernel_bar(g, r)
 
 
+# head dims that run the kernels' 128-wide instantiation: at (2, 4, 257,
+# dh), and ViT-H/14's dh 80 at its two path shapes (CLIPA stage 2 at batch
+# 32 and L = 257; stage 1 at 84 px, batch 256 and L = 37)
+PADDED_HEAD_DIMS = (72, 80, 88, 96, 104, 112, 120)
+VIT_H_FLASH_SHAPES = [(32, 16, 257, 80), (256, 16, 37, 80)]
+
+
+def _flash_fwd_bwd_at_bar(q, k, v, layout, seed, device):
+    """Forward (and lse) and backward kernels against the plain versions
+    at the bar; returns the kernels' (o, dq, dk, dv)."""
+    with torch.inference_mode():
+        o, lse = flash_attn._flash_fwd(q, k, v, layout, with_lse=True)
+        ref = flash_attn.reference_flash_mha(q, k, v, layout=layout)
+    _assert_kernel_bar(o, ref)
+    qh, kh = (flash_attn._bhld(t, layout).float() for t in (q, k))
+    s = (qh @ kh.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1), rtol=1e-5,
+                               atol=1e-4)
+    do = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        tuple(o.shape)).astype(np.float32)).to(device, torch.bfloat16)
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, layout)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, refs):
+        assert g.shape == q.shape and g.dtype == torch.bfloat16
+        _assert_kernel_bar(g, r)
+    return (o, *grads)
+
+
+@pytest.mark.parametrize("dh", PADDED_HEAD_DIMS)
+@pytest.mark.parametrize("l", [37, 257])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_kernels_match_plain_at_padded_head_dims(cuda, dh, l, layout):
+    """Head dims 72-120 (the 128-wide instantiation, the true dh in the
+    tensor maps): forward, lse and backward at the bar, q, k, v strided
+    column slices."""
+    q, k, v = _flash_slices(2, 4, l, dh, layout, seed=3 * l + dh, device=cuda)
+    before = (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches)
+    _flash_fwd_bwd_at_bar(q, k, v, layout, seed=dh, device=cuda)
+    assert (flash_attn.flash_mha.launches, flash_attn.flash_mha_bwd.launches
+            ) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("b,h,l,dh", VIT_H_FLASH_SHAPES)
+def test_flash_kernels_match_plain_at_vit_h_shapes(cuda, b, h, l, dh):
+    q, k, v = _flash_inputs(b, h, l, dh, "blhd", seed=l, device=cuda)
+    _flash_fwd_bwd_at_bar(q, k, v, "blhd", seed=b, device=cuda)
+
+
+@pytest.mark.parametrize("dh", [80, 112])
+def test_flash_kernels_read_no_column_past_the_head_dim(cuda, dh):
+    """Each head's q, k, v and dO sit in a row of dh + 48 columns whose 48
+    past dh hold NaN: the kernels read the 128-wide boxes through maps
+    that end at dh, so they must see zeros there (a read of the next
+    columns turns the outputs NaN), and match the same inputs copied
+    contiguous bit for bit."""
+    b, h, l = 2, 4, 257
+    rng = np.random.default_rng(dh)
+
+    def poisoned():
+        full = torch.full((b, l, h, dh + 48), float("nan"), device=cuda,
+                          dtype=torch.bfloat16)
+        full[..., :dh] = torch.from_numpy(rng.standard_normal(
+            (b, l, h, dh)).astype(np.float32)).to(cuda, torch.bfloat16)
+        return full[..., :dh]
+
+    q, k, v, do = (poisoned() for _ in range(4))
+    o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, "blhd")
+    dense = [t.contiguous() for t in (q, k, v, do)]
+    o2, lse2 = flash_attn._flash_fwd(*dense[:3], "blhd", with_lse=True)
+    grads2 = flash_attn.flash_mha_bwd(*dense[:3], o2, lse2, dense[3], "blhd")
+    torch.cuda.synchronize()
+    for a, b_ in zip((o, lse, *grads), (o2, lse2, *grads2)):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b_)
+    _assert_kernel_bar(o, flash_attn.reference_flash_mha(*dense[:3]))
+
+
+def test_flash_kernels_refuse_other_head_dims(cuda):
+    for dh in (32, 56, 100, 136, 256):
+        q, k, v = (torch.zeros((1, 8, 2, dh), device=cuda,
+                               dtype=torch.bfloat16) for _ in range(3))
+        with pytest.raises(ValueError, match="no kernel"):
+            flash_attn.flash_mha(q, k, v)
+
+
 @pytest.mark.parametrize("n", [1, 37, 127, 8192, 8256])
 @pytest.mark.parametrize("d,h", [(768, 3072), (512, 2048), (64, 256),
                                  (832, 3328)])
@@ -651,9 +738,10 @@ def test_flash_and_mlp_raise_instead_of_falling_back(cuda):
     q, k, v = _flash_inputs(1, 2, 64, 64, "bhld", seed=3, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         flash_attn.flash_mha(q.float(), k.float(), v.float(), layout="bhld")
-    q80 = torch.zeros((1, 2, 64, 80), device=cuda, dtype=torch.bfloat16)
+    # a head dim the kernels refuse (80 has run since ViT-H was ported)
+    q256 = torch.zeros((1, 2, 64, 256), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attn.flash_mha(q80, q80, q80, layout="bhld")
+        flash_attn.flash_mha(q256, q256, q256, layout="bhld")
     with pytest.raises(ValueError, match="contiguous head dim"):
         flash_attn.flash_mha(q.transpose(2, 3), k.transpose(2, 3),
                              v.transpose(2, 3), layout="bhld")

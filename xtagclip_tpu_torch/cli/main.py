@@ -1,0 +1,227 @@
+"""The vanilla CLIP training CLI, open_clip_train.main's counterpart (port
+of xtagclip_tpu/cli/main.py:40-246; the entry of scripts/h14_*.sh, the
+CLIPA ViT-H/14 recipe):
+
+    python -m xtagclip_tpu_torch.cli.main --model ViT-H-14-CL32-GAP \\
+        --dataset-type synthetic --train-num-samples 1792 --batch-size 256 \\
+        --precision amp_bf16 --force-image-size 224 --grad-checkpointing \\
+        --pretrained logs/stage1/checkpoints/epoch_1 ...
+
+parse (train/params.py, without the XTag flags) -> experiment naming and
+out.log -> optional tensorboard / wandb sinks -> the model on ``--device``
+(default cuda) with ``--force-image-size``, ``--force-quick-gelu``,
+``--force-patch-dropout``, ``--grad-checkpointing``, the
+``--image-*`` preprocessing and ``--pretrained`` (a local open_clip .pt or
+a port checkpoint tag; position tables of another length are resized) ->
+with ``--torchscript``/``--trace`` the serving artifact
+(convert/serving.py) under ``<checkpoints>/serving`` -> resume latest ->
+data -> without train data one ``evaluate`` -> tower locks, AdamW and the
+schedule -> ``--resume`` (a checkpoint tag: the full train state; a file:
+the weights) -> the contrastive step (``--accum-freq`` > 1: the
+accumulation step) -> per epoch: ``train_one_epoch``, ``evaluate``
+(train/evaluate.py) and the epoch checkpoint.
+
+One process: ``--local-loss`` and ``--gather-with-grad`` change nothing;
+flags whose branches are not ported (train/params.py ``unported``) raise
+NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import time
+from datetime import datetime
+
+import torch
+
+from xtagclip_tpu_torch.cli.main_other import PRECISION
+from xtagclip_tpu_torch.data.registry import get_data
+from xtagclip_tpu_torch.factory import (
+    create_model_and_transforms,
+    get_tokenizer,
+)
+from xtagclip_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    find_latest_checkpoint,
+    restore_train_state,
+    state_tree,
+)
+from xtagclip_tpu_torch.train.evaluate import evaluate
+from xtagclip_tpu_torch.train.logger import setup_logging
+from xtagclip_tpu_torch.train.loop import make_accum_train_step, make_train_step
+from xtagclip_tpu_torch.train.params import parse_args, unported
+from xtagclip_tpu_torch.train.scheduler import create_scheduler
+from xtagclip_tpu_torch.train.train_state import (
+    create_train_state,
+    make_optimizer,
+    trainable_mask,
+)
+from xtagclip_tpu_torch.train.trainer import train_one_epoch
+
+
+def _sinks(args, log_base_path):
+    """The tensorboard writer of ``--report-to tensorboard`` (or None) and
+    wandb's run, where the packages exist (a warning where they do not)."""
+    tb_writer = None
+    if "tensorboard" in (args.report_to or ""):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            tb_writer = SummaryWriter(os.path.join(log_base_path,
+                                                   "tensorboard"))
+        except ImportError:
+            logging.warning("tensorboard unavailable")
+    if "wandb" in (args.report_to or ""):
+        try:
+            import wandb
+
+            wandb.init(project=args.wandb_project_name, name=args.name,
+                       notes=args.wandb_notes, config=vars(args))
+        except ImportError:
+            logging.warning("wandb unavailable")
+    return tb_writer
+
+
+def main(argv=None):
+    """Train (returns ``{"state": TrainState, "epochs": [per-epoch
+    record]}``) or, without train data, evaluate (returns the metrics)."""
+    args = parse_args(argv, include_xtag=False)
+    for attr, default in (("use_tagging", False), ("use_fusion", False),
+                          ("prompt_template_setting", None),
+                          ("save_embed", False), ("save_best", False),
+                          ("load_tagging_only", False)):
+        if not hasattr(args, attr):
+            setattr(args, attr, default)
+    missing = unported(args)
+    if missing:
+        raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
+    if args.precision not in PRECISION:
+        raise NotImplementedError(
+            f"--precision {args.precision} is not ported yet")
+
+    if args.name is None:
+        args.name = "-".join([
+            datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
+            f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
+            f"b_{args.batch_size}", f"p_{args.precision}"])
+    log_base_path = os.path.join(args.logs, args.name)
+    os.makedirs(log_base_path, exist_ok=True)
+    args.log_path = os.path.join(log_base_path, "out.log")
+    setup_logging(args.log_path, logging.DEBUG if args.debug else logging.INFO)
+    args.checkpoint_path = os.path.join(log_base_path, "checkpoints")
+    os.makedirs(args.checkpoint_path, exist_ok=True)
+    if args.copy_codebase:
+        from xtagclip_tpu_torch.train.file_utils import copy_codebase
+
+        logging.info("copied codebase to %s", copy_codebase(args))
+    tb_writer = _sinks(args, log_base_path)
+
+    force_size = args.force_image_size
+    if force_size and len(force_size) == 1:
+        force_size = force_size[0]
+    model_kwargs = {"vision_cfg": {"image_size": force_size}} if force_size \
+        else {}
+    if args.force_quick_gelu:
+        model_kwargs["quick_gelu"] = True
+    model, preprocess_train, preprocess_val = create_model_and_transforms(
+        args.model, args.pretrained or None,
+        precision=PRECISION[args.precision], device=args.device,
+        grad_checkpointing=args.grad_checkpointing,
+        force_patch_dropout=args.force_patch_dropout,
+        image_mean=args.image_mean, image_std=args.image_std,
+        image_interpolation=args.image_interpolation,
+        image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
+        **model_kwargs)
+    tokenizer = get_tokenizer(args.model)
+    logging.info("Model %s: %.2fM params on %s", args.model,
+                 sum(p.numel() for p in model.parameters()) / 1e6,
+                 args.device)
+
+    if args.torchscript or args.trace:
+        # the reference's trace_model (training.main:226): the serving
+        # artifact, one torch.export program per entry
+        from xtagclip_tpu_torch.convert.serving import save_serving
+
+        serve_dir = os.path.join(args.checkpoint_path, "serving")
+        manifest = save_serving(model, serve_dir, model_name=args.model)
+        logging.info("serving artifact: %s (%s)", serve_dir, ", ".join(
+            f"{k}={v['bytes'] / 1e6:.1f}MB"
+            for k, v in manifest["entries"].items()))
+
+    if args.resume == "latest":
+        tag = find_latest_checkpoint(args.checkpoint_path)
+        args.resume = os.path.join(args.checkpoint_path, tag) if tag else None
+
+    data = get_data(args, (preprocess_train, preprocess_val), epoch=0,
+                    tokenizer=tokenizer)
+    if not data:
+        raise RuntimeError("no data specified (--train-data/--val-data)")
+    if "train" not in data:
+        return evaluate(model, data, 0, args, tokenizer, tb_writer)
+
+    steps_per_epoch = len(data["train"].dataloader)
+    schedule = create_scheduler(args, steps_per_epoch * args.epochs)
+    named = dict(model.named_parameters())
+    mask = trainable_mask(
+        named, lock_image=args.lock_image,
+        lock_image_unlocked_groups=args.lock_image_unlocked_groups,
+        lock_text=args.lock_text,
+        lock_text_unlocked_layers=args.lock_text_unlocked_layers,
+        lock_text_freeze_layer_norm=args.lock_text_freeze_layer_norm)
+    tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
+                        eps=args.eps, weight_decay=args.wd,
+                        grad_clip_norm=args.grad_clip_norm, params=named,
+                        train_mask=mask, opt=args.opt)
+    state = create_train_state(model, tx)
+
+    start_epoch = 0
+    if args.resume:
+        if os.path.isdir(args.resume):
+            start_epoch = restore_train_state(
+                os.path.dirname(args.resume), os.path.basename(args.resume),
+                state) + 1
+            logging.info("resumed full state from %s (epoch %d)",
+                         args.resume, start_epoch)
+        else:
+            from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
+
+            load_checkpoint_into(model, args.resume)
+
+    args_cfg = {
+        "siglip": args.siglip, "use_tagging_loss": False,
+        "lock_image_freeze_bn_stats": bool(
+            args.lock_image and args.lock_image_freeze_bn_stats),
+    }
+    if args.accum_freq > 1:
+        step_fn = make_accum_train_step(args_cfg, args.accum_freq)
+    else:
+        step_fn = make_train_step(args_cfg)
+
+    ckpt_mgr = CheckpointManager(
+        args.checkpoint_path, save_frequency=args.save_frequency,
+        save_most_recent=args.save_most_recent,
+        delete_previous=args.delete_previous_checkpoint)
+    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+    history = []
+    for epoch in range(start_epoch, args.epochs):
+        logging.info("Start epoch %d", epoch)
+        state, train_metrics = train_one_epoch(
+            state, step_fn, data, epoch, args, schedule=schedule,
+            generator=generator, train_key="train")
+        completed = epoch + 1
+        t0 = time.perf_counter()
+        eval_metrics = evaluate(model, data, completed, args, tokenizer,
+                                tb_writer)
+        eval_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt_mgr.save_epoch(completed, state_tree(state, epoch))
+        history.append({"epoch": completed, "train": train_metrics,
+                        "eval": eval_metrics, "eval_s": eval_s,
+                        "checkpoint_s": time.perf_counter() - t0})
+    return {"state": state, "epochs": history}
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

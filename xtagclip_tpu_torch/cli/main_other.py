@@ -111,7 +111,9 @@ def main(argv=None):
         args.model, args.pretrained or None,
         precision=PRECISION[args.precision], device=args.device,
         use_tagging=args.use_tagging, use_fusion=args.use_fusion,
-        init_seed=args.seed, image_interpolation=args.image_interpolation,
+        init_seed=args.seed, grad_checkpointing=args.grad_checkpointing,
+        image_mean=args.image_mean, image_std=args.image_std,
+        image_interpolation=args.image_interpolation,
         image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
         **model_kwargs)
     tokenizer = get_tokenizer(args.model)

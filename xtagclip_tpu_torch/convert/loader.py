@@ -11,8 +11,10 @@ parameters load. A table of another length is resized as JAX's
 gains the cls row and resizes bicubically, the text table linearly
 (models/pos_embed.py); a value that differs from the parameter only in
 singleton dims (``logit_scale`` () vs (1,)) is reshaped. Any other shape
-mismatch is skipped with a warning (JAX's ``strict=False``). The
-big_vision .npz and orbax-directory sources are not ported.
+mismatch is skipped with a warning (JAX's ``strict=False``). A port
+checkpoint's own state dict loads the same way (``load_state_into``), as
+JAX's loader merges its orbax trees. The big_vision .npz source is not
+ported.
 """
 
 from __future__ import annotations
@@ -106,6 +108,37 @@ def load_checkpoint_into(model: nn.Module, path: str,
         logging.info("checkpoint had %d unused entries: %s", len(unused),
                      unused[:5])
     logging.info("loaded %d params from %s", loaded, path)
+    return model
+
+
+@torch.no_grad()
+def load_state_into(model: nn.Module, state: dict, source: str = "") -> nn.Module:
+    """Load a state dict in the port's own parameter names (a port
+    checkpoint's ``state["model"]``) into ``model`` in place, as JAX's
+    loader merges an orbax tree (``merge_converted_params``): a table of
+    another length is resized (module doc), a parameter the state lacks
+    keeps its value and an entry the model lacks is ignored (both logged).
+    Non-parameter entries (buffers) are left alone."""
+    loaded, missing = 0, []
+    for name, p in model.named_parameters():
+        if name not in state:
+            missing.append(name)
+            continue
+        val = state[name]
+        if tuple(val.shape) != tuple(p.shape):
+            val = _fit(name, val.detach().float().cpu().numpy(), p)
+            if val is None:
+                continue
+            val = torch.from_numpy(np.array(val, np.float32))
+        p.copy_(val)
+        loaded += 1
+    params = dict(model.named_parameters())
+    unused = [k for k in state if k not in params]
+    if missing or unused:
+        logging.info("checkpoint %s: %d parameters kept (%s), %d entries "
+                     "ignored (%s)", source, len(missing), missing[:5],
+                     len(unused), unused[:5])
+    logging.info("loaded %d params from %s", loaded, source)
     return model
 
 

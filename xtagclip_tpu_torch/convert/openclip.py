@@ -13,6 +13,13 @@ key it is stored under and how its layout differs:
 - ``"conv"``: the patch-embed conv weight [W, C, ph, pw], the port's
   kernel [ph*pw*C, W] in (ph, pw, C) row order;
 - ``"scalar"``: a 0-d tensor (the logit scales).
+
+The tower options map as JAX's converters map them: LayerScale's
+``ls_1``/``ls_2.gamma`` per block, the text projection as a matrix or,
+with ``proj_bias``, a ``text_projection`` Linear (weight, bias). The
+learnable vision tokens are ``visual.learnable_tokens`` [n, width], a
+key JAX's exporter leaves out and its loader refuses: a ``.pt`` of the
+JAX package carries none, and the port keeps its own init for them.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ def openclip_key(name: str) -> Tuple[str, str]:
         sub = rest.split(".")
         if sub[0] in ("ln_1", "ln_2"):
             return f"{base}.{sub[0]}.{_leaf(last)}", "same"
+        if sub[0] in ("ls_1", "ls_2"):  # LayerScale
+            return f"{base}.{sub[0]}.gamma", "same"
         if sub[:2] == ["attn", "in_proj"]:
             return (f"{base}.attn.in_proj_{_leaf(last)}",
                     "linear" if last == "kernel" else "same")
@@ -53,9 +62,12 @@ def openclip_key(name: str) -> Tuple[str, str]:
     if name == "visual.conv1.kernel":
         return "visual.conv1.weight", "conv"
     if name in ("visual.class_embedding", "visual.positional_embedding",
-                "visual.proj", "text.positional_embedding",
-                "text.text_projection"):
+                "visual.proj", "visual.learnable_tokens",
+                "text.positional_embedding", "text.text_projection"):
         return name, "same"
+    if parts[:2] == ["text", "text_projection"]:  # the Dense form (proj_bias)
+        return (f"text.text_projection.{_leaf(last)}",
+                "linear" if last == "kernel" else "same")
     if parts[:2] in (["visual", "ln_pre"], ["visual", "ln_post"],
                      ["text", "ln_final"]):
         return f"{parts[0]}.{parts[1]}.{_leaf(last)}", "same"

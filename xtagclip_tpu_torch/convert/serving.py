@@ -41,12 +41,9 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
 from xtagclip_tpu_torch.serving import CudaGraphRunner, serve_classify_body
-from xtagclip_tpu_torch.utils.constants import (
-    OPENAI_DATASET_MEAN,
-    OPENAI_DATASET_STD,
-)
 
 _MANIFEST = "serving_manifest.json"
 ENTRIES = ("encode_image", "encode_text", "forward")
@@ -118,14 +115,6 @@ _BODIES = {"encode_image": (("visual",), _encode_image),
            "serve_classify": (_TAG_PARTS, _serve_classify)}
 
 
-def _mean_std(model):
-    from xtagclip_tpu_torch.factory import get_model_preprocess_cfg
-
-    pp = get_model_preprocess_cfg(model)
-    return (pp.get("mean") or OPENAI_DATASET_MEAN,
-            pp.get("std") or OPENAI_DATASET_STD)
-
-
 def _examples(model, name, batch):
     v = model.model_cfg["vision_cfg"].get("image_size", 224)
     ih, iw = v if isinstance(v, (tuple, list)) else (v, v)
@@ -139,7 +128,7 @@ def _examples(model, name, batch):
 
 def _export(model, name, batch_size, **tables):
     keep, body = _BODIES[name]
-    entry = _Entry(model, keep, body, *_mean_std(model), **tables)
+    entry = _Entry(model, keep, body, *image_mean_std(model), **tables)
     args = _examples(model, name, batch_size or _EXAMPLE_BATCH)
     dynamic = None
     if batch_size is None:

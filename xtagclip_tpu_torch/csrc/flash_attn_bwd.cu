@@ -51,7 +51,10 @@
 // setmaxnreg gives the producer warpgroup 24 registers and each consumer
 // 240, so dh 128 holds dK and dV (2 x 64 registers), S^T and dP^T
 // (2 x 32) and the A fragments without spilling. Shared memory a block:
-// 130 KB (dh 64) or 194 KB (dh 128).
+// 130 KB (dh 64) or 194 KB (dh 128). Head dims 72-120 run the dh 128
+// instantiation as the forward does: the maps' head-dim extent is the true
+// dh (zeros past it), the score products take ceil(dh / 16) k-steps, the
+// delta pass sums over dh, and dQ, dK, dV store dh columns.
 // What still holds it back (measured on the H100 at the GAP shape,
 // chip_smoke.py's ms_by_kernel): dkv and dq run at 36% and 29% of the bf16
 // peak (36 and 34 us); starting the next tile's score products under dq's
@@ -94,7 +97,7 @@ template <int DH>
 __global__ void __launch_bounds__(BT * DH / 8)
 flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ stat, Strides so,
-                   Strides sd, int H, int L) {
+                   Strides sd, int H, int L, int dh) {
   constexpr int G = DH / 8;  // lanes a row, 8 elements each
   const int r = threadIdx.x / G;
   const int c = (threadIdx.x % G) * 8;
@@ -103,7 +106,7 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   const int h = bh % H;
   const int b = bh / H;
   float s = 0.0f;
-  if (l < L) {
+  if (l < L && c < dh) {  // lanes past the true head dim add nothing
     const uint4 ov = *reinterpret_cast<const uint4*>(o + b * so.b + h * so.h + l * so.l + c);
     const uint4 dv = *reinterpret_cast<const uint4*>(dout + b * sd.b + h * sd.h + l * sd.l + c);
     const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -132,7 +135,7 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 template <int DH, int ROWS>
 __device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* tile, int r0,
                                            bf16* dst, long long row_stride, int row0, int L,
-                                           int lane) {
+                                           int dh, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
 #pragma unroll
@@ -149,7 +152,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* til
   for (int i = lane; i < 16 * CPR; i += 32) {
     const int r = i / CPR;
     const int c = (i % CPR) * 8;
-    if (row0 + r < L)
+    if (row0 + r < L && c < dh)  // only the true head dim's columns are stored
       *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * row_stride + c) =
           *reinterpret_cast<const uint4*>(tile + pan<ROWS>(r0 + r, c));
   }
@@ -158,8 +161,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* til
 // S (or S^T) and dP (or dP^T) of a warpgroup: A = 64 rows of an owned
 // tile (BR rows, panels BR * 128 bytes apart), B = a streamed tile (BT
 // rows); both K-major along dh, a k-step of 16 is 32 bytes along the
-// swizzled row. Started and committed as one group, not waited for.
-template <int DH>
+// swizzled row; KS k-steps, ceil(dh / 16) (the columns past dh are
+// zero). Started and committed as one group, not waited for.
+template <int KS>
 __device__ __forceinline__ void score_products(float (&s)[BT / 2], float (&dp)[BT / 2],
                                                uint32_t a_s, uint32_t b_s, uint32_t a_dp,
                                                uint32_t b_dp) {
@@ -168,14 +172,14 @@ __device__ __forceinline__ void score_products(float (&s)[BT / 2], float (&dp)[B
   fence_operands(dp);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint32_t ao = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
     const uint32_t bo = (kk >> 2) * (BT * 128) + (kk & 3) * 32;
     wgmma_ss<0>(s, wgmma_desc(a_s + ao, 16, 1024), wgmma_desc(b_s + bo, 16, 1024),
                 kk > 0 ? 1 : 0);
   }
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const uint32_t ao = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
     const uint32_t bo = (kk >> 2) * (BT * 128) + (kk & 3) * 32;
     wgmma_ss<0>(dp, wgmma_desc(a_dp + ao, 16, 1024), wgmma_desc(b_dp + bo, 16, 1024),
@@ -197,14 +201,14 @@ __device__ __forceinline__ void grad_product(float (&acc)[DH / 2], const uint32_
     sm90::wgmma_rs<1>(acc, a[kk], sm90::wgmma_desc(b + kk * 2048, BT * 128, 1024), 1);
 }
 
-template <int DH>
+template <int DH, int KS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_do, int h_first,
                  const float* __restrict__ stat, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 Strides sdk, Strides sdv, int B, int H, int L, float scale) {
+                 Strides sdk, Strides sdv, int B, int H, int L, int dh, float scale) {
   using namespace sm90;
   using Sm = Smem<DH>;
   constexpr int STAGES = Sm::STAGES;
@@ -309,7 +313,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t q_addr = smem_u32(ring + stage * 2 * Sm::RING_BYTES);
         const uint32_t do_addr = q_addr + Sm::RING_BYTES;
         float s[BT / 2], dp[BT / 2];
-        score_products<DH>(s, dp, k_addr, q_addr, v_addr, do_addr);
+        score_products<KS>(s, dp, k_addr, q_addr, v_addr, do_addr);
         wgmma_wait<0>();
         fence_operands(s);
         fence_operands(dp);
@@ -357,8 +361,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       // which no wgmma reads any more; then the pair goes back to the
       // producer
       const int key0 = kb * BR + r0;
-      store_rows<DH, BR>(dk_acc, kt, r0, dk + b * sdk.b + h * sdk.h, sdk.l, key0, L, lane);
-      store_rows<DH, BR>(dv_acc, vt, r0, dv + b * sdv.b + h * sdv.h, sdv.l, key0, L, lane);
+      store_rows<DH, BR>(dk_acc, kt, r0, dk + b * sdk.b + h * sdk.h, sdk.l, key0, L, dh, lane);
+      store_rows<DH, BR>(dv_acc, vt, r0, dv + b * sdv.b + h * sdv.h, sdv.l, key0, L, dh, lane);
       fence_proxy_async();  // these shared reads and writes before the next TMA fill
       __syncwarp();
       if (lane == 0) mbar_arrive(&kv_empty[buf]);
@@ -366,14 +370,14 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH>
+template <int DH, int KS>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do, int h_first,
                 const float* __restrict__ stat, bf16* __restrict__ dq, Strides sdq, int B,
-                int H, int L, float scale) {
+                int H, int L, int dh, float scale) {
   using namespace sm90;
   using Sm = Smem<DH>;
   constexpr int STAGES = Sm::STAGES;
@@ -484,7 +488,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t k_addr = smem_u32(ring + stage * 2 * Sm::RING_BYTES);
         const uint32_t v_addr = k_addr + Sm::RING_BYTES;
         float s[BT / 2], dp[BT / 2];
-        score_products<DH>(s, dp, q_addr, k_addr, do_addr, v_addr);
+        score_products<KS>(s, dp, q_addr, k_addr, do_addr, v_addr);
         wgmma_wait<0>();
         fence_operands(s);
         fence_operands(dp);
@@ -524,7 +528,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       }
 
       store_rows<DH, BR>(dq_acc, qt, r0, dq + b * sdq.b + h * sdq.h, sdq.l, qb * BR + r0, L,
-                         lane);
+                         dh, lane);
       fence_proxy_async();
       __syncwarp();
       if (lane == 0) mbar_arrive(&q_empty[buf]);
@@ -532,45 +536,47 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH>
+template <int DH, int KS>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                    const bf16* dout, const float* lse, float* stat, bf16* dq, bf16* dk,
-                   bf16* dv, const Strides* st, int B, int H, int L, float scale,
+                   bf16* dv, const Strides* st, int B, int H, int L, int dh, float scale,
                    cudaStream_t stream) {
   flash_delta_kernel<DH><<<dim3(B * H, (L + BT - 1) / BT), BT * DH / 8, 0, stream>>>(
-      o, dout, lse, stat, st[3], st[4], H, L);
+      o, dout, lse, stat, st[3], st[4], H, L, dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  // dkv streams Q and dO tiles past owned K and V blocks; dq the reverse
+  // dkv streams Q and dO tiles past owned K and V blocks; dq the reverse.
+  // The maps' head-dim extent is the true dh: a box's columns past it read
+  // as zero (TMA's out-of-bounds fill), never the next head's.
   CUtensorMap mq_t, mk_o, mv_o, mdo_t, mq_o, mk_t, mv_t, mdo_o;
   bool hq, hk, hv, hdo;
-  if (!make_view_map(&mq_t, q, st[0], B, H, L, DH, BT, &hq) ||
-      !make_view_map(&mk_o, k, st[1], B, H, L, DH, BR, &hk) ||
-      !make_view_map(&mv_o, v, st[2], B, H, L, DH, BR, &hv) ||
-      !make_view_map(&mdo_t, dout, st[4], B, H, L, DH, BT, &hdo) ||
-      !make_view_map(&mq_o, q, st[0], B, H, L, DH, BR, &hq) ||
-      !make_view_map(&mk_t, k, st[1], B, H, L, DH, BT, &hk) ||
-      !make_view_map(&mv_t, v, st[2], B, H, L, DH, BT, &hv) ||
-      !make_view_map(&mdo_o, dout, st[4], B, H, L, DH, BR, &hdo))
+  if (!make_view_map(&mq_t, q, st[0], B, H, L, dh, BT, &hq) ||
+      !make_view_map(&mk_o, k, st[1], B, H, L, dh, BR, &hk) ||
+      !make_view_map(&mv_o, v, st[2], B, H, L, dh, BR, &hv) ||
+      !make_view_map(&mdo_t, dout, st[4], B, H, L, dh, BT, &hdo) ||
+      !make_view_map(&mq_o, q, st[0], B, H, L, dh, BR, &hq) ||
+      !make_view_map(&mk_t, k, st[1], B, H, L, dh, BT, &hk) ||
+      !make_view_map(&mv_t, v, st[2], B, H, L, dh, BT, &hv) ||
+      !make_view_map(&mdo_o, dout, st[4], B, H, L, dh, BR, &hdo))
     return cudaErrorInvalidValue;
   const int h_first = (hq ? 1 : 0) | (hk ? 2 : 0) | (hv ? 4 : 0) | (hdo ? 8 : 0);
   constexpr size_t smem = Smem<DH>::BYTES;
   const int items = (L + BR - 1) / BR * H * B;
   const int grid = items < sm90::sm_count() ? items : sm90::sm_count();
 
-  e = cudaFuncSetAttribute(flash_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  e = cudaFuncSetAttribute(flash_dkv_kernel<DH, KS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_dkv_kernel<DH><<<grid, THREADS, smem, stream>>>(mq_t, mk_o, mv_o, mdo_t, h_first, stat,
-                                                        dk, dv, st[6], st[7], B, H, L, scale);
+  flash_dkv_kernel<DH, KS><<<grid, THREADS, smem, stream>>>(
+      mq_t, mk_o, mv_o, mdo_t, h_first, stat, dk, dv, st[6], st[7], B, H, L, dh, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  e = cudaFuncSetAttribute(flash_dq_kernel<DH, KS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_dq_kernel<DH><<<grid, THREADS, smem, stream>>>(mq_o, mk_t, mv_t, mdo_o, h_first, stat,
-                                                       dq, st[5], B, H, L, scale);
+  flash_dq_kernel<DH, KS><<<grid, THREADS, smem, stream>>>(
+      mq_o, mk_t, mv_t, mdo_o, h_first, stat, dq, st[5], B, H, L, dh, scale);
   return cudaGetLastError();
 }
 
@@ -587,13 +593,14 @@ const char* xtag_error_string(int err) {
 // contiguous; strides holds the (b, h, l) element strides of the eight in
 // that order (24 values). lse: the forward's [B, H, L] fp32 log-sum-exp.
 // Scratch from the caller: stat, B H ceil(L / 64) 128 fp32, 16-byte
-// aligned. dh: 64 or 128. Returns a cudaError_t (0 = launched).
+// aligned. dh: 64, or a multiple of 8 from 72 to 128 (run at the padded
+// width 128). Returns a cudaError_t (0 = launched).
 int xtag_flash_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                         const void* dout, const float* lse, float* stat_ws, void* dq,
                         void* dk, void* dv, const long long* strides, int B, int H,
                         int L, int dh, float scale, void* stream) {
   using namespace xtag;
-  if (B < 1 || H < 1 || L < 1 || (dh != 64 && dh != 128))
+  if (B < 1 || H < 1 || L < 1 || dh % 8 != 0 || dh < 64 || dh > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st[8];
   for (int i = 0; i < 8; ++i)
@@ -601,11 +608,18 @@ int xtag_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
   auto in = [](const void* p) { return static_cast<const bf16*>(p); };
   auto out = [](void* p) { return static_cast<bf16*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      dh == 64 ? fa_bwd::launch<64>(in(q), in(k), in(v), in(o), in(dout), lse, stat_ws,
-                                    out(dq), out(dk), out(dv), st, B, H, L, scale, s)
-               : fa_bwd::launch<128>(in(q), in(k), in(v), in(o), in(dout), lse, stat_ws,
-                                     out(dq), out(dk), out(dv), st, B, H, L, scale, s);
+  auto run = [&](auto launcher) {
+    return launcher(in(q), in(k), in(v), in(o), in(dout), lse, stat_ws, out(dq), out(dk),
+                    out(dv), st, B, H, L, dh, scale, s);
+  };
+  cudaError_t e;
+  switch ((dh + 15) / 16) {  // the k-steps of the score products
+    case 4: e = run(fa_bwd::launch<64, 4>); break;
+    case 5: e = run(fa_bwd::launch<128, 5>); break;
+    case 6: e = run(fa_bwd::launch<128, 6>); break;
+    case 7: e = run(fa_bwd::launch<128, 7>); break;
+    default: e = run(fa_bwd::launch<128, 8>);
+  }
   return static_cast<int>(e);
 }
 

@@ -43,6 +43,14 @@
 // - the output is staged through the warpgroup's own Q rows and written
 //   as 16-byte stores; the lse as fp32.
 // Shared memory: 65 KB a block at dh = 64, 97 KB at dh = 128.
+//
+// Head dims 72-120 (multiples of 8; ViT-H's 80, ViT-g's 88, ViT-bigG's
+// 104, ViT-e's 112) run the dh = 128 instantiation: the tensor maps' head
+// dim extent is the true dh, so each 64-column box reads zeros past it
+// (TMA's out-of-bounds fill, never the neighbouring head's columns); Q K^T
+// runs ceil(dh / 16) k-steps (the template's KS); P V and the O
+// accumulator keep the padded width, whose extra columns stay zero; only
+// dh columns are stored, and the scale is the true dh^-0.5.
 #include "flash_common.cuh"
 
 namespace xtag {
@@ -72,13 +80,16 @@ struct Smem {
       (size_t)2 * Q_BYTES + 2 * STAGES * KV_BYTES + (4 + 2 * STAGES) * 8 + 1024;
 };
 
-template <int DH>
+// DH: the head dim padded to the instantiation's width (64 or 128), the
+// width of every shared tile and of the O accumulator; KS: the k-steps of
+// 16 of Q K^T, ceil(dh / 16); dh: the true head dim (a multiple of 8).
+template <int DH, int KS>
 __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, int h_first,
                  bf16* __restrict__ o, float* __restrict__ lse, Strides so, int B, int H,
-                 int L, float scale) {
+                 int L, int dh, float scale) {
   using namespace sm90;
   using Sm = Smem<DH>;
   constexpr int STAGES = Sm::STAGES;
@@ -173,7 +184,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_operands(s);  // nothing that defines s may sink past the fence
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
       wgmma_ss<0>(s,
                   wgmma_desc(q_addr + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16, 1024),
                   wgmma_desc(k_addr + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16, 1024),
@@ -343,7 +354,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       const int r = i / CPR;
       const int c = (i % CPR) * 8;
       const int qrow = q0 + r0 + r;
-      if (qrow < L)
+      if (qrow < L && c < dh)  // only the true head dim's columns are stored
         *reinterpret_cast<uint4*>(ob + (long long)qrow * so.l + c) =
             *reinterpret_cast<const uint4*>(Qi + pan<BM>(r0 + r, c));
     }
@@ -361,25 +372,28 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH>
+template <int DH, int KS>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                   const Strides* st, int B, int H, int L, float scale,
+                   const Strides* st, int B, int H, int L, int dh, float scale,
                    cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   bool hq, hk, hv;
-  if (!make_view_map(&mq, q, st[0], B, H, L, DH, BM, &hq) ||
-      !make_view_map(&mk, k, st[1], B, H, L, DH, BN, &hk) ||
-      !make_view_map(&mv, v, st[2], B, H, L, DH, BN, &hv))
+  // the maps' head-dim extent is the true dh: a box's columns past it read
+  // as zero (TMA's out-of-bounds fill), never the next head's
+  if (!make_view_map(&mq, q, st[0], B, H, L, dh, BM, &hq) ||
+      !make_view_map(&mk, k, st[1], B, H, L, dh, BN, &hk) ||
+      !make_view_map(&mv, v, st[2], B, H, L, dh, BN, &hv))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<DH>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH, KS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int items = (L + BM - 1) / BM * H * B;
   const int slots = min_blocks<DH>() * sm90::sm_count();
-  flash_fwd_kernel<DH><<<items < slots ? items : slots, THREADS, smem, stream>>>(
-      mq, mk, mv, (hq ? 1 : 0) | (hk ? 2 : 0) | (hv ? 4 : 0), o, lse, st[3], B, H, L, scale);
+  flash_fwd_kernel<DH, KS><<<items < slots ? items : slots, THREADS, smem, stream>>>(
+      mq, mk, mv, (hq ? 1 : 0) | (hk ? 2 : 0) | (hv ? 4 : 0), o, lse, st[3], B, H, L, dh,
+      scale);
   return cudaGetLastError();
 }
 
@@ -394,13 +408,14 @@ const char* xtag_error_string(int err) {
 
 // q, k, v, o: [B, H, L, dh] bf16 views with dh contiguous; strides holds
 // (b, h, l) element strides of q, k, v and o in that order (12 values).
-// lse: [B, H, L] fp32, or null when no backward follows. dh: 64 or 128.
-// Returns a cudaError_t (0 = launched).
+// lse: [B, H, L] fp32, or null when no backward follows. dh: 64, or a
+// multiple of 8 from 72 to 128 (run at the padded width 128). Returns a
+// cudaError_t (0 = launched).
 int xtag_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, const long long* strides, int B, int H,
                         int L, int dh, float scale, void* stream) {
   using namespace xtag;
-  if (B < 1 || H < 1 || L < 1 || (dh != 64 && dh != 128))
+  if (B < 1 || H < 1 || L < 1 || dh % 8 != 0 || dh < 64 || dh > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
@@ -410,9 +425,14 @@ int xtag_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const bf16* vb = static_cast<const bf16*>(v);
   bf16* ob = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      dh == 64 ? fa_fwd::launch<64>(qb, kb, vb, ob, lse, st, B, H, L, scale, s)
-               : fa_fwd::launch<128>(qb, kb, vb, ob, lse, st, B, H, L, scale, s);
+  cudaError_t e;
+  switch ((dh + 15) / 16) {  // the k-steps of Q K^T
+    case 4: e = fa_fwd::launch<64, 4>(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, s); break;
+    case 5: e = fa_fwd::launch<128, 5>(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, s); break;
+    case 6: e = fa_fwd::launch<128, 6>(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, s); break;
+    case 7: e = fa_fwd::launch<128, 7>(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, s); break;
+    default: e = fa_fwd::launch<128, 8>(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, s);
+  }
   return static_cast<int>(e);
 }
 

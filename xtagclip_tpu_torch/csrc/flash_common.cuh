@@ -158,7 +158,8 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NK / 2], int row0, int t
 
 // The tensor map of a [B, H, L, DH] bf16 view with element strides ``st``,
 // read in boxes of [rows x 64]; sets ``h_first`` when h's stride is below
-// l's (see load_box). False if cuTensorMapEncodeTiled refuses it.
+// l's (see load_box). DH is the true head dim: a box's columns past it
+// load as zero. False if cuTensorMapEncodeTiled refuses it.
 inline bool make_view_map(CUtensorMap* map, const bf16* ptr, const Strides& st, int B, int H,
                           int L, int DH, int rows, bool* h_first) {
   sm90::EncodeTiledFn encode = sm90::encode_tiled();

@@ -44,6 +44,15 @@ class PreprocessCfg:
         return tuple(s) if isinstance(s, (tuple, list)) else (s, s)
 
 
+def image_mean_std(model):
+    """(mean, std) of the device normalize of ``model``'s images: those of
+    the preprocess config kept on it (``--image-mean`` / ``--image-std``),
+    else the OpenAI constants."""
+    pp = getattr(model, "preprocess_cfg", None) or {}
+    cfg = PreprocessCfg(mean=pp.get("mean"), std=pp.get("std"))
+    return cfg.mean, cfg.std
+
+
 @dataclass
 class AugmentationCfg:
     """Reference transform.py:61-72."""

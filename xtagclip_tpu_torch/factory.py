@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import logging
 import math
 import os
 import warnings
@@ -115,32 +114,49 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _vision_tower(embed_dim, v, act, dtype):
+def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
+    """The ViT of ``vision_cfg`` ``v``, reading the keys JAX's
+    ``_build_vision_tower`` reads (factory.py:166-222); others are ignored,
+    as there."""
     if v.get("timm_model_name") or isinstance(v.get("layers"), (list, tuple)):
         raise NotImplementedError("timm and ResNet towers are not ported yet")
-    known = {"image_size", "patch_size", "width", "layers", "head_width",
-             "mlp_ratio", "norm_kwargs"}
     return VisionTransformer(
         image_size=v.get("image_size", 224), patch_size=v.get("patch_size", 16),
         width=v.get("width", 768), layers=v.get("layers", 12),
         heads=v.get("width", 768) // v.get("head_width", 64),
         mlp_ratio=v.get("mlp_ratio", 4.0), output_dim=embed_dim, act=act,
         norm_eps=(v.get("norm_kwargs") or {}).get("eps", 1e-5), dtype=dtype,
-        **{k: val for k, val in v.items() if k not in known})
+        ls_init_value=v.get("ls_init_value"),
+        patch_dropout=v.get("patch_dropout", 0.0),
+        attentional_pool=v.get("attentional_pool", False),
+        pos_embed_type=v.get("pos_embed_type", "learnable"),
+        no_ln_pre=v.get("no_ln_pre", False),
+        final_ln_after_pool=v.get("final_ln_after_pool", False),
+        pool_type=v.get("pool_type", "tok"),
+        no_class_token=v.get("no_class_token", False),
+        n_learnable_tokens=v.get("n_learnable_tokens", 0),
+        insert_position=v.get("insert_position", 1),
+        grad_checkpointing=grad_checkpointing)
 
 
-def _text_tower(embed_dim, t, act, dtype):
+def _text_tower(embed_dim, t, act, dtype, grad_checkpointing=False):
+    """The text transformer of ``text_cfg`` ``t``, reading the keys JAX's
+    ``_build_text_tower`` reads (factory.py:225-260)."""
     if t.get("hf_model_name"):
         raise NotImplementedError("HF text towers are not ported yet")
-    known = {"context_length", "vocab_size", "width", "heads", "layers",
-             "mlp_ratio", "norm_kwargs"}
     return TextTransformer(
         context_length=t.get("context_length", 77),
         vocab_size=t.get("vocab_size", 49408), width=t.get("width", 512),
         heads=t.get("heads", 8), layers=t.get("layers", 12),
         mlp_ratio=t.get("mlp_ratio", 4.0), output_dim=embed_dim, act=act,
         norm_eps=(t.get("norm_kwargs") or {}).get("eps", 1e-5), dtype=dtype,
-        **{k: val for k, val in t.items() if k not in known})
+        ls_init_value=t.get("ls_init_value"),
+        embed_cls=t.get("embed_cls", False),
+        no_causal_mask=t.get("no_causal_mask", False),
+        pad_id=t.get("pad_id", 0), pool_type=t.get("pool_type", "argmax"),
+        proj_type=t.get("proj_type", "linear"),
+        proj_bias=t.get("proj_bias", False),
+        grad_checkpointing=grad_checkpointing)
 
 
 @torch.no_grad()
@@ -173,8 +189,12 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> None:
 def create_model(model_name: str, precision: str = "fp32", device="cuda",
                  use_tagging: bool = False,
                  use_fusion: bool = False, init_seed: int = 0,
-                 **model_kwargs) -> CLIP:
-    """Build a CLIP/XTag model with seeded random init on ``device``."""
+                 grad_checkpointing: bool = False,
+                 force_patch_dropout=None, **model_kwargs) -> CLIP:
+    """Build a CLIP/XTag model with seeded random init on ``device``.
+    ``grad_checkpointing`` checkpoints every block of both towers (JAX's
+    ``remat``); ``force_patch_dropout`` overrides the vision config's
+    ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override)."""
     dev = resolve_device(device)
     cfg = get_model_config(model_name.replace("/", "-"))
     if cfg is None:
@@ -184,6 +204,8 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
             cfg[k].update(v)
         else:
             cfg[k] = v
+    if force_patch_dropout is not None:
+        cfg["vision_cfg"]["patch_dropout"] = force_patch_dropout
     if "multimodal_cfg" in cfg:
         raise NotImplementedError("CoCa models are not ported yet")
     unported = {"init_logit_bias", "nonscalar_logit_scale"} & set(cfg)
@@ -193,8 +215,10 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
     dtype = get_cast_dtype(precision)
     with dev:
         model = CLIP(
-            _vision_tower(cfg["embed_dim"], cfg["vision_cfg"], act, dtype),
-            _text_tower(cfg["embed_dim"], cfg["text_cfg"], act, dtype),
+            _vision_tower(cfg["embed_dim"], cfg["vision_cfg"], act, dtype,
+                          grad_checkpointing),
+            _text_tower(cfg["embed_dim"], cfg["text_cfg"], act, dtype,
+                        grad_checkpointing),
             embed_dim=cfg["embed_dim"], use_tagging=use_tagging,
             use_fusion=use_fusion, fusion_dim=cfg.get("fusion_dim", 512),
             init_logit_scale=cfg.get("init_logit_scale",
@@ -214,20 +238,20 @@ def create_model_and_transforms(model_name: str, pretrained=None,
                                 **kwargs):
     """(model, train transform, eval transform). Both transforms yield
     uint8 HWC crops; normalize them on the device with
-    ops.preprocess.normalize_images. ``pretrained`` is a local
-    open_clip-layout .pt file (convert/loader.py); named tags are not
-    ported. The preprocess config is kept on the model
-    (``get_model_preprocess_cfg``), for a serving artifact's manifest."""
+    ops.preprocess.normalize_images with ``transforms.image_mean_std``.
+    ``pretrained`` is a local open_clip-layout .pt file or a port
+    checkpoint tag (``load_checkpoint``); named tags are not ported. The
+    preprocess config is kept on the model (``get_model_preprocess_cfg``),
+    for a serving artifact's manifest and the device normalize."""
     model = create_model(model_name, precision=precision, device=device,
                          **kwargs)
     if pretrained:
-        if not Path(pretrained).is_file():
+        if not Path(pretrained).exists():
             raise NotImplementedError(
-                f"pretrained {pretrained!r}: only a local .pt file is ported; "
-                "named tags wait for pretrained.py (ROADMAP Queue 1 item 9)")
-        from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
-
-        load_checkpoint_into(model, str(pretrained))
+                f"pretrained {pretrained!r}: only a local .pt file or a port "
+                "checkpoint is ported; named tags wait for pretrained.py "
+                "(ROADMAP Queue 1 item 9)")
+        load_checkpoint(model, str(pretrained))
     pp = PreprocessCfg(
         size=model.model_cfg["vision_cfg"].get("image_size", 224),
         mean=image_mean, std=image_std,
@@ -259,7 +283,9 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
     ``state["model"]``; any other file goes through the open_clip loader
     (convert/loader.py). As in JAX (strict=False), a parameter the
     checkpoint lacks keeps its value and an extra one is ignored; both are
-    logged."""
+    logged. A position table of another length is resized, from either
+    source (``--pretrained`` of a stage trained at another image size or
+    context length)."""
     from xtagclip_tpu_torch.train.checkpoint import STATE_FILE
 
     path = str(path)
@@ -269,14 +295,10 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
         from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
 
         return load_checkpoint_into(model, path)
+    from xtagclip_tpu_torch.convert.loader import load_state_into
+
     tree = torch.load(path, map_location="cpu", weights_only=True)
-    result = model.load_state_dict(tree["state"]["model"], strict=False)
-    if result.missing_keys or result.unexpected_keys:
-        logging.info("checkpoint %s: %d parameters kept (%s), %d ignored "
-                     "(%s)", path, len(result.missing_keys),
-                     result.missing_keys[:5], len(result.unexpected_keys),
-                     result.unexpected_keys[:5])
-    return model
+    return load_state_into(model, tree["state"]["model"], path)
 
 
 def get_tokenizer(model_name: str = ""):

@@ -83,8 +83,9 @@ class CLIP(nn.Module):
         nn.init.constant_(self.logit_scale, self.init_logit_scale)
 
     # ---- tower wrappers -------------------------------------------------
-    def encode_image(self, image, normalize: bool = False):
-        pooled, tokens = self.visual(image)
+    def encode_image(self, image, normalize: bool = False, generator=None):
+        """``generator`` (training) turns the tower's patch dropout on."""
+        pooled, tokens = self.visual(image, generator)
         return (l2_normalize(pooled) if normalize else pooled), tokens
 
     def encode_text(self, text, normalize: bool = False):
@@ -119,14 +120,16 @@ class CLIP(nn.Module):
         """prompt_table: [T, C, K, ctx] token ids; class_ids: [B].
 
         ``deterministic=False`` turns on the tag head's and TQN's dropout
-        (the JAX ``__call__``, clip.py:238-247), whose masks are drawn from
-        ``generator``, a ``torch.Generator`` on the model's device."""
+        (the JAX ``__call__``, clip.py:238-247) and the vision tower's patch
+        dropout, whose masks and scores are drawn from ``generator``, a
+        ``torch.Generator`` on the model's device."""
         if deterministic:
             generator = None
         elif generator is None:
             raise ValueError("deterministic=False needs a torch.Generator "
                              "for the dropout masks")
-        image_features, image_tokens = self.encode_image(image, normalize=True)
+        image_features, image_tokens = self.encode_image(
+            image, normalize=True, generator=generator)
         tag_logits = self.tag_forward(image_tokens, generator)
         tag_local, tag_global = self.prepare_tag_indices(tag_logits)
 

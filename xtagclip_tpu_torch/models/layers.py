@@ -17,13 +17,24 @@ its statistics in fp32 and casts the result back.
 
 Dropout (``dropout``) is inverted dropout whose keep mask is drawn from an
 explicit ``torch.Generator``; it is off where the generator is None, the
-``deterministic=True`` of the JAX modules.
+``deterministic=True`` of the JAX modules. ``patch_dropout`` draws its
+token scores from such a generator too.
+
+``Transformer(grad_checkpointing=True)`` is JAX's ``remat``
+(layers.py:617-673): each block runs under
+``torch.utils.checkpoint(use_reentrant=False)`` while grad is on, so only
+its input is kept and the backward runs its forward again, through the
+same autograd Functions and kernel launches. The blocks draw no random
+numbers (JAX's are rate-0 throughout, layers.py:514-515), so the
+recompute is the same computation on the same input and gives the same
+bits; the global RNG state needs no saving (``preserve_rng_state=False``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from xtagclip_tpu_torch.ops import flash_attn
@@ -96,6 +107,39 @@ class Embed(nn.Module):
 
     def forward(self, ids):
         return self.embedding[ids]
+
+
+class LayerScale(nn.Module):
+    """x * gamma, gamma [dim] initialized to ``init_value``
+    (layers.py:83-96), in x's dtype."""
+
+    def __init__(self, dim: int, init_value: float = 1e-5):
+        super().__init__()
+        self.init_value = init_value
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def init_params(self, generator):
+        nn.init.constant_(self.gamma, self.init_value)
+
+    def forward(self, x):
+        return x * self.gamma.to(x.dtype)
+
+
+def patch_dropout(x, generator, prob: float, exclude_first_token: bool = True):
+    """Keep a random subset of tokens of [B, N, D] (layers.py:709-727): the
+    first token always (``exclude_first_token``, which the JAX tower always
+    sets, cls or not), and of the rest max(1, int(n (1 - prob))) tokens
+    picked by the top-k of standard normal scores from ``generator``, in
+    top-k order (highest score first), as ``jax.lax.top_k`` orders them."""
+    if prob <= 0.0:
+        return x
+    first, rest = (x[:, :1], x[:, 1:]) if exclude_first_token else (None, x)
+    b, n, _ = rest.shape
+    keep = max(1, int(n * (1.0 - prob)))
+    scores = torch.randn((b, n), generator=generator, device=x.device)
+    idx = scores.topk(keep, dim=1).indices
+    kept = torch.gather(rest, 1, idx[..., None].expand(-1, -1, rest.shape[-1]))
+    return kept if first is None else torch.cat([first, kept], dim=1)
 
 
 def dropout(x, rate: float, generator):
@@ -218,7 +262,10 @@ class ResidualAttentionBlock(nn.Module):
       ``fused_mlp.fused_mlp`` (JAX's ``XTAG_FLASH_ATTN`` and
       ``XTAG_FUSED_MLP`` paths). A stream flash attention does not take (a
       mask, another head dim) runs the plain ``attention`` there; it has
-      no kernel, so a bf16 one raises on the card.
+      no kernel, so a bf16 one raises on the card. A LayerScale block
+      (``ls_init_value``; ``ls_1``/``ls_2.gamma`` scale the attention and
+      MLP outputs before each residual add, layers.py:577-587) always
+      takes this route, as JAX keeps it off the fused kernels (:531).
 
     Inside a route, a bf16 stream with ``use_kernels`` on (the default;
     ``set_use_kernels``) runs the route's kernel wrappers: their CUDA
@@ -236,8 +283,6 @@ class ResidualAttentionBlock(nn.Module):
                  act: str = "gelu", norm_eps: float = 1e-5,
                  ls_init_value=None):
         super().__init__()
-        if ls_init_value is not None:
-            raise NotImplementedError("LayerScale blocks are not ported yet")
         if act not in fab.ACTIVATIONS:
             raise ValueError(f"unknown activation {act!r}")
         self.heads = heads
@@ -248,13 +293,18 @@ class ResidualAttentionBlock(nn.Module):
         self.attn = MultiheadAttention(width, heads)
         self.ln_2 = LayerNorm(width, norm_eps)
         self.mlp = MLP(width, int(width * mlp_ratio), act)
+        if ls_init_value is not None:
+            self.ls_1 = LayerScale(width, ls_init_value)
+            self.ls_2 = LayerScale(width, ls_init_value)
+        self.layer_scale = ls_init_value is not None
 
     def takes_fused_halves(self, shape, attn_mask=None) -> bool:
         """The route of a stream of this shape: the fused halves (True) or
         the non-fused block (False)."""
         mshape = None if attn_mask is None else tuple(attn_mask.shape)
         mlp_width = self.mlp.c_fc.kernel.shape[1]
-        return (fab.supported(shape, self.heads, torch.bfloat16, mshape)
+        return (not self.layer_scale
+                and fab.supported(shape, self.heads, torch.bfloat16, mshape)
                 and fab.supported_mlp(shape, mlp_width, self.act))
 
     def forward(self, x, attn_mask=None):
@@ -290,16 +340,19 @@ class ResidualAttentionBlock(nn.Module):
             raise ValueError(
                 f"no kernel for stream {tuple(shape)} with {self.heads} heads"
                 f" and mask {None if attn_mask is None else tuple(attn_mask.shape)}"
-                ": neither the fused attention half (L <= 128, head dim 64) "
-                "nor flash attention (no mask, head dim 64 or 128) takes it")
+                ": neither the fused attention half (L <= 128, head dim 64, "
+                "no LayerScale) nor flash attention (no mask, head dim in "
+                f"{flash_attn.HEAD_DIMS}) takes it")
         if not fused_mlp.supported(shape, mlp_width, self.act):
             raise ValueError(
                 f"no kernel for MLP rows {tuple(shape)}, hidden width "
                 f"{mlp_width}, act {self.act!r}")
 
     def _non_fused(self, x, attn_mask, kernels):
-        x = x + self.attn.self_attention(self.ln_1(x), kernels, attn_mask)
-        return x + self.mlp(self.ln_2(x), kernels)
+        a = self.attn.self_attention(self.ln_1(x), kernels, attn_mask)
+        x = x + (self.ls_1(a) if self.layer_scale else a)
+        m = self.mlp(self.ln_2(x), kernels)
+        return x + (self.ls_2(m) if self.layer_scale else m)
 
 
 def set_use_kernels(module: nn.Module, enabled: bool) -> None:
@@ -310,20 +363,38 @@ def set_use_kernels(module: nn.Module, enabled: bool) -> None:
             m.use_kernels = enabled
 
 
+def set_grad_checkpointing(module: nn.Module, enabled: bool = True) -> None:
+    """Turn per-block activation checkpointing on or off for every
+    Transformer under ``module`` (JAX's ``remat``; module doc)."""
+    for m in module.modules():
+        if isinstance(m, Transformer):
+            m.grad_checkpointing = enabled
+
+
 class Transformer(nn.Module):
-    """Stack of residual attention blocks (unrolled)."""
+    """Stack of residual attention blocks (unrolled); with
+    ``grad_checkpointing`` each block is checkpointed while grad is on
+    (module doc)."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_ratio: float = 4.0, act: str = "gelu",
-                 norm_eps: float = 1e-5, ls_init_value=None):
+                 norm_eps: float = 1e-5, ls_init_value=None,
+                 grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         self.resblocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, mlp_ratio, act, norm_eps,
                                    ls_init_value)
             for _ in range(layers))
 
     def forward(self, x, attn_mask=None):
+        remat = self.grad_checkpointing and torch.is_grad_enabled()
         for blk in self.resblocks:
-            x = blk(x, attn_mask=attn_mask)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    blk, x, attn_mask, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                x = blk(x, attn_mask=attn_mask)
         return x
 

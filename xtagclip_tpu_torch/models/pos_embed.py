@@ -1,5 +1,6 @@
-"""Position-embedding resizing on checkpoint load (port of
-xtagclip_tpu/models/pos_embed.py:39-72, the reference's model.py:1065-1128).
+"""2-D sin-cos position embeddings (port of xtagclip_tpu/models/pos_embed.py
+:16-35, ``pos_embed_type: sin_cos_2d``), and position-embedding resizing
+on checkpoint load (:39-72, the reference's model.py:1065-1128).
 
 The JAX package resizes with ``jax.image.resize``, which is
 ``scale_and_translate``, not ``torch.nn.functional.interpolate``:
@@ -22,6 +23,36 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+
+def get_1d_sincos_pos_embed_from_grid(embed_dim: int,
+                                      pos: np.ndarray) -> np.ndarray:
+    """[M, embed_dim]: sin of pos * omega, then cos, omega = 10000^-(i / (D/2))."""
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64)
+    omega /= embed_dim / 2.0
+    omega = 1.0 / 10000**omega
+    out = np.einsum("m,d->md", pos.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_2d_sincos_pos_embed(embed_dim: int, grid_size: int,
+                            cls_token: bool = False) -> np.ndarray:
+    """[grid_size^2 (+1), embed_dim] fp32 table of a square grid: half the
+    channels encode one grid axis, half the other (the grid built w-first,
+    as the JAX function builds it), and a zero row first with
+    ``cls_token``."""
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)
+    grid = grid.reshape([2, 1, grid_size, grid_size])
+    emb_h = get_1d_sincos_pos_embed_from_grid(embed_dim // 2, grid[0])
+    emb_w = get_1d_sincos_pos_embed_from_grid(embed_dim // 2, grid[1])
+    pos_embed = np.concatenate([emb_h, emb_w], axis=1)
+    if cls_token:
+        pos_embed = np.concatenate([np.zeros([1, embed_dim]), pos_embed],
+                                   axis=0)
+    return pos_embed.astype(np.float32)
 
 
 def _keys_cubic(x):

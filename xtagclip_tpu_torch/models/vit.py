@@ -11,8 +11,27 @@ token; ``"avg"`` the mean of the patch tokens. ``no_class_token`` (with
 tower, L = gh * gw (256 for ViT-B-16 at 256 px), whose blocks leave the
 fused halves for flash attention and the fused MLP (models/layers.py).
 
-Options of the JAX tower that are set away from their JAX defaults and
-not ported raise NotImplementedError; at their defaults they are accepted.
+Options (vit.py:42-79), as JAX applies them:
+
+- ``ls_init_value``: LayerScale blocks (models/layers.py);
+- ``pos_embed_type``: ``"learnable"`` or ``"sin_cos_2d"`` (a parameter
+  initialized to the fixed 2-D sin-cos table, square grids only);
+- ``n_learnable_tokens`` / ``insert_position``: learned tokens spliced in
+  after the position embedding, at ``insert_position``
+  (``learnable_tokens`` [n, width], vit.py:146-156; the XTag CLI's
+  ``--add-learnable-tokens``);
+- ``patch_dropout``: in training (``forward`` given a generator) the token
+  subset of layers.patch_dropout, after the learnable tokens and before
+  ``ln_pre``; the first token is always kept, as JAX keeps it;
+- ``no_ln_pre``: no ``ln_pre``;
+- ``final_ln_after_pool``: accepted and changes nothing. In the JAX tower
+  the pool is always followed by ``ln_post`` (vit.py:225-236), whatever
+  the flag says; the port does the same.
+- ``grad_checkpointing``: per-block activation checkpointing (JAX's
+  ``remat``).
+
+``attentional_pool`` (CoCa's) raises NotImplementedError (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -20,34 +39,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from xtagclip_tpu_torch.models.layers import Dense, LayerNorm, Transformer
+from xtagclip_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    Transformer,
+    patch_dropout,
+)
+from xtagclip_tpu_torch.models.pos_embed import get_2d_sincos_pos_embed
 
 
 def _to_2tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x, x)
 
 
-# the JAX tower's options that are not ported, at their JAX defaults
-_UNPORTED_DEFAULTS = {"ls_init_value": None, "attentional_pool": False,
-                      "patch_dropout": 0.0, "no_ln_pre": False,
-                      "final_ln_after_pool": False,
-                      "pos_embed_type": "learnable", "n_learnable_tokens": 0}
-# options that mean nothing while the ones above are at their defaults
-# (the pooler's and the learnable tokens' sizes), and the JAX factory's
-# output_tokens, which it always sets
-_INERT = {"attn_pooler_queries", "attn_pooler_heads", "insert_position",
-          "add_learnable_tokens", "output_tokens"}
-
-
-def _check_options(options) -> None:
-    """Raise on an option that is set and not ported (module doc)."""
-    unported = sorted(
-        k for k, v in options.items()
-        if k not in _INERT and (v != _UNPORTED_DEFAULTS[k]
-                                if k in _UNPORTED_DEFAULTS else bool(v)))
-    if unported:
-        raise NotImplementedError(
-            f"vision tower options not ported yet: {unported}")
+# options that mean nothing while attentional_pool is off or no learnable
+# tokens are set, and the JAX factory's output_tokens, which it always sets
+_INERT = {"attn_pooler_queries", "attn_pooler_heads", "add_learnable_tokens",
+          "output_tokens"}
 
 
 class VisionTransformer(nn.Module):
@@ -56,9 +64,20 @@ class VisionTransformer(nn.Module):
                  output_dim: int = 512, act: str = "gelu",
                  norm_eps: float = 1e-5, dtype: torch.dtype = torch.float32,
                  pool_type: str = "tok", no_class_token: bool = False,
-                 **options):
+                 ls_init_value=None, patch_dropout: float = 0.0,
+                 no_ln_pre: bool = False, pos_embed_type: str = "learnable",
+                 final_ln_after_pool: bool = False,
+                 n_learnable_tokens: int = 0, insert_position: int = 1,
+                 attentional_pool: bool = False,
+                 grad_checkpointing: bool = False, **options):
         super().__init__()
-        _check_options(options)
+        unknown = sorted(set(options) - _INERT)
+        if unknown:
+            raise TypeError(f"unknown vision tower options: {unknown}")
+        if attentional_pool:
+            raise NotImplementedError(
+                "attentional_pool (CoCa's) is not ported yet (ROADMAP Queue 1 "
+                "item 8)")
         if pool_type not in ("tok", "avg"):
             raise NotImplementedError(
                 f"vision pool_type {pool_type!r} is not ported yet")
@@ -66,22 +85,35 @@ class VisionTransformer(nn.Module):
             raise ValueError(
                 "no_class_token requires pool_type='avg' (GAP); "
                 f"got pool_type={pool_type!r}")
+        if pos_embed_type not in ("learnable", "sin_cos_2d"):
+            raise ValueError(pos_embed_type)
         self.image_size = _to_2tuple(image_size)
         self.patch_size = _to_2tuple(patch_size)
         self.width = width
         self.dtype = dtype
         self.pool_type = pool_type
         self.no_class_token = no_class_token
+        self.pos_embed_type = pos_embed_type
+        self.patch_dropout = patch_dropout
+        self.final_ln_after_pool = final_ln_after_pool  # no-op (module doc)
+        self.n_learnable_tokens = n_learnable_tokens
+        self.insert_position = insert_position
         ph, pw = self.patch_size
         gh, gw = self.grid_size
+        if pos_embed_type == "sin_cos_2d" and gh != gw:
+            raise ValueError("sin_cos_2d requires square grids")
         self.conv1 = Dense(ph * pw * 3, width, bias=False)
         if not no_class_token:
             self.class_embedding = nn.Parameter(torch.empty(width))
         self.positional_embedding = nn.Parameter(
             torch.empty(gh * gw + (0 if no_class_token else 1), width))
-        self.ln_pre = LayerNorm(width, norm_eps)
+        if n_learnable_tokens > 0:
+            self.learnable_tokens = nn.Parameter(
+                torch.empty(n_learnable_tokens, width))
+        self.ln_pre = None if no_ln_pre else LayerNorm(width, norm_eps)
         self.transformer = Transformer(width, layers, heads, mlp_ratio, act,
-                                       norm_eps)
+                                       norm_eps, ls_init_value,
+                                       grad_checkpointing)
         self.ln_post = LayerNorm(width, norm_eps)
         self.proj = nn.Parameter(torch.empty(width, output_dim))
 
@@ -93,7 +125,17 @@ class VisionTransformer(nn.Module):
     def init_params(self, generator):
         std = self.width**-0.5
         cls = () if self.no_class_token else (self.class_embedding,)
-        for p in (*cls, self.positional_embedding, self.proj):
+        extra = ((self.learnable_tokens,) if self.n_learnable_tokens > 0
+                 else ())
+        if self.pos_embed_type == "sin_cos_2d":
+            table = get_2d_sincos_pos_embed(
+                self.width, self.grid_size[0],
+                cls_token=not self.no_class_token)
+            self.positional_embedding.copy_(torch.from_numpy(table))
+            learned = (*cls, self.proj, *extra)
+        else:
+            learned = (*cls, self.positional_embedding, self.proj, *extra)
+        for p in learned:
             nn.init.normal_(p, 0.0, std, generator=generator)
 
     def patchify(self, x):
@@ -104,14 +146,23 @@ class VisionTransformer(nn.Module):
         x = x.reshape(b, gh, ph, gw, pw, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, gh * gw, ph * pw * c)
 
-    def forward(self, x):
-        """[B, H, W, 3] normalized images -> (pooled [B, E], tokens [B, L, E])."""
+    def forward(self, x, generator=None):
+        """[B, H, W, 3] normalized images -> (pooled [B, E], tokens [B, L,
+        E]). ``generator`` (training) turns patch dropout on."""
         x = self.conv1(self.patchify(x.to(self.dtype)))
         if not self.no_class_token:
             cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
             x = torch.cat([cls, x], dim=1)
         x = x + self.positional_embedding.to(x.dtype)
-        x = self.ln_pre(x)
+        if self.n_learnable_tokens > 0:
+            extra = self.learnable_tokens.to(x.dtype).expand(
+                x.shape[0], -1, -1)
+            i = self.insert_position
+            x = torch.cat([x[:, :i], extra, x[:, i:]], dim=1)
+        if generator is not None and self.patch_dropout > 0.0:
+            x = patch_dropout(x, generator, self.patch_dropout)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         tokens = self.transformer(x)
         if self.pool_type == "tok":
             pooled = tokens[:, 0]

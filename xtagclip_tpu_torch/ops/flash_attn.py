@@ -24,8 +24,13 @@ flash kernel and its Pallas dq / dkv backward kernels:
   dv products, dP and dS stay fp32, D = rowsum(dO o) in fp32.
 
 ``supported`` is derived for Hopper, not copied from the TPU gate (which
-needs L % 128 == 0): no mask, Lq == Lk, head dim 64 or 128, any L >= 1;
-the kernels mask the ragged last key tile, so L = 197 and 257 run too.
+needs L % 128 == 0 and head dim 64, 128 or 256): no mask, Lq == Lk, any L
+>= 1; the kernels mask the ragged last key tile, so L = 197 and 257 run
+too. Head dim 64, or a multiple of 8 from 72 to 128 (ViT-H's 80, ViT-g's
+88, ViT-bigG's 104, ViT-e's 112): those run the kernels' 128-wide
+instantiation, whose tensor maps end at the true head dim, so the padded
+columns read as zero and only dh columns are written. Head dim 256 waits
+(ROADMAP Queue 2 (a)). The plain versions take any head dim.
 
 Layouts and scale follow JAX's ``flash_mha``: q, k, v in "blhd" [B, L, H,
 dh] (the model's) or "bhld" [B, H, L, dh]; the output in the same layout
@@ -50,15 +55,15 @@ from xtagclip_tpu_torch.ops.fused_attn_block import (
     check_device,
 )
 
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64,) + tuple(range(72, 129, 8))
 LAYOUTS = ("blhd", "bhld")
 
 
 def supported(l_q: int, l_k: int, mask, head_dim: int) -> bool:
     """Shapes the kernels take: no mask, self-attention-like (Lq == Lk),
-    any length, head dim 64 or 128."""
+    any length, head dim in ``HEAD_DIMS`` (module doc)."""
     return (mask is None and l_q == l_k and l_q >= 1
-            and head_dim in _HEAD_DIMS)
+            and head_dim in HEAD_DIMS)
 
 
 def _bhld(t, layout):
@@ -114,7 +119,7 @@ def _launch_checks(what, named, layout):
     b, h, l, dh = _bhld(q, layout).shape
     if not supported(l, l, None, dh):
         raise ValueError(f"{what}: no kernel for [B, H, L, dh] = "
-                         f"{(b, h, l, dh)} (needs head dim 64 or 128)")
+                         f"{(b, h, l, dh)} (needs a head dim in {HEAD_DIMS})")
     for key, t in named.items():
         if t.device != q.device:
             raise ValueError(f"{what}: {key} is on {t.device}, q on {q.device}")

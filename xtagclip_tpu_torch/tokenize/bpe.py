@@ -14,7 +14,8 @@ which the card's machine may lack. ``[\p{L}]+`` becomes ``[^\W\d_]+``,
 ``(?:[^\s\w]|_)+``. The two split ASCII text identically
 (tests/test_torch_tokenize.py); they can differ on rare non-ASCII numerals
 such as superscripts, which ``\p{N}`` counts as numbers and ``\w`` as
-word characters.
+word characters. ``reduction_mask`` selects one of CLIPA's token-reduction
+tokenizers (tokenize/masking.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ from functools import lru_cache
 from typing import List, Optional, Union
 
 import numpy as np
+
+from xtagclip_tpu_torch.tokenize.masking import get_reduction_mask_fn
 
 from xtagclip_tpu_torch.utils.assets import asset_path
 
@@ -139,9 +142,8 @@ class SimpleTokenizer:
         self.eot_token_id = self.all_special_ids[1]
         self.context_length = context_length
         self.clean_fn = get_clean_fn(clean)
-        if reduction_mask:
-            raise NotImplementedError(
-                "reduction_mask tokenizers are not ported yet")
+        self.reduction_fn = (get_reduction_mask_fn(reduction_mask)
+                             if reduction_mask else None)
 
     def bpe(self, token: str) -> str:
         cached = self.cache.get(token)
@@ -198,6 +200,12 @@ class SimpleTokenizer:
             texts = [texts]
         context_length = context_length or self.context_length
         assert context_length, "Please set a valid context length"
+
+        if self.reduction_fn is not None:
+            return self.reduction_fn(
+                texts, context_length=context_length,
+                sot_token_id=self.sot_token_id,
+                eot_token_id=self.eot_token_id, encode_fn=self.encode)
 
         result = np.zeros((len(texts), context_length), dtype=np.int32)
         for i, text in enumerate(texts):

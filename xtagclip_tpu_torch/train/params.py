@@ -4,7 +4,8 @@ Same flags as reference open_clip_train/params.py:26-496 plus the 8 XTag
 custom flags (main_other_simple.py:81-141). ``--device`` defaults to
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels.
 ``unported`` names the flags whose branches the port does not have yet:
-the train CLI raises on them. On one process ``--local-loss`` and
+the train CLIs raise on them. ``--grad-checkpointing`` checkpoints every
+tower block (models/layers.py). On one process ``--local-loss`` and
 ``--gather-with-grad`` change nothing; the flags the JAX package accepts
 as no-ops (``--torchcompile``, ``--use-bnb-linear``, ``--horovod``, the
 distributed plumbing) are accepted as no-ops here too.
@@ -133,7 +134,8 @@ def parse_args(args=None, include_xtag: bool = True):
     parser.add_argument("--force-quick-gelu", default=False, action="store_true")
     parser.add_argument("--force-patch-dropout", default=None, type=float)
     parser.add_argument("--force-custom-text", default=False, action="store_true")
-    # --torchscript/--trace: the serving artifact is not ported yet
+    # --torchscript/--trace: cli/main.py writes the serving artifact
+    # (convert/serving.py)
     parser.add_argument("--torchscript", default=False, action="store_true")
     parser.add_argument("--torchcompile", default=False, action="store_true")
     parser.add_argument("--trace", default=False, action="store_true")
@@ -164,7 +166,7 @@ def parse_args(args=None, include_xtag: bool = True):
     parser.add_argument("--ddp-static-graph", default=False, action="store_true")
     parser.add_argument("--no-set-device-rank", default=False, action="store_true")
     # parameter + optimizer-state sharding and tensor sharding of the
-    # JAX package; not ported yet (ROADMAP Queue 1 item 8)
+    # JAX package; not ported yet (ROADMAP Queue 1 item 7)
     parser.add_argument("--fsdp", default=False, action="store_true")
     parser.add_argument("--model-parallel", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
@@ -205,24 +207,22 @@ def parse_args(args=None, include_xtag: bool = True):
 
 def unported(args) -> list:
     """The flags set in ``args`` whose branches are not ported yet, each
-    with the ROADMAP item that ports it."""
+    with the ROADMAP Queue 1 item that ports it
+    (tests/test_torch_clipa.py checks that each item exists)."""
     out = []
     if args.siglip:
         out.append("--siglip (Queue 1 item 8: the SigLIP loss)")
     if args.distill_model:
-        out.append("--distill-model (Queue 1 item 9)")
+        out.append("--distill-model (Queue 1 item 8: distill.py)")
     if args.fsdp or (args.model_parallel or 1) > 1:
-        out.append("--fsdp / --model-parallel (Queue 1 item 8)")
+        out.append("--fsdp / --model-parallel (Queue 1 item 7: "
+                   "multi-process)")
     if args.remote_sync:
-        out.append("--remote-sync (Queue 1 item 10)")
-    if args.pretrained and not os.path.isfile(args.pretrained):
+        out.append("--remote-sync (Queue 1 item 9)")
+    if args.pretrained and not os.path.exists(args.pretrained):
         out.append(f"--pretrained {args.pretrained!r}: only a local .pt file "
-                   "is ported; named tags wait for pretrained.py "
-                   "(Queue 1 item 10)")
-    if args.image_mean or args.image_std:
-        out.append("--image-mean / --image-std (the card normalizes with the "
-                   "OpenAI constants)")
-    if args.torchscript or args.trace:
-        out.append("--torchscript / --trace (the serving artifact, Queue 1 "
-                   "item 6)")
+                   "or a port checkpoint is ported; named tags wait for "
+                   "pretrained.py (Queue 1 item 9)")
+    if "coca" in (args.model or "").lower():
+        out.append(f"--model {args.model} (Queue 1 item 8: CoCa)")
     return out

@@ -4,7 +4,8 @@ others/train_other.py:65-287).
 
 One process. Each host batch crosses to the card as uint8
 (``device_prefetch``: pinned memory, asynchronous copies one batch ahead),
-is normalized there once (ops/preprocess.py, the CUDA kernel), split into
+is normalized there once (ops/preprocess.py, the CUDA kernel, with the
+model's ``--image-mean`` / ``--image-std``), split into
 [accum_freq, micro_b, ...] for the accumulation step, and stepped. The
 step's dropout masks come from one ``torch.Generator`` on the model's
 device, seeded from ``--seed``; the GT-prompt template pick of
@@ -28,6 +29,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from xtagclip_tpu_torch.data.loader import device_prefetch
+from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
 from xtagclip_tpu_torch.train.logger import AverageMeter
 
@@ -77,8 +79,9 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
                     train_key: Optional[str] = None):
     """Run one epoch of steps. Returns (state, epoch_metrics): the means of
     the logged step metrics, ``samples_per_second`` over the epoch's log
-    intervals and ``p50_step_s``, the median over those intervals of their
-    seconds per step."""
+    intervals, ``p50_step_s``, the median over those intervals of their
+    seconds per step, and those seconds per step, interval by interval
+    (``interval_step_s``; one a step with ``--log-every-n-steps 1``)."""
     train_key = train_key or ("scar_train" if "scar_train" in data
                               else "train")
     info = data[train_key]
@@ -88,6 +91,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
     model = state.model
     device = model.logit_scale.device
     compute_dtype = getattr(model, "dtype", torch.float32)
+    norm = image_mean_std(model)  # --image-mean / --image-std
 
     meters: Dict[str, AverageMeter] = {}
     data_time = AverageMeter()
@@ -123,7 +127,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
             prompt_template_setting=getattr(args, "prompt_template_setting",
                                             None),
             rng=host_rng)
-        batch_dict["images"] = normalize_images(batch_dict["images"],
+        batch_dict["images"] = normalize_images(batch_dict["images"], *norm,
                                                 dtype=compute_dtype)
         if accum_freq > 1:
             batch_dict = _to_microbatches(batch_dict, accum_freq)
@@ -168,4 +172,5 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
         epoch_metrics["samples_per_second"] = epoch_samples / max(epoch_time,
                                                                   1e-9)
         epoch_metrics["p50_step_s"] = statistics.median(interval_step_s)
+        epoch_metrics["interval_step_s"] = interval_step_s
     return state, epoch_metrics

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from xtagclip_tpu_torch.data.loader import device_prefetch
+from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
 from xtagclip_tpu_torch.tokenize.prompts import tag_indices_to_words
 from xtagclip_tpu_torch.train import metadata
@@ -91,12 +92,13 @@ def make_eval_forward(model, fusion_scoring: bool = False,
     --use-tagging emits no tags). The picks stay on the device, so the
     forward can be captured as a CUDA graph."""
     picks = tagging and hasattr(model, "tag_forward")
+    norm = image_mean_std(model)
 
     @torch.no_grad()
     def forward(images_u8, classifier):
         was_training = model.training
         model.eval()
-        images = normalize_images(images_u8, dtype=model.dtype)
+        images = normalize_images(images_u8, *norm, dtype=model.dtype)
         img_feat, tokens = model.encode_image(images, normalize=True)
         tag_global = None
         if picks:
@@ -235,9 +237,11 @@ def run_scar_eval(model, classifier: torch.Tensor, dataloader,
 def run_classification_eval(model, classifier, dataloader):
     """Plain (image, int_label) eval: top1/top5 counts / n."""
 
+    norm = image_mean_std(model)
+
     @torch.no_grad()
     def forward(images_u8):
-        images = normalize_images(images_u8, dtype=model.dtype)
+        images = normalize_images(images_u8, *norm, dtype=model.dtype)
         feats, _ = model.encode_image(images, normalize=True)
         return 100.0 * feats.float() @ classifier
 
