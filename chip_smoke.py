@@ -303,13 +303,17 @@ def _kernel_cases(gen):
 
     bf = torch.bfloat16
     cases = []
-    # the attention half at a serve batch's vision and text blocks, and at
-    # a precompute chunk's text blocks (512 prompts of 77 tokens)
+    # the attention half at a serve batch's vision and text blocks, at a
+    # precompute chunk's text blocks (512 prompts of 77 tokens), and at
+    # ViT-H-14's text blocks: the kernels-on/off step's batch, and the
+    # recipe's batch at stage 2's 32 tokens and stage 1's 8
     for tower, batch, l, d, h, causal in (
             ("vision", SERVE_BATCH, 50, 768, 12, False),
             ("text", SERVE_BATCH, 77, 512, 8, True),
             ("text", PRECOMPUTE_BATCH, 77, 512, 8, True),
-            ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True)):
+            ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True),
+            ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True)):
         x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
@@ -321,15 +325,20 @@ def _kernel_cases(gen):
         cases.append(("fused_attn_half", f"{tower} B={batch} L={l} "
                       f"D={d} H={h}{' causal' if causal else ''}",
                       args, flops, nbytes, "bf16", None))
-    # the MLP half at a serve batch's vision and text rows, and at a
-    # precompute chunk's text rows (512 prompts of 77 tokens)
-    for tower, batch, l, d in (("vision", SERVE_BATCH, 50, 768),
-                               ("text", SERVE_BATCH, 77, 512),
-                               ("text", PRECOMPUTE_BATCH, 77, 512),
-                               ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024)):
+    # the MLP half at a serve batch's vision and text rows, at a
+    # precompute chunk's text rows (512 prompts of 77 tokens), and at
+    # ViT-H-14's text rows (as the attention half's; its act is gelu)
+    both = ("gelu", "quick_gelu")
+    for tower, batch, l, d, acts in (
+            ("vision", SERVE_BATCH, 50, 768, both),
+            ("text", SERVE_BATCH, 77, 512, both),
+            ("text", PRECOMPUTE_BATCH, 77, 512, both),
+            ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, both),
+            ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, ("gelu",)),
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, ("gelu",))):
         hd = 4 * d
         n = batch * l
-        for act in ("gelu", "quick_gelu"):
+        for act in acts:
             x = rnd((batch, l, d), dtype=bf)
             args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, hd), d**-0.5, bf),
                     rnd(hd, 0.1), rnd((hd, d), hd**-0.5, bf), rnd(d, 0.1),
@@ -338,10 +347,12 @@ def _kernel_cases(gen):
             nbytes = 2 * 2 * n * d + 2 * 2 * d * hd + 4 * (3 * d + hd)
             cases.append(("fused_mlp_half", f"{tower} N={n} D={d} "
                           f"H={hd} {act}", args, flops, nbytes, "bf16", None))
-    b = TRAIN_BATCH
-    for tower, l, d, h, causal in (("vision", 50, 768, 12, False),
-                                   ("text", 77, 512, 8, True),
-                                   ("ViT-H-14 text", 32, 1024, 16, True)):
+    for tower, b, l, d, h, causal in (
+            ("vision", TRAIN_BATCH, 50, 768, 12, False),
+            ("text", TRAIN_BATCH, 77, 512, 8, True),
+            ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True),
+            ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True)):
         args = (rnd((b, l, d), dtype=bf), rnd((b, l, d), dtype=bf),
                 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, 3 * d), d**-0.5, bf),
                 rnd(3 * d, 0.1), rnd((d, d), d**-0.5, bf),
@@ -378,14 +389,16 @@ def _kernel_cases(gen):
 # flash attention's shapes: the GAP tower's (32, 12, 256, 64), then edge
 # shapes (B, H, L, dh): L at one tile, ragged L (ViT-B-16's 197 with its
 # class token, ViT-L-14's 257), several tiles, head dim 128; then
-# ViT-H-14's dh 80 at the CLIPA path's two shapes (stage 2 at 224 px, L =
-# 257, at the train-path batch; stage 1 at 84 px, L = 37, at the recipe's
-# batch) and the other head dims the 128-wide instantiation takes
+# ViT-H-14's dh 80 at the CLIPA paths' shapes (stage 2 at 224 px, L = 257,
+# at the kernels-on/off step's batch and the recipe's; stage 1 at 84 px,
+# L = 37, at the recipe's batch) and the other head dims the 128-wide
+# instantiation takes
 FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (1, 12, 197, 64), (1, 12, 257, 64), (1, 12, 384, 64),
                (2, 4, 256, 128), (CLIPA_PATH_BATCH, 16, 257, 80),
-               (CLIPA_BATCH, 16, 37, 80), (2, 4, 257, 72), (2, 4, 257, 88),
-               (2, 4, 257, 104), (2, 4, 257, 112))
+               (CLIPA_BATCH, 16, 257, 80), (CLIPA_BATCH, 16, 37, 80),
+               (2, 4, 257, 72), (2, 4, 257, 88), (2, 4, 257, 104),
+               (2, 4, 257, 112))
 
 
 def _gap_kernel_cases(gen):
@@ -434,9 +447,13 @@ def _gap_kernel_cases(gen):
     n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
     for rows, d, hd, acts in ((n, d, hd, ("gelu", "quick_gelu")),
                               (37, d, hd, ("gelu", "quick_gelu")),
-                              # ViT-H-14's vision MLP at the train-path batch
+                              # ViT-H-14's vision MLP at the kernels-on/off
+                              # step's batch, and at the recipe's batch in
+                              # stage 2 (257 tokens) and stage 1 (37)
                               (CLIPA_PATH_BATCH * 257, 1280, 5120,
-                               ("gelu",))):
+                               ("gelu",)),
+                              (CLIPA_BATCH * 257, 1280, 5120, ("gelu",)),
+                              (CLIPA_BATCH * 37, 1280, 5120, ("gelu",))):
         for act in acts:
             x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             w1 = (torch.randn((d, hd), generator=gen, device=dev)
@@ -1835,13 +1852,13 @@ CLIPA_LONG_CAPTION = ("a photo of a very large fluffy orange cat sitting on "
                       "an old wooden table")
 
 
-def _clipa_args(stage: int, logs: str) -> list:
+def _clipa_args(stage: int, logs: str, batch: int = CLIPA_BATCH) -> list:
     """cli.main's flags of scripts/h14_84_8_pretrain.sh (stage 1) and
     scripts/h14_224_32_finetune.sh (stage 2), with the one-process cuts:
-    no --fsdp, the per-device batch CLIPA_BATCH instead of 4096, one epoch
+    no --fsdp, the per-device batch ``batch`` instead of 4096, one epoch
     of synthetic data (2 steps; 2 + 5 steps), and stage 2's preprocessing
     flags of the JAX package's CLIPA test (tests/test_clipa_path.py)."""
-    common = ["--dataset-type", "synthetic", "--batch-size", str(CLIPA_BATCH),
+    common = ["--dataset-type", "synthetic", "--batch-size", str(batch),
               "--precision", "amp_bf16", "--beta1", "0.9", "--beta2", "0.95",
               "--wd", "0.2", "--eps", "1e-8", "--epochs", "1",
               "--grad-checkpointing", "--local-loss", "--gather-with-grad",
@@ -1849,12 +1866,12 @@ def _clipa_args(stage: int, logs: str) -> list:
               "--name", f"stage{stage}", "--seed", "0"]
     if stage == 1:
         return ["--model", "ViT-H-14-CL8-SyntaxMask-GAP", *common,
-                "--train-num-samples", str(2 * CLIPA_BATCH),
+                "--train-num-samples", str(2 * batch),
                 "--lr", "2.048e-3", "--warmup", "3200",
                 "--force-image-size", "84"]
     return ["--model", "ViT-H-14-CL32-GAP", *common,
             "--train-num-samples",
-            str((CLIPA_WARMUP + CLIPA_STEPS) * CLIPA_BATCH),
+            str((CLIPA_WARMUP + CLIPA_STEPS) * batch),
             "--lr", "2.048e-4", "--warmup", "800",
             "--force-image-size", "224",
             "--pretrained", os.path.join(logs, "stage1", "checkpoints",
@@ -2065,6 +2082,66 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
     if not ok:
         raise AssertionError(f"clipa phase failed its checks: {result}")
     return counts
+
+
+# per-device batches tried by --clipa-batch-probe, in order, until one
+# does not fit
+CLIPA_PROBE_BATCHES = (512, 768, 1024, 1280, 1536)
+
+
+def phase_clipa_batch_probe(card: str, tmp: str) -> dict:
+    """The largest per-device batch of CLIPA stage 2 (ViT-H-14-CL32-GAP,
+    224 px, --grad-checkpointing, AdamW) that fits on the card: cli.main
+    with stage 2's flags from a seeded init (no --pretrained; the memory
+    is the same) for 2 steps at each of CLIPA_PROBE_BATCHES, saving
+    nothing, until one runs out of memory. Records each batch's peak
+    torch.cuda.max_memory_allocated and step seconds."""
+    import gc
+
+    from xtagclip_tpu_torch.cli import main as clipa_main
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    logs = os.path.join(tmp, "clipa_probe")
+    total = torch.cuda.mem_get_info()[1]
+    rows, fits = [], None
+    for batch in CLIPA_PROBE_BATCHES:
+        args = _clipa_args(2, logs, batch)
+        args[args.index("--train-num-samples") + 1] = str(2 * batch)
+        cut = args.index("--pretrained")
+        args = args[:cut] + args[cut + 2:] + ["--save-frequency", "0"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        row = {"batch": batch}
+        try:
+            out = clipa_main.main(args)
+            tm = out["epochs"][0]["train"]
+            row.update(fits=True, step_s=tm["interval_step_s"],
+                       loss=tm["loss"],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del out
+            fits = batch
+        except torch.cuda.OutOfMemoryError as e:
+            row.update(fits=False, error=str(e).split("\n")[0][:300],
+                       peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finally:
+            close_logging()
+            shutil.rmtree(logs, ignore_errors=True)
+        rows.append(row)
+        if not row["fits"]:
+            break
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"phase": "clipa_batch_probe", "card": card,
+              "model": "ViT-H-14-CL32-GAP stage 2, 224 px, "
+                       "--grad-checkpointing, amp_bf16, AdamW",
+              "card_memory_gb": total / 1e9,
+              "allocator": os.environ.get("PYTORCH_CUDA_ALLOC_CONF",
+                                          "default"),
+              "batches": rows,
+              "largest_batch_that_fits": fits}
+    _emit(result)
+    return result
 
 
 def _fwd_bwd_memory(model, batch) -> dict:
@@ -2310,6 +2387,9 @@ def main(argv=()) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace the trainer's second epoch, precompute, "
                          "serve and train steps with torch.profiler")
+    ap.add_argument("--clipa-batch-probe", action="store_true",
+                    help="run only the build and the search for the "
+                         "largest CLIPA stage-2 batch that fits")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2325,6 +2405,11 @@ def main(argv=()) -> int:
            "seconds": time.perf_counter() - t0,
            "kernels": {k: v["path"] for k, v in built.items()},
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
+    if args.clipa_batch_probe:
+        with tempfile.TemporaryDirectory(prefix="xtag_probe_") as tmp:
+            phase_clipa_batch_probe(card, tmp)
+        print(card, flush=True)
+        return 0
 
     entries = phase_kernels(card)
     phase_flash_poison(card)

@@ -97,6 +97,8 @@ def _assert_kernel_bar(out, ref):
     (3, 1, 128, 2, False),      # one token
     (2, 128, 64, 1, True),      # longest L the kernel takes
     (5, 33, 192, 3, False),     # ragged L, odd batch
+    (256, 32, 1024, 16, True),  # ViT-H-14 CLIPA text, stage 2
+    (256, 8, 1024, 16, True),   # ViT-H-14 CLIPA text, stage 1
 ])
 def test_attn_kernel_matches_plain(cuda, b, l, d, h, causal):
     args = _attn_args(b, l, d, seed=l, device=cuda)
@@ -124,6 +126,18 @@ def test_mlp_kernel_matches_plain(cuda, n, d, h, act):
         out = fab.fused_mlp_half(*args, act, 1e-5)
         assert fab.fused_mlp_half.launches == before + 1
         ref = fab.reference_mlp_half(*args, act, 1e-5)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("n", [256 * 8, 256 * 32])
+def test_mlp_kernel_matches_plain_at_vit_h_text_rows(cuda, n):
+    """ViT-H-14 CLIPA's text rows at the recipe's batch of 256: stage 1's
+    8 tokens and stage 2's 32, width 1024."""
+    args = _mlp_args(n, 1024, 4096, seed=n, device=cuda)
+    with torch.inference_mode():
+        out = fab.fused_mlp_half(*args, "gelu", 1e-5)
+        ref = fab.reference_mlp_half(*args, "gelu", 1e-5)
     torch.cuda.synchronize()
     _assert_kernel_bar(out, ref)
 
@@ -156,6 +170,8 @@ def test_mlp_kernel_repeats_bit_for_bit(cuda):
     (3, 1, 128, 2, False),      # one token
     (2, 128, 64, 1, True),      # longest L supported_bwd takes
     (5, 33, 192, 3, False),     # ragged L, odd batch
+    (256, 32, 1024, 16, True),  # ViT-H-14 CLIPA text, stage 2
+    (256, 8, 1024, 16, True),   # ViT-H-14 CLIPA text, stage 1
 ])
 def test_attn_bwd_kernel_matches_plain(cuda, b, l, d, h, causal):
     args = _attn_args(b, l, d, seed=100 + l, device=cuda)
@@ -596,10 +612,12 @@ def test_flash_function_grads_match_plain_bwd(cuda, dh):
 
 
 # head dims that run the kernels' 128-wide instantiation: at (2, 4, 257,
-# dh), and ViT-H/14's dh 80 at its two path shapes (CLIPA stage 2 at batch
-# 32 and L = 257; stage 1 at 84 px, batch 256 and L = 37)
+# dh), and ViT-H/14's dh 80 at its path shapes (CLIPA stage 2 at L = 257,
+# batch 32 of the kernels-on/off step and the recipe's 256; stage 1 at 84
+# px, batch 256 and L = 37)
 PADDED_HEAD_DIMS = (72, 80, 88, 96, 104, 112, 120)
-VIT_H_FLASH_SHAPES = [(32, 16, 257, 80), (256, 16, 37, 80)]
+VIT_H_FLASH_SHAPES = [(32, 16, 257, 80), (256, 16, 257, 80),
+                      (256, 16, 37, 80)]
 
 
 def _flash_fwd_bwd_at_bar(q, k, v, layout, seed, device):
@@ -644,36 +662,6 @@ def test_flash_kernels_match_plain_at_vit_h_shapes(cuda, b, h, l, dh):
     _flash_fwd_bwd_at_bar(q, k, v, "blhd", seed=b, device=cuda)
 
 
-@pytest.mark.parametrize("dh", [80, 112])
-def test_flash_kernels_read_no_column_past_the_head_dim(cuda, dh):
-    """Each head's q, k, v and dO sit in a row of dh + 48 columns whose 48
-    past dh hold NaN: the kernels read the 128-wide boxes through maps
-    that end at dh, so they must see zeros there (a read of the next
-    columns turns the outputs NaN), and match the same inputs copied
-    contiguous bit for bit."""
-    b, h, l = 2, 4, 257
-    rng = np.random.default_rng(dh)
-
-    def poisoned():
-        full = torch.full((b, l, h, dh + 48), float("nan"), device=cuda,
-                          dtype=torch.bfloat16)
-        full[..., :dh] = torch.from_numpy(rng.standard_normal(
-            (b, l, h, dh)).astype(np.float32)).to(cuda, torch.bfloat16)
-        return full[..., :dh]
-
-    q, k, v, do = (poisoned() for _ in range(4))
-    o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
-    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, "blhd")
-    dense = [t.contiguous() for t in (q, k, v, do)]
-    o2, lse2 = flash_attn._flash_fwd(*dense[:3], "blhd", with_lse=True)
-    grads2 = flash_attn.flash_mha_bwd(*dense[:3], o2, lse2, dense[3], "blhd")
-    torch.cuda.synchronize()
-    for a, b_ in zip((o, lse, *grads), (o2, lse2, *grads2)):
-        assert torch.isfinite(a).all()
-        assert torch.equal(a, b_)
-    _assert_kernel_bar(o, flash_attn.reference_flash_mha(*dense[:3]))
-
-
 def test_flash_kernels_refuse_other_head_dims(cuda):
     for dh in (32, 56, 100, 136, 256):
         q, k, v = (torch.zeros((1, 8, 2, dh), device=cuda,
@@ -696,6 +684,20 @@ def test_fused_mlp_kernel_matches_plain(cuda, n, d, h, act):
         out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, act)
         assert fused_mlp.fused_mlp.launches == before + 1
         ref = fused_mlp.reference_fused_mlp(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("n", [256 * 37, 256 * 257])
+def test_fused_mlp_kernel_matches_plain_at_vit_h_rows(cuda, n):
+    """ViT-H-14 CLIPA's vision rows at the recipe's batch of 256 (stage 1's
+    37 tokens, stage 2's 257), width 1280, hidden 5120: the GEMM's tile
+    width follows the grid's waves, so these rows may take another tile
+    than a smaller batch's."""
+    x, _, _, w1, b1, w2, b2 = _mlp_args(n, 1280, 5120, seed=n, device=cuda)
+    with torch.inference_mode():
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+        ref = fused_mlp.reference_fused_mlp(x, w1, b1, w2, b2, "gelu")
     torch.cuda.synchronize()
     _assert_kernel_bar(out, ref)
 

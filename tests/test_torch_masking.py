@@ -91,6 +91,24 @@ def test_syntax_mask_never_downloads(monkeypatch):
         assert list(row) == _front_truncated(tok, text, 8)
 
 
+def test_syntax_tokenizer_looks_for_the_tagger_once(monkeypatch):
+    """The tagger is looked up when the tokenizer is built, not on every
+    batch: a failed ``import nltk`` is not cached by Python."""
+    calls = []
+
+    def tagger():
+        calls.append(1)
+        return None
+
+    monkeypatch.setattr(masking, "nltk_tagger", tagger)
+    tok = SimpleTokenizer(context_length=8, reduction_mask="syntax")
+    for _ in range(3):
+        got = tok(TEXTS)
+    assert len(calls) == 1
+    for row, text in zip(got, TEXTS):
+        assert list(row) == _front_truncated(tok, text, 8)
+
+
 def test_get_reduction_mask_fn_names():
     for name in ("simple", "random", "shuffle", "syntax"):
         assert callable(masking.get_reduction_mask_fn(name))

@@ -14,6 +14,8 @@ The syntax mask tags words with nltk only where nltk imports AND its data
 ``nltk.download``, which the JAX copy does (:77-80), since no network is
 assumed. Otherwise it takes the JAX copy's own fallback: the text's
 whitespace words, front-truncated to context_length - 2 (ROADMAP Queue 3).
+``get_reduction_mask_fn("syntax")`` looks for the tagger once, so a
+tokenizer does not retry the import on every batch.
 """
 
 from __future__ import annotations
@@ -90,10 +92,12 @@ def nltk_tagger():
 
 
 def syntax_mask_tokenize(texts, context_length: int, sot_token_id: int,
-                         eot_token_id: int, encode_fn: Callable) -> np.ndarray:
+                         eot_token_id: int, encode_fn: Callable,
+                         tagger) -> np.ndarray:
+    """``tagger`` is nltk_tagger()'s result (None: the fallback)."""
     if isinstance(texts, str):
         texts = [texts]
-    nltk = nltk_tagger()
+    nltk = tagger
     new_texts = []
     for text in texts:
         pos = None
@@ -132,4 +136,4 @@ def get_reduction_mask_fn(type: str):
         return random_mask_tokenize
     if type == "shuffle":
         return partial(random_mask_tokenize, shuffle=True)
-    return syntax_mask_tokenize
+    return partial(syntax_mask_tokenize, tagger=nltk_tagger())
