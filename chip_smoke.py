@@ -18,23 +18,26 @@ fused MLP), in phases that each print one JSON line:
    with ptxas's registers and spill bytes for every kernel entry;
 2. kernels: each kernel against its plain PyTorch version on the card at
    the shapes the main paths give it (and, for flash attention, at edge
-   shapes: L = 128, 197, 257, 384, head dim 128; ViT-H-14's head dim 80
-   at L = 257 and 37, and head dims 72, 88, 104, 112), every output within
-   atol = max|ref|/128 and rtol = 1e-2 (one bf16 ULP at output scale);
-   the image normalize (kernel #5) within one bf16 ULP on every element,
-   or 2^-22 for fp32 output, at the main path's batch and at a ragged
-   odd-sized one; the device time of kernel and plain version
-   (torch.profiler: the summed durations of the kernels one call runs,
-   over 20 calls, so a wrapper whose host side outlasts its kernel is
-   timed by its kernel, and the kernel's split by the kernels its
-   wrapper launches; the median CUDA-event time of 10 back-to-back
-   calls beside it), the same for one PyTorch call computing the same
-   function where there is one (scaled_dot_product_attention for flash
-   attention's forward; for its backward, SDPA's backward alone through
-   autograd from a forward run outside the timing, and its forward +
-   backward beside it), and the card's least time for the same work; the
-   fused attention half, its backward, the MLP half and flash attention's
-   backward launched twice on the same inputs must give the same bits;
+   shapes: L = 128, 197, 257, 384, head dim 128; ViT-H-14's head dim 80 at
+   L = 257 and 37 and, for the 336 px eval, L = 577 at batch 64; and head
+   dims 72, 88, 104, 112; the 336 px eval's text halves without a mask at
+   one zero-shot classifier chunk, 800 prompts of 32 tokens, and its 36928
+   vision MLP rows), every output within atol = max|ref|/128 and
+   rtol = 1e-2 (one bf16 ULP at output scale); the image normalize (kernel
+   #5) within one bf16 ULP on every element, or 2^-22 for fp32 output, at
+   the main path's batch, at a ragged odd-sized one and at the 336 px
+   eval's 64 x 336 x 336; the device time of kernel and plain version
+   (torch.profiler: the summed durations of the kernels one call runs, over
+   20 calls, so a wrapper whose host side outlasts its kernel is timed by
+   its kernel, and the kernel's split by the kernels its wrapper launches;
+   the median CUDA-event time of 10 back-to-back calls beside it), the same
+   for one PyTorch call computing the same function where there is one
+   (scaled_dot_product_attention for flash attention's forward; for its
+   backward, SDPA's backward alone through autograd from a forward run
+   outside the timing, and its forward + backward beside it), and the
+   card's least time for the same work; the fused attention half, its
+   backward, the MLP half and flash attention's backward launched twice on
+   the same inputs must give the same bits;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
@@ -108,24 +111,42 @@ fused MLP), in phases that each print one JSON line:
    ``cli.main.main`` at full width and depth (986M parameters; vision 32
    blocks of width 1280, 16 heads of 80; text 24 blocks of width 1024),
    --grad-checkpointing, batch 256 (not the scripts' 4096: one card's 80
-   GB) and no --fsdp (one process): stage 1 (syntax-mask CL8 tokenizer,
-   84 px, L = 37) for 2 steps; stage 2 (CL32, 224 px, L = 257, squash,
-   bilinear, ImageNet mean/std) from stage 1's checkpoint for 2 warm-up +
-   5 timed steps; ``evaluate`` on a CSV of 128 seeded PNGs. It prints
-   samples/s, p50 step ms, peak memory, checkpoint bytes and save
-   seconds, eval img/s and metrics, and fails on launches off
-   CLIPA_PER_STEP / CLIPA_PER_EVAL_BATCH, a value that is not finite or
-   syntax-mask ids off the front-truncation fallback;
-13. clipa_path (last): stage 2's model at batch 32: one step with
+   GB) and no --fsdp (one process), both stages reading 8 seeded tar
+   shards of 224 (JPEG, caption) samples (--dataset-type webdataset):
+   stage 1 (syntax-mask CL8 tokenizer, 84 px, L = 37, --native-decode)
+   for 2 steps; stage 2 (CL32, 224 px, L = 257, squash, bilinear,
+   ImageNet mean/std, the PIL decode) from stage 1's checkpoint for 2
+   warm-up + 5 timed steps; ``evaluate`` on a CSV of 128 seeded PNGs. It
+   prints samples/s, p50 step ms, each step's data wait, the decode route
+   and the samples each route decoded, peak memory, checkpoint bytes and
+   save seconds, eval img/s and metrics, and fails on launches off
+   CLIPA_PER_STEP / CLIPA_PER_EVAL_BATCH, a value that is not finite,
+   fewer samples decoded than the steps took or syntax-mask ids off the
+   front-truncation fallback;
+13. clipa_eval: scripts/clipav2_vit_h14_i84_224_336_cl32_gap_datacomp1b.sh's
+   flags through ``cli.main.main`` at full width and depth
+   (ViT-H-14-CL32-GAP-BigVision, --force-image-size 336: L = 577):
+   --pretrained a seeded big_vision .npz in the CLIPA-v2 layout (3.9 GB,
+   written to a temporary directory and deleted), the BERT WordPiece
+   tokenizer found as bert-base-uncased in a temporary HF_HUB_CACHE, and
+   --imagenet-val a folder of 192 seeded JPEGs in 8 class directories: the
+   load, the 1000 x 80-prompt zero-shot classifier and the eval, each
+   timed; launches per classifier chunk and per eval batch asserted; one
+   eval batch's image features and one classifier chunk's text features
+   with the kernels on vs off at cosine >= 0.999; the archive keys the
+   converter leaves unread and the parameters kept at their init printed
+   and held to the list JAX's converter implies;
+14. clipa_path (last): stage 2's model at batch 32: one step with
    --grad-checkpointing on and off (loss and gradients bit for bit, peak
    memory of each), one with the kernels on and off (phase 6's bars), a
    kernels-on step at --force-patch-dropout 0.5 (finite), and eval image
    features kernels vs plain (cosine >= 0.999).
 
-After phase 2, flash_poison: flash attention at head dims 80 and 112 on
-q, k, v, dO whose columns past dh hold NaN (rows of dh + 48): outputs
-finite and equal bit for bit to those of the same inputs copied
-contiguous.
+After phase 2, flash_poison: flash attention at head dims 80 and 112
+(L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
+columns past dh and rows past L hold NaN (rows of dh + 48 columns,
+batches of L + 64 rows): outputs finite and equal bit for bit to those of
+the same inputs copied contiguous.
 
 With ``--profile`` it also traces the trainer's second plain epoch, 3
 CLIPA stage-2 train steps of 256, and then one precompute, 20 serve
@@ -135,8 +156,9 @@ time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
 split into the port's hand-written kernels and everything else.
 
-Then the kernel table (every kernel's launches on the main paths, its
-times and its bound), the card's name and power limit (nvidia-smi) and,
+Then each phase's seconds, the kernel table (every kernel's launches on
+the main paths, its times and its bound), the card's name and power limit
+(nvidia-smi) and,
 as the last line, {"ok": true, "device": {...}}. Any failure raises: the
 exit code is then not 0 and the last line is not printed. Without a CUDA
 device it exits 1 before doing anything. Imports nothing of JAX.
@@ -149,6 +171,7 @@ import contextlib
 import copy
 import io
 import json
+import logging
 import math
 import os
 import shutil
@@ -198,6 +221,16 @@ CLIPA_BATCH = 256
 CLIPA_WARMUP, CLIPA_STEPS = 2, 5
 CLIPA_VAL_ROWS = 128
 CLIPA_PATH_BATCH = 32
+CLIPA_SHARDS = 8  # the stages' tar shards: 8 x 224 samples, stage 2's 1792
+# the 336 px evaluation (scripts/clipav2_vit_h14_i84_224_336_cl32_gap_
+# datacomp1b.sh, ViT-H-14-CL32-GAP-BigVision): 24 x 24 patches + the class
+# token, at the eval batch
+CLIPA_EVAL_BATCH = 64
+EVAL_IMAGE_SIZE = 336
+# its text tower runs only in the zero-shot classifier, on chunks of 10
+# classes x 80 templates (train/zero_shot.py) at the config's 32 tokens
+EVAL_CHUNK_PROMPTS = 10 * 80
+EVAL_L = (EVAL_IMAGE_SIZE // 14) ** 2 + 1
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -313,7 +346,9 @@ def _kernel_cases(gen):
             ("text", PRECOMPUTE_BATCH, 77, 512, 8, True),
             ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True),
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
-            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True)):
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True),
+            ("ViT-H-14 BigVision text", EVAL_CHUNK_PROMPTS, 32, 1024, 16,
+             False)):
         x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
@@ -335,7 +370,9 @@ def _kernel_cases(gen):
             ("text", PRECOMPUTE_BATCH, 77, 512, both),
             ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, both),
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, ("gelu",)),
-            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, ("gelu",))):
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, ("gelu",)),
+            ("ViT-H-14 BigVision text", EVAL_CHUNK_PROMPTS, 32, 1024,
+             ("gelu",))):
         hd = 4 * d
         n = batch * l
         for act in acts:
@@ -373,7 +410,8 @@ def _kernel_cases(gen):
         OPENAI_DATASET_STD,
     )
 
-    for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3)):
+    for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3),
+                  (CLIPA_EVAL_BATCH, EVAL_IMAGE_SIZE, EVAL_IMAGE_SIZE, 3)):
         images = torch.randint(0, 256, shape, generator=gen, device=dev,
                                dtype=torch.uint8)
         n = images.numel()
@@ -391,12 +429,13 @@ def _kernel_cases(gen):
 # class token, ViT-L-14's 257), several tiles, head dim 128; then
 # ViT-H-14's dh 80 at the CLIPA paths' shapes (stage 2 at 224 px, L = 257,
 # at the kernels-on/off step's batch and the recipe's; stage 1 at 84 px,
-# L = 37, at the recipe's batch) and the other head dims the 128-wide
-# instantiation takes
+# L = 37, at the recipe's batch; the 336 px BigVision eval, L = 577, at its
+# batch of 64) and the other head dims the 128-wide instantiation takes
 FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (1, 12, 197, 64), (1, 12, 257, 64), (1, 12, 384, 64),
                (2, 4, 256, 128), (CLIPA_PATH_BATCH, 16, 257, 80),
                (CLIPA_BATCH, 16, 257, 80), (CLIPA_BATCH, 16, 37, 80),
+               (CLIPA_EVAL_BATCH, 16, EVAL_L, 80),
                (2, 4, 257, 72), (2, 4, 257, 88), (2, 4, 257, 104),
                (2, 4, 257, 112))
 
@@ -453,7 +492,11 @@ def _gap_kernel_cases(gen):
                               (CLIPA_PATH_BATCH * 257, 1280, 5120,
                                ("gelu",)),
                               (CLIPA_BATCH * 257, 1280, 5120, ("gelu",)),
-                              (CLIPA_BATCH * 37, 1280, 5120, ("gelu",))):
+                              (CLIPA_BATCH * 37, 1280, 5120, ("gelu",)),
+                              # the 336 px eval's batch of 64 (577 tokens:
+                              # 36928 rows, no multiple of 128)
+                              (CLIPA_EVAL_BATCH * EVAL_L, 1280, 5120,
+                               ("gelu",))):
         for act in acts:
             x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
             w1 = (torch.randn((d, hd), generator=gen, device=dev)
@@ -608,24 +651,28 @@ def phase_kernels(card: str):
 
 
 def phase_flash_poison(card: str):
-    """Each head's q, k, v and dO at head dims 80 and 112 sit in rows of
-    dh + 48 columns whose 48 past dh hold NaN (b=4, h=16, L=257): the
-    kernels read 128-wide boxes through tensor maps that end at dh, so the
-    columns past it must load as zero. A read of any of them turns the
-    outputs NaN; the outputs must also equal those of the same inputs
-    copied contiguous, bit for bit."""
+    """Each head's q, k, v and dO sit in rows of dh + 48 columns whose 48
+    past dh hold NaN, and each batch in L + 64 rows whose 64 past L hold
+    NaN: at head dims 80 and 112 (b=4, h=16, L=257) and at the 336 px
+    eval's L = 577 (dh 80, b=2), whose last 64-row query tile holds one
+    row and whose last key tile is ragged. The kernels read 128-wide boxes
+    through tensor maps that end at dh and at L, so the columns and rows
+    past them must load as zero (TMA's out-of-bounds fill). A read of any
+    of them turns the outputs NaN; the outputs must also equal those of
+    the same inputs copied contiguous, bit for bit."""
     from xtagclip_tpu_torch.ops import flash_attn
 
     gen = torch.Generator(device="cuda").manual_seed(80)
-    b, h, l = 4, 16, 257
+    h = 16
     res = {}
-    for dh in (80, 112):
+    for b, l, dh in ((4, 257, 80), (4, 257, 112), (2, EVAL_L, 80)):
         def poisoned():
-            full = torch.full((b, l, h, dh + 48), float("nan"),
+            full = torch.full((b, l + 64, h, dh + 48), float("nan"),
                               device="cuda", dtype=torch.bfloat16)
-            full[..., :dh] = torch.randn((b, l, h, dh), generator=gen,
-                                         device="cuda").to(torch.bfloat16)
-            return full[..., :dh]
+            full[:, :l, :, :dh] = torch.randn(
+                (b, l, h, dh), generator=gen, device="cuda").to(
+                    torch.bfloat16)
+            return full[:, :l, :, :dh]
 
         q, k, v, do = (poisoned() for _ in range(4))
         dense = [t.contiguous() for t in (q, k, v, do)]
@@ -635,16 +682,17 @@ def phase_flash_poison(card: str):
         want = (o2, lse2, *flash_attn.flash_mha_bwd(*dense[:3], o2, lse2,
                                                     dense[3]))
         torch.cuda.synchronize()
-        res[dh] = {"finite": all(bool(torch.isfinite(t).all().item())
-                                 for t in got),
-                   "equal_to_contiguous": all(torch.equal(x, y)
-                                              for x, y in zip(got, want))}
+        res[f"B={b} L={l} dh={dh}"] = {
+            "finite": all(bool(torch.isfinite(t).all().item())
+                          for t in got),
+            "equal_to_contiguous": all(torch.equal(x, y)
+                                       for x, y in zip(got, want))}
     result = {"phase": "flash_poison", "card": card,
-              "shape": f"B={b} H={h} L={l}, NaN past dh", "by_head_dim": res}
+              "shape": f"H={h}, NaN past dh and past L", "cases": res}
     _emit(result)
     if not all(r["finite"] and r["equal_to_contiguous"] for r in res.values()):
-        raise AssertionError(f"flash attention read past the head dim: "
-                             f"{result}")
+        raise AssertionError(f"flash attention read past the head dim or "
+                             f"the sequence: {result}")
 
 
 def _cosine(a, b):
@@ -1845,20 +1893,61 @@ CLIPA_PER_STEP = dict(flash_mha=64, flash_mha_bwd=32, fused_mlp=64,
 # per eval batch: each forward kernel once
 CLIPA_PER_EVAL_BATCH = dict(flash_mha=32, fused_mlp=32, fused_attn_half=24,
                             fused_mlp_half=24, normalize_images=1)
-CLIPA_EVAL_BATCH = 64
 CLIPA_WORDS = ("red", "small", "dog", "cat", "tree", "house", "blue", "car",
                "on", "grass", "near", "water", "old", "photo", "of", "a")
 CLIPA_LONG_CAPTION = ("a photo of a very large fluffy orange cat sitting on "
                       "an old wooden table")
 
 
-def _clipa_args(stage: int, logs: str, batch: int = CLIPA_BATCH) -> list:
+def _write_wds_shards(root: str, n_shards: int, per_shard: int,
+                      rng) -> str:
+    """``n_shards`` tar shards of ``per_shard`` (JPEG, caption) samples in
+    the webdataset layout (key.jpg, key.txt): smooth seeded images of
+    LAION-like sizes around 300 px, five- to eight-word captions. Returns
+    the brace pattern of their paths."""
+    import tarfile
+
+    from PIL import Image
+
+    os.makedirs(root)
+    sizes = ((256, 320), (320, 256), (288, 288), (240, 360))
+    for s in range(n_shards):
+        with tarfile.open(os.path.join(root, f"shard-{s:04d}.tar"),
+                          "w") as tf:
+            for i in range(per_shard):
+                h, w = sizes[(s + i) % len(sizes)]
+                small = rng.integers(0, 256, (h // 16, w // 16, 3),
+                                     dtype=np.uint8)
+                buf = io.BytesIO()
+                Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                    buf, "JPEG", quality=90)
+                caption = " ".join(rng.choice(CLIPA_WORDS,
+                                              rng.integers(5, 9)))
+                for name, data in ((f"{s:04d}{i:05d}.jpg", buf.getvalue()),
+                                   (f"{s:04d}{i:05d}.txt",
+                                    caption.encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    return os.path.join(root, "shard-{0000..%04d}.tar" % (n_shards - 1))
+
+
+def _clipa_args(stage: int, logs: str, batch: int = CLIPA_BATCH,
+                shards: str = None) -> list:
     """cli.main's flags of scripts/h14_84_8_pretrain.sh (stage 1) and
     scripts/h14_224_32_finetune.sh (stage 2), with the one-process cuts:
     no --fsdp, the per-device batch ``batch`` instead of 4096, one epoch
-    of synthetic data (2 steps; 2 + 5 steps), and stage 2's preprocessing
-    flags of the JAX package's CLIPA test (tests/test_clipa_path.py)."""
-    common = ["--dataset-type", "synthetic", "--batch-size", str(batch),
+    of seeded JPEG tar shards (``shards``, --dataset-type webdataset as the
+    scripts pass; synthetic data where none are given) of 2 steps (stage
+    1) and 2 + 5 steps (stage 2), and stage 2's preprocessing flags of the
+    JAX package's CLIPA test (tests/test_clipa_path.py). Stage 1 adds
+    --native-decode (the native library's decode and random resized crop,
+    as "$@" can add it to the script); stage 2 decodes with PIL, as the
+    script does."""
+    data = (["--train-data", shards, "--dataset-type", "webdataset"]
+            + (["--native-decode"] if stage == 1 else [])) if shards else \
+        ["--dataset-type", "synthetic"]
+    common = [*data, "--batch-size", str(batch),
               "--precision", "amp_bf16", "--beta1", "0.9", "--beta2", "0.95",
               "--wd", "0.2", "--eps", "1e-8", "--epochs", "1",
               "--grad-checkpointing", "--local-loss", "--gather-with-grad",
@@ -1953,12 +2042,15 @@ def _profile_clipa_step(card: str, state, n_steps: int = 3) -> None:
 
 
 def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
-    """The CLIPA ViT-H/14 recipe through cli.main at full width and depth:
-    stage 1 (CL8 syntax mask, 84 px, L = 37) for 2 steps, then stage 2
-    (CL32, 224 px, L = 257) from stage 1's checkpoint (--pretrained: the
-    vision table resized 6x6 -> 16x16, the text table 8 -> 32) for 2 + 5
-    steps, then ``evaluate`` on a val CSV of seeded PNGs. Launch counts per
-    step and per eval batch are asserted; the checkpoints are deleted."""
+    """The CLIPA ViT-H/14 recipe through cli.main at full width and depth,
+    both stages reading seeded JPEG tar shards (--dataset-type
+    webdataset): stage 1 (CL8 syntax mask, 84 px, L = 37, --native-decode)
+    for 2 steps, then stage 2 (CL32, 224 px, L = 257, the PIL decode) from
+    stage 1's checkpoint (--pretrained: the vision table resized 6x6 ->
+    16x16, the text table 8 -> 32) for 2 + 5 steps, then ``evaluate`` on a
+    val CSV of seeded PNGs. Launch counts per step and per eval batch are
+    asserted; each step's data wait and the decode route are printed; the
+    shards and checkpoints are deleted."""
     import gc
 
     from xtagclip_tpu_torch.cli import main as clipa_main
@@ -1976,6 +2068,12 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
     logs = os.path.join(tmp, "clipa")
     tokens = _clipa_tokens()
     counts, stages = {}, {}
+    t0 = time.perf_counter()
+    shards = _write_wds_shards(
+        os.path.join(tmp, "clipa_shards"), CLIPA_SHARDS,
+        (CLIPA_WARMUP + CLIPA_STEPS) * CLIPA_BATCH // CLIPA_SHARDS,
+        np.random.default_rng(21))
+    shards_s = time.perf_counter() - t0
     try:
         for stage in (1, 2):
             gc.collect()
@@ -1984,7 +2082,7 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            out = clipa_main.main(_clipa_args(stage, logs))
+            out = clipa_main.main(_clipa_args(stage, logs, shards=shards))
             wall = time.perf_counter() - t0
             counts[f"clipa_stage{stage}"] = _counts()
             rec = out["epochs"][0]
@@ -2010,6 +2108,10 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
                 "launches": counts[f"clipa_stage{stage}"],
                 "launches_ok": counts[f"clipa_stage{stage}"]
                 == _want(**_scaled(CLIPA_PER_STEP, steps)),
+                "data_wait_ms": [1e3 * t for t in tm["data_step_s"]],
+                "decode": tm["decode"], "decoded": tm["decoded"],
+                "decoded_all": sum(tm["decoded"].values())
+                >= steps * CLIPA_BATCH,
                 "vision_tokens": model.visual.positional_embedding.shape[0],
                 "text_context": model.text.positional_embedding.shape[0],
                 "grad_checkpointing":
@@ -2060,10 +2162,13 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
             close_logging()
     finally:
         shutil.rmtree(logs, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(shards), ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
     s1, s2, ev = stages[1], stages[2], stages["eval"]
     ok = (tokens["ok"] and s1["launches_ok"] and s2["launches_ok"]
+          and s1["decoded_all"] and s2["decoded_all"]
+          and s2["decode"] == "PIL"
           and ev["launches_ok"] and s1["finite"] and s2["finite"]
           and ev["finite"] and s1["steps"] == 2
           and s2["steps"] == CLIPA_WARMUP + CLIPA_STEPS
@@ -2075,12 +2180,368 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
               "recipe": "CLIPA ViT-H/14 GAP (BASELINE config 5) via cli.main",
               "weights": "seeded random init", "batch": CLIPA_BATCH,
               "cuts": "no --fsdp (one process); batch 256 not 4096; 1 epoch "
-                      "of synthetic data",
+                      "of seeded JPEG tar shards (--dataset-type webdataset)",
+              "shards": {"count": CLIPA_SHARDS, "write_s": shards_s},
               "tokenizer": tokens, "stage1": s1, "stage2": s2, "eval": ev,
               "ok": ok}
     _emit(result)
     if not ok:
         raise AssertionError(f"clipa phase failed its checks: {result}")
+    return counts
+
+
+# the 336 px BigVision evaluation: the model the script names, its image
+# folder (ImageNet's layout: one directory of JPEGs per class), and the
+# launches of each wrapper per zero-shot classifier chunk (the text tower's
+# 24 blocks on 10 classes x 80 templates) and per eval batch (the vision
+# tower's 32 blocks at L = 577, one normalize)
+BV_MODEL = "ViT-H-14-CL32-GAP-BigVision"
+EVAL_CLASSES, EVAL_PER_CLASS = 8, 24
+EVAL_PER_CHUNK = dict(fused_attn_half=24, fused_mlp_half=24)
+EVAL_PER_BATCH = dict(flash_mha=32, fused_mlp=32, normalize_images=1)
+# what JAX's big_vision converter (and so the port's) leaves of a CLIPA-v2
+# archive: the keys it does not read, and the towers' parameters that keep
+# their init (ROADMAP Queue 3); the XTag tag head's, which no CLIPA archive
+# holds, keep theirs too
+BV_UNREAD = ["img/embedding/bias", "img/head/bias", "img/head/kernel"]
+BV_KEPT_TOWERS = ["visual.class_embedding", "visual.proj",
+                  "visual.ln_pre.scale", "visual.ln_pre.bias",
+                  "text.text_projection"]
+
+
+class _Records(logging.Handler):
+    """Keeps the log records that carry ``attr``."""
+
+    def __init__(self, attr: str):
+        super().__init__(logging.WARNING)
+        self.attr, self.records = attr, []
+
+    def emit(self, record):
+        if hasattr(record, self.attr):
+            self.records.append(record)
+
+
+def _write_big_vision_npz(path: str, cfg: dict, rng) -> int:
+    """A seeded big_vision archive in the CLIPA-v2 ViT-H/14 layout and the
+    geometry ``cfg`` implies at 336 px: 'img/' (the patch embedding's
+    kernel and bias, a 24 x 24 position table, 32 encoder blocks of width
+    1280 with 16 heads of 80 and MLP 5120, the encoder norm, the image
+    head to 1024) and 'txt/' (a 32000 x 1024 embedding, a 32-row position
+    table, 24 blocks of width 1024 with 16 heads of 64, the norm, the text
+    head), and 't'. Written one array at a time (the zip layout of
+    np.savez); returns its bytes."""
+    import zipfile
+
+    v, t = cfg["vision_cfg"], cfg["text_cfg"]
+    embed = cfg["embed_dim"]
+
+    def put(zf, key, shape, std, mean=0.0):
+        arr = rng.standard_normal(shape, dtype=np.float32)
+        arr *= std
+        arr += mean
+        with zf.open(key + ".npy", "w", force_zip64=True) as f:
+            np.lib.format.write_array(f, arr, allow_pickle=False)
+
+    def blocks(zf, prefix, n, d, heads):
+        dh = d // heads
+        for i in range(n):
+            b = f"{prefix}/encoderblock_{i}"
+            for ln in ("LayerNorm_0", "LayerNorm_1"):
+                put(zf, f"{b}/{ln}/scale", (d,), 0.02, 1.0)
+                put(zf, f"{b}/{ln}/bias", (d,), 0.02)
+            att = f"{b}/MultiHeadDotProductAttention_0"
+            for name in ("query", "key", "value"):
+                put(zf, f"{att}/{name}/kernel", (d, heads, dh), d**-0.5)
+                put(zf, f"{att}/{name}/bias", (heads, dh), 0.02)
+            put(zf, f"{att}/out/kernel", (heads, dh, d), d**-0.5)
+            put(zf, f"{att}/out/bias", (d,), 0.02)
+            mlp = f"{b}/MlpBlock_0"
+            put(zf, f"{mlp}/Dense_0/kernel", (d, 4 * d), d**-0.5)
+            put(zf, f"{mlp}/Dense_0/bias", (4 * d,), 0.02)
+            put(zf, f"{mlp}/Dense_1/kernel", (4 * d, d), (4 * d)**-0.5)
+            put(zf, f"{mlp}/Dense_1/bias", (d,), 0.02)
+
+    p, w = v["patch_size"], v["width"]
+    grid = EVAL_IMAGE_SIZE // p
+    tw = t["width"]
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        put(zf, "img/embedding/kernel", (p, p, 3, w), (p * p * 3)**-0.5)
+        put(zf, "img/embedding/bias", (w,), 0.02)
+        put(zf, "img/pos_embedding", (1, grid * grid, w), 0.02)
+        blocks(zf, "img/Transformer", v["layers"], w, w // v["head_width"])
+        put(zf, "img/Transformer/encoder_norm/scale", (w,), 0.02, 1.0)
+        put(zf, "img/Transformer/encoder_norm/bias", (w,), 0.02)
+        put(zf, "img/head/kernel", (w, embed), w**-0.5)
+        put(zf, "img/head/bias", (embed,), 0.02)
+        put(zf, "txt/Embed_0/embedding", (t["vocab_size"], tw), 0.02)
+        put(zf, "txt/pos_embedding", (1, t["context_length"], tw), 0.02)
+        blocks(zf, "txt/Encoder_0", t["layers"], tw, t["heads"])
+        put(zf, "txt/Encoder_0/encoder_norm/scale", (tw,), 0.02, 1.0)
+        put(zf, "txt/Encoder_0/encoder_norm/bias", (tw,), 0.02)
+        put(zf, "txt/head/kernel", (tw, embed), tw**-0.5)
+        put(zf, "txt/head/bias", (embed,), 0.02)
+        put(zf, "t", (1,), 0.0, math.log(10.0))
+    return os.path.getsize(path)
+
+
+def _write_bert_hub_cache(hub: str) -> str:
+    """bert-base-uncased as a hub cache holds it offline
+    (models--bert-base-uncased/snapshots/<revision>/ with refs/main): a
+    WordPiece vocab.txt with BERT's special ids ([PAD] 0, [UNK] 100, [CLS]
+    101, [SEP] 102, [MASK] 103), the words of the ImageNet templates and
+    class names, the letters and their ## pieces; tokenizer_config.json
+    with do_lower_case and the model's config.json, as the hub's snapshot
+    holds them. Returns the snapshot directory."""
+    import re
+
+    from xtagclip_tpu_torch.train import metadata
+
+    words = set()
+    for text in (*metadata.OPENAI_IMAGENET_TEMPLATES,
+                 *metadata.IMAGENET_CLASSNAMES):
+        words.update(re.findall(r"[a-z]+", text.lower()))
+    letters = [chr(c) for c in range(97, 123)]
+    tokens = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+              + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+              + [chr(c) for c in range(33, 127) if not chr(c).isalpha()
+                 or chr(c).islower()]
+              + ["##" + c for c in letters]
+              + sorted(words - set(letters)))
+    rev = "86b5e0934494bd15c9632b12f734a8a67f723594"
+    repo = os.path.join(hub, "models--bert-base-uncased")
+    snap = os.path.join(repo, "snapshots", rev)
+    os.makedirs(snap)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(rev)
+    with open(os.path.join(snap, "vocab.txt"), "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    with open(os.path.join(snap, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "model_max_length": 512}, f)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                   "transformers_version": "4.6.0.dev0",
+                   "vocab_size": len(tokens)}, f)
+    return snap
+
+
+def _write_image_folder(root: str, classes: int, per_class: int,
+                        rng) -> int:
+    """ImageNet's val layout: ``classes`` synset directories of
+    ``per_class`` seeded JPEGs of ImageNet's common sizes."""
+    from PIL import Image
+
+    sizes = ((375, 500), (500, 375), (333, 500), (500, 500))
+    for c in range(classes):
+        d = os.path.join(root, f"n{1440764 + c:08d}")
+        os.makedirs(d)
+        for i in range(per_class):
+            h, w = sizes[(c + i) % len(sizes)]
+            small = rng.integers(0, 256, (h // 16, w // 16, 3),
+                                 dtype=np.uint8)
+            Image.fromarray(small).resize((w, h), Image.BILINEAR).save(
+                os.path.join(d, f"ILSVRC2012_val_{c:03d}{i:05d}.JPEG"),
+                quality=90)
+    return classes * per_class
+
+
+@contextlib.contextmanager
+def _timing(module, name: str, seconds: list, first_args: list = None):
+    """Time every call of ``module.<name>`` into ``seconds`` (the card
+    synchronized before and after), keeping its first argument in
+    ``first_args``; the attribute is put back after."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        if first_args is not None:
+            first_args.append(args[0])
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def _env(**values):
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_clipa_eval(card: str, tmp: str) -> dict:
+    """scripts/clipav2_vit_h14_i84_224_336_cl32_gap_datacomp1b.sh through
+    cli.main at full width and depth: ViT-H-14-CL32-GAP-BigVision from a
+    seeded big_vision .npz (--pretrained), --force-image-size 336 (L =
+    577, dh 80), squash, bilinear, ImageNet mean/std, the BERT WordPiece
+    tokenizer found as bert-base-uncased in a temporary HF_HUB_CACHE, and
+    --imagenet-val a folder of seeded JPEGs: the 1000-class zero-shot
+    classifier (80 templates) and the eval. It prints the load, classifier
+    and eval seconds and the eval img/s, asserts the launches per
+    classifier chunk and per eval batch, and holds one eval batch's image
+    features and one classifier chunk's text features (800 prompts, the
+    chunk the text tower runs on) with the kernels on against the same
+    model with them off (cosine >= 0.999, the clipa_path bar). It prints
+    the archive keys the loader left unread and the parameters it kept at
+    their init, and holds them to BV_UNREAD and BV_KEPT_TOWERS. The .npz
+    is deleted after."""
+    import gc
+
+    from xtagclip_tpu_torch import factory
+    from xtagclip_tpu_torch.cli import main as clipa_main
+    from xtagclip_tpu_torch.data.datasets import ImageFolderDataset
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_eval,
+    )
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train import metadata, zero_shot
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    root = os.path.join(tmp, "clipa_eval")
+    os.makedirs(root)
+    rng = np.random.default_rng(336)
+    try:
+        t0 = time.perf_counter()
+        npz = os.path.join(root, "vit_h14_i84_224_336_cl32_gap_"
+                                 "datacomp1b.npz")
+        npz_bytes = _write_big_vision_npz(npz, factory.get_model_config(
+            BV_MODEL), rng)
+        write_s = time.perf_counter() - t0
+        hub = os.path.join(root, "hub")
+        snapshot = _write_bert_hub_cache(hub)
+        val = os.path.join(root, "imagenet_val")
+        n_images = _write_image_folder(val, EVAL_CLASSES, EVAL_PER_CLASS,
+                                       rng)
+        argv = ["--model", BV_MODEL, "--pretrained", npz,
+                "--force-image-size", str(EVAL_IMAGE_SIZE),
+                "--image-resize-mode", "squash",
+                "--image-interpolation", "bilinear",
+                "--image-mean", *map(str, IMAGENET_MEAN),
+                "--image-std", *map(str, IMAGENET_STD), "--seed", "0",
+                "--imagenet-val", val,
+                # "$@": the eval batch, loader threads and log directory
+                "--batch-size", str(CLIPA_EVAL_BATCH), "--workers", "4",
+                "--logs", os.path.join(root, "logs"), "--name", "eval"]
+        load_s, classifier_s, eval_s, models = [], [], [], []
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        loaded = _Records("big_vision_unread")
+        logging.getLogger().addHandler(loaded)
+        with _env(HF_HUB_CACHE=hub), \
+                _timing(factory, "load_checkpoint", load_s), \
+                _timing(zero_shot, "build_zero_shot_classifier",
+                        classifier_s), \
+                _timing(zero_shot, "run_classification_eval", eval_s,
+                        models):
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = clipa_main.main(argv)
+            wall = time.perf_counter() - t0
+            counts = _counts()
+            tokenizer = factory.get_tokenizer(BV_MODEL)
+        close_logging()
+        logging.getLogger().removeHandler(loaded)
+        unread = [r.big_vision_unread for r in loaded.records]
+        kept = [r.big_vision_kept for r in loaded.records]
+        kept_towers = [n for n in (kept or [[]])[0]
+                       if n.startswith(("visual.", "text."))]
+        model = models[0]
+        prompts = (len(metadata.IMAGENET_CLASSNAMES)
+                   * len(metadata.OPENAI_IMAGENET_TEMPLATES))
+        chunks = -(-len(metadata.IMAGENET_CLASSNAMES) // 10)
+        n_batches = -(-n_images // CLIPA_EVAL_BATCH)
+        want = _want(**_scaled(EVAL_PER_CHUNK, chunks),
+                     **_scaled(EVAL_PER_BATCH, n_batches))
+
+        # one eval batch's image features, kernels on vs off
+        pp = PreprocessCfg(**model.preprocess_cfg)
+        ds = ImageFolderDataset(val, transform=image_transform_eval(pp))
+        images = torch.from_numpy(np.stack(
+            [ds[i][0] for i in range(CLIPA_EVAL_BATCH)])).to("cuda")
+        norm = dict(mean=pp.mean, std=pp.std, dtype=model.dtype)
+        model.eval()
+        with torch.no_grad():
+            f_k, _ = model.encode_image(
+                preprocess.normalize_images(images, **norm), normalize=True)
+            set_use_kernels(model, False)
+            try:
+                f_p, _ = model.encode_image(
+                    preprocess.normalize_images_reference(images, **norm),
+                    normalize=True)
+            finally:
+                set_use_kernels(model, True)
+        feat_cos = _cosine(f_k, f_p).min().item()
+        # one classifier chunk's text features (its first 10 classes x 80
+        # templates, as build_zero_shot_classifier chunks them), kernels on
+        # vs off
+        texts = [metadata.format_template(t, c)
+                 for c in metadata.IMAGENET_CLASSNAMES[:10]
+                 for t in metadata.OPENAI_IMAGENET_TEMPLATES]
+        ids = torch.from_numpy(np.asarray(tokenizer(texts), np.int64)).to(
+            "cuda")
+        with torch.no_grad():
+            t_k = model.encode_text(ids, normalize=True)[0]
+            set_use_kernels(model, False)
+            try:
+                t_p = model.encode_text(ids, normalize=True)[0]
+            finally:
+                set_use_kernels(model, True)
+        text_cos = _cosine(t_k, t_p).min().item()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tokens = model.visual.positional_embedding.shape[0]
+        del model, models, f_k, f_p, t_k, t_p, images
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (counts == want and feat_cos >= 0.999 and text_cos >= 0.999
+          and len(texts) == EVAL_CHUNK_PROMPTS and tokens == EVAL_L
+          and unread == [BV_UNREAD] and kept_towers == BV_KEPT_TOWERS
+          and all(n.startswith("tag_") for n in kept[0]
+                  if n not in kept_towers)
+          and metrics.get("imagenet-val-n") == n_images
+          and all(math.isfinite(v) for v in metrics.values()
+                  if isinstance(v, float)))
+    result = {
+        "phase": "clipa_eval", "card": card,
+        "script": "scripts/clipav2_vit_h14_i84_224_336_cl32_gap_"
+                  "datacomp1b.sh via cli.main",
+        "weights": "seeded big_vision .npz (CLIPA-v2 ViT-H/14 layout)",
+        "npz_bytes": npz_bytes, "npz_write_s": write_s,
+        "tokenizer": {"name": "bert-base-uncased", "snapshot": snapshot},
+        "vision_tokens": tokens, "images": n_images,
+        "batch": CLIPA_EVAL_BATCH, "wall_s": wall,
+        "load_s": sum(load_s),
+        "classifier": {"prompts": prompts, "seconds": sum(classifier_s),
+                       "prompts_per_s": prompts / sum(classifier_s)},
+        "eval": {"seconds": sum(eval_s),
+                 "img_per_s": n_images / sum(eval_s)},
+        "metrics": metrics, "peak_mem_gb": peak_gb,
+        "launches": counts, "launches_want": want,
+        "eval_feature_cos_min": feat_cos,
+        "classifier_chunk_text_cos_min": text_cos,
+        "big_vision_unread": unread, "big_vision_kept": kept, "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"clipa_eval phase failed its checks: {result}")
     return counts
 
 
@@ -2401,8 +2862,8 @@ def main(argv=()) -> int:
     card = _card()
     t0 = time.perf_counter()
     built = cuda_build.build_all()
-    _emit({"phase": "build", "card": card,
-           "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    _emit({"phase": "build", "card": card, "seconds": build_s,
            "kernels": {k: v["path"] for k, v in built.items()},
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
     if args.clipa_batch_probe:
@@ -2411,31 +2872,50 @@ def main(argv=()) -> int:
         print(card, flush=True)
         return 0
 
-    entries = phase_kernels(card)
-    phase_flash_poison(card)
+    seconds = {}
+
+    def timed(name, fn, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
+    entries = timed("kernels", phase_kernels, card)
+    timed("flash_poison", phase_flash_poison, card)
     b32, gap = _paths()["b32"], _paths()["gap"]
     with tempfile.TemporaryDirectory(prefix="xtag_smoke_") as tmp:
-        paths, model, ptable, serve_one, table = phase_serve_and_path(
-            card, b32)
-        paths["train"], train_one = phase_train(card, ptable, b32)
-        phase_train_path(card, ptable, b32)
+        paths, model, ptable, serve_one, table = timed(
+            "serve", phase_serve_and_path, card, b32)
+        paths["train"], train_one = timed("train", phase_train, card, ptable,
+                                          b32)
+        timed("train_path", phase_train_path, card, ptable, b32)
         last_tag = os.path.join(tmp, "trainer_last")
-        paths["trainer"] = phase_trainer(card, last_tag, profile=args.profile)
-        paths["predict"] = phase_predict(card, model, table, last_tag, tmp)
-        gap_paths, g_model, _, g_serve_one, g_table = phase_serve_and_path(
-            card, gap)
+        paths["trainer"] = timed("trainer", phase_trainer, card, last_tag,
+                                 profile=args.profile)
+        paths["predict"] = timed("predict", phase_predict, card, model, table,
+                                 last_tag, tmp)
+        gap_paths, g_model, _, g_serve_one, g_table = timed(
+            "gap_serve", phase_serve_and_path, card, gap)
         paths.update({"gap_" + k: v for k, v in gap_paths.items()})
-        paths["gap_train"], g_train_one = phase_train(card, ptable, gap)
-        phase_train_path(card, ptable, gap)
-        paths["gap_trainer"] = phase_gap_trainer(card)
-        paths["gap_predict"] = phase_gap_predict(card, g_model, g_table, tmp)
-        paths.update(phase_clipa(card, tmp, profile=args.profile))
-        phase_clipa_path(card)
+        paths["gap_train"], g_train_one = timed("gap_train", phase_train,
+                                                card, ptable, gap)
+        timed("gap_train_path", phase_train_path, card, ptable, gap)
+        paths["gap_trainer"] = timed("gap_trainer", phase_gap_trainer, card)
+        paths["gap_predict"] = timed("gap_predict", phase_gap_predict, card,
+                                     g_model, g_table, tmp)
+        paths.update(timed("clipa", phase_clipa, card, tmp,
+                           profile=args.profile))
+        paths["clipa_336_eval"] = timed("clipa_eval", phase_clipa_eval, card,
+                                        tmp)
+        timed("clipa_path", phase_clipa_path, card)
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)
         phase_profile(card, gap["label"], g_model, ptable, g_serve_one,
                       g_train_one)
+    _emit({"phase": "seconds", "card": card, "build": build_s, **seconds,
+           "total": time.perf_counter() - t0})
     for e in entries:
         e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
         e["launches"] = sum(e["launches_by_path"].values())

@@ -636,3 +636,178 @@ def test_evaluate_metrics_match_jax_cli(cl32, tmp_path, cli_logging,
     assert port.keys() == want.keys() and port["num_samples"] == 8
     for key, value in want.items():
         np.testing.assert_allclose(port[key], value, **TOL, err_msg=key)
+
+
+# -- (i) a multi-process launch is refused (ROADMAP Queue 3's closed fault) ---
+
+WORLD_VARS = ("WORLD_SIZE", "PMI_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
+LAUNCH_VARS = WORLD_VARS + (
+    "LOCAL_RANK", "MPI_LOCALRANKID", "SLURM_LOCALID",
+    "OMPI_COMM_WORLD_LOCAL_RANK", "RANK", "PMI_RANK", "SLURM_PROCID",
+    "OMPI_COMM_WORLD_RANK", "JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+    "MASTER_ADDR", "MASTER_PORT")
+
+
+@pytest.fixture
+def clean_launch_env(monkeypatch):
+    for var in LAUNCH_VARS:
+        monkeypatch.delenv(var, raising=False)
+    return monkeypatch
+
+
+class _Built(Exception):
+    """Raised where a CLI would build its model."""
+
+
+def _stop_at_model(monkeypatch):
+    def stop(*args, **kwargs):
+        raise _Built
+
+    for module in (port_main, main_other):
+        monkeypatch.setattr(module, "create_model_and_transforms", stop)
+
+
+@pytest.mark.parametrize("cli", ["main", "main_other", "main_other_simple"])
+@pytest.mark.parametrize("var", WORLD_VARS)
+def test_multi_process_launch_raises_before_the_model(clean_launch_env,
+                                                      tmp_path, cli, var):
+    """WORLD_SIZE (or PMI_SIZE, SLURM_NTASKS, OMPI_COMM_WORLD_SIZE) = 2
+    makes every train CLI raise, naming Queue 1 item 7, before any model
+    is built; at 1 the CLI goes on to build its model."""
+    from xtagclip_tpu_torch.cli import main_other_simple
+
+    entry = {"main": port_main.main, "main_other": main_other.main,
+             "main_other_simple": main_other_simple.main}[cli]
+    _stop_at_model(clean_launch_env)
+    argv = ["--model", "ViT-B-32", "--dataset-type", "synthetic",
+            "--train-num-samples", "8", "--batch-size", "4", "--device",
+            "cpu", "--logs", str(tmp_path), "--name", "run"]
+    clean_launch_env.setenv(var, "2")
+    with pytest.raises(NotImplementedError,
+                       match=rf"{var}=2 \(Queue 1 item 7: multi-process\)"):
+        entry(argv)
+    assert not (tmp_path / "run").exists()
+    clean_launch_env.setenv(var, "1")
+    with pytest.raises(_Built):
+        entry(argv)
+
+
+def test_world_size_message_names_an_existing_roadmap_item(clean_launch_env):
+    clean_launch_env.setenv("SLURM_NTASKS", "8")
+    clean_launch_env.setenv("WORLD_SIZE", "4")  # torchrun's wins, as in JAX
+    messages = unported(parse_args(["--model", "ViT-B-32"]))
+    assert messages == ["WORLD_SIZE=4 (Queue 1 item 7: multi-process)"]
+    assert 7 in _queue1_items()
+    clean_launch_env.setenv("WORLD_SIZE", "1")
+    assert unported(parse_args(["--model", "ViT-B-32"])) == []
+
+
+@pytest.mark.parametrize("family", [
+    {"LOCAL_RANK": "1", "RANK": "3", "WORLD_SIZE": "8"},
+    {"MPI_LOCALRANKID": "1", "PMI_RANK": "3", "PMI_SIZE": "8"},
+    {"SLURM_LOCALID": "1", "SLURM_PROCID": "3", "SLURM_NTASKS": "8"},
+    {"OMPI_COMM_WORLD_LOCAL_RANK": "1", "OMPI_COMM_WORLD_RANK": "3",
+     "OMPI_COMM_WORLD_SIZE": "8"},
+    {"RANK": "2", "WORLD_SIZE": "4", "SLURM_PROCID": "7",
+     "SLURM_NTASKS": "16", "SLURM_LOCALID": "5"},
+    {"MASTER_ADDR": "10.0.0.1", "MASTER_PORT": "1357"},
+    {"JAX_COORDINATOR_ADDRESS": "10.0.0.2:999", "MASTER_ADDR": "10.0.0.1"},
+    {}])
+def test_world_info_matches_jax(clean_launch_env, family):
+    from xtagclip_tpu.core import mesh as jax_mesh
+    from xtagclip_tpu_torch.core import mesh
+
+    for key, value in family.items():
+        clean_launch_env.setenv(key, value)
+    assert mesh.world_info_from_env() == jax_mesh.world_info_from_env()
+    assert mesh.coordinator_from_env() == jax_mesh.coordinator_from_env()
+
+
+# -- (j) the 336 px BigVision evaluation script through cli.main --------------
+
+def _bert_vocab(root: Path) -> str:
+    """A WordPiece vocab.txt with BERT's special ids ([PAD] 0, [UNK] 100,
+    [CLS] 101, [SEP] 102) and the words of the ImageNet prompts' first
+    letters, so the templates tokenize to pieces and [UNK]s."""
+    root.mkdir(parents=True)
+    tokens = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+              + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "photo", "of",
+                 "the", "itap", "."] + [chr(c) for c in range(97, 123)]
+              + ["##" + chr(c) for c in range(97, 123)])
+    (root / "vocab.txt").write_text("\n".join(tokens) + "\n")
+    (root / "tokenizer_config.json").write_text('{"do_lower_case": true}')
+    return str(root)
+
+
+def _imagenet_folder(root: Path, classes=3, per_class=2) -> str:
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    for c in range(classes):
+        (root / f"n{c:08d}").mkdir(parents=True)
+        for i in range(per_class):
+            Image.fromarray(rng.integers(0, 256, (20, 28, 3), dtype=np.uint8)
+                            ).save(root / f"n{c:08d}" / f"img{i}.png")
+    return str(root)
+
+
+def test_bigvision_eval_script_matches_jax_cli(tmp_path, tmp_path_factory,
+                                               cli_logging):
+    """scripts/clipav2_vit_h14_i84_224_336_cl32_gap_datacomp1b.sh's flags
+    at toy geometry (the BigVision layout: a class token, text without a
+    causal mask or projection bias, a BERT WordPiece tokenizer with
+    strip_sep_token): --pretrained a big_vision .npz whose 4 x 4 table is
+    resized to 6 x 6 by --force-image-size 24, squash, bilinear, ImageNet
+    mean/std, --imagenet-val an image folder. The port's cli.main and
+    JAX's give the same zero-shot metrics within 1e-3 (fp32)."""
+    from test_big_vision_convert import _make_npz
+
+    vocab = _bert_vocab(tmp_path / "bert")
+    cfg = dict(
+        embed_dim=24,
+        vision_cfg=dict(layers=2, width=32, head_width=8, patch_size=4,
+                        image_size=16, mlp_ratio=2.0, pool_type="avg",
+                        final_ln_after_pool=True),
+        text_cfg=dict(context_length=16, vocab_size=200, width=32, heads=4,
+                      layers=3, mlp_ratio=2.0, hf_tokenizer_name=vocab,
+                      tokenizer_kwargs={"strip_sep_token": True},
+                      pool_type="last", no_causal_mask=True))
+    _register(tmp_path_factory, "torch-bv-eval", cfg)
+    npz, w = _make_npz(tmp_path)
+    w = dict(w)
+    w["txt/Embed_0/embedding"] = np.random.default_rng(1).standard_normal(
+        (200, 32)).astype(np.float32)
+    np.savez(npz, **w)
+    args = ["--model", "torch-bv-eval", "--pretrained", npz,
+            "--force-image-size", "24", "--image-resize-mode", "squash",
+            "--image-interpolation", "bilinear",
+            "--image-mean", *map(str, IMAGENET[0]),
+            "--image-std", *map(str, IMAGENET[1]), "--seed", "0",
+            "--imagenet-val", _imagenet_folder(tmp_path / "val"),
+            "--batch-size", "4", "--precision", "fp32", "--workers", "1",
+            "--logs", str(tmp_path / "logs")]
+    root = logging.getLogger()
+    handlers = list(root.handlers)
+    levels = {name: logging.getLogger(name).level
+              for name in [None, *root.manager.loggerDict]}
+    try:
+        jax_main.main([*args, "--name", "jax"])
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                root.removeHandler(h)
+                h.close()
+        for name, level in levels.items():
+            logging.getLogger(name).setLevel(level)
+    port = port_main.main([*args, "--name", "port", "--device", "cpu"])
+
+    def last(name):
+        text = (tmp_path / "logs" / name / "results.jsonl").read_text()
+        return json.loads(text.splitlines()[-1])
+
+    want = last("jax")
+    assert port == last("port")
+    assert sorted(port) == sorted(want)
+    assert {"imagenet-val-top1", "imagenet-val-top5"} <= set(port)
+    for key, value in want.items():
+        np.testing.assert_allclose(port[key], value, **TOL, err_msg=key)

@@ -99,6 +99,7 @@ def _assert_kernel_bar(out, ref):
     (5, 33, 192, 3, False),     # ragged L, odd batch
     (256, 32, 1024, 16, True),  # ViT-H-14 CLIPA text, stage 2
     (256, 8, 1024, 16, True),   # ViT-H-14 CLIPA text, stage 1
+    (800, 32, 1024, 16, False),  # BigVision zero-shot chunk, no mask
 ])
 def test_attn_kernel_matches_plain(cuda, b, l, d, h, causal):
     args = _attn_args(b, l, d, seed=l, device=cuda)
@@ -130,10 +131,11 @@ def test_mlp_kernel_matches_plain(cuda, n, d, h, act):
     _assert_kernel_bar(out, ref)
 
 
-@pytest.mark.parametrize("n", [256 * 8, 256 * 32])
+@pytest.mark.parametrize("n", [256 * 8, 256 * 32, 800 * 32])
 def test_mlp_kernel_matches_plain_at_vit_h_text_rows(cuda, n):
     """ViT-H-14 CLIPA's text rows at the recipe's batch of 256: stage 1's
-    8 tokens and stage 2's 32, width 1024."""
+    8 tokens and stage 2's 32, width 1024; and the 336 px BigVision eval's
+    zero-shot classifier chunk, 10 classes x 80 templates at 32 tokens."""
     args = _mlp_args(n, 1024, 4096, seed=n, device=cuda)
     with torch.inference_mode():
         out = fab.fused_mlp_half(*args, "gelu", 1e-5)
@@ -618,6 +620,10 @@ def test_flash_function_grads_match_plain_bwd(cuda, dh):
 PADDED_HEAD_DIMS = (72, 80, 88, 96, 104, 112, 120)
 VIT_H_FLASH_SHAPES = [(32, 16, 257, 80), (256, 16, 257, 80),
                       (256, 16, 37, 80)]
+# the 336 px BigVision eval (L = 24 x 24 = 576 patches + the class token),
+# forward only: a ragged last query tile of one row and a ragged last key
+# tile
+VIT_H_336_FLASH_SHAPES = [(64, 16, 577, 80), (2, 16, 577, 80)]
 
 
 def _flash_fwd_bwd_at_bar(q, k, v, layout, seed, device):
@@ -662,6 +668,19 @@ def test_flash_kernels_match_plain_at_vit_h_shapes(cuda, b, h, l, dh):
     _flash_fwd_bwd_at_bar(q, k, v, "blhd", seed=b, device=cuda)
 
 
+@pytest.mark.parametrize("b,h,l,dh", VIT_H_336_FLASH_SHAPES)
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_fwd_kernel_matches_plain_at_336px(cuda, b, h, l, dh, layout):
+    q, k, v = _flash_slices(b, h, l, dh, layout, seed=b + l, device=cuda)
+    with torch.inference_mode():
+        before = flash_attn.flash_mha.launches
+        o = flash_attn.flash_mha(q, k, v, layout)
+        assert flash_attn.flash_mha.launches == before + 1
+        ref = flash_attn.reference_flash_mha(q, k, v, layout=layout)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(o, ref)
+
+
 def test_flash_kernels_refuse_other_head_dims(cuda):
     for dh in (32, 56, 100, 136, 256):
         q, k, v = (torch.zeros((1, 8, 2, dh), device=cuda,
@@ -688,12 +707,13 @@ def test_fused_mlp_kernel_matches_plain(cuda, n, d, h, act):
     _assert_kernel_bar(out, ref)
 
 
-@pytest.mark.parametrize("n", [256 * 37, 256 * 257])
+@pytest.mark.parametrize("n", [256 * 37, 256 * 257, 64 * 577])
 def test_fused_mlp_kernel_matches_plain_at_vit_h_rows(cuda, n):
     """ViT-H-14 CLIPA's vision rows at the recipe's batch of 256 (stage 1's
-    37 tokens, stage 2's 257), width 1280, hidden 5120: the GEMM's tile
-    width follows the grid's waves, so these rows may take another tile
-    than a smaller batch's."""
+    37 tokens, stage 2's 257) and at the 336 px eval's batch of 64 (577
+    tokens: 36928 rows, not a multiple of the 128-row tile), width 1280,
+    hidden 5120: the GEMM's tile width follows the grid's waves, so these
+    rows may take another tile than a smaller batch's."""
     x, _, _, w1, b1, w2, b2 = _mlp_args(n, 1280, 5120, seed=n, device=cuda)
     with torch.inference_mode():
         out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
@@ -788,7 +808,8 @@ def _ordered(t):
 
 @pytest.mark.parametrize("shape", [(32, 224, 224, 3),   # the main path's batch
                                    (5, 33, 47, 3),      # odd element count
-                                   (1, 224, 224, 3)])
+                                   (1, 224, 224, 3),
+                                   (64, 336, 336, 3)])  # the 336 px eval
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("offset", [0, 1])            # 1: a misaligned base
 def test_normalize_kernel_matches_plain(cuda, shape, dtype, offset):

@@ -286,10 +286,11 @@ def test_predict_cli_fusion_classify_on_cpu(tmp_path):
     "big_vision_npz",
 ])
 def test_predict_cli_unported_paths_fail_clearly(case, tmp_path):
-    """What the predict CLI still refuses, each with a clear error: a named
+    """What the predict CLI refuses, each with a clear error: a named
     --pretrained tag (pretrained.py is not ported), --serving-artifact
     without --fusion-classify (as JAX's CLI), an artifact without a
-    serve_classify entry, and a big_vision .npz."""
+    serve_classify entry, and an .npz that holds no big_vision weights
+    (big_vision archives load since convert/big_vision.py was ported)."""
     from xtagclip_tpu_torch.cli import predict
 
     path = tmp_path / "torchtinyrefuse.json"
@@ -310,8 +311,8 @@ def test_predict_cli_unported_paths_fail_clearly(case, tmp_path):
         "artifact_without_serve_classify": (
             ["--serving-artifact", str(art), "--fusion-classify"],
             SystemExit, "no serve_classify entry"),
-        "big_vision_npz": (["--pretrained", str(npz)], NotImplementedError,
-                           "big_vision .npz checkpoints are not ported"),
+        "big_vision_npz": (["--pretrained", str(npz)], ValueError,
+                           "no big_vision parameters"),
     }[case]
     with pytest.raises(err, match=match):
         predict.main(["--model", path.stem, "--input", "x.png", "--device",

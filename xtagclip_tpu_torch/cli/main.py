@@ -11,11 +11,14 @@ parse (train/params.py, without the XTag flags) -> experiment naming and
 out.log -> optional tensorboard / wandb sinks -> the model on ``--device``
 (default cuda) with ``--force-image-size``, ``--force-quick-gelu``,
 ``--force-patch-dropout``, ``--grad-checkpointing``, the
-``--image-*`` preprocessing and ``--pretrained`` (a local open_clip .pt or
-a port checkpoint tag; position tables of another length are resized) ->
+``--image-*`` preprocessing and ``--pretrained`` (a local open_clip .pt, a
+big_vision .npz or a port checkpoint tag; position tables of another
+length are resized) ->
 with ``--torchscript``/``--trace`` the serving artifact
 (convert/serving.py) under ``<checkpoints>/serving`` -> resume latest ->
-data -> without train data one ``evaluate`` -> tower locks, AdamW and the
+data (``get_data``: CSV, synthetic or webdataset shards; ``--imagenet-val``
+an image folder) -> without train data one ``evaluate`` (the 336 px
+script's zero-shot ImageNet eval) -> tower locks, AdamW and the
 schedule -> ``--resume`` (a checkpoint tag: the full train state; a file:
 the weights) -> the contrastive step (``--accum-freq`` > 1: the
 accumulation step) -> per epoch: ``train_one_epoch``, ``evaluate``

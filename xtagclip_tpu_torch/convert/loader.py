@@ -13,8 +13,9 @@ gains the cls row and resizes bicubically, the text table linearly
 singleton dims (``logit_scale`` () vs (1,)) is reshaped. Any other shape
 mismatch is skipped with a warning (JAX's ``strict=False``). A port
 checkpoint's own state dict loads the same way (``load_state_into``), as
-JAX's loader merges its orbax trees. The big_vision .npz source is not
-ported.
+JAX's loader merges its orbax trees, and so does a big_vision ``.npz``
+(``load_big_vision_into``: convert/big_vision.py's tree by the names of
+convert/from_jax.py).
 """
 
 from __future__ import annotations
@@ -80,9 +81,7 @@ def load_checkpoint_into(model: nn.Module, path: str,
     """Load the open_clip-layout state dict in ``path`` into ``model`` in
     place; a table of another length is resized (module doc)."""
     if path.endswith(".npz"):
-        raise NotImplementedError(
-            "big_vision .npz checkpoints are not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+        return load_big_vision_into(model, path, key_filter)
     sd = normalize_to_custom_text(load_torch_state_dict(path))
     used, loaded, missing = set(), 0, []
     for name, p in model.named_parameters():
@@ -140,6 +139,40 @@ def load_state_into(model: nn.Module, state: dict, source: str = "") -> nn.Modul
                      len(unused), unused[:5])
     logging.info("loaded %d params from %s", loaded, source)
     return model
+
+
+def load_big_vision_into(model: nn.Module, path: str,
+                         key_filter=None) -> nn.Module:
+    """Load a big_vision ``.npz`` into ``model`` in place: the archive's
+    flax-layout tree (convert/big_vision.py) by the port's names of its
+    leaves (convert/from_jax.py ``port_name``), through the merge of
+    ``load_state_into``, position tables resized (JAX's loader.py:127-130
+    takes the same merge). An archive none of whose keys maps raises, where
+    JAX would load nothing and keep the init. The archive keys the
+    converter leaves unread and the parameters that keep their init are
+    logged as a warning, both lists whole (also on the record, as
+    ``big_vision_unread`` and ``big_vision_kept``)."""
+    from xtagclip_tpu_torch.convert.big_vision import load_big_vision_weights
+    from xtagclip_tpu_torch.convert.from_jax import _flatten, port_name
+
+    unread = []
+    tree = load_big_vision_weights(path, unread)
+    if not tree:
+        raise ValueError(f"{path}: no big_vision parameters ('img/...', "
+                         "'txt/...', 't' or 'b', optionally under 'params/')")
+    state = {}
+    for key, val in _flatten(tree):
+        name = port_name(key)
+        if key_filter is None or key_filter(name):
+            state[name] = torch.from_numpy(np.array(val, np.float32))
+    kept = [n for n, _ in model.named_parameters()
+            if n not in state and (key_filter is None or key_filter(n))]
+    if unread or kept:
+        logging.warning(
+            "big_vision archive %s: %d keys unread %s; %d parameters keep "
+            "their init %s", path, len(unread), unread, len(kept), kept,
+            extra={"big_vision_unread": unread, "big_vision_kept": kept})
+    return load_state_into(model, state, path)
 
 
 def tagging_only_filter(name: str) -> bool:

@@ -80,55 +80,62 @@ class DataLoader:
         idx = self._indices()
         batches = [idx[i: i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
-        if not batches:
-            return iter(())
 
-        out_q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
-        stop = threading.Event()
-
-        def put_checked(item) -> bool:
-            # never block forever on a full queue: an early-exiting consumer
-            # sets stop, and a blocked put() would leak this thread
-            while not stop.is_set():
-                try:
-                    out_q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
+        def collated():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                try:
-                    for b in batches:
-                        if stop.is_set():
-                            return
-                        samples = list(pool.map(self.dataset.__getitem__, b))
-                        if not put_checked(default_collate(samples)):
-                            return
-                except BaseException as e:  # noqa: BLE001 - re-raised below
-                    put_checked(_Failure(e))
-                finally:
-                    put_checked(None)
+                for b in batches:
+                    yield default_collate(
+                        list(pool.map(self.dataset.__getitem__, b)))
 
-        t = threading.Thread(target=produce, daemon=True)
-        t.start()
+        return background(collated, self.PREFETCH)
 
-        def gen():
+
+def background(make_items, size: int) -> Iterator:
+    """The items of the iterator ``make_items()``, produced by a daemon
+    thread up to ``size`` ahead of the consumer; an exception there is
+    raised here, and a consumer that stops early stops the thread at its
+    next item."""
+    out_q: "queue.Queue" = queue.Queue(maxsize=size)
+    stop = threading.Event()
+
+    def put_checked(item) -> bool:
+        # never block forever on a full queue: an early-exiting consumer
+        # sets stop, and a blocked put() would leak this thread
+        while not stop.is_set():
             try:
-                while True:
-                    item = out_q.get()
-                    if item is None:
-                        break
-                    if isinstance(item, _Failure):
-                        raise item.error
-                    yield item
-            finally:
-                stop.set()
-                while not out_q.empty():
-                    out_q.get_nowait()
+                out_q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
 
-        return gen()
+    def produce():
+        try:
+            for item in make_items():
+                if not put_checked(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            put_checked(_Failure(e))
+        finally:
+            put_checked(None)
+
+    threading.Thread(target=produce, daemon=True).start()
+
+    def gen():
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    break
+                if isinstance(item, _Failure):
+                    raise item.error
+                yield item
+        finally:
+            stop.set()
+            while not out_q.empty():
+                out_q.get_nowait()
+
+    return gen()
 
 
 class _Failure:

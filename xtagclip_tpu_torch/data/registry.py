@@ -3,7 +3,9 @@ xtagclip_tpu/data/registry.py; reference open_clip_train/data.py:526-564
 and others/data_other.py:93-115).
 
 One process: the loaders shard nothing (multi-process training is ROADMAP
-Queue 1 item 8). WebDataset shards are not ported (``wds.py``) and raise.
+Queue 1 item 7, and the train CLIs refuse a launcher world size above 1).
+``--dataset-type webdataset`` (or ``auto`` on a ``.tar``) reads tar shards
+(data/wds.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from xtagclip_tpu_torch.data.datasets import (
 )
 from xtagclip_tpu_torch.data.loader import DataInfo, DataLoader
 from xtagclip_tpu_torch.data.scar import ScarDataset
+from xtagclip_tpu_torch.data.wds import get_wds_dataset
 
 
 def _loader(dataset, args, is_train: bool) -> DataInfo:
@@ -45,25 +48,19 @@ def get_synthetic_dataset(args, preprocess_fn, is_train, epoch=0,
     return _loader(dataset, args, is_train)
 
 
-def _webdataset(*args, **kwargs):
-    raise NotImplementedError(
-        "webdataset shards (data/wds.py) are not ported yet (ROADMAP Queue 1 "
-        "item 7)")
-
-
 def get_dataset_fn(data_path, dataset_type):
     if dataset_type == "synthetic":
         return get_synthetic_dataset
     if dataset_type == "csv":
         return get_csv_dataset
     if dataset_type == "webdataset":
-        return _webdataset
+        return get_wds_dataset
     if dataset_type == "auto":
         ext = (data_path or "").split(".")[-1]
         if ext in ("csv", "tsv"):
             return get_csv_dataset
         if ext in ("tar",):
-            return _webdataset
+            return get_wds_dataset
         raise ValueError(f"cannot infer dataset type from {data_path}")
     raise ValueError(f"Unsupported dataset type: {dataset_type}")
 

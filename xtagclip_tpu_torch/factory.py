@@ -239,8 +239,9 @@ def create_model_and_transforms(model_name: str, pretrained=None,
     """(model, train transform, eval transform). Both transforms yield
     uint8 HWC crops; normalize them on the device with
     ops.preprocess.normalize_images with ``transforms.image_mean_std``.
-    ``pretrained`` is a local open_clip-layout .pt file or a port
-    checkpoint tag (``load_checkpoint``); named tags are not ported. The
+    ``pretrained`` is a local open_clip-layout .pt file, a big_vision
+    .npz or a port checkpoint tag (``load_checkpoint``); named tags are
+    not ported. The
     preprocess config is kept on the model (``get_model_preprocess_cfg``),
     for a serving artifact's manifest and the device normalize."""
     model = create_model(model_name, precision=precision, device=device,
@@ -248,9 +249,9 @@ def create_model_and_transforms(model_name: str, pretrained=None,
     if pretrained:
         if not Path(pretrained).exists():
             raise NotImplementedError(
-                f"pretrained {pretrained!r}: only a local .pt file or a port "
-                "checkpoint is ported; named tags wait for pretrained.py "
-                "(ROADMAP Queue 1 item 9)")
+                f"pretrained {pretrained!r}: only a local .pt or .npz file or "
+                "a port checkpoint is ported; named tags wait for "
+                "pretrained.py (ROADMAP Queue 1 item 9)")
         load_checkpoint(model, str(pretrained))
     pp = PreprocessCfg(
         size=model.model_cfg["vision_cfg"].get("image_size", 224),
@@ -280,12 +281,12 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
     """Load weights into a built model in place (JAX factory.py:519): one
     of the port's own checkpoint tags (a directory holding
     train/checkpoint.py's ``state.pt``, or that file) loads its
-    ``state["model"]``; any other file goes through the open_clip loader
-    (convert/loader.py). As in JAX (strict=False), a parameter the
-    checkpoint lacks keeps its value and an extra one is ignored; both are
-    logged. A position table of another length is resized, from either
-    source (``--pretrained`` of a stage trained at another image size or
-    context length)."""
+    ``state["model"]``; any other file goes through convert/loader.py (an
+    open_clip .pt, or a big_vision .npz). As in JAX (strict=False), a
+    parameter the checkpoint lacks keeps its value and an extra one is
+    ignored; both are logged. A position table of another length is
+    resized, from any source (``--pretrained`` of a stage trained at
+    another image size or context length)."""
     from xtagclip_tpu_torch.train.checkpoint import STATE_FILE
 
     path = str(path)
@@ -302,10 +303,18 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
 
 
 def get_tokenizer(model_name: str = ""):
+    """The model's tokenizer (JAX factory.py:570): its HF vocabulary
+    (tokenize/hf.py, found on disk, never downloaded) where the config
+    names one, else the BPE tokenizer, with the config's context length
+    and tokenizer_kwargs."""
     cfg = get_model_config(model_name) if model_name else None
     text_cfg = (cfg or {}).get("text_cfg", {})
     if text_cfg.get("hf_tokenizer_name"):
-        raise NotImplementedError("HF tokenizers are not ported yet")
+        from xtagclip_tpu_torch.tokenize.hf import HFTokenizer
+
+        return HFTokenizer(text_cfg["hf_tokenizer_name"],
+                           context_length=text_cfg.get("context_length", 77),
+                           **(text_cfg.get("tokenizer_kwargs") or {}))
     return SimpleTokenizer(
         context_length=text_cfg.get("context_length", 77),
         **(text_cfg.get("tokenizer_kwargs") or {}))

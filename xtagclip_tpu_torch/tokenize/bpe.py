@@ -63,15 +63,23 @@ def _pairs_of(word):
     return set(zip(word[:-1], word[1:]))
 
 
+@lru_cache(maxsize=1)
+def _fix_text():
+    """ftfy.fix_text where ftfy is installed, else None; looked up once
+    (a failed import searches sys.path again on every call)."""
+    try:
+        import ftfy
+    except ImportError:
+        return None
+    return ftfy.fix_text
+
+
 def basic_clean(text: str) -> str:
     # The reference routes through ftfy.fix_text; ftfy is an optional dependency
     # here (it only affects mojibake text, identity for clean input).
-    try:
-        import ftfy
-
-        text = ftfy.fix_text(text)
-    except ImportError:
-        pass
+    fix = _fix_text()
+    if fix is not None:
+        text = fix(text)
     text = html.unescape(html.unescape(text))
     return text.strip()
 

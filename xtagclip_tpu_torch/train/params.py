@@ -17,6 +17,8 @@ import argparse
 import ast
 import os
 
+from xtagclip_tpu_torch.core.mesh import world_size_from_env
+
 
 def get_default_params(model_name: str) -> dict:
     model_name = (model_name or "").lower()
@@ -208,7 +210,8 @@ def parse_args(args=None, include_xtag: bool = True):
 def unported(args) -> list:
     """The flags set in ``args`` whose branches are not ported yet, each
     with the ROADMAP Queue 1 item that ports it
-    (tests/test_torch_clipa.py checks that each item exists)."""
+    (tests/test_torch_clipa.py checks that each item exists); a launcher
+    world size above 1 (core/mesh.py) is among them."""
     out = []
     if args.siglip:
         out.append("--siglip (Queue 1 item 8: the SigLIP loss)")
@@ -219,10 +222,13 @@ def unported(args) -> list:
                    "multi-process)")
     if args.remote_sync:
         out.append("--remote-sync (Queue 1 item 9)")
+    var, world = world_size_from_env()
+    if world > 1:
+        out.append(f"{var}={world} (Queue 1 item 7: multi-process)")
     if args.pretrained and not os.path.exists(args.pretrained):
-        out.append(f"--pretrained {args.pretrained!r}: only a local .pt file "
-                   "or a port checkpoint is ported; named tags wait for "
-                   "pretrained.py (Queue 1 item 9)")
+        out.append(f"--pretrained {args.pretrained!r}: only a local .pt or "
+                   ".npz file or a port checkpoint is ported; named tags "
+                   "wait for pretrained.py (Queue 1 item 9)")
     if "coca" in (args.model or "").lower():
         out.append(f"--model {args.model} (Queue 1 item 8: CoCa)")
     return out

@@ -81,7 +81,11 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
     the logged step metrics, ``samples_per_second`` over the epoch's log
     intervals, ``p50_step_s``, the median over those intervals of their
     seconds per step, and those seconds per step, interval by interval
-    (``interval_step_s``; one a step with ``--log-every-n-steps 1``)."""
+    (``interval_step_s``; one a step with ``--log-every-n-steps 1``);
+    ``data_step_s``, each step's wait for its batch (from the end of the
+    last step to the launch of this one: the loader, the copy to the
+    device, the normalize's launch); for a webdataset loader its
+    ``decode`` route and the samples each route ``decoded``."""
     train_key = train_key or ("scar_train" if "scar_train" in data
                               else "train")
     info = data[train_key]
@@ -95,6 +99,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
 
     meters: Dict[str, AverageMeter] = {}
     data_time = AverageMeter()
+    data_steps = []  # per step: the wait for its batch on the host
     interval_step_s = []
     host_rng = random.Random(args.seed + epoch)
     accum_freq = max(int(getattr(args, "accum_freq", 1) or 1), 1)
@@ -132,6 +137,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
         if accum_freq > 1:
             batch_dict = _to_microbatches(batch_dict, accum_freq)
         data_time.update(time.time() - end)
+        data_steps.append(data_time.val)
         state, metrics = step_fn(state, batch_dict, generator)
         interval_samples += int(batch[0].shape[0])
         interval_steps += 1
@@ -168,6 +174,10 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
         end = time.time()
 
     epoch_metrics = {k: m.avg for k, m in meters.items()}
+    epoch_metrics["data_step_s"] = data_steps
+    if hasattr(dataloader, "decode"):  # the webdataset loader's route
+        epoch_metrics["decode"] = dataloader.decode
+        epoch_metrics["decoded"] = dict(dataloader.decoded)
     if epoch_samples:
         epoch_metrics["samples_per_second"] = epoch_samples / max(epoch_time,
                                                                   1e-9)
