@@ -25,11 +25,12 @@ fused MLP), in phases that each print one JSON line:
    vision MLP rows), every output within atol = max|ref|/128 and
    rtol = 1e-2 (one bf16 ULP at output scale); the image normalize (kernel
    #5) within one bf16 ULP on every element, or 2^-22 for fp32 output, at
-   the main path's batch, at a ragged odd-sized one and at the 336 px
-   eval's 64 x 336 x 336; the device time of kernel and plain version
-   (torch.profiler: the summed durations of the kernels one call runs, over
-   20 calls, so a wrapper whose host side outlasts its kernel is timed by
-   its kernel, and the kernel's split by the kernels its wrapper launches;
+   the main path's batch, at a ragged odd-sized one, at the 336 px
+   eval's 64 x 336 x 336 and at the baselines' 4 x 224 x 224; the device
+   time of kernel and plain version (torch.profiler: the summed durations
+   of the kernels one call runs, over 20 calls, so a wrapper whose host
+   side outlasts its kernel is timed by its kernel, and the kernel's split
+   by the kernels its wrapper launches;
    the median CUDA-event time of 10 back-to-back calls beside it), the same
    for one PyTorch call computing the same function where there is one
    (scaled_dot_product_attention for flash attention's forward; for its
@@ -136,11 +137,32 @@ fused MLP), in phases that each print one JSON line:
    with the kernels on vs off at cosine >= 0.999; the archive keys the
    converter leaves unread and the parameters kept at their init printed
    and held to the list JAX's converter implies;
-14. clipa_path (last): stage 2's model at batch 32: one step with
+14. clipa_path: stage 2's model at batch 32: one step with
    --grad-checkpointing on and off (loss and gradients bit for bit, peak
    memory of each), one with the kernels on and off (phase 6's bars), a
    kernels-on step at --force-patch-dropout 0.5 (finite), and eval image
-   features kernels vs plain (cosine >= 0.999).
+   features kernels vs plain (cosine >= 0.999);
+15. rn50: the CLIP RN50 tower (ModifiedResNet) in fp32 at batch 32 on the
+   card against the CPU's forward on the same weights (within 1e-3 of the
+   outputs' largest magnitude);
+16. biomedclip_scar: BASELINE config 3 as scar_Biomedclip_pretrain.sh
+   runs it, ``main_other.main`` with its flags (--lock-image --lock-text
+   --use-tagging --precision amp --lr 5e-6 --wd 0.1 --warmup 50
+   --prompt-template-setting sentence_1) at full width and depth, batch
+   4, one epoch on 64 + 32 seeded scar rows, from a seeded open_clip-layout
+   BiomedCLIP .pt (timm ViT-B/16 + PubMedBERT, 0.79 GB) and a 30522-id
+   WordPiece vocabulary in a temporary HF_HUB_CACHE: the model built is
+   BiomedCLIP, the locked towers bit-unchanged, one #5 launch per batch,
+   losses and eval finite; prompt-table seconds, samples/s, p50 step ms,
+   data wait, eval img/s and peak memory printed;
+17. baselines (last): resnet50_baseline (from a seeded torchvision
+   ResNet-50 .pth), clip_baseline (ViT-B-32, --lock-image) and
+   biomedclip_baseline (the same .pt, with --lock-image
+   --lock-text-encoder and with neither) through their ``main()`` on the
+   card, 2 epochs of batch 4 in fp32: checkpoint, metrics, no fallback,
+   one #5 launch per batch, the best epoch's eval logits within 1e-3 of
+   the CPU's on the same weights (TF32 off); epoch seconds, samples/s and
+   peak memory printed. The .pt is deleted after.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -149,8 +171,8 @@ batches of L + 64 rows): outputs finite and equal bit for bit to those of
 the same inputs copied contiguous.
 
 With ``--profile`` it also traces the trainer's second plain epoch, 3
-CLIPA stage-2 train steps of 256, and then one precompute, 20 serve
-batches and 5 train steps of each model,
+CLIPA stage-2 train steps of 256, the biomedclip_scar epoch, and then one
+precompute, 20 serve batches and 5 train steps of each model,
 with torch.profiler, and prints, for each window, its wall
 time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
@@ -403,15 +425,17 @@ def _kernel_cases(gen):
         cases.append(("fused_attn_half_bwd", f"{tower} B={b} L={l} D={d} "
                       f"H={h}{' causal' if causal else ''}", args, flops,
                       nbytes, "bf16", None))
-    # the image normalize: the main path's batch, and a ragged batch whose
-    # element count is odd (the kernel's scalar tail); one FMA an element
+    # the image normalize: the main path's batch, a ragged batch whose
+    # element count is odd (the kernel's scalar tail), the 336 px eval's
+    # and the baselines' batch (to fp32 there); one FMA an element
     from xtagclip_tpu_torch.utils.constants import (
         OPENAI_DATASET_MEAN,
         OPENAI_DATASET_STD,
     )
 
     for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3),
-                  (CLIPA_EVAL_BATCH, EVAL_IMAGE_SIZE, EVAL_IMAGE_SIZE, 3)):
+                  (CLIPA_EVAL_BATCH, EVAL_IMAGE_SIZE, EVAL_IMAGE_SIZE, 3),
+                  (BASELINE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)):
         images = torch.randint(0, 256, shape, generator=gen, device=dev,
                                dtype=torch.uint8)
         n = images.numel()
@@ -2285,6 +2309,218 @@ def _write_big_vision_npz(path: str, cfg: dict, rng) -> int:
     return os.path.getsize(path)
 
 
+def _bn_state(put, prefix: str, ch: int, rng) -> None:
+    """A torch BatchNorm's five entries, seeded: weight near 1, small
+    bias and running mean, running var in [0.5, 1.5]."""
+    put(prefix + "weight", 1.0 + 0.1 * rng.standard_normal(ch))
+    put(prefix + "bias", 0.1 * rng.standard_normal(ch))
+    put(prefix + "running_mean", 0.1 * rng.standard_normal(ch))
+    put(prefix + "running_var", rng.uniform(0.5, 1.5, ch))
+    put(prefix + "num_batches_tracked", np.asarray(100, np.int64))
+
+
+def _putter(sd: dict):
+    def put(key, value):
+        value = np.asarray(value)
+        sd[key] = (value if value.dtype == np.int64
+                   else value.astype(np.float32))
+    return put
+
+
+def torchvision_resnet_state_dict(rng, layers=(3, 4, 6, 3),
+                                  num_classes: int = 1000) -> dict:
+    """A seeded torchvision ResNet state dict (resnet50 at the default
+    ``layers``): its keys, shapes and layouts, He-normal convs, BN entries
+    as ``_bn_state``, and the ``fc`` classifier."""
+    sd = {}
+    put = _putter(sd)
+
+    def conv(key, out_ch, in_ch, k):
+        put(key, rng.standard_normal((out_ch, in_ch, k, k))
+            * (2.0 / (in_ch * k * k)) ** 0.5)
+
+    conv("conv1.weight", 64, 3, 7)
+    _bn_state(put, "bn1.", 64, rng)
+    in_ch = 64
+    for li, blocks in enumerate(layers):
+        planes = 64 * 2**li
+        for bi in range(blocks):
+            b = f"layer{li + 1}.{bi}."
+            conv(b + "conv1.weight", planes, in_ch, 1)
+            _bn_state(put, b + "bn1.", planes, rng)
+            conv(b + "conv2.weight", planes, planes, 3)
+            _bn_state(put, b + "bn2.", planes, rng)
+            conv(b + "conv3.weight", planes * 4, planes, 1)
+            _bn_state(put, b + "bn3.", planes * 4, rng)
+            if bi == 0:
+                conv(b + "downsample.0.weight", planes * 4, in_ch, 1)
+                _bn_state(put, b + "downsample.1.", planes * 4, rng)
+            in_ch = planes * 4
+    put("fc.weight", rng.standard_normal((num_classes, in_ch)) * in_ch**-0.5)
+    put("fc.bias", 0.01 * rng.standard_normal(num_classes))
+    return sd
+
+
+def modified_resnet_state_dict(rng, layers, width: int, embed_dim: int,
+                               image_size: int) -> dict:
+    """A seeded open_clip ModifiedResNet ``visual.*`` state dict: the
+    3-conv stem with bn1..bn3, ``layer{l}.{b}`` bottlenecks (downsample
+    ``0``: conv, ``1``: BN, after the unnamed average pool) and
+    ``attnpool``."""
+    sd = {}
+    put = _putter(sd)
+
+    def conv(key, out_ch, in_ch, k):
+        put("visual." + key, rng.standard_normal((out_ch, in_ch, k, k))
+            * (2.0 / (in_ch * k * k)) ** 0.5)
+
+    conv("conv1.weight", width // 2, 3, 3)
+    conv("conv2.weight", width // 2, width // 2, 3)
+    conv("conv3.weight", width, width // 2, 3)
+    for i, ch in ((1, width // 2), (2, width // 2), (3, width)):
+        _bn_state(put, f"visual.bn{i}.", ch, rng)
+    in_ch = width
+    for li, blocks in enumerate(layers):
+        planes = width * 2**li
+        for bi in range(blocks):
+            b = f"layer{li + 1}.{bi}."
+            conv(b + "conv1.weight", planes, in_ch, 1)
+            conv(b + "conv2.weight", planes, planes, 3)
+            conv(b + "conv3.weight", planes * 4, planes, 1)
+            for j, ch in ((1, planes), (2, planes), (3, planes * 4)):
+                _bn_state(put, f"visual.{b}bn{j}.", ch, rng)
+            if bi == 0:
+                conv(b + "downsample.0.weight", planes * 4, in_ch, 1)
+                _bn_state(put, f"visual.{b}downsample.1.", planes * 4, rng)
+            in_ch = planes * 4
+    grid = image_size // 32
+    put("visual.attnpool.positional_embedding",
+        rng.standard_normal((grid * grid + 1, in_ch)) * in_ch**-0.5)
+    for name, out in (("q", in_ch), ("k", in_ch), ("v", in_ch),
+                      ("c", embed_dim)):
+        put(f"visual.attnpool.{name}_proj.weight",
+            rng.standard_normal((out, in_ch)) * in_ch**-0.5)
+        put(f"visual.attnpool.{name}_proj.bias",
+            0.02 * rng.standard_normal(out))
+    return sd
+
+
+BIOMEDCLIP_GEOMETRY = dict(  # BiomedCLIP-PubMedBERT_256-vit_base_patch16_224
+    width=768, layers=12, patch=16, image_size=224, embed_dim=512,
+    vocab=30522, hidden=768, text_layers=12, intermediate=3072,
+    max_positions=512)
+
+
+def biomedclip_state_dict(rng, width: int, layers: int, patch: int,
+                          image_size: int, embed_dim: int, vocab: int,
+                          hidden: int, text_layers: int, intermediate: int,
+                          max_positions: int) -> dict:
+    """A seeded open_clip state dict in BiomedCLIP's layout: a timm
+    ``vit_*`` trunk under ``visual.trunk.*`` (cls token, [1, L, D]
+    position table, biased patch-embed conv, fused qkv, final norm), the
+    linear head ``visual.head.proj``, an HF BERT under
+    ``text.transformer.*`` (its pooler included, as the hub checkpoint
+    holds it), the mlp projection ``text.proj.{0,2}`` and ``logit_scale``.
+    Weights are normal with std 0.02, LayerNorm weights near 1."""
+    sd = {}
+    put = _putter(sd)
+
+    def w(*shape):
+        return 0.02 * rng.standard_normal(shape)
+
+    def ln(key, d):
+        put(key + ".weight", 1.0 + 0.02 * rng.standard_normal(d))
+        put(key + ".bias", 0.02 * rng.standard_normal(d))
+
+    def linear(key, out_f, in_f, bias=True):
+        put(key + ".weight", w(out_f, in_f))
+        if bias:
+            put(key + ".bias", w(out_f))
+
+    t = "visual.trunk."
+    n = (image_size // patch) ** 2 + 1
+    put(t + "cls_token", w(1, 1, width))
+    put(t + "pos_embed", w(1, n, width))
+    put(t + "patch_embed.proj.weight", w(width, 3, patch, patch))
+    put(t + "patch_embed.proj.bias", w(width))
+    for i in range(layers):
+        b = f"{t}blocks.{i}."
+        ln(b + "norm1", width)
+        linear(b + "attn.qkv", 3 * width, width)
+        linear(b + "attn.proj", width, width)
+        ln(b + "norm2", width)
+        linear(b + "mlp.fc1", 4 * width, width)
+        linear(b + "mlp.fc2", width, 4 * width)
+    ln(t + "norm", width)
+    linear("visual.head.proj", embed_dim, width, bias=False)
+    e = "text.transformer.embeddings."
+    put(e + "word_embeddings.weight", w(vocab, hidden))
+    put(e + "position_embeddings.weight", w(max_positions, hidden))
+    put(e + "token_type_embeddings.weight", w(2, hidden))
+    ln(e + "LayerNorm", hidden)
+    for i in range(text_layers):
+        b = f"text.transformer.encoder.layer.{i}."
+        for name in ("query", "key", "value"):
+            linear(b + "attention.self." + name, hidden, hidden)
+        linear(b + "attention.output.dense", hidden, hidden)
+        ln(b + "attention.output.LayerNorm", hidden)
+        linear(b + "intermediate.dense", intermediate, hidden)
+        linear(b + "output.dense", hidden, intermediate)
+        ln(b + "output.LayerNorm", hidden)
+    linear("text.transformer.pooler.dense", hidden, hidden)
+    mid = (hidden + embed_dim) // 2
+    linear("text.proj.0", mid, hidden, bias=False)
+    linear("text.proj.2", embed_dim, mid, bias=False)
+    put("logit_scale", np.asarray(math.log(1 / 0.07)))
+    return sd
+
+
+def save_state_dict(sd: dict, path: str) -> str:
+    """``sd`` as a torch checkpoint ``{"state_dict": ...}`` at ``path``."""
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in sd.items()}}, path)
+    return path
+
+
+BERT_SPECIALS = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+                 + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+
+
+def write_wordpiece_vocab(directory: str, words, size: int = 30522) -> str:
+    """A BERT WordPiece vocabulary in ``directory``: vocab.txt with
+    BERT's special ids ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK]
+    103), the printable ASCII characters, the letters' ## pieces and the
+    lowercase ``words``, filled to ``size`` ids with unused entries, and
+    an uncased tokenizer_config.json. Returns the directory."""
+    letters = [chr(c) for c in range(97, 123)]
+    tokens = list(dict.fromkeys(
+        BERT_SPECIALS
+        + [chr(c) for c in range(33, 127) if not chr(c).isupper()]
+        + ["##" + c for c in letters] + sorted(set(words) - set(letters))))
+    tokens += [f"[unused{i}]" for i in range(99, 99 + size - len(tokens))]
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, "vocab.txt"), "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as f:
+        json.dump({"do_lower_case": True, "model_max_length": 512,
+                   "tokenizer_class": "BertTokenizer"}, f)
+    return directory
+
+
+def scar_prompt_words() -> list:
+    """The lowercase words of the scar pseudo-prompts: the templates, the
+    class names and the tag list."""
+    import re
+
+    from xtagclip_tpu_torch.tokenize.prompts import PROMPT_TEMPLATES
+    from xtagclip_tpu_torch.train import metadata
+    from xtagclip_tpu_torch.utils.assets import read_tag_list
+
+    text = " ".join([*PROMPT_TEMPLATES.values(), *metadata.SCAR_CLASSNAMES,
+                     *read_tag_list()])
+    return sorted(set(re.findall(r"[a-z]+", text.lower())))
+
+
 def _write_bert_hub_cache(hub: str) -> str:
     """bert-base-uncased as a hub cache holds it offline
     (models--bert-base-uncased/snapshots/<revision>/ with refs/main): a
@@ -2626,6 +2862,417 @@ def _fwd_bwd_memory(model, batch) -> dict:
     return {"held_after_forward": held / 1e9, "peak": peak / 1e9}
 
 
+BIOMEDCLIP = "BiomedCLIP-PubMedBERT_256-vit_base_patch16_224"
+BIOMEDCLIP_TOKENIZER = "microsoft/BiomedNLP-BiomedBERT-base-uncased-abstract"
+BASELINE_BATCH = 4  # scar_Biomedclip_pretrain.sh's and the baselines' batch
+BASELINE_ROWS = {"scar_train": 64, "scar_val": 32}
+BASELINE_EPOCHS = 2
+
+
+def _write_biomedclip_hub_cache(hub: str) -> str:
+    """BiomedCLIP's tokenizer as a hub cache holds it offline
+    (models--microsoft--BiomedNLP-BiomedBERT-base-uncased-abstract/
+    snapshots/<revision>/ with refs/main): a 30522-id uncased WordPiece
+    vocab.txt over the scar prompt words (write_wordpiece_vocab), its
+    tokenizer_config.json and the model's config.json. Returns the
+    snapshot directory."""
+    rev = "d673b8835373c6fa116d6d8006b33d48734e305d"
+    repo = os.path.join(hub, "models--" + BIOMEDCLIP_TOKENIZER.replace(
+        "/", "--"))
+    snap = write_wordpiece_vocab(os.path.join(repo, "snapshots", rev),
+                                 scar_prompt_words())
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(rev)
+    with open(os.path.join(snap, "config.json"), "w") as f:
+        json.dump({"architectures": ["BertForMaskedLM"], "model_type": "bert",
+                   "vocab_size": 30522}, f)
+    return snap
+
+
+def _baseline_data(root: str, rng) -> dict:
+    """The baselines' scar splits (BASELINE_ROWS seeded PNG rows each)."""
+    return {split: (os.path.join(root, split),
+                    _write_scar_split(os.path.join(root, split), n, rng))
+            for split, n in BASELINE_ROWS.items()}
+
+
+@contextlib.contextmanager
+def _peak_memory(out: dict):
+    """The block's peak device memory, and its peak over what was resident
+    when it began (earlier phases' models stay allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out["peak_memory_gb"] = peak / 1e9
+        out["peak_over_resident_gb"] = (peak - resident) / 1e9
+
+
+def phase_biomedclip_scar(card: str, tmp: str, profile: bool = False) -> dict:
+    """BASELINE config 3 as scar_Biomedclip_pretrain.sh runs it:
+    ``main_other.main`` with its flags (--model BIOMEDCLIP --lock-image
+    --lock-text --use-tagging --precision amp --lr 5e-6 --wd 0.1 --warmup
+    50 --prompt-template-setting sentence_1) at full width and depth, batch
+    4, one epoch over 64 seeded scar rows (val 32), --pretrained
+    ``tmp``/biomedclip.pt, which it writes (a seeded open_clip-layout
+    BiomedCLIP state dict: timm ``visual.trunk.*``, HF
+    ``text.transformer.*``, ``text.proj.{0,2}``; the baselines phase reads
+    and deletes it), and the PubMedBERT tokenizer found in a temporary
+    HF_HUB_CACHE. The
+    towers run plain PyTorch in bf16 (JAX's XLA path); kernel #5
+    normalizes every batch. Asserts: the model built is BiomedCLIP (a timm
+    tower and an HF BERT, the checkpoint's values loaded), every locked
+    parameter bit-equal after the epoch, one #5 launch per train and eval
+    batch and nothing else, finite losses and eval. Prints the prompt
+    table's build seconds, samples/s, p50 step ms, the p50 wait for a
+    batch, eval img/s and peak memory. With ``profile``, the epoch (loader
+    included) runs inside a torch.profiler window. Returns the launches."""
+    from xtagclip_tpu_torch.cli import main_other
+    from xtagclip_tpu_torch.models.hf_text import HFTextEncoder
+    from xtagclip_tpu_torch.models.timm_vit import TimmModel
+    from xtagclip_tpu_torch.train import zero_shot
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    root = os.path.join(tmp, "biomedclip_scar")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ckpt = save_state_dict(biomedclip_state_dict(
+        np.random.default_rng(2), **BIOMEDCLIP_GEOMETRY),
+        os.path.join(tmp, "biomedclip.pt"))
+    write_s = time.perf_counter() - t0
+    data = _baseline_data(root, np.random.default_rng(3))
+    hub = os.path.join(root, "hub")
+    _write_biomedclip_hub_cache(hub)
+    logs = os.path.join(root, "logs")
+    (train, train_csv), (val, val_csv) = data["scar_train"], data["scar_val"]
+    argv = ["--batch-size", str(BASELINE_BATCH), "--workers", "4",
+            "--train-data", train, "--val-data", val,
+            "--scar-train-csv", train_csv, "--scar-val-csv", val_csv,
+            "--precision", "amp", "--warmup", "50", "--lr", "5e-6",
+            "--wd", "0.1", "--epochs", "1", "--lock-image", "--lock-text",
+            "--model", BIOMEDCLIP, "--pretrained", ckpt,
+            "--prompt-template-setting", "sentence_1", "--use-tagging",
+            "--logs", logs, "--name", "biomedclip", "--seed", "0",
+            "--log-every-n-steps", "1", "--zeroshot-frequency", "1"]
+    created, table_s, log, mem = {}, [], [], {}
+    create = main_other.create_model_and_transforms
+    train_one_epoch = main_other.train_one_epoch
+
+    def profiled_epoch(*a, **k):
+        out = []
+        steps = BASELINE_ROWS["scar_train"] // BASELINE_BATCH
+        _profile_window(
+            f"biomedclip_scar epoch: {steps} steps of {BASELINE_BATCH} "
+            "with the loader",
+            lambda: out.append(train_one_epoch(*a, **k)), card, top=15)
+        return out[0]
+
+    def create_and_keep(*a, **k):
+        out = create(*a, **k)
+        created["model"] = out[0]
+        created["towers"] = {n: p.detach().clone()
+                             for n, p in out[0].named_parameters()
+                             if n.startswith(("visual.", "text."))}
+        return out
+
+    main_other.create_model_and_transforms = create_and_keep
+    if profile:
+        main_other.train_one_epoch = profiled_epoch
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with _env(HF_HUB_CACHE=hub), _timing(main_other, "PromptTable",
+                                             table_s), \
+                _probed(((main_other, "train_one_epoch"),
+                         (zero_shot, "run_scar_eval")), log), \
+                _peak_memory(mem):
+            out = main_other.main(argv)
+    finally:
+        main_other.create_model_and_transforms = create
+        main_other.train_one_epoch = train_one_epoch
+        close_logging()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    model = created["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    sd_q = torch.load(ckpt, map_location="cpu", weights_only=True)[
+        "state_dict"]["visual.trunk.blocks.0.attn.qkv.weight"]
+    loaded = torch.equal(model.visual.trunk.blocks[0].qkv.kernel.detach()
+                         .cpu().T, sd_q)
+    is_biomedclip = (isinstance(model.visual, TimmModel)
+                     and isinstance(model.text, HFTextEncoder)
+                     and n_params == 209_326_594 and loaded)
+    changed = [n for n, p in model.named_parameters()
+               if n in created["towers"]
+               and not torch.equal(p, created["towers"][n])]
+    (rec,) = out["epochs"]
+    tm, ev = rec["train"], rec["eval"]
+    steps = BASELINE_ROWS["scar_train"] // BASELINE_BATCH
+    trains = [c for c in log if c["what"] == "train_one_epoch"]
+    evals = [c for c in log if c["what"] == "run_scar_eval"]
+    eval_images = sum(c["out"]["n"] for c in evals)
+    eval_batches = sum(math.ceil(c["out"]["n"] / BASELINE_BATCH)
+                       for c in evals)
+    per_step = _per(trains, steps)
+    per_eval_batch = _per(evals, eval_batches)
+    evals_kept = {k: ev[k] for k in sorted(ev) if k.endswith((
+        "top1", "top2", "tag_accuracy", "tag_f1", "-n"))}
+    finite = all(math.isfinite(v) for v in (
+        tm["loss"], tm["contrastive_loss"], tm["tagging_loss"],
+        *evals_kept.values()))
+    result = {
+        "phase": "biomedclip_scar", "card": card,
+        "entry": "xtagclip_tpu_torch.cli.main_other.main with "
+                 "scar_Biomedclip_pretrain.sh's flags",
+        "model": f"{BIOMEDCLIP}: {n_params} parameters, bf16 over fp32 "
+                 "masters, from a seeded open_clip-layout .pt",
+        "is_biomedclip": is_biomedclip,
+        "data": f"seeded PNG files ({BASELINE_ROWS}), crops 224",
+        "checkpoint_write_s": write_s, "checkpoint_bytes":
+            os.path.getsize(ckpt), "run_s": run_s,
+        "prompt_table_s": table_s,
+        "batch": BASELINE_BATCH, "steps": steps,
+        "samples_per_s": tm["samples_per_second"],
+        "p50_step_ms": 1e3 * tm["p50_step_s"],
+        "p50_data_wait_ms": 1e3 * statistics.median(tm["data_step_s"]),
+        "loss": tm["loss"], "contrastive_loss": tm["contrastive_loss"],
+        "tagging_loss": tm["tagging_loss"], "eval": evals_kept,
+        "eval_images": eval_images,
+        "eval_img_per_s": eval_images / sum(c["s"] for c in evals),
+        **mem, "locked_changed": changed[:5], "finite": finite,
+        "launches": counts, "launches_per_step": per_step,
+        "launches_per_eval_batch": per_eval_batch}
+    _emit(result)
+    want = _want(normalize_images=1)
+    if not (is_biomedclip and finite and not changed
+            and per_step == want and per_eval_batch == want):
+        raise AssertionError(f"biomedclip_scar phase failed its checks: "
+                             f"{result}")
+    return counts
+
+
+def _baseline_runs(data: dict, ckpt: str, pth: str, out_dir: str):
+    """(label, CLI module, argv) of the baselines phase's four runs."""
+    from xtagclip_tpu_torch.cli.baselines import (
+        biomedclip_baseline,
+        clip_baseline,
+        resnet50_baseline,
+    )
+
+    (train, train_csv), (val, val_csv) = data["scar_train"], data["scar_val"]
+
+    def argv(tag):
+        return ["--train-root", train, "--val-root", val,
+                "--train-csv", train_csv, "--val-csv", val_csv,
+                "--batch-size", str(BASELINE_BATCH),
+                "--epochs", str(BASELINE_EPOCHS),
+                "--ckpt", os.path.join(out_dir, f"{tag}.pkl"),
+                "--output", os.path.join(out_dir, f"{tag}.png")]
+
+    return (
+        ("resnet50", resnet50_baseline,
+         argv("resnet50") + ["--pretrained", pth]),
+        ("clip_vit_b32", clip_baseline, argv("clip_vit_b32") + [
+            "--model", "ViT-B-32", "--lock-image"]),
+        ("biomedclip_lock_text", biomedclip_baseline,
+         argv("biomedclip_lock_text") + [
+             "--pretrained", ckpt, "--lock-image", "--lock-text-encoder"]),
+        ("biomedclip", biomedclip_baseline,
+         argv("biomedclip") + ["--pretrained", ckpt]),
+    )
+
+
+def _classifier_on(label: str, device: str, tree: dict):
+    """The run's classifier on ``device`` holding its saved best tree."""
+    from xtagclip_tpu_torch.cli.baselines import clip_baseline, common
+    from xtagclip_tpu_torch.cli.baselines.resnet50_baseline import (
+        ScarClassifier,
+    )
+
+    if label == "resnet50":
+        with torch.device(device):
+            model = ScarClassifier()
+    else:
+        name = "ViT-B-32" if label.startswith("clip") else BIOMEDCLIP
+        model, _ = clip_baseline.build_classifier(
+            name, None, 3, label != "biomedclip", device)
+    return common.load_into(model, tree).eval()
+
+
+def phase_baselines(card: str, tmp: str, ckpt: str) -> dict:
+    """BASELINE config 1 and config 3's standalone script: each baseline
+    CLI's ``main()`` at full width on the card, BASELINE_EPOCHS epochs of
+    batch 4 on seeded scar splits (64 train, 32 val rows): resnet50_baseline
+    from a seeded torchvision-layout ResNet-50 .pth (--pretrained),
+    clip_baseline on ViT-B-32 (--lock-image), and biomedclip_baseline from
+    the seeded BiomedCLIP .pt, with --lock-image --lock-text-encoder and
+    with neither. All run in fp32; kernel #5 normalizes every batch to
+    fp32. For each: the checkpoint and metrics (and the plot where
+    matplotlib is installed), the model built (the fallback ladder's
+    warning absent, a BiomedCLIP checkpoint holding the timm trunk), one #5
+    launch per train and eval batch, and the best epoch's eval logits on
+    the card held to the same weights' on the CPU on the first two val
+    batches: within 1e-3 of their largest magnitude, with TF32 off in
+    cuBLAS and cuDNN (main()'s setting for this script). Prints epoch
+    seconds, samples/s and peak memory. The BiomedCLIP .pt is deleted
+    after. Returns the launches of the four runs."""
+    from xtagclip_tpu_torch.cli.baselines import common
+    from xtagclip_tpu_torch.data.loader import DataLoader
+    from xtagclip_tpu_torch.train.logger import close_logging
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_eval,
+    )
+    from xtagclip_tpu_torch.utils.constants import (
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+    )
+
+    root = os.path.join(tmp, "baselines")
+    os.makedirs(root)
+    data = _baseline_data(root, np.random.default_rng(4))
+    pth = os.path.join(root, "resnet50.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in
+                torchvision_resnet_state_dict(np.random.default_rng(5)).items()},
+               pth)
+    try:
+        import matplotlib  # noqa: F401
+        plots = True
+    except ImportError:
+        plots = False
+    rows, total = [], {}
+    steps = BASELINE_ROWS["scar_train"] // BASELINE_BATCH
+    val_batches = math.ceil(BASELINE_ROWS["scar_val"] / BASELINE_BATCH)
+    try:
+        for label, cli, argv in _baseline_runs(data, ckpt, pth, root):
+            histories, mem = [], {}
+            run = cli.train_supervised
+
+            def keep(*a, _run=run, **k):
+                model, history = _run(*a, **k)
+                histories.append(history)
+                return model, history
+
+            cli.train_supervised = keep
+            records = []
+            handler = logging.Handler(logging.WARNING)
+            handler.emit = records.append
+            logging.getLogger().addHandler(handler)
+            _reset_counts()
+            t0 = time.perf_counter()
+            try:
+                with _peak_memory(mem):
+                    metrics = cli.main(argv + ["--device", "cuda"])
+            finally:
+                cli.train_supervised = run
+                logging.getLogger().removeHandler(handler)
+                close_logging()
+            run_s = time.perf_counter() - t0
+            counts = _counts()
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            (history,) = histories
+            tree = common.load_pytree(os.path.join(root, f"{label}.pkl"))
+            fell_back = [r.getMessage() for r in records
+                         if "falling back" in r.getMessage()]
+            built = (any(n.startswith("visual.trunk.") for n in tree["params"])
+                     if label.startswith("biomedclip") else True)
+            mean, std = ((IMAGENET_MEAN, IMAGENET_STD)
+                         if label == "resnet50" else (None, None))
+            pp = PreprocessCfg(size=224, mean=mean, std=std)
+            loader = DataLoader(common.ScarClassificationDataset(
+                data["scar_val"][0], data["scar_val"][1],
+                image_transform_eval(pp), False), BASELINE_BATCH,
+                num_workers=2)
+            batches = [b for _, b in zip(range(2), loader)]
+            logits = {}
+            for device in ("cuda", "cpu"):
+                model = _classifier_on(label, device, tree)
+                logits[device], _ = common.eval_logits(
+                    model, batches, device, pp.mean, pp.std)
+                del model
+            ref = np.concatenate(logits["cpu"])
+            err = float(np.abs(np.concatenate(logits["cuda"]) - ref).max())
+            bar = 1e-3 * max(1.0, float(np.abs(ref).max()))
+            # each epoch's steps and validation, then the final evaluate
+            epochs = len(history["train_loss"])
+            launches = steps * epochs + val_batches * (epochs + 1)
+            row = {
+                "run": label, "argv": " ".join(argv[16:]),
+                "run_s": run_s, "epoch_s": history["epoch_s"],
+                "samples_per_s": [steps * BASELINE_BATCH / s
+                                  for s in history["epoch_s"]],
+                **mem, "train_loss": history["train_loss"],
+                "val_loss": history["val_loss"],
+                "accuracy": metrics["accuracy"],
+                "macro_f1": metrics["macro_f1"],
+                "checkpoint": os.path.isfile(
+                    os.path.join(root, f"{label}.pkl")),
+                "plot": os.path.isfile(os.path.join(root, f"{label}.png")),
+                "fallback": fell_back, "model_built": built,
+                "logits_max_abs_err_vs_cpu": err, "logits_bar": bar,
+                "normalize_launches": counts["normalize_images"],
+                "normalize_launches_want": launches}
+            rows.append(row)
+            ok = (row["checkpoint"] and (row["plot"] or not plots)
+                  and not fell_back and built and err <= bar
+                  and counts == _want(normalize_images=launches)
+                  and all(math.isfinite(v) for v in (
+                      *history["train_loss"], *history["val_loss"]))
+                  and {"macro_precision", "macro_recall", "weighted_f1",
+                       "per_class"} <= set(metrics))
+            if not ok:
+                _emit({"phase": "baselines", "card": card, "runs": rows})
+                raise AssertionError(f"baselines phase failed its checks: "
+                                     f"{row}")
+    finally:
+        os.remove(ckpt)
+    _emit({"phase": "baselines", "card": card,
+           "tf32": {"cublas": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32},
+           "batch": BASELINE_BATCH, "epochs": BASELINE_EPOCHS,
+           "data": f"seeded PNG files ({BASELINE_ROWS}), crops 224",
+           "plots": plots, "runs": rows})
+    return total
+
+
+def phase_rn50(card: str) -> dict:
+    """The CLIP RN50 tower (models/resnet.py) in fp32 at batch 32 on the
+    card, held to the CPU's forward on the same weights: pooled features
+    and tokens within 1e-3 of their largest magnitude (TF32 off). Prints
+    the card's forward ms."""
+    from xtagclip_tpu_torch import factory
+
+    model = factory.create_model("RN50", device="cuda")
+    cpu = factory.create_model("RN50", device="cpu", skip_init=True)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.standard_normal(
+        (SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.float32))
+    with torch.inference_mode():
+        got = [t.cpu() for t in model.visual(x.cuda())]
+        want = cpu.visual(x)
+        ms = _median_ms(lambda: model.visual(x.cuda()), reps=5, per_rep=2)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    bars = [1e-3 * max(1.0, float(w.abs().max())) for w in want]
+    result = {"phase": "rn50", "card": card,
+              "model": "RN50 (ModifiedResNet [3, 4, 6, 3], width 64), fp32, "
+                       "seeded init", "batch": SERVE_BATCH,
+              "shapes": [list(g.shape) for g in got],
+              "max_abs_err_vs_cpu": errs, "bars": bars,
+              "forward_ms": ms,
+              "n_params": sum(p.numel() for p in model.parameters())}
+    _emit(result)
+    if not all(e <= b for e, b in zip(errs, bars)):
+        raise AssertionError(f"rn50 phase: card and CPU differ: {result}")
+    return _counts()
+
+
 def phase_clipa_path(card: str):
     """At stage 2's full width, batch CLIPA_PATH_BATCH: (1) one step with
     --grad-checkpointing on and off from the same weights, batch and
@@ -2846,8 +3493,9 @@ def main(argv=()) -> int:
     """Run the phases; ``argv`` holds the command-line arguments."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the trainer's second epoch, precompute, "
-                         "serve and train steps with torch.profiler")
+                    help="also trace the trainer's second epoch, CLIPA and "
+                         "BiomedCLIP steps, precompute, serve and train "
+                         "steps with torch.profiler")
     ap.add_argument("--clipa-batch-probe", action="store_true",
                     help="run only the build and the search for the "
                          "largest CLIPA stage-2 batch that fits")
@@ -2909,6 +3557,12 @@ def main(argv=()) -> int:
         paths["clipa_336_eval"] = timed("clipa_eval", phase_clipa_eval, card,
                                         tmp)
         timed("clipa_path", phase_clipa_path, card)
+        timed("rn50", phase_rn50, card)
+        paths["biomedclip_scar"] = timed("biomedclip_scar",
+                                         phase_biomedclip_scar, card, tmp,
+                                         profile=args.profile)
+        paths["baselines"] = timed("baselines", phase_baselines, card, tmp,
+                                   os.path.join(tmp, "biomedclip.pt"))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

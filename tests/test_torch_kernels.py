@@ -807,6 +807,7 @@ def _ordered(t):
 
 
 @pytest.mark.parametrize("shape", [(32, 224, 224, 3),   # the main path's batch
+                                   (4, 224, 224, 3),    # the baselines' batch
                                    (5, 33, 47, 3),      # odd element count
                                    (1, 224, 224, 3),
                                    (64, 336, 336, 3)])  # the 336 px eval

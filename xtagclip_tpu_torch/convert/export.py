@@ -44,7 +44,13 @@ def to_openclip_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
     patch = getattr(model.visual, "patch_size", None)
     sd: Dict[str, np.ndarray] = {}
     for name, p in model.named_parameters():
-        key, kind = openclip_key(name)
+        try:
+            key, kind = openclip_key(name)
+        except KeyError as e:
+            raise NotImplementedError(
+                f"{name}: exporting a timm, HF or ResNet tower to an "
+                "open_clip .pt is not implemented (nor is it in the JAX "
+                "package, export.py:154)") from e
         sd[key] = to_openclip(p.detach().float().cpu().numpy(), kind, patch)
         if key.startswith("fusion_model.decoder_norm."):
             sd[key.replace("decoder_norm", "decoder.norm")] = sd[key]

@@ -15,7 +15,9 @@ mismatch is skipped with a warning (JAX's ``strict=False``). A port
 checkpoint's own state dict loads the same way (``load_state_into``), as
 JAX's loader merges its orbax trees, and so does a big_vision ``.npz``
 (``load_big_vision_into``: convert/big_vision.py's tree by the names of
-convert/from_jax.py).
+convert/from_jax.py). A timm trunk, an HF BERT and a ModifiedResNet load
+as whole groups (convert/openclip.py ``convert_tower_groups``), the
+ResNet's BatchNorm running statistics into its buffers.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from xtagclip_tpu_torch.convert.from_jax import stats_buffers
 from xtagclip_tpu_torch.convert.openclip import (
+    convert_tower_groups,
     from_openclip,
     load_torch_state_dict,
     normalize_to_custom_text,
@@ -83,16 +87,24 @@ def load_checkpoint_into(model: nn.Module, path: str,
     if path.endswith(".npz"):
         return load_big_vision_into(model, path, key_filter)
     sd = normalize_to_custom_text(load_torch_state_dict(path))
+    groups, stats, sd = convert_tower_groups(sd)
     used, loaded, missing = set(), 0, []
     for name, p in model.named_parameters():
         if key_filter is not None and not key_filter(name):
             continue
-        key, kind = openclip_key(name)
-        if key not in sd:
-            missing.append(name)
-            continue
-        used.add(key)
-        val = from_openclip(np.asarray(sd[key]), kind, tuple(p.shape))
+        if name in groups:
+            used.add(name)
+            val = groups[name]
+        else:
+            try:
+                key, kind = openclip_key(name)
+            except KeyError:  # a group tower's parameter the file lacks
+                key = None
+            if key not in sd:
+                missing.append(name)
+                continue
+            used.add(key)
+            val = from_openclip(np.asarray(sd[key]), kind, tuple(p.shape))
         if tuple(val.shape) != tuple(p.shape):
             val = _fit(name, val, p)
             if val is None:
@@ -102,7 +114,14 @@ def load_checkpoint_into(model: nn.Module, path: str,
     if missing and key_filter is None:
         logging.info("checkpoint missing %d params (kept): %s", len(missing),
                      missing[:5])
-    unused = [k for k in sd if k not in used and key_filter is None]
+    if key_filter is None:
+        buffers = stats_buffers(model)
+        for name, val in stats.items():
+            if name in buffers and tuple(val.shape) == tuple(buffers[name].shape):
+                buffers[name].copy_(torch.from_numpy(np.array(val, np.float32)))
+                used.add(name)
+    unused = [k for k in (*sd, *groups, *stats)
+              if k not in used and key_filter is None]
     if unused:
         logging.info("checkpoint had %d unused entries: %s", len(unused),
                      unused[:5])
@@ -117,7 +136,7 @@ def load_state_into(model: nn.Module, state: dict, source: str = "") -> nn.Modul
     loader merges an orbax tree (``merge_converted_params``): a table of
     another length is resized (module doc), a parameter the state lacks
     keeps its value and an entry the model lacks is ignored (both logged).
-    Non-parameter entries (buffers) are left alone."""
+    BatchNorm running statistics (persistent buffers) load by name too."""
     loaded, missing = 0, []
     for name, p in model.named_parameters():
         if name not in state:
@@ -132,7 +151,11 @@ def load_state_into(model: nn.Module, state: dict, source: str = "") -> nn.Modul
         p.copy_(val)
         loaded += 1
     params = dict(model.named_parameters())
-    unused = [k for k in state if k not in params]
+    buffers = stats_buffers(model)
+    for name, buf in buffers.items():  # BatchNorm running statistics
+        if name in state and tuple(state[name].shape) == tuple(buf.shape):
+            buf.copy_(state[name])
+    unused = [k for k in state if k not in params and k not in buffers]
     if missing or unused:
         logging.info("checkpoint %s: %d parameters kept (%s), %d entries "
                      "ignored (%s)", source, len(missing), missing[:5],

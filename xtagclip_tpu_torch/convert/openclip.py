@@ -1,8 +1,8 @@
 """The open_clip (CustomTextCLIP-layout) torch state dict -> the port's
 parameters: the inverse of xtagclip_tpu/convert/export.py
-``to_openclip_state_dict`` (:28), tag head and TQN included, for the
-towers the port has (ViT, text transformer); ModifiedResNet waits for
-ROADMAP Queue 1 item 9.
+``to_openclip_state_dict`` (:28), tag head and TQN included, and the
+loading half of JAX's ``convert_openclip_state_dict`` (openclip.py:92-155,
+179-230) for the towers that have no exporter.
 
 ``openclip_key(name)`` gives, for a port parameter name, the state-dict
 key it is stored under and how its layout differs:
@@ -12,14 +12,24 @@ key it is stored under and how its layout differs:
   the port's (flax) Dense kernel [in, out];
 - ``"conv"``: the patch-embed conv weight [W, C, ph, pw], the port's
   kernel [ph*pw*C, W] in (ph, pw, C) row order;
-- ``"scalar"``: a 0-d tensor (the logit scales).
+- ``"scalar"``: a 0-d tensor (the logit scales and bias).
 
 The tower options map as JAX's converters map them: LayerScale's
 ``ls_1``/``ls_2.gamma`` per block, the text projection as a matrix or,
-with ``proj_bias``, a ``text_projection`` Linear (weight, bias). The
-learnable vision tokens are ``visual.learnable_tokens`` [n, width], a
-key JAX's exporter leaves out and its loader refuses: a ``.pt`` of the
-JAX package carries none, and the port keeps its own init for them.
+with ``proj_bias``, a ``text_projection`` Linear (weight, bias), a timm
+tower's head as ``visual.head.{proj,mlp.fc1,mlp.fc2}`` and an HF text
+tower's projection as ``text.proj`` or ``text.proj.{0,2}``. The learnable
+vision tokens are ``visual.learnable_tokens`` [n, width], a key JAX's
+exporter leaves out and its loader refuses: a ``.pt`` of the JAX package
+carries none, and the port keeps its own init for them.
+
+Three towers are converted as whole groups, as JAX converts them, into
+flax-layout trees read by the names of convert/from_jax.py
+(``convert_tower_groups``): a timm trunk's ``visual.trunk.*``
+(convert/timm_families.py; its ``fc_norm`` and SigLIP ``attn_pool`` go
+onto the ``TimmModel`` head), an HF BERT's ``text.transformer.*``
+(convert/hf_bert.py) and a ModifiedResNet's ``visual.*`` (ROADMAP Queue 1
+item 4), whose BatchNorm running statistics go into the BN buffers.
 """
 
 from __future__ import annotations
@@ -30,10 +40,15 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from xtagclip_tpu_torch.convert.from_jax import _flatten, port_name, port_value
+
 _BLOCK = re.compile(r"(visual|text)\.transformer\.resblocks\.(\d+)\.(.+)")
 _TAG = re.compile(r"tag_head\.layers\.(\d+)\.(crossattention|ffn)\.(.+)")
 _TQN = re.compile(r"fusion_model\.decoder_layers\.(\d+)\.(.+)")
 _MLP_HEAD = {"mlp_0": 0, "mlp_1": 3, "mlp_2": 6, "mlp_3": 9}
+_TIMM_HEAD = {"head_proj": "proj", "head_mlp_fc1": "mlp.fc1",
+              "head_mlp_fc2": "mlp.fc2"}
+_HF_PROJ = {"proj": "proj.", "proj_fc1": "proj.0.", "proj_fc2": "proj.2."}
 
 
 def _leaf(part: str) -> str:
@@ -61,6 +76,13 @@ def openclip_key(name: str) -> Tuple[str, str]:
                     "linear" if last == "kernel" else "same")
     if name == "visual.conv1.kernel":
         return "visual.conv1.weight", "conv"
+    head = parts[1] if len(parts) == 3 else None
+    if parts[0] == "visual" and head in _TIMM_HEAD:  # a timm tower's head
+        return (f"visual.head.{_TIMM_HEAD[parts[1]]}.{_leaf(last)}",
+                "linear" if last == "kernel" else "same")
+    if parts[0] == "text" and head in _HF_PROJ:  # an HF tower's projection
+        return (f"text.{_HF_PROJ[parts[1]]}{_leaf(last)}",
+                "linear" if last == "kernel" else "same")
     if name in ("visual.class_embedding", "visual.positional_embedding",
                 "visual.proj", "visual.learnable_tokens",
                 "text.positional_embedding", "text.text_projection"):
@@ -73,8 +95,8 @@ def openclip_key(name: str) -> Tuple[str, str]:
         return f"{parts[0]}.{parts[1]}.{_leaf(last)}", "same"
     if name == "text.token_embedding.embedding":
         return "text.token_embedding.weight", "same"
-    if name == "logit_scale":
-        return "logit_scale", "scalar"
+    if name in ("logit_scale", "logit_bias"):
+        return name, "scalar"
     if name == "tag_labels.embedding":
         return "tag_labels.weight", "same"
     if parts[0] == "tag_fc":
@@ -176,3 +198,104 @@ def normalize_to_custom_text(sd: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]
         else:
             out[k] = v
     return out
+
+
+def _conv_kernel(v: np.ndarray) -> np.ndarray:
+    """torch conv [out, in, kh, kw] -> flax [kh, kw, in, out]."""
+    return np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+
+
+def _set(tree: dict, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def _convert_modified_resnet_visual(sd: Dict[str, np.ndarray]):
+    """A ModifiedResNet's ``visual.*`` keys -> flax-layout (params,
+    batch_stats) trees (JAX openclip.py:92-155): the 3-conv stem with
+    bn1..bn3, ``layer{l}.{b}`` bottlenecks with ``downsample.{0: conv, 1:
+    bn}`` and ``attnpool``. An unknown key raises."""
+    vis: Dict = {}
+    stats: Dict = {}
+
+    def bn_set(path, key, v):
+        if key in ("weight", "bias"):
+            _set(vis, path + ("scale" if key == "weight" else "bias",), v)
+        elif key in ("running_mean", "running_var"):
+            _set(stats, path + (key[len("running_"):],), v)
+        elif key != "num_batches_tracked":
+            raise KeyError(f"unmapped bn key {'.'.join(path)}.{key}")
+
+    layer_re = re.compile(r"layer([1-4])\.(\d+)\.(.+)")
+    for k in [k for k in sd if k.startswith("visual.")]:
+        rest, v = k[len("visual."):], sd[k]
+        parts = rest.split(".")
+        m = layer_re.match(rest)
+        if parts[0] in ("conv1", "conv2", "conv3") and parts[1] == "weight":
+            _set(vis, (parts[0], "kernel"), _conv_kernel(v))
+        elif parts[0] in ("bn1", "bn2", "bn3"):
+            bn_set((parts[0],), parts[1], v)
+        elif m:
+            block = f"layer{m.group(1)}_{m.group(2)}"
+            sub = m.group(3).split(".")
+            if sub[0].startswith("conv") and sub[1] == "weight":
+                _set(vis, (block, sub[0], "kernel"), _conv_kernel(v))
+            elif sub[0].startswith("bn"):
+                bn_set((block, sub[0]), sub[1], v)
+            elif sub[:3] == ["downsample", "0", "weight"]:
+                _set(vis, (block, "downsample_conv", "kernel"),
+                     _conv_kernel(v))
+            elif sub[:2] == ["downsample", "1"]:
+                bn_set((block, "downsample_bn"), sub[2], v)
+            else:
+                raise KeyError(f"unmapped bottleneck key {k}")
+        elif parts[0] == "attnpool" and parts[1] == "positional_embedding":
+            _set(vis, ("attnpool", "positional_embedding"), v)
+        elif parts[0] == "attnpool" and parts[1].endswith("_proj"):
+            if parts[2] == "weight":
+                _set(vis, ("attnpool", parts[1], "kernel"),
+                     np.ascontiguousarray(v.T))
+            else:
+                _set(vis, ("attnpool", parts[1], "bias"), v)
+        else:
+            raise KeyError(f"unmapped ModifiedResNet visual key {k}")
+    return vis, stats
+
+
+def convert_tower_groups(sd: Dict[str, np.ndarray]):
+    """The group-converted towers of ``sd`` (module doc) ->
+    (parameters, statistics, rest): the first two map port names to
+    arrays in the port's layout; ``rest`` holds the keys left for
+    ``openclip_key``. Mirrors the up-front part of JAX's
+    ``convert_openclip_state_dict`` (openclip.py:195-230)."""
+    params, stats = {}, {}
+    rest = dict(sd)
+    if any(k.startswith(("visual.bn1.", "visual.attnpool.")) for k in sd):
+        vis, vis_stats = _convert_modified_resnet_visual(sd)
+        params.update(("visual." + k, v) for k, v in _flatten(vis))
+        stats.update(("visual." + k, v) for k, v in _flatten(vis_stats))
+        rest = {k: v for k, v in rest.items() if not k.startswith("visual.")}
+    if any(k.startswith("visual.trunk.") for k in sd):
+        from xtagclip_tpu_torch.convert.timm_families import convert_timm_trunk
+
+        trunk = convert_timm_trunk(sd, prefix="visual.trunk.")
+        for hoisted, name in (("__fc_norm__", "fc_norm"),
+                              ("__attn_pool__", "attn_pool")):
+            sub = trunk.pop(hoisted, None)
+            if sub:
+                params.update((f"visual.{name}.{k}", v)
+                              for k, v in _flatten(sub))
+        params.update(("visual.trunk." + k, v) for k, v in _flatten(trunk))
+        rest = {k: v for k, v in rest.items()
+                if not k.startswith("visual.trunk.")}
+    if any(k.startswith("text.transformer.embeddings.") for k in sd):
+        from xtagclip_tpu_torch.convert.hf_bert import convert_hf_bert_state_dict
+
+        bert = convert_hf_bert_state_dict(sd, prefix="text.transformer.")
+        params.update(("text.transformer." + k, v)
+                      for k, v in _flatten(bert))
+        rest = {k: v for k, v in rest.items()
+                if not k.startswith("text.transformer.")}
+    return ({port_name(k): port_value(v) for k, v in params.items()},
+            {port_name(k): np.asarray(v) for k, v in stats.items()}, rest)

@@ -7,9 +7,17 @@ package's ``assets/model_configs``. As in the JAX factory, the
 them (a config there extends or overrides the built-in ones; a malformed
 file there warns and is skipped, where a malformed built-in one raises),
 and ``add_model_config`` registers a file over both. The variable is read
-at each lookup, so a process may set it after import. Only ViT +
-text-transformer configs are ported; other families raise
-NotImplementedError.
+at each lookup, so a process may set it after import. A config in
+open_clip's hub schema (``model_cfg`` + ``preprocess_cfg``, as
+BiomedCLIP's) is flattened, as JAX's scan flattens it.
+
+The towers are routed as JAX's ``_build_vision_tower`` and
+``_build_text_tower`` route them (factory.py:166-260): a
+``timm_model_name`` builds models/timm_vit.py's tower, list-valued
+``layers`` the ModifiedResNet (models/resnet.py), an ``hf_model_name`` the
+HF text tower (models/hf_text.py); everything else the ViT and the text
+transformer. The families and CoCa that wait for ROADMAP Queue 1 item 8
+raise NotImplementedError.
 
 ``precision`` has the JAX package's meaning: parameters are fp32 masters
 and ``"bf16"`` sets the compute dtype, to which every module casts its
@@ -43,8 +51,11 @@ from xtagclip_tpu_torch.data.transforms import (
     image_transform_train,
 )
 from xtagclip_tpu_torch.models.clip import CLIP
+from xtagclip_tpu_torch.models.hf_text import HFTextEncoder
 from xtagclip_tpu_torch.models.layers import LayerNorm, ResidualAttentionBlock
+from xtagclip_tpu_torch.models.resnet import ModifiedResNet
 from xtagclip_tpu_torch.models.text import TextTransformer
+from xtagclip_tpu_torch.models.timm_vit import build_timm_vision_tower
 from xtagclip_tpu_torch.models.vit import VisionTransformer
 from xtagclip_tpu_torch.tokenize.bpe import SimpleTokenizer
 from xtagclip_tpu_torch.utils.assets import asset_path
@@ -52,12 +63,20 @@ from xtagclip_tpu_torch.utils.assets import asset_path
 _EXTRA_CONFIGS: Dict[str, dict] = {}
 
 
+def _flatten_hub_schema(cfg: dict) -> dict:
+    """open_clip's hub schema (``model_cfg`` + ``preprocess_cfg``) as one
+    flat config (JAX factory.py:54-57)."""
+    if "model_cfg" in cfg:
+        cfg = dict(cfg["model_cfg"], preprocess_cfg=cfg.get("preprocess_cfg", {}))
+    return cfg
+
+
 def _builtin_config(name: str) -> Optional[dict]:
     path = asset_path("model_configs") / f"{name}.json"
     if not path.exists():
         return None
     with open(path) as f:
-        return json.load(f)
+        return _flatten_hub_schema(json.load(f))
 
 
 def _user_config(name: str) -> Optional[dict]:
@@ -75,9 +94,7 @@ def _user_config(name: str) -> Optional[dict]:
         except (OSError, ValueError) as e:
             warnings.warn(f"XTAGCLIP_EXTRA_CONFIGS: skipping {path}: {e}")
             continue
-        if "model_cfg" in cfg:  # nested schema (e.g. BiomedCLIP hub cfg)
-            cfg = dict(cfg["model_cfg"],
-                       preprocess_cfg=cfg.get("preprocess_cfg", {}))
+        cfg = _flatten_hub_schema(cfg)
         if all(k in cfg for k in ("embed_dim", "vision_cfg", "text_cfg")):
             found = cfg
     return found
@@ -115,11 +132,17 @@ def resolve_device(device) -> torch.device:
 
 
 def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
-    """The ViT of ``vision_cfg`` ``v``, reading the keys JAX's
+    """The vision tower of ``vision_cfg`` ``v``, reading the keys JAX's
     ``_build_vision_tower`` reads (factory.py:166-222); others are ignored,
     as there."""
-    if v.get("timm_model_name") or isinstance(v.get("layers"), (list, tuple)):
-        raise NotImplementedError("timm and ResNet towers are not ported yet")
+    if v.get("timm_model_name"):
+        return build_timm_vision_tower(embed_dim, v, dtype)
+    if isinstance(v.get("layers"), (list, tuple)):
+        return ModifiedResNet(
+            tuple(v["layers"]), output_dim=embed_dim,
+            heads=v.get("width", 64) * 32 // v.get("head_width", 64),
+            image_size=v.get("image_size", 224), width=v.get("width", 64),
+            dtype=dtype)
     return VisionTransformer(
         image_size=v.get("image_size", 224), patch_size=v.get("patch_size", 16),
         width=v.get("width", 768), layers=v.get("layers", 12),
@@ -143,7 +166,11 @@ def _text_tower(embed_dim, t, act, dtype, grad_checkpointing=False):
     """The text transformer of ``text_cfg`` ``t``, reading the keys JAX's
     ``_build_text_tower`` reads (factory.py:225-260)."""
     if t.get("hf_model_name"):
-        raise NotImplementedError("HF text towers are not ported yet")
+        return HFTextEncoder(t["hf_model_name"], output_dim=embed_dim,
+                             proj_type=t.get("hf_proj_type", "mlp"),
+                             pooler_type=t.get("hf_pooler_type",
+                                               "mean_pooler"),
+                             dtype=dtype)
     return TextTransformer(
         context_length=t.get("context_length", 77),
         vocab_size=t.get("vocab_size", 49408), width=t.get("width", 512),
@@ -190,11 +217,14 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
                  use_tagging: bool = False,
                  use_fusion: bool = False, init_seed: int = 0,
                  grad_checkpointing: bool = False,
-                 force_patch_dropout=None, **model_kwargs) -> CLIP:
+                 force_patch_dropout=None, skip_init: bool = False,
+                 **model_kwargs) -> CLIP:
     """Build a CLIP/XTag model with seeded random init on ``device``.
     ``grad_checkpointing`` checkpoints every block of both towers (JAX's
     ``remat``); ``force_patch_dropout`` overrides the vision config's
-    ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override)."""
+    ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override);
+    ``skip_init`` leaves the parameters uninitialized (JAX's, for a build
+    whose weights come next, or on the ``meta`` device)."""
     dev = resolve_device(device)
     cfg = get_model_config(model_name.replace("/", "-"))
     if cfg is None:
@@ -207,8 +237,9 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
     if force_patch_dropout is not None:
         cfg["vision_cfg"]["patch_dropout"] = force_patch_dropout
     if "multimodal_cfg" in cfg:
-        raise NotImplementedError("CoCa models are not ported yet")
-    unported = {"init_logit_bias", "nonscalar_logit_scale"} & set(cfg)
+        raise NotImplementedError(
+            "CoCa models are not ported yet (ROADMAP Queue 1 item 8)")
+    unported = {"nonscalar_logit_scale"} & set(cfg)
     if unported:
         raise NotImplementedError(f"config keys not ported yet: {unported}")
     act = "quick_gelu" if cfg.get("quick_gelu") else "gelu"
@@ -223,8 +254,9 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
             use_fusion=use_fusion, fusion_dim=cfg.get("fusion_dim", 512),
             init_logit_scale=cfg.get("init_logit_scale",
                                      math.log(1 / 0.07)),
-            dtype=dtype)
-    init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
+            init_logit_bias=cfg.get("init_logit_bias"), dtype=dtype)
+    if not skip_init:
+        init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
     model.model_name = model_name
     model.model_cfg = cfg
     return model

@@ -52,6 +52,7 @@ class CLIP(nn.Module):
                  tag_layers: int = 2, tag_intermediate_size: int = 3072,
                  num_tags: int = NUM_TAGS, fusion_dim: int = 512,
                  init_logit_scale: float = math.log(1 / 0.07),
+                 init_logit_bias=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_fusion and embed_dim != fusion_dim:
@@ -68,6 +69,9 @@ class CLIP(nn.Module):
         self.init_logit_scale = init_logit_scale
         self.dtype = dtype
         self.logit_scale = nn.Parameter(torch.empty(()))
+        self.init_logit_bias = init_logit_bias
+        self.logit_bias = (nn.Parameter(torch.empty(()))
+                           if init_logit_bias is not None else None)
         self.tag_head = TagBertHead(embed_dim, tag_layers, tag_hidden_size,
                                     tag_heads, tag_intermediate_size)
         self.tag_labels = Embed(num_tags * 2, tag_hidden_size, init_std=1.0)
@@ -81,6 +85,8 @@ class CLIP(nn.Module):
 
     def init_params(self, generator):
         nn.init.constant_(self.logit_scale, self.init_logit_scale)
+        if self.logit_bias is not None:
+            nn.init.constant_(self.logit_bias, self.init_logit_bias)
 
     # ---- tower wrappers -------------------------------------------------
     def encode_image(self, image, normalize: bool = False, generator=None):
@@ -88,8 +94,9 @@ class CLIP(nn.Module):
         pooled, tokens = self.visual(image, generator)
         return (l2_normalize(pooled) if normalize else pooled), tokens
 
-    def encode_text(self, text, normalize: bool = False):
-        projected, seq = self.text(text)
+    def encode_text(self, text, normalize: bool = False, generator=None):
+        """``generator`` (training) turns an HF tower's dropout on."""
+        projected, seq = self.text(text, generator)
         return (l2_normalize(projected) if normalize else projected), seq
 
     # ---- XTag pieces -----------------------------------------------------
@@ -116,20 +123,25 @@ class CLIP(nn.Module):
     # ---- full forward ----------------------------------------------------
     def forward(self, image, text=None, prompt_table=None, class_ids=None,
                 template_id: int = 0, deterministic: bool = True,
-                generator=None):
+                generator=None, visual_deterministic: bool = False):
         """prompt_table: [T, C, K, ctx] token ids; class_ids: [B].
 
-        ``deterministic=False`` turns on the tag head's and TQN's dropout
-        (the JAX ``__call__``, clip.py:238-247) and the vision tower's patch
-        dropout, whose masks and scores are drawn from ``generator``, a
-        ``torch.Generator`` on the model's device."""
+        ``deterministic=False`` turns on the tag head's, TQN's and an HF
+        text tower's dropout (the JAX ``__call__``, clip.py:238-247) and the
+        vision tower's patch dropout, whose masks and scores are drawn from
+        ``generator``, a ``torch.Generator`` on the model's device, and
+        turns a ResNet tower's BatchNorms to batch statistics (their running
+        ones move). ``visual_deterministic=True`` runs the vision tower
+        alone in eval mode (``--lock-image-freeze-bn-stats``, JAX's
+        clip.py:245-254)."""
         if deterministic:
             generator = None
         elif generator is None:
             raise ValueError("deterministic=False needs a torch.Generator "
                              "for the dropout masks")
         image_features, image_tokens = self.encode_image(
-            image, normalize=True, generator=generator)
+            image, normalize=True,
+            generator=None if visual_deterministic else generator)
         tag_logits = self.tag_forward(image_tokens, generator)
         tag_local, tag_global = self.prepare_tag_indices(tag_logits)
 
@@ -140,10 +152,11 @@ class CLIP(nn.Module):
                     "prompt_table")
             prompts = prompt_table[template_id, class_ids,
                                    combo_index(tag_local)]
-            text_features, text_tokens = self.encode_text(prompts,
-                                                          normalize=True)
+            text_features, text_tokens = self.encode_text(
+                prompts, normalize=True, generator=generator)
         elif text is not None:
-            text_features, text_tokens = self.encode_text(text, normalize=True)
+            text_features, text_tokens = self.encode_text(
+                text, normalize=True, generator=generator)
         else:
             text_features, text_tokens = None, None
 
@@ -160,6 +173,8 @@ class CLIP(nn.Module):
             "image_features_l": None,
             "image_features_g": None,
         }
+        if self.logit_bias is not None:
+            out["logit_bias"] = self.logit_bias
         if self.use_fusion and text_features is not None:
             text_g = text_tokens.mean(dim=1)
             image_g = image_tokens.mean(dim=1)

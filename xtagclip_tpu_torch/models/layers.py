@@ -109,6 +109,88 @@ class Embed(nn.Module):
         return self.embedding[ids]
 
 
+class Conv2d(nn.Module):
+    """flax ``nn.Conv`` over an NCHW stream (cuDNN's layout). The
+    ``kernel`` is kept in torch's [out, in, kh, kw] layout
+    (convert/from_jax.py transposes flax's [kh, kw, in, out]); lecun-normal
+    init as flax's. ``padding`` is an int (symmetric, flax's
+    ``[(p, p)] * 2``) or ``"SAME"`` (flax's default: any odd extra pixel
+    goes after, as XLA pads it)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 padding=0, bias: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.padding = padding
+        self.kernel = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def init_params(self, generator):
+        fan_in = self.kernel[0].numel()
+        std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+        nn.init.trunc_normal_(self.kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        pad = self.padding
+        if pad == "SAME":
+            k, s = self.kernel.shape[-1], self.stride
+            pads = []
+            for size in (x.shape[3], x.shape[2]):  # F.pad order: W, then H
+                total = max((-(-size // s) - 1) * s + k - size, 0)
+                pads += [total // 2, total - total // 2]
+            x, pad = F.pad(x, pads), 0
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.kernel.to(x.dtype), bias, self.stride, pad)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channel
+    dim 1 of an NCHW stream; ``torch.nn.BatchNorm2d`` differs (below).
+
+    With ``train`` it normalizes with the batch statistics, taken in fp32
+    as flax takes them (mean and E[x^2] - mean^2, clamped at 0), and moves
+    the running ones as flax does: ``mean = 0.9 mean + 0.1 batch_mean`` and
+    ``var = 0.9 var + 0.1 batch_var`` with the *biased* batch variance,
+    where torch's BatchNorm2d takes the unbiased one (n / (n - 1) more).
+    Without ``train`` it uses the running statistics. They are buffers
+    named as flax's ``batch_stats`` leaves (``mean``, ``var``), so they
+    travel in ``state_dict`` and checkpoints. The output is in x's dtype."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.register_buffer("mean", torch.zeros(dim))
+        self.register_buffer("var", torch.ones(dim))
+
+    def init_params(self, generator):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x, train: bool = False):
+        x32 = x.float()
+        if train:
+            mean = x32.mean(dim=(0, 2, 3))
+            var = (x32.square().mean(dim=(0, 2, 3))
+                   - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = (x32 - mean[:, None, None]) * mul[:, None, None]
+        return (y + self.bias.float()[:, None, None]).to(x.dtype)
+
+
 class LayerScale(nn.Module):
     """x * gamma, gamma [dim] initialized to ``init_value``
     (layers.py:83-96), in x's dtype."""

@@ -102,8 +102,10 @@ class TextTransformer(nn.Module):
             nn.init.normal_(self.text_projection, 0.0, self.width**-0.5,
                             generator=generator)
 
-    def forward(self, text):
-        """[B, L] token ids -> (projected [B, E], sequence [B, L, D])."""
+    def forward(self, text, generator=None):
+        """[B, L] token ids -> (projected [B, E], sequence [B, L, D]). The
+        blocks draw no random numbers (JAX's are rate-0), so ``generator``
+        changes nothing."""
         seq_len = text.shape[1]
         x = self.token_embedding(text).to(self.dtype)
         x = x + self.positional_embedding[:seq_len].to(x.dtype)

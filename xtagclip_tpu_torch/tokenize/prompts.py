@@ -9,8 +9,12 @@ class word x template — so we pre-tokenize the whole space into an int32 table
 Tokenization is by *fragment splicing*: CLIP BPE segments on a regex whose
 tokens never span a space or letter/punct boundary, so a sentence's ids equal
 the concatenation of its fragments' ids. Building the table costs ~40 encode
-calls instead of 34,560 full tokenizations. Held equal to the JAX
-package's table in tests/test_torch_tokenize.py.
+calls instead of 34,560 full tokenizations. A tokenizer without
+``encode``/``sot_token_id`` (tokenize/hf.py's ``HFTokenizer``, whose subword
+merges may span fragment boundaries) builds the table by rendering every
+prompt and batch-tokenizing it at its own context length, as JAX's
+``_build_full`` does. Held equal to the JAX package's table in
+tests/test_torch_tokenize.py and tests/test_torch_biomedclip.py.
 """
 
 from __future__ import annotations
@@ -37,6 +41,12 @@ PROMPT_TEMPLATES = {
     "itemization": "A {c}, Width: {t0}, Color: {t1}, Pigmentation: {t2}, Surface: {t3}, Irregular Color: {t4}, Irregular Height: {t5}.",
 }
 TEMPLATE_ORDER = ["sentence_1", "sentence_2", "sentence_3", "sentence_4", "itemization"]
+
+
+def render_prompt(template: str, class_word: str, tags: Sequence[str]) -> str:
+    return PROMPT_TEMPLATES[template].format(
+        c=class_word, t0=tags[0], t1=tags[1], t2=tags[2], t3=tags[3],
+        t4=tags[4], t5=tags[5])
 
 
 def _split_template(template_text: str) -> List[str]:
@@ -67,6 +77,8 @@ class PromptTable:
 
     def _build(self) -> np.ndarray:
         tok = self.tokenizer
+        if not (hasattr(tok, "encode") and hasattr(tok, "sot_token_id")):
+            return self._build_full()
         ctx = self.context_length
         sizes = TAG_CATEGORY_SIZES
         offsets = TAG_CATEGORY_OFFSETS
@@ -106,6 +118,23 @@ class PromptTable:
                         ids = ids[:ctx]
                         ids[-1] = tok.eot_token_id
                     out[ti, ci, combo, : len(ids)] = ids
+        return out
+
+    def _build_full(self) -> np.ndarray:
+        """Render and batch-tokenize every (template, class, combo) prompt
+        with the tokenizer's own ``__call__`` (prompts.py:126-150)."""
+        sizes = TAG_CATEGORY_SIZES
+        combos = list(itertools.product(*[range(s) for s in sizes]))
+        out = np.zeros((len(self.templates), len(self.class_words),
+                        len(combos), self.context_length), dtype=np.int32)
+        for ti, tname in enumerate(self.templates):
+            for ci, cw in enumerate(self.class_words):
+                prompts = [
+                    render_prompt(tname, cw, [
+                        self.tag_list[TAG_CATEGORY_OFFSETS[cat] + choice[cat]]
+                        for cat in range(len(sizes))])
+                    for choice in combos]
+                out[ti, ci] = np.asarray(self.tokenizer(prompts), np.int32)
         return out
 
 

@@ -10,8 +10,17 @@ the XTag loss combination of the reference's train_other.py:117-136,
 
 the backward, one optimizer update and the logit_scale clamp. PyTorch runs
 it eagerly: there is no jit, and the gradients live in ``.grad``. The
-CoCa, SigLIP, distillation and frozen-BN branches of the JAX step are not
-ported yet and raise.
+CoCa, SigLIP and distillation branches of the JAX step are not ported yet
+and raise.
+
+A ResNet tower's BatchNorms normalize with batch statistics in the
+train-mode forward and move their running ones in place, as JAX's
+``mutable=["batch_stats"]`` step returns them (loop.py:40-41, 92).
+``lock_image_freeze_bn_stats`` runs the vision tower in eval mode inside
+the step: it normalizes with, and keeps, its running statistics
+(loop.py:67-87). The accumulation step, as JAX's, ignores that flag; each
+of its forwards starts from the step's statistics, and the last
+microbatch's pass-2 update is kept (loop.py:283-288, 380-383).
 
 The accumulation step replays the reference's feature cache
 (train_other.py:140-216): pass 1 computes every microbatch's features
@@ -28,6 +37,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from xtagclip_tpu_torch.convert.from_jax import stats_buffers
 from xtagclip_tpu_torch.losses import asymmetric_loss, clip_loss, dqncos_loss
 from xtagclip_tpu_torch.train.train_state import (
     TrainState,
@@ -35,7 +45,7 @@ from xtagclip_tpu_torch.train.train_state import (
     optax_global_norm,
 )
 
-_UNPORTED = ("coca", "siglip", "lock_image_freeze_bn_stats")
+_UNPORTED = ("coca", "siglip")
 
 
 def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
@@ -55,7 +65,9 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
     out = model(batch["images"], text=batch.get("texts"),
                 prompt_table=prompt_table, class_ids=batch.get("class_ids"),
                 template_id=batch.get("template_id", 0),
-                deterministic=deterministic, generator=generator)
+                deterministic=deterministic, generator=generator,
+                visual_deterministic=bool(args_cfg.get(
+                    "lock_image_freeze_bn_stats")))
     logit_scale = out["logit_scale"]
     contrastive = clip_loss(out["image_features"], out["text_features"],
                             logit_scale)
@@ -131,12 +143,20 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
     def step(state: TrainState, batch, generator):
         model: nn.Module = state.model
         model.zero_grad(set_to_none=True)
+        stats = {n: b.clone() for n, b in stats_buffers(model).items()}
+
+        def restore_stats():
+            with torch.no_grad():
+                for n, b in stats_buffers(model).items():
+                    b.copy_(stats[n])
+
         gen_states = []
         img_f, txt_f = [], []
         with torch.no_grad():  # pass 1: cache features
             for i in range(accum_freq):
                 if not deterministic:
                     gen_states.append(generator.get_state())
+                restore_stats()
                 out = forward(model, micro(batch, i), generator)
                 img_f.append(out["image_features"])
                 txt_f.append(out["text_features"])
@@ -145,6 +165,7 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
             mb = micro(batch, i)
             if not deterministic:
                 generator.set_state(gen_states[i])
+            restore_stats()
             out = forward(model, mb, generator)
             all_img = torch.cat(img_f[:i] + [out["image_features"]]
                                 + img_f[i + 1:])

@@ -73,6 +73,89 @@ def _text_group_of(name: str, num_blocks: int) -> int:
     return 0
 
 
+# timm-family trunks (train_state.py:64-150): block-module names sort into
+# depth order, stage downsamples/merges/pos-embeds group with their stage's
+# first block, final norms join the last block, the head is the last group.
+# The names are the flax tree's trunk children (``blocks_{i}``, ...), which
+# ``_trunk_child`` recovers from the port's names.
+_BLOCK_NAME = re.compile(
+    r"(?:resblocks|blocks)_(\d+)$"          # ViT / EVA / ViTamin transformer
+    r"|stage(\d+)_block(\d+)$"              # swin / fastvit / convnext
+    r"|stage(\d+)_(\d+)$"                   # vitamin MBConv stages
+)
+_BLOCK_PRELUDE = re.compile(
+    r"(?:downsample|merge)(\d+)(?:_.*)?$"   # fastvit/convnext/swin downsample
+    r"|stage(\d+)_(?:downsample|pos_emb).*$"
+)
+_TRUNK_FINAL = ("norm", "ln_post", "final_conv")
+_HEAD_NAMES = ("head_proj", "head_mlp_fc1", "head_mlp_fc2", "head_norm",
+               "fc_norm", "proj")
+
+
+def _block_sort_key(name: str):
+    """Depth-sortable key for a block-ish trunk child, or None."""
+    m = _BLOCK_NAME.fullmatch(name)
+    if m:
+        if m.group(1) is not None:          # (res)blocks_{i}: after conv stages
+            return (100, int(m.group(1)), 1)
+        if m.group(2) is not None:          # stage{s}_block{b}
+            return (int(m.group(2)), int(m.group(3)), 1)
+        return (int(m.group(4)), int(m.group(5)), 1)  # vitamin stage{s}_{b}
+    m = _BLOCK_PRELUDE.fullmatch(name)
+    if m:
+        s = int(next(g for g in m.groups() if g is not None))
+        return (s, -1, 0)                   # groups with the stage's 1st block
+    return None
+
+
+def _trunk_child(rest: str) -> str:
+    """The flax trunk child of a port name under ``visual.trunk.``: an
+    unrolled stack's ``blocks.{i}`` is flax's ``blocks_{i}``."""
+    parts = rest.split(".")
+    if len(parts) > 2 and parts[1].isdigit():
+        return f"{parts[0]}_{parts[1]}"
+    return parts[0]
+
+
+def _trunk_groups(children):
+    """child name -> group ordinal for a trunk's children; returns
+    (mapping, number of blocks) (train_state.py:103-120)."""
+    keyed = [(k, _block_sort_key(k)) for k in dict.fromkeys(children)]
+    blocks = sorted((key, name) for name, key in keyed if key is not None)
+    # preludes (key[2] == 0) share the ordinal of the next real block
+    mapping, ordinal = {}, -1
+    for key, name in blocks:
+        if key[2] == 1:
+            ordinal += 1
+            mapping[name] = ordinal
+        else:
+            mapping[name] = ordinal + 1
+    nb = ordinal + 1
+    for name in mapping:  # clamp trailing preludes
+        mapping[name] = min(mapping[name], max(nb - 1, 0))
+    return mapping, nb
+
+
+def _timm_visual_group_of(rest: str, groups) -> tuple:
+    """(group, total groups) of a timm tower's parameter (its name without
+    "visual."), given the trunk's ``_trunk_groups`` (train_state.py:123-142)."""
+    mapping, nb = groups
+    total = nb + 2
+    parts = rest.split(".")
+    if parts[0] == "trunk" and len(parts) > 1:
+        child = _trunk_child(rest[len("trunk."):])
+        if child in mapping:
+            g = mapping[child]
+            # the last block and the final norm form one group, like ln_post
+            return (min(g, nb - 1) + 1 if g < nb - 1 else nb, total)
+        if child in _TRUNK_FINAL:
+            return (nb, total)
+        return (0, total)  # patch_embed / cls_token / pos_embed / stem
+    if parts[0] in _HEAD_NAMES:
+        return (nb + 1, total)
+    return (0, total)
+
+
 def trainable_mask(params: Dict[str, torch.Tensor], lock_image: bool = False,
                    lock_image_unlocked_groups: int = 0,
                    lock_text: bool = False,
@@ -80,25 +163,32 @@ def trainable_mask(params: Dict[str, torch.Tensor], lock_image: bool = False,
                    lock_text_freeze_layer_norm: bool = False,
                    num_vision_blocks: Optional[int] = None,
                    num_text_blocks: Optional[int] = None) -> Dict[str, bool]:
-    """True = trainable: LiT-style tower locking (train_state.py:158-215)
-    for the ViT and text-transformer towers."""
+    """True = trainable: LiT-style tower locking (train_state.py:158-215).
+    A timm tower's groups come from its trunk's children
+    (``_trunk_groups``). With ``lock_text``, a text LayerNorm stays
+    trainable only where its name holds ``.ln_`` or ``LayerNorm``, as
+    JAX's ``/ln_`` rule has it, so a BERT tower's ``embeddings_ln``,
+    ``out_ln`` and ``output_ln`` lock with the rest."""
     def count_blocks(tower):
         return len({_block_index(n) for n in params
                     if n.startswith(f"{tower}.transformer.resblocks.")})
 
     nv = num_vision_blocks or count_blocks("visual")
     nt = num_text_blocks or count_blocks("text")
-    if lock_image and nv == 0 and any(n.startswith("visual.trunk.")
-                                      for n in params):
-        raise NotImplementedError(
-            "locking a timm-trunk vision tower is not ported yet")
+    trunk = [_trunk_child(n[len("visual.trunk."):]) for n in params
+             if n.startswith("visual.trunk.")]
+    timm_groups = _trunk_groups(trunk) if nv == 0 and trunk else None
 
     def rule(p):
         if lock_image and p.startswith("visual."):
             if lock_image_unlocked_groups == 0:
                 return False
-            g = _vit_group_of(p[len("visual."):], nv)
-            return g >= nv + 2 - lock_image_unlocked_groups
+            if timm_groups is not None:
+                g, total = _timm_visual_group_of(p[len("visual."):],
+                                                 timm_groups)
+            else:
+                g, total = _vit_group_of(p[len("visual."):], nv), nv + 2
+            return g >= total - lock_image_unlocked_groups
         if lock_text and p.startswith("text."):
             if not lock_text_freeze_layer_norm and (
                     ".ln_" in p or "LayerNorm" in p
