@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--coca-only]
 
 Drives the port's main paths at full width in bf16 with a seeded random
 init, through the entry points a user calls: the XTag ViT-B-32
@@ -26,7 +26,11 @@ fused MLP), in phases that each print one JSON line:
    rtol = 1e-2 (one bf16 ULP at output scale); the image normalize (kernel
    #5) within one bf16 ULP on every element, or 2^-22 for fp32 output, at
    the main path's batch, at a ragged odd-sized one, at the 336 px
-   eval's 64 x 336 x 336 and at the baselines' 4 x 224 x 224; the device
+   eval's 64 x 336 x 336 and at the baselines' 4 x 224 x 224; every
+   kernel also at coca_ViT-L-14's shapes (its decoder's causal halves at
+   B 128 x L 75 and generation's [8 or 48, 30] buffers, the MLP half at
+   its decoder and text rows, ViT-L/14's flash attention and fused MLP at
+   L = 257, the normalize at 128 x 224 x 224); the device
    time of kernel and plain version (torch.profiler: the summed durations
    of the kernels one call runs, over 20 calls, so a wrapper whose host
    side outlasts its kernel is timed by its kernel, and the kernel's split
@@ -162,7 +166,20 @@ fused MLP), in phases that each print one JSON line:
    card, 2 epochs of batch 4 in fp32: checkpoint, metrics, no fallback,
    one #5 launch per batch, the best epoch's eval logits within 1e-3 of
    the CPU's on the same weights (TF32 off); epoch seconds, samples/s and
-   peak memory printed. The .pt is deleted after.
+   peak memory printed. The .pt is deleted after;
+18. coca: coca_ViT-L-14 (638M parameters) in bf16 from a seeded init:
+   ``models.coca.generate`` on 8 seeded images (seq_len 30) by top-k,
+   top-p and grouped beam search at JAX's defaults, one warm-up and 3
+   timed calls each (captions/s, p50 ms per batch, decoded captions,
+   launches per call against the vision blocks once and the text tower
+   and decoder per decoder step); one decoder step's logits kernels on vs
+   off (see phase_coca) and the image encode at cosine >= 0.999;
+19. coca_train: open_clip README's coca_ViT-L-14 MSCOCO fine-tune flags
+   through ``cli.main.main`` at batch 128 on 896 seeded PNG + caption CSV
+   rows (2 warm-up + 5 timed steps; samples/s, p50 step ms, peak memory,
+   the checkpoint), evaluate on 256 more (eval img/s), launches per step
+   and per eval batch asserted, and one step kernels on vs off at batch 32
+   at phase 6's bars.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -171,12 +188,17 @@ batches of L + 64 rows): outputs finite and equal bit for bit to those of
 the same inputs copied contiguous.
 
 With ``--profile`` it also traces the trainer's second plain epoch, 3
-CLIPA stage-2 train steps of 256, the biomedclip_scar epoch, and then one
+CLIPA stage-2 train steps of 256, the biomedclip_scar epoch, one CoCa
+generate call (top-k) and 3 CoCa train steps of 128, and then one
 precompute, 20 serve batches and 5 train steps of each model,
 with torch.profiler, and prints, for each window, its wall
 time, the device's kernel time, the device's busy share (kernel time over
 wall time; the kernels run on one stream) and the device time per kernel,
 split into the port's hand-written kernels and everything else.
+
+``--coca-only`` runs the build, the kernel rows and phases 19 and 18
+alone, then prints the seconds, the kernel table with those phases'
+launches and the card.
 
 Then each phase's seconds, the kernel table (every kernel's launches on
 the main paths, its times and its bound), the card's name and power limit
@@ -253,6 +275,28 @@ EVAL_IMAGE_SIZE = 336
 # classes x 80 templates (train/zero_shot.py) at the config's 32 tokens
 EVAL_CHUNK_PROMPTS = 10 * 80
 EVAL_L = (EVAL_IMAGE_SIZE // 14) ** 2 + 1
+# coca_ViT-L-14 (open_clip's config behind laion2b_s13b_b90k and the
+# mscoco_finetuned checkpoints; 638M parameters): captions at batch 8 and
+# seq_len 30 by the three generation methods at JAX's defaults (top-k 1,
+# top-p 0.1, 6 beams in 3 groups), and open_clip README's MSCOCO
+# fine-tune recipe through cli.main at its batch of 128 (2 warm-up + 5
+# timed steps), then evaluate on a val CSV; the kernels-on/off step runs
+# at a smaller batch (the plain attention's fp32 scores of 24 ViT-L
+# blocks at 128 would not fit beside two models)
+COCA_MODEL = "coca_ViT-L-14"
+COCA_GEN_BATCH, COCA_SEQ_LEN, COCA_GEN_RUNS = 8, 30, 3
+COCA_BEAMS = 6
+COCA_METHODS = {"top_k": dict(generation_type="top_k"),
+                "top_p": dict(generation_type="top_p"),
+                "beam_search": dict(generation_type="beam_search",
+                                    num_beams=COCA_BEAMS,
+                                    num_beam_groups=3)}
+COCA_BATCH = 128
+COCA_WARMUP, COCA_STEPS = 2, 5
+COCA_VAL_ROWS = 256
+COCA_PATH_BATCH = 32
+COCA_L = (IMAGE_SIZE // 14) ** 2 + 1  # ViT-L/14's 257 tokens
+COCA_TEXT_L = 77  # 76 tokens and the class token
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -370,7 +414,14 @@ def _kernel_cases(gen):
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
             ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True),
             ("ViT-H-14 BigVision text", EVAL_CHUNK_PROMPTS, 32, 1024, 16,
-             False)):
+             False),
+            # CoCa's decoder self-attention: training (75 positions), and
+            # a generation step's [B, 30] buffer (top-k/top-p, beams)
+            ("CoCa decoder", COCA_BATCH, COCA_TEXT_L - 2, 768, 12, True),
+            ("CoCa decoder generation", COCA_GEN_BATCH, COCA_SEQ_LEN, 768,
+             12, True),
+            ("CoCa decoder generation", COCA_GEN_BATCH * COCA_BEAMS,
+             COCA_SEQ_LEN, 768, 12, True)):
         x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
@@ -394,7 +445,20 @@ def _kernel_cases(gen):
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, ("gelu",)),
             ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, ("gelu",)),
             ("ViT-H-14 BigVision text", EVAL_CHUNK_PROMPTS, 32, 1024,
-             ("gelu",))):
+             ("gelu",)),
+            # CoCa: the decoder's self- and cross-attention blocks and the
+            # masked text tower in training; a generation step's decoder
+            # (30) and text (31) rows, top-k/top-p and beams
+            ("CoCa decoder", COCA_BATCH, COCA_TEXT_L - 2, 768, ("gelu",)),
+            ("CoCa text", COCA_BATCH, COCA_TEXT_L, 768, ("gelu",)),
+            ("CoCa decoder generation", COCA_GEN_BATCH, COCA_SEQ_LEN, 768,
+             ("gelu",)),
+            ("CoCa text generation", COCA_GEN_BATCH, COCA_SEQ_LEN + 1, 768,
+             ("gelu",)),
+            ("CoCa decoder generation", COCA_GEN_BATCH * COCA_BEAMS,
+             COCA_SEQ_LEN, 768, ("gelu",)),
+            ("CoCa text generation", COCA_GEN_BATCH * COCA_BEAMS,
+             COCA_SEQ_LEN + 1, 768, ("gelu",))):
         hd = 4 * d
         n = batch * l
         for act in acts:
@@ -411,7 +475,8 @@ def _kernel_cases(gen):
             ("text", TRAIN_BATCH, 77, 512, 8, True),
             ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True),
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
-            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True)):
+            ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True),
+            ("CoCa decoder", COCA_BATCH, COCA_TEXT_L - 2, 768, 12, True)):
         args = (rnd((b, l, d), dtype=bf), rnd((b, l, d), dtype=bf),
                 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, 3 * d), d**-0.5, bf),
                 rnd(3 * d, 0.1), rnd((d, d), d**-0.5, bf),
@@ -435,7 +500,8 @@ def _kernel_cases(gen):
 
     for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3),
                   (CLIPA_EVAL_BATCH, EVAL_IMAGE_SIZE, EVAL_IMAGE_SIZE, 3),
-                  (BASELINE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)):
+                  (BASELINE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+                  (COCA_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)):
         images = torch.randint(0, 256, shape, generator=gen, device=dev,
                                dtype=torch.uint8)
         n = images.numel()
@@ -461,7 +527,10 @@ FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (CLIPA_BATCH, 16, 257, 80), (CLIPA_BATCH, 16, 37, 80),
                (CLIPA_EVAL_BATCH, 16, EVAL_L, 80),
                (2, 4, 257, 72), (2, 4, 257, 88), (2, 4, 257, 104),
-               (2, 4, 257, 112))
+               (2, 4, 257, 112),
+               # coca_ViT-L-14's vision tower: the recipe's batch, and a
+               # generation batch's encode
+               (COCA_BATCH, 16, COCA_L, 64), (COCA_GEN_BATCH, 16, COCA_L, 64))
 
 
 def _gap_kernel_cases(gen):
@@ -520,6 +589,11 @@ def _gap_kernel_cases(gen):
                               # the 336 px eval's batch of 64 (577 tokens:
                               # 36928 rows, no multiple of 128)
                               (CLIPA_EVAL_BATCH * EVAL_L, 1280, 5120,
+                               ("gelu",)),
+                              # coca_ViT-L-14's vision MLP at the recipe's
+                              # batch and a generation batch
+                              (COCA_BATCH * COCA_L, 1024, 4096, ("gelu",)),
+                              (COCA_GEN_BATCH * COCA_L, 1024, 4096,
                                ("gelu",))):
         for act in acts:
             x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
@@ -1059,8 +1133,10 @@ def phase_train(card: str, ptable, path: dict):
 
 # Parameters whose exact gradient is 0, left out of the gradient check: a
 # key bias adds one constant to each query's scores, which the softmax
-# removes, so both sides hold rounding noise only.
-ZERO_GRAD_PARAMS = ("crossattention.key.bias",)
+# removes, so both sides hold rounding noise only: the tag head's, and
+# CoCa's attentional pooler's (its own k_proj; a fused in_proj's bias
+# holds the q and v biases beside it)
+ZERO_GRAD_PARAMS = ("crossattention.key.bias", "attn_pool.attn.k_proj.bias")
 
 
 def _bf16_ulp_shift(x, steps: int):
@@ -3241,6 +3317,395 @@ def phase_baselines(card: str, tmp: str, ckpt: str) -> dict:
     return total
 
 
+# launches of each wrapper in coca_ViT-L-14's paths. Per train step (no
+# checkpointing): the 24 ViT-L/14 blocks (flash attention forward and
+# backward at dh 64, L = 257; the fused MLP), the 12 text blocks' MLP
+# halves (their attention core is plain under the per-sample pad mask),
+# the 12 decoder self-attention blocks (both halves and the attention
+# half's backward), the 12 cross-attention blocks' MLP halves; one
+# normalize. Per image encode (once per generate call and per eval batch):
+# the vision blocks and one normalize. Per decoder step of generation (the
+# text tower and the decoder over the whole [B, 30] buffer): 12 attention
+# halves and 36 MLP halves. Per eval batch the text tower adds 12 MLP
+# halves.
+COCA_PER_STEP = dict(flash_mha=24, flash_mha_bwd=24, fused_mlp=24,
+                     fused_mlp_half=36, fused_attn_half=12,
+                     fused_attn_half_bwd=12, normalize_images=1)
+COCA_PER_ENCODE = dict(flash_mha=24, fused_mlp=24, normalize_images=1)
+COCA_PER_DECODE = dict(fused_attn_half=12, fused_mlp_half=36)
+COCA_PER_EVAL_BATCH = dict(COCA_PER_ENCODE, fused_mlp_half=12)
+
+
+def _sum_counts(*parts) -> dict:
+    """``_want`` of the summed {wrapper: launches} of ``parts``."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return _want(**out)
+
+
+def _coca_images(n: int, seed: int):
+    """``n`` seeded uint8 224x224 images, on the card."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(
+        0, 256, (n, IMAGE_SIZE, IMAGE_SIZE, 3), dtype=np.uint8)).to("cuda")
+
+
+def _caption(tok, ids) -> str:
+    """The text of a generated row: the ids after SOT up to EOT."""
+    ids = [int(i) for i in ids[1:]]
+    if tok.eot_token_id in ids:
+        ids = ids[:ids.index(tok.eot_token_id)]
+    return tok.decode([i for i in ids if i != 0]).strip()
+
+
+def phase_coca(card: str, profile: bool = False) -> dict:
+    """coca_ViT-L-14 in bf16 from a seeded init: ``generate`` on 8 seeded
+    images by each method at JAX's defaults (seq_len 30), one warm-up and
+    COCA_GEN_RUNS timed calls each (captions/s, p50 ms per batch, the
+    launches per call against COCA_PER_ENCODE + COCA_PER_DECODE per decoder
+    step, decoded captions); then one decoder step's logits (generate's
+    step at the last position of the top-k buffer, on the plain encode's
+    image embeddings) with the kernels on against the plain versions from
+    the same weights: per-row cosine >= 0.999 and max abs diff <= 5e-2,
+    or within twice the plain step's own move when its image embeddings
+    move one bf16 step up or down (the noise floor of 36 bf16 blocks over
+    8 x 49408 logits; phase_train_path judges gradients so), the plain
+    side launching no kernel; and the image
+    encode's features and embeddings at cosine >= 0.999 (the serve
+    path's bar). The logits of the kernels' step on its own encode are
+    printed beside them."""
+    from xtagclip_tpu_torch.factory import (
+        cast_for_compute,
+        create_model,
+        get_tokenizer,
+    )
+    from xtagclip_tpu_torch.models.coca import SOT_ID, generate
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+
+    t0 = time.perf_counter()
+    model = create_model(COCA_MODEL, precision="bf16", init_seed=0)
+    cast_for_compute(model, torch.bfloat16)
+    model.eval()
+    build_s = time.perf_counter() - t0
+    tok = get_tokenizer(COCA_MODEL)
+    u8 = _coca_images(COCA_GEN_BATCH, 31)
+    counts, methods, captions, outputs = {}, {}, {}, {}
+    for name, kw in COCA_METHODS.items():
+        def run():
+            images = preprocess.normalize_images(u8, dtype=torch.bfloat16)
+            return generate(model, images, seq_len=COCA_SEQ_LEN, **kw)
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        _reset_counts()
+        times = []
+        for _ in range(COCA_GEN_RUNS):
+            t1 = time.perf_counter()
+            tokens = run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        c = counts[f"coca_{name}"] = _counts()
+        steps = c["fused_attn_half"] // COCA_PER_DECODE["fused_attn_half"]
+        want = _sum_counts(_scaled(COCA_PER_ENCODE, COCA_GEN_RUNS),
+                           _scaled(COCA_PER_DECODE, steps))
+        p50 = statistics.median(times)
+        outputs[name] = tokens
+        captions[name] = [_caption(tok, t) for t in tokens[:2]]
+        methods[name] = {
+            "seconds": times, "p50_ms_per_batch": 1e3 * p50,
+            "captions_per_s": COCA_GEN_BATCH / p50,
+            "decoder_steps_per_call": steps / COCA_GEN_RUNS,
+            "tokens_shape": list(tokens.shape),
+            "launches": c, "launches_ok": c == want and steps >= 1,
+            "ok": (tokens.shape[0] == COCA_GEN_BATCH
+                   and 2 <= tokens.shape[1] <= COCA_SEQ_LEN
+                   and bool((tokens[:, 0] == SOT_ID).all())
+                   and bool(((tokens >= 0) & (tokens < 49408)).all()))}
+    if profile:
+        def profiled():
+            generate(model, preprocess.normalize_images(
+                u8, dtype=torch.bfloat16), seq_len=COCA_SEQ_LEN)
+
+        _profile_window(f"{COCA_MODEL}: generate top_k, batch "
+                        f"{COCA_GEN_BATCH}, seq_len {COCA_SEQ_LEN}",
+                        profiled, card, top=25)
+    # one decoder step (generate's step: the text tower and the decoder
+    # over the buffer, given the image embeddings), kernels on vs plain,
+    # on the last top-k buffer and the same image embeddings; the image
+    # encode held apart, as the serve path's features are
+    plain = copy.deepcopy(model)
+    set_use_kernels(plain, False)
+    buf = np.zeros((COCA_GEN_BATCH, COCA_SEQ_LEN), np.int32)
+    buf[:, :outputs["top_k"].shape[1]] = outputs["top_k"]
+    text = torch.from_numpy(buf).long().to("cuda")
+    latent = torch.zeros((1,), device="cuda")
+    with torch.inference_mode():
+        def step_logits(net, embs):
+            return net(None, text, image_latent=latent, image_embs=embs,
+                       output_labels=False,
+                       logits_row=COCA_SEQ_LEN - 2)["logits"]
+
+        _reset_counts()
+        p_lat, p_embs = plain.encode_image(
+            preprocess.normalize_images_reference(u8, dtype=torch.bfloat16))
+        logits = {"plain": step_logits(plain, p_embs)}
+        torch.cuda.synchronize()
+        counts_plain = _counts()
+        logits["kernels"] = step_logits(model, p_embs)
+        # the plain step's own move under a one-ULP change of its input
+        noise = max((step_logits(plain, _bf16_ulp_shift(p_embs, n))
+                     - logits["plain"]).abs().max().item() for n in (1, -1))
+        k_lat, k_embs = model.encode_image(
+            preprocess.normalize_images(u8, dtype=torch.bfloat16))
+        own = step_logits(model, k_embs)
+    err = (logits["kernels"] - logits["plain"]).abs().max().item()
+    cos = _cosine(logits["kernels"], logits["plain"]).min().item()
+    enc_cos = min(_cosine(k_lat, p_lat).min().item(),
+                  _cosine(k_embs, p_embs).min().item())
+    step = {"logits_max_abs_err": err, "logits_cos_min": cos,
+            "logits_max_abs": logits["plain"].abs().max().item(),
+            "plain_one_ulp_noise_max_abs": noise,
+            "image_encode_cos_min": enc_cos,
+            "own_encode_logits_max_abs_err":
+                (own - logits["plain"]).abs().max().item(),
+            "own_encode_logits_cos_min":
+                _cosine(own, logits["plain"]).min().item(),
+            "plain_side_launches": counts_plain,
+            "finite": bool(torch.isfinite(own).all().item()),
+            "ok": (err <= 5e-2 or err <= 2 * noise) and cos >= 0.999
+            and enc_cos >= 0.999 and not any(counts_plain.values())}
+    step["ok"] = step["ok"] and step["finite"]
+    del plain
+    ok = step["ok"] and all(v["ok"] and v["launches_ok"]
+                            for v in methods.values())
+    result = {"phase": "coca", "card": card, "model": COCA_MODEL,
+              "weights": "seeded random init, bf16",
+              "params": sum(p.numel() for p in model.parameters()),
+              "build_s": build_s, "batch": COCA_GEN_BATCH,
+              "seq_len": COCA_SEQ_LEN, "methods": methods,
+              "captions": captions, "decoder_step": step, "ok": ok}
+    _emit(result)
+    del model
+    if not ok:
+        raise AssertionError(f"coca phase failed its checks: {result}")
+    return counts
+
+
+def _coca_texts(n: int, seed: int):
+    """``n`` seeded captions of five to twelve words, BPE ids at CoCa's
+    76 tokens (pad tails of different lengths)."""
+    from xtagclip_tpu_torch.factory import get_tokenizer
+
+    rng = np.random.default_rng(seed)
+    tok = get_tokenizer(COCA_MODEL)
+    return torch.from_numpy(tok([
+        " ".join(rng.choice(CLIPA_WORDS, rng.integers(5, 13)))
+        for _ in range(n)]).astype(np.int64))
+
+
+def _coca_train_args(logs: str, train_csv: str, val_csv: str) -> list:
+    """open_clip README's coca_ViT-L-14 MSCOCO fine-tune flags (batch
+    128, lr 1e-5, wd 0.1, warmup 1000, contrastive weight 0, caption
+    weight 1, CSV data) through cli.main, for one epoch of the seeded CSV,
+    with --val-data so that evaluate runs at its end."""
+    return ["--model", COCA_MODEL, "--train-data", train_csv,
+            "--val-data", val_csv, "--dataset-type", "csv",
+            "--csv-img-key", "filepath", "--csv-caption-key", "title",
+            "--batch-size", str(COCA_BATCH), "--lr", "1e-5", "--wd", "0.1",
+            "--warmup", "1000", "--coca-contrastive-loss-weight", "0",
+            "--coca-caption-loss-weight", "1", "--precision", "amp_bf16",
+            "--epochs", "1", "--workers", "4", "--log-every-n-steps", "1",
+            "--logs", logs, "--name", "coca", "--seed", "0"]
+
+
+def phase_coca_train(card: str, tmp: str, profile: bool = False) -> dict:
+    """The MSCOCO fine-tune recipe of coca_ViT-L-14 through cli.main at
+    full width and depth from a seeded init, on a seeded CSV of
+    (COCA_WARMUP + COCA_STEPS) x 128 224x224 PNGs and captions, then its
+    evaluate at the epoch's end on COCA_VAL_ROWS more, and one more
+    evaluate timed (eval img/s). Samples/s and p50 step ms over the timed
+    steps, peak memory, the losses, the checkpoint's bytes and seconds;
+    launches against COCA_PER_STEP per step and COCA_PER_EVAL_BATCH per
+    eval batch. Then one step with the kernels on and off from the same
+    weights and batch (COCA_PATH_BATCH, both loss weights on), at the
+    train-path bars (phase_train_path)."""
+    import gc
+
+    from xtagclip_tpu_torch.cli import main as coca_main
+    from xtagclip_tpu_torch.data.datasets import CsvDataset
+    from xtagclip_tpu_torch.data.registry import _loader
+    from xtagclip_tpu_torch.data.transforms import (
+        PreprocessCfg,
+        image_transform_eval,
+    )
+    from xtagclip_tpu_torch.factory import get_tokenizer
+    from xtagclip_tpu_torch.train.evaluate import evaluate
+    from xtagclip_tpu_torch.train.logger import close_logging
+    from xtagclip_tpu_torch.train.params import parse_args
+
+    logs = os.path.join(tmp, "coca")
+    rows = (COCA_WARMUP + COCA_STEPS) * COCA_BATCH
+    t0 = time.perf_counter()
+    train_csv = _write_val_csv(os.path.join(tmp, "coca_train"), rows,
+                               np.random.default_rng(41))
+    val_csv = _write_val_csv(os.path.join(tmp, "coca_val"), COCA_VAL_ROWS,
+                             np.random.default_rng(42))
+    write_s = time.perf_counter() - t0
+    counts = {}
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = coca_main.main(_coca_train_args(logs, train_csv, val_csv))
+        wall = time.perf_counter() - t0
+        c = counts["coca_trainer"] = _counts()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 1e9
+        rec = out["epochs"][0]
+        tm = rec["train"]
+        steps = len(tm["interval_step_s"])
+        val_batches = -(-COCA_VAL_ROWS // COCA_BATCH)
+        timed = tm["interval_step_s"][COCA_WARMUP:]
+        model = out["state"].model
+        tag = os.path.join(logs, "coca", "checkpoints", "epoch_1")
+        train = {
+            "wall_s": wall, "steps": steps, "step_s": tm["interval_step_s"],
+            "samples_per_s": COCA_BATCH * len(timed) / sum(timed),
+            "p50_step_ms": 1e3 * statistics.median(timed),
+            "loss": tm["loss"], "caption_loss": tm["caption_loss"],
+            "contrastive_loss": tm["contrastive_loss"],
+            "grad_norm": tm["grad_norm"], "peak_mem_gb": peak,
+            "resident_before_gb": resident / 1e9,
+            "data_wait_ms": [1e3 * t for t in tm["data_step_s"]],
+            "checkpoint_bytes": _ckpt_bytes(tag),
+            "checkpoint_save_s": rec["checkpoint_s"],
+            "eval_in_cli": rec["eval"], "eval_in_cli_s": rec["eval_s"],
+            "launches": c,
+            "launches_ok": c == _sum_counts(
+                _scaled(COCA_PER_STEP, steps),
+                _scaled(COCA_PER_EVAL_BATCH, val_batches)),
+            "finite": all(math.isfinite(tm[k]) for k in
+                          ("loss", "caption_loss", "grad_norm"))}
+        shutil.rmtree(logs, ignore_errors=True)
+        if profile:
+            _profile_coca_step(card, out["state"])
+        # evaluate again, warm (eval img/s)
+        args = parse_args(["--val-data", val_csv, "--dataset-type", "csv",
+                           "--batch-size", str(COCA_BATCH), "--workers", "4",
+                           "--model", COCA_MODEL], include_xtag=False)
+        args.checkpoint_path = None
+        tok = get_tokenizer(COCA_MODEL)
+        data = {"val": _loader(CsvDataset(
+            val_csv, image_transform_eval(PreprocessCfg(
+                **model.preprocess_cfg)), img_key="filepath",
+            caption_key="title", tokenizer=tok), args, is_train=False)}
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = evaluate(model, data, 1, args, tok)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        c = counts["coca_eval"] = _counts()
+        ev = {"rows": COCA_VAL_ROWS, "seconds": eval_s,
+              "img_per_s": COCA_VAL_ROWS / eval_s, "metrics": metrics,
+              "launches": c,
+              "launches_ok": c == _want(**_scaled(COCA_PER_EVAL_BATCH,
+                                                  val_batches)),
+              "finite": all(math.isfinite(v) for v in metrics.values()
+                            if isinstance(v, float))}
+        del out, model, data
+        close_logging()
+        gc.collect()
+        torch.cuda.empty_cache()
+        path = _coca_train_path()
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+        for d in ("coca_train", "coca_val"):
+            shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (train["launches_ok"] and train["finite"]
+          and steps == COCA_WARMUP + COCA_STEPS and ev["launches_ok"]
+          and ev["finite"] and ev["metrics"]["num_samples"] == COCA_VAL_ROWS
+          and path["ok"])
+    result = {"phase": "coca_train", "card": card, "model": COCA_MODEL,
+              "recipe": "open_clip README coca_ViT-L-14 MSCOCO fine-tune "
+                        "via cli.main",
+              "weights": "seeded random init", "batch": COCA_BATCH,
+              "cuts": "1 epoch of 896 seeded PNG rows; kernels-on/off step "
+                      f"at batch {COCA_PATH_BATCH}",
+              "grad_checkpointing": False, "csv_write_s": write_s,
+              "train": train, "eval": ev, "train_path": path, "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"coca_train phase failed its checks: {result}")
+    return counts
+
+
+def _coca_train_path() -> dict:
+    """One CoCa train step (contrastive weight 1, caption weight 2, JAX's
+    defaults, so every tower's gradient is held) at COCA_PATH_BATCH with
+    the kernels on and off from the same weights and batch, and the plain
+    step on images one bf16 step up and down for each gradient's noise
+    floor: phase_train_path's bars (_judge_steps)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    kernels = create_model(COCA_MODEL, precision="bf16", init_seed=1)
+    plain = copy.deepcopy(kernels)
+    set_use_kernels(plain, False)
+    u8 = _coca_images(COCA_PATH_BATCH, 43)
+    texts = _coca_texts(COCA_PATH_BATCH, 44).to("cuda")
+    batch = {"images": preprocess.normalize_images(u8, dtype=torch.bfloat16),
+             "texts": texts}
+    p_images = preprocess.normalize_images_reference(u8,
+                                                     dtype=torch.bfloat16)
+    start = copy.deepcopy(plain.state_dict())
+    runs = (("kernels", kernels, batch),
+            ("plain", plain, {"images": p_images, "texts": texts}),
+            ("plain_up", plain, {"images": _bf16_ulp_shift(p_images, 1),
+                                 "texts": texts}),
+            ("plain_down", plain, {"images": _bf16_ulp_shift(p_images, -1),
+                                   "texts": texts}))
+    step = make_train_step({"coca": True, "coca_caption_loss_weight": 2.0,
+                            "coca_contrastive_loss_weight": 1.0})
+    out = _steps_vs_plain(runs, step, plain, start)
+    judged, names = _judge_steps(out)
+    judged["batch"] = COCA_PATH_BATCH
+    del kernels, plain, start, out
+    return judged
+
+
+def _profile_coca_step(card: str, state, n_steps: int = 3) -> None:
+    """torch.profiler window of ``n_steps`` CoCa train steps of
+    COCA_BATCH (the CLI's step) on seeded batches already on the card."""
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    u8 = _coca_images(COCA_BATCH, 45)
+    texts = _coca_texts(COCA_BATCH, 46).to("cuda")
+    step = make_train_step({"coca": True, "coca_caption_loss_weight": 1.0,
+                            "coca_contrastive_loss_weight": 0.0})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run():
+        nonlocal state
+        for _ in range(n_steps):
+            batch = {"images": preprocess.normalize_images(
+                u8, dtype=torch.bfloat16), "texts": texts}
+            state, _ = step(state, batch, gen)
+
+    _profile_window(f"{COCA_MODEL}: train {n_steps} steps of {COCA_BATCH}",
+                    run, card, top=25)
+
+
 def phase_rn50(card: str) -> dict:
     """The CLIP RN50 tower (models/resnet.py) in fp32 at batch 32 on the
     card, held to the CPU's forward on the same weights: pooled features
@@ -3499,6 +3964,9 @@ def main(argv=()) -> int:
     ap.add_argument("--clipa-batch-probe", action="store_true",
                     help="run only the build and the search for the "
                          "largest CLIPA stage-2 batch that fits")
+    ap.add_argument("--coca-only", action="store_true",
+                    help="run only the build, the kernel rows and the "
+                         "coca_train and coca phases")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3530,6 +3998,21 @@ def main(argv=()) -> int:
             seconds[name] = time.perf_counter() - t0
 
     entries = timed("kernels", phase_kernels, card)
+    if args.coca_only:
+        with tempfile.TemporaryDirectory(prefix="xtag_coca_") as tmp:
+            paths = timed("coca_train", phase_coca_train, card, tmp,
+                          profile=args.profile)
+            paths.update(timed("coca", phase_coca, card,
+                               profile=args.profile))
+        _emit({"phase": "seconds", "card": card, "build": build_s,
+               **seconds})
+        for e in entries:
+            e["launches_by_path"] = {k: v[e["name"]] for k, v in
+                                     paths.items()}
+            e["launches"] = sum(e["launches_by_path"].values())
+        _emit({"kernels": entries})
+        print(card, flush=True)
+        return 0
     timed("flash_poison", phase_flash_poison, card)
     b32, gap = _paths()["b32"], _paths()["gap"]
     with tempfile.TemporaryDirectory(prefix="xtag_smoke_") as tmp:
@@ -3563,6 +4046,9 @@ def main(argv=()) -> int:
                                          profile=args.profile)
         paths["baselines"] = timed("baselines", phase_baselines, card, tmp,
                                    os.path.join(tmp, "biomedclip.pt"))
+        paths.update(timed("coca", phase_coca, card, profile=args.profile))
+        paths.update(timed("coca_train", phase_coca_train, card, tmp,
+                           profile=args.profile))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

@@ -442,7 +442,7 @@ def test_unported_messages_name_existing_roadmap_items():
                        "--remote-sync", "s3://x", "--pretrained",
                        "laion2b_s32b_b79k", "--model", "coca_ViT-B-32"])
     messages = unported(args)
-    assert len(messages) == 6
+    assert len(messages) == 5  # --model coca_* is ported (CoCa's slice)
     items = _queue1_items()
     for msg in messages:
         named = [int(n) for n in re.findall(r"Queue 1 item (\d+)", msg)]
@@ -452,6 +452,9 @@ def test_unported_messages_name_existing_roadmap_items():
                          "0.5", "0.5", "0.5", "--torchscript", "--trace",
                          "--grad-checkpointing", "--model", "ViT-B-32"])
     assert unported(ported) == []
+    coca = parse_args(["--model", "coca_ViT-L-14", "--coca-caption-loss-"
+                       "weight", "1", "--coca-contrastive-loss-weight", "0"])
+    assert unported(coca) == []
 
 
 # -- (g) the CLI's two stages (tests/test_clipa_path.py, in the port) --------

@@ -288,7 +288,7 @@ def _block_pair(x, jax_paths):
         ref = jax.jit(jblk.apply)({"params": params}, xb)
     blk = ResidualAttentionBlock(d, h)
     load_jax_params(blk, jax.tree.map(np.asarray, params))
-    assert not blk.takes_fused_halves(x.shape)
+    assert blk.route(x.shape) == "non_fused"
     return ref, blk
 
 
@@ -357,7 +357,7 @@ def test_block_route_is_chosen_by_shape(l, masked, fused, monkeypatch):
     with torch.inference_mode():
         out = blk(x, attn_mask=mask)
     assert torch.isfinite(out.float()).all()
-    assert blk.takes_fused_halves(x.shape, mask) == fused
+    assert (blk.route(x.shape, mask) == "fused_halves") == fused
     want = (["fused_attn_half", "fused_mlp_half"] if fused
             else ["flash_mha", "fused_mlp"])
     assert calls == want
@@ -401,12 +401,13 @@ def test_no_class_token_needs_avg_pool():
     ("ls_init_value", 1e-4), ("n_learnable_tokens", 2),
     ("patch_dropout", 0.5), ("no_ln_pre", True),
     ("final_ln_after_pool", True), ("pos_embed_type", "sin_cos_2d"),
-    # set and not ported: raise
+    # CoCa's pooler, set and ported since (tests/test_torch_coca.py):
+    # accepted
     ("attentional_pool", True),
 ])
 def test_vision_options_raise_only_when_set_and_unported(option, value):
     kw = dict(image_size=32, patch_size=8, width=64, layers=1, heads=1)
-    unported = {"attentional_pool": True}
+    unported = {}
     if unported.get(option, object()) != value:
         VisionTransformer(**kw, **{option: value})
     else:

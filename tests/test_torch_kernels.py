@@ -734,7 +734,7 @@ def test_gap_block_gradients_kernels_vs_plain(cuda):
                     + (1.0 if name.endswith("scale") else 0.0))
     x0 = torch.randn(4, 256, 256, device=cuda).bfloat16()
     ct = torch.randn(4, 256, 256, device=cuda).bfloat16()
-    assert not blk.takes_fused_halves(x0.shape)
+    assert blk.route(x0.shape) == "non_fused"
 
     def grads(use_kernels):
         set_use_kernels(blk, use_kernels)
@@ -917,3 +917,74 @@ def test_custom_op_replays_as_cuda_graph(cuda, name):
     want = op(*fresh)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# -- coca_ViT-L-14's shapes ---------------------------------------------------
+# The decoder's causal self-attention (D 768, 12 heads of 64) in training
+# (batch 128, 75 positions) and in a generation step over the [B, 30]
+# buffer (batch 8; 8 x 6 beams); the MLP half's rows of the decoder (75 or
+# 30 a sample), its cross-attention blocks (the same) and the masked text
+# tower (77 in training, 31 in generation); the ViT-L/14 vision tower
+# (L = 257, 16 heads of 64, MLP 1024 -> 4096) at the recipe's batch of 128
+# and a generation batch of 8; the recipe's image batch.
+
+@pytest.mark.parametrize("b,l", [(128, 75), (8, 30), (48, 30)])
+def test_attn_kernel_matches_plain_at_coca_shapes(cuda, b, l):
+    args = _attn_args(b, l, 768, seed=b + l, device=cuda)
+    mask = torch.triu(torch.full((76, 76), float("-inf"), device=cuda),
+                      1)[:l, :l].contiguous()
+    with torch.inference_mode():
+        out = fab.fused_attn_half(*args, mask, 12, 1e-5)
+        ref = fab.reference_attn_half(*args, mask, 12, 1e-5)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def test_attn_bwd_kernel_matches_plain_at_coca_shape(cuda):
+    b, l, d = 128, 75, 768
+    args = _attn_args(b, l, d, seed=175, device=cuda)
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = args
+    g = _tensors({"x": ((b, l, d), 1.0)}, 176, cuda)["x"]
+    mask = torch.triu(torch.full((l, l), float("-inf"), device=cuda), 1)
+    bwd_args = (x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, 12, 1e-5)
+    outs = fab.fused_attn_half_bwd(*bwd_args)
+    refs = fab.reference_attn_half_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("n", [128 * 75, 128 * 77, 8 * 30, 8 * 31, 48 * 30,
+                               48 * 31])
+def test_mlp_kernel_matches_plain_at_coca_rows(cuda, n):
+    args = _mlp_args(n, 768, 3072, seed=n, device=cuda)
+    with torch.inference_mode():
+        out = fab.fused_mlp_half(*args, "gelu", 1e-5)
+        ref = fab.reference_mlp_half(*args, "gelu", 1e-5)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("b", [128, 8])
+def test_flash_kernels_match_plain_at_coca_vision_shapes(cuda, b):
+    q, k, v = _flash_inputs(b, 16, 257, 64, "blhd", seed=b, device=cuda)
+    _flash_fwd_bwd_at_bar(q, k, v, "blhd", seed=b + 1, device=cuda)
+
+
+@pytest.mark.parametrize("n", [128 * 257, 8 * 257])
+def test_fused_mlp_kernel_matches_plain_at_coca_vision_rows(cuda, n):
+    x, _, _, w1, b1, w2, b2 = _mlp_args(n, 1024, 4096, seed=n, device=cuda)
+    with torch.inference_mode():
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+        ref = fused_mlp.reference_fused_mlp(x, w1, b1, w2, b2, "gelu")
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def test_normalize_kernel_matches_plain_at_coca_batch(cuda):
+    images = torch.from_numpy(np.random.default_rng(128).integers(
+        0, 256, (128, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    out = preprocess.normalize_images(images, dtype=torch.bfloat16)
+    ref = preprocess.normalize_images_reference(images, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ((_ordered(out) - _ordered(ref)).abs() >> 16).max().item() <= 1

@@ -20,8 +20,10 @@ data (``get_data``: CSV, synthetic or webdataset shards; ``--imagenet-val``
 an image folder) -> without train data one ``evaluate`` (the 336 px
 script's zero-shot ImageNet eval) -> tower locks, AdamW and the
 schedule -> ``--resume`` (a checkpoint tag: the full train state; a file:
-the weights) -> the contrastive step (``--accum-freq`` > 1: the
-accumulation step) -> per epoch: ``train_one_epoch``, ``evaluate``
+the weights) -> the contrastive step (``--model coca_*``: CoCa's
+contrastive + caption step, weighted by ``--coca-contrastive-loss-weight``
+and ``--coca-caption-loss-weight``; ``--accum-freq`` > 1: the
+accumulation step, which refuses CoCa as JAX's does) -> per epoch: ``train_one_epoch``, ``evaluate``
 (train/evaluate.py) and the epoch checkpoint.
 
 One process: ``--local-loss`` and ``--gather-with-grad`` change nothing;
@@ -197,6 +199,11 @@ def main(argv=None):
         "lock_image_freeze_bn_stats": bool(
             args.lock_image and args.lock_image_freeze_bn_stats),
     }
+    if "coca" in args.model.lower():
+        args_cfg.update(
+            coca=True,
+            coca_caption_loss_weight=args.coca_caption_loss_weight,
+            coca_contrastive_loss_weight=args.coca_contrastive_loss_weight)
     if args.accum_freq > 1:
         step_fn = make_accum_train_step(args_cfg, args.accum_freq)
     else:

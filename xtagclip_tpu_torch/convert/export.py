@@ -41,6 +41,12 @@ def to_openclip_state_dict(model: nn.Module) -> Dict[str, np.ndarray]:
     arrays. TQN's ``decoder_norm`` is written twice, as JAX's exporter
     writes it (``fusion_model.decoder.norm`` is the reference's second
     registration of the same module)."""
+    if hasattr(model, "text_decoder"):
+        raise NotImplementedError(
+            "exporting a CoCa model to an open_clip .pt is not ported "
+            "(ROADMAP Queue 1 item 9): JAX's exporter drops its decoder "
+            "and attentional pooler (export.py:154), and no converter maps "
+            "them yet")
     patch = getattr(model.visual, "patch_size", None)
     sd: Dict[str, np.ndarray] = {}
     for name, p in model.named_parameters():

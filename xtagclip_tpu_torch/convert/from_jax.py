@@ -5,6 +5,7 @@ The port's parameter names mirror the flax tree; a leaf's path joined with
 ``nn.ModuleList``s here:
 
 - ``resblocks_{i}``            -> ``resblocks.{i}``
+- ``cross_attn_{i}`` (CoCa)    -> ``cross_attn.{i}``
 - ``decoder_layer_{i}``        -> ``decoder_layers.{i}``
 - ``layer_{i}_crossattention`` -> ``layers.{i}.crossattention``
 - ``layer_{i}_ffn``            -> ``layers.{i}.ffn``
@@ -12,7 +13,10 @@ The port's parameter names mirror the flax tree; a leaf's path joined with
 - ``stem_{i}`` (conv stem)     -> ``stem.{i}``
 - ``layer_{i}`` (BERT)         -> ``layers.{i}``
 
-The ResNets keep flax's block names (``layer{l}_{b}``) as child names.
+CoCa's tree needs no other rule: ``text_decoder.*`` (its ``ln_final``
+and ``text_projection``, each cross-attention block's ``ln_1_kv``),
+``visual.attn_pool.{query, ln_q, ln_k, attn.{in,q,k,v,out}_proj}`` and
+``text.cls_emb`` have the flax names. The ResNets keep flax's block names (``layer{l}_{b}``) as child names.
 Layouts need no change, but for one: flax Dense kernels are [in, out] and
 the MHA in_proj is [E, 3E] in both, while a conv kernel (the only 4-D
 leaf) is flax's [kh, kw, in, out] and torch's [out, in, kh, kw] here
@@ -35,6 +39,7 @@ from torch import nn
 
 _RULES = (
     (re.compile(r"(^|\.)resblocks_(\d+)(?=\.)"), r"\1resblocks.\2"),
+    (re.compile(r"(^|\.)cross_attn_(\d+)(?=\.)"), r"\1cross_attn.\2"),
     (re.compile(r"(^|\.)decoder_layer_(\d+)(?=\.)"), r"\1decoder_layers.\2"),
     (re.compile(r"(^|\.)layer_(\d+)_crossattention(?=\.)"),
      r"\1layers.\2.crossattention"),

@@ -16,17 +16,19 @@ The towers are routed as JAX's ``_build_vision_tower`` and
 ``timm_model_name`` builds models/timm_vit.py's tower, list-valued
 ``layers`` the ModifiedResNet (models/resnet.py), an ``hf_model_name`` the
 HF text tower (models/hf_text.py); everything else the ViT and the text
-transformer. The families and CoCa that wait for ROADMAP Queue 1 item 8
-raise NotImplementedError.
+transformer. A ``multimodal_cfg`` builds CoCa (models/coca.py) around the
+two towers, as JAX's factory does (factory.py:333-356). The families that
+wait for ROADMAP Queue 1 item 8 raise NotImplementedError.
 
 ``precision`` has the JAX package's meaning: parameters are fp32 masters
 and ``"bf16"`` sets the compute dtype, to which every module casts its
 weights at use (models/layers.py). The model comes back trainable, with
 fp32 parameters. For serving, ``cast_for_compute`` casts the matmul
 weights to the compute dtype once, so the casts at use cost nothing;
-LayerNorm parameters, the logit scales and the biases of the transformer
-blocks (which the fused kernels add in fp32, as the Pallas kernels do)
-stay fp32. Both give the same arithmetic.
+LayerNorm parameters (CoCa's pooler and cross-attention ``ln_1_kv``
+included), the logit scales and the biases of the transformer blocks
+(which the fused kernels add in fp32, as the Pallas kernels do; CoCa's
+cross-attention blocks too) stay fp32. Both give the same arithmetic.
 
 The model is built and initialized on ``device`` (default ``"cuda"``); a
 missing card raises before anything is allocated.
@@ -51,8 +53,13 @@ from xtagclip_tpu_torch.data.transforms import (
     image_transform_train,
 )
 from xtagclip_tpu_torch.models.clip import CLIP
+from xtagclip_tpu_torch.models.coca import CoCa, MultimodalTransformer
 from xtagclip_tpu_torch.models.hf_text import HFTextEncoder
-from xtagclip_tpu_torch.models.layers import LayerNorm, ResidualAttentionBlock
+from xtagclip_tpu_torch.models.layers import (
+    Dense,
+    LayerNorm,
+    ResidualAttentionBlock,
+)
 from xtagclip_tpu_torch.models.resnet import ModifiedResNet
 from xtagclip_tpu_torch.models.text import TextTransformer
 from xtagclip_tpu_torch.models.timm_vit import build_timm_vision_tower
@@ -152,6 +159,8 @@ def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
         ls_init_value=v.get("ls_init_value"),
         patch_dropout=v.get("patch_dropout", 0.0),
         attentional_pool=v.get("attentional_pool", False),
+        attn_pooler_queries=v.get("attn_pooler_queries", 256),
+        attn_pooler_heads=v.get("attn_pooler_heads", 8),
         pos_embed_type=v.get("pos_embed_type", "learnable"),
         no_ln_pre=v.get("no_ln_pre", False),
         final_ln_after_pool=v.get("final_ln_after_pool", False),
@@ -186,6 +195,20 @@ def _text_tower(embed_dim, t, act, dtype, grad_checkpointing=False):
         grad_checkpointing=grad_checkpointing)
 
 
+def _text_decoder(cfg: dict, act: str) -> MultimodalTransformer:
+    """CoCa's decoder from ``multimodal_cfg``, with the text config's
+    vocabulary (JAX factory.py:333-345); its cross-attention reads the
+    image embeddings, of the embed dim."""
+    m = cfg["multimodal_cfg"]
+    return MultimodalTransformer(
+        width=m.get("width", 512), layers=m.get("layers", 12),
+        heads=m.get("heads", 8), context_length=m.get("context_length", 76),
+        mlp_ratio=m.get("mlp_ratio", 4.0),
+        ls_init_value=m.get("ls_init_value"),
+        output_dim=cfg["text_cfg"].get("vocab_size", 49408), act=act,
+        kv_width=cfg["embed_dim"])
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with flax's distributions: each module initializes its
@@ -202,10 +225,9 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> None:
     (module doc). The model then holds no fp32 masters to train."""
     keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
             for p in m.parameters()}
-    keep |= {id(p) for m in model.modules()
+    keep |= {id(d.bias) for m in model.modules()
              if isinstance(m, ResidualAttentionBlock)
-             for p in (m.attn.in_proj.bias, m.attn.out_proj.bias,
-                       m.mlp.c_fc.bias, m.mlp.c_proj.bias)}
+             for d in m.modules() if isinstance(d, Dense)}
     keep |= {id(p) for name, p in model.named_parameters()
              if name.endswith("logit_scale")}
     for p in model.parameters():
@@ -236,25 +258,27 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
             cfg[k] = v
     if force_patch_dropout is not None:
         cfg["vision_cfg"]["patch_dropout"] = force_patch_dropout
-    if "multimodal_cfg" in cfg:
-        raise NotImplementedError(
-            "CoCa models are not ported yet (ROADMAP Queue 1 item 8)")
     unported = {"nonscalar_logit_scale"} & set(cfg)
     if unported:
         raise NotImplementedError(f"config keys not ported yet: {unported}")
     act = "quick_gelu" if cfg.get("quick_gelu") else "gelu"
     dtype = get_cast_dtype(precision)
     with dev:
-        model = CLIP(
-            _vision_tower(cfg["embed_dim"], cfg["vision_cfg"], act, dtype,
-                          grad_checkpointing),
-            _text_tower(cfg["embed_dim"], cfg["text_cfg"], act, dtype,
-                        grad_checkpointing),
-            embed_dim=cfg["embed_dim"], use_tagging=use_tagging,
-            use_fusion=use_fusion, fusion_dim=cfg.get("fusion_dim", 512),
-            init_logit_scale=cfg.get("init_logit_scale",
-                                     math.log(1 / 0.07)),
-            init_logit_bias=cfg.get("init_logit_bias"), dtype=dtype)
+        visual = _vision_tower(cfg["embed_dim"], cfg["vision_cfg"], act,
+                               dtype, grad_checkpointing)
+        text = _text_tower(cfg["embed_dim"], cfg["text_cfg"], act, dtype,
+                           grad_checkpointing)
+        common = dict(init_logit_scale=cfg.get("init_logit_scale",
+                                               math.log(1 / 0.07)),
+                      init_logit_bias=cfg.get("init_logit_bias"),
+                      dtype=dtype)
+        if "multimodal_cfg" in cfg:
+            model = CoCa(visual, text, _text_decoder(cfg, act),
+                         embed_dim=cfg["embed_dim"], **common)
+        else:
+            model = CLIP(visual, text, embed_dim=cfg["embed_dim"],
+                         use_tagging=use_tagging, use_fusion=use_fusion,
+                         fusion_dim=cfg.get("fusion_dim", 512), **common)
     if not skip_init:
         init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
     model.model_name = model_name
@@ -306,6 +330,35 @@ def get_model_preprocess_cfg(model) -> dict:
 def set_model_preprocess_cfg(model, preprocess_cfg: dict) -> None:
     """Keep ``preprocess_cfg`` on the model (JAX factory.py:464)."""
     model.preprocess_cfg = dict(preprocess_cfg)
+
+
+def get_model_tokenize_cfg(model) -> dict:
+    """The text config's ``context_length`` and ``vocab_size`` (JAX
+    factory.py:469-473): 76 tokens for CoCa, whose tower appends its
+    class token after them."""
+    t = model.model_cfg.get("text_cfg", {})
+    return {k: t[k] for k in ("context_length", "vocab_size") if k in t}
+
+
+def create_loss(args):
+    """The training loss ``args`` pick (JAX factory.py:475-500): CoCa's
+    for a ``--model coca_*``, else the contrastive loss on one process.
+    The distillation and SigLIP losses wait for ROADMAP Queue 1 item 8."""
+    from xtagclip_tpu_torch.losses import CoCaLoss, clip_loss
+
+    if getattr(args, "distill", None) or getattr(args, "distill_model", None):
+        raise NotImplementedError(
+            "the distillation loss is not ported yet (ROADMAP Queue 1 item "
+            "8: distill.py)")
+    if "coca" in getattr(args, "model", "").lower():
+        return CoCaLoss(
+            caption_loss_weight=getattr(args, "coca_caption_loss_weight", 2.0),
+            clip_loss_weight=getattr(args, "coca_contrastive_loss_weight",
+                                     1.0))
+    if getattr(args, "siglip", False):
+        raise NotImplementedError(
+            "the SigLIP loss is not ported yet (ROADMAP Queue 1 item 8)")
+    return clip_loss
 
 
 @torch.no_grad()

@@ -259,18 +259,29 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention-style attention with a fused [E, 3E]
-    ``in_proj`` and an ``out_proj``. The forward is the cross-attention of
-    TQN and the tag head: the query and the shared key/value stream project
-    through their own column slices (``_FusedQKVProj``, layers.py:181-214)
-    into the plain ``attention`` (XLA's in JAX; Lq != Lk never reaches
-    flash). ``self_attention`` is a residual block's self-attention off the
-    fused half: one [E, 3E] product, then ``flash_attn``."""
+    ``in_proj`` and an ``out_proj``; with a key/value width ``kdim`` other
+    than E, separate ``q_proj`` [E, E], ``k_proj`` and ``v_proj`` [kdim, E]
+    instead of ``in_proj`` (JAX's ``MultiheadAttention``, layers.py:217-265;
+    CoCa's attentional pooler). The forward is a cross-attention (TQN, the
+    tag head, the pooler, CoCa's cross-attention blocks): the query and the
+    shared key/value stream project through their own column slices
+    (``_FusedQKVProj``, layers.py:181-214) into the plain ``attention``
+    (XLA's in JAX; Lq != Lk never reaches flash). ``self_attention`` is a
+    residual block's self-attention off the fused half: one [E, 3E]
+    product, then ``flash_attn``."""
 
-    def __init__(self, width: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, width: int, num_heads: int, dropout: float = 0.0,
+                 kdim=None):
         super().__init__()
         self.num_heads = num_heads
         self.dropout = dropout
-        self.in_proj = Dense(width, 3 * width)
+        self.separate = kdim is not None and kdim != width
+        if self.separate:
+            self.q_proj = Dense(width, width)
+            self.k_proj = Dense(kdim, width)
+            self.v_proj = Dense(kdim, width)
+        else:
+            self.in_proj = Dense(width, 3 * width)
         self.out_proj = Dense(width, width)
 
     def _proj(self, x, lo, hi):
@@ -278,10 +289,13 @@ class MultiheadAttention(nn.Module):
         return torch.matmul(x, kernel) + self.in_proj.bias[lo:hi].to(x.dtype)
 
     def forward(self, q, kv, generator=None):
-        """q [B, Lq, E] attends to kv [B, Lk, E]."""
+        """q [B, Lq, E] attends to kv [B, Lk, kdim]."""
         e = q.shape[-1]
-        qh = self._proj(q, 0, e)
-        kh, vh = self._proj(kv, e, 3 * e).split(e, dim=-1)
+        if self.separate:
+            qh, kh, vh = self.q_proj(q), self.k_proj(kv), self.v_proj(kv)
+        else:
+            qh = self._proj(q, 0, e)
+            kh, vh = self._proj(kv, e, 3 * e).split(e, dim=-1)
         return self.out_proj(attention(qh, kh, vh, self.num_heads,
                                        self.dropout, generator))
 
@@ -307,6 +321,32 @@ class MultiheadAttention(nn.Module):
         return self.out_proj(core(q, k, v).reshape(b, l, e))
 
 
+class AttentionalPooler(nn.Module):
+    """Query-token attention pooling (JAX layers.py:684-705): ``n_queries``
+    learned [d_model] queries, ``ln_q``'d, attend to the ``ln_k``'d
+    [B, L, context_dim] stream through a ``MultiheadAttention`` whose
+    key/value width is ``context_dim``. The core is the plain
+    ``attention`` (Lq != Lk: XLA's in JAX); the products and LayerNorms
+    run in the stream's dtype."""
+
+    def __init__(self, d_model: int, context_dim: int, n_head: int = 8,
+                 n_queries: int = 256):
+        super().__init__()
+        self.query = nn.Parameter(torch.empty(n_queries, d_model))
+        self.ln_k = LayerNorm(context_dim)
+        self.ln_q = LayerNorm(d_model)
+        self.attn = MultiheadAttention(d_model, n_head, kdim=context_dim)
+
+    def init_params(self, generator):
+        nn.init.normal_(self.query, 0.0, 1.0, generator=generator)
+
+    def forward(self, x):
+        """[B, L, context_dim] -> [B, n_queries, d_model]."""
+        x = self.ln_k(x)
+        q = self.ln_q(self.query.to(x.dtype))
+        return self.attn(q.expand(x.shape[0], -1, -1), x)
+
+
 class MLP(nn.Module):
     """A CLIP block MLP (c_fc -> act -> c_proj). The fused MLP half reads
     its parameters; off the fused half, the forward is ``fused_mlp``
@@ -329,25 +369,39 @@ class MLP(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    """Pre-norm transformer block (layers.py:478-588), self-attention only.
+    """Pre-norm transformer block (layers.py:478-588).
 
-    Two routes, chosen by the stream's shape alone:
+    Three routes, chosen by the stream's shape and the mask's rank alone
+    (``route``), never because a kernel failed:
 
-    - the fused halves (layers.py:528-559), for every stream that
-      ``fab.supported`` and ``fab.supported_mlp`` take (L <= 128, head dim
-      64, D and the MLP width multiples of 64; the ViT-B-32 towers and the
-      text tower): ``fab.fused_attn_half`` then ``fab.fused_mlp_half``;
-    - the non-fused block (layers.py:560-588) for the rest, such as a
-      cls-free GAP tower at L = 256: ``x = x + out_proj(attn(LN1(x)))``
-      then ``x = x + MLP(LN2(x))``, with the adds in x's dtype, the
-      attention core through ``flash_attn.flash_mha`` and the MLP through
-      ``fused_mlp.fused_mlp`` (JAX's ``XTAG_FLASH_ATTN`` and
-      ``XTAG_FUSED_MLP`` paths). A stream flash attention does not take (a
-      mask, another head dim) runs the plain ``attention`` there; it has
-      no kernel, so a bf16 one raises on the card. A LayerScale block
-      (``ls_init_value``; ``ls_1``/``ls_2.gamma`` scale the attention and
-      MLP outputs before each residual add, layers.py:577-587) always
-      takes this route, as JAX keeps it off the fused kernels (:531).
+    - ``"fused_halves"`` (layers.py:528-559), for every self-attention
+      stream that ``fab.supported`` and ``fab.supported_mlp`` take (L <=
+      128, head dim 64, D and the MLP width multiples of 64, no mask or an
+      [L, L] one; the ViT-B-32 towers, the text towers, CoCa's causal
+      decoder blocks): ``fab.fused_attn_half`` then ``fab.fused_mlp_half``;
+    - ``"plain_core"``, for a cross-attention block (``is_cross_attention``:
+      CoCa's decoder, whose key/value stream, the image embeddings, passes
+      ``ln_1_kv`` first, layers.py:560-566) and for self-attention under a
+      per-sample [B, 1, L, L] additive mask (CoCa's ``embed_cls`` text
+      tower): JAX sends these cores to XLA (a 4-D mask fails ``fmask_ok``,
+      layers.py:521-531; flash refuses masks and Lq != Lk), so the core is
+      the plain ``attention``; ``x = x + out_proj(attn(LN1(x), ...))``,
+      then the MLP half: ``fab.fused_mlp_half`` (#2, exactly
+      ``x + MLP(LN2(x))``) where ``fab.supported_mlp`` takes the stream
+      and there is no LayerScale, else ``x + MLP(LN2(x))`` through
+      ``fused_mlp.fused_mlp`` (#4);
+    - ``"non_fused"`` (layers.py:560-588) for the rest, such as a
+      cls-free GAP tower at L = 256 or ViT-L/14 at L = 257:
+      ``x = x + out_proj(attn(LN1(x)))`` then ``x = x + MLP(LN2(x))``,
+      with the adds in x's dtype, the attention core through
+      ``flash_attn.flash_mha`` and the MLP through ``fused_mlp.fused_mlp``
+      (JAX's ``XTAG_FLASH_ATTN`` and ``XTAG_FUSED_MLP`` paths). A stream
+      flash attention does not take (an [L, L] mask, another head dim)
+      runs the plain ``attention`` there; it has no kernel, so a bf16 one
+      raises on the card. A LayerScale block (``ls_init_value``;
+      ``ls_1``/``ls_2.gamma`` scale the attention and MLP outputs before
+      each residual add, layers.py:577-587) never takes the fused halves,
+      as JAX keeps it off the fused kernels (:531).
 
     Inside a route, a bf16 stream with ``use_kernels`` on (the default;
     ``set_use_kernels``) runs the route's kernel wrappers: their CUDA
@@ -363,7 +417,8 @@ class ResidualAttentionBlock(nn.Module):
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "gelu", norm_eps: float = 1e-5,
-                 ls_init_value=None):
+                 ls_init_value=None, is_cross_attention: bool = False,
+                 kv_width=None):
         super().__init__()
         if act not in fab.ACTIVATIONS:
             raise ValueError(f"unknown activation {act!r}")
@@ -371,8 +426,12 @@ class ResidualAttentionBlock(nn.Module):
         self.act = act
         self.norm_eps = norm_eps
         self.use_kernels = True
+        self.is_cross_attention = is_cross_attention
         self.ln_1 = LayerNorm(width, norm_eps)
-        self.attn = MultiheadAttention(width, heads)
+        if is_cross_attention:
+            self.ln_1_kv = LayerNorm(kv_width or width, norm_eps)
+        self.attn = MultiheadAttention(
+            width, heads, kdim=kv_width if is_cross_attention else None)
         self.ln_2 = LayerNorm(width, norm_eps)
         self.mlp = MLP(width, int(width * mlp_ratio), act)
         if ls_init_value is not None:
@@ -380,21 +439,35 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_2 = LayerScale(width, ls_init_value)
         self.layer_scale = ls_init_value is not None
 
-    def takes_fused_halves(self, shape, attn_mask=None) -> bool:
-        """The route of a stream of this shape: the fused halves (True) or
-        the non-fused block (False)."""
+    def route(self, shape, attn_mask=None) -> str:
+        """The route of a stream of this shape under this mask (class
+        doc): ``"fused_halves"``, ``"plain_core"`` or ``"non_fused"``."""
+        if self.is_cross_attention or (attn_mask is not None
+                                       and attn_mask.dim() == 4):
+            return "plain_core"
         mshape = None if attn_mask is None else tuple(attn_mask.shape)
         mlp_width = self.mlp.c_fc.kernel.shape[1]
-        return (not self.layer_scale
+        if (not self.layer_scale
                 and fab.supported(shape, self.heads, torch.bfloat16, mshape)
-                and fab.supported_mlp(shape, mlp_width, self.act))
+                and fab.supported_mlp(shape, mlp_width, self.act)):
+            return "fused_halves"
+        return "non_fused"
 
-    def forward(self, x, attn_mask=None):
+    def _mlp_half_fused(self, shape) -> bool:
+        """Whether the plain-core route's MLP half is #2 (else #4)."""
+        return (not self.layer_scale and fab.supported_mlp(
+            shape, self.mlp.c_fc.kernel.shape[1], self.act))
+
+    def forward(self, x, attn_mask=None, kv=None):
+        """``kv``: the key/value stream of a cross-attention block."""
         kernels = self.use_kernels and x.dtype == torch.bfloat16
-        if self.takes_fused_halves(x.shape, attn_mask):
+        route = self.route(x.shape, attn_mask)
+        if route == "fused_halves":
             return self._fused_halves(x, attn_mask, kernels)
         if kernels and x.device.type != "cpu":
-            self._check_kernels_take(x.shape, attn_mask)
+            self._check_kernels_take(x.shape, attn_mask, route)
+        if route == "plain_core":
+            return self._plain_core(x, attn_mask, kv, kernels)
         return self._non_fused(x, attn_mask, kernels)
 
     def _fused_halves(self, x, attn_mask, kernels):
@@ -413,22 +486,41 @@ class ResidualAttentionBlock(nn.Module):
                         m.c_proj.kernel.to(dt), m.c_proj.bias,
                         self.act, self.norm_eps)
 
-    def _check_kernels_take(self, shape, attn_mask):
-        """Raise if the non-fused route's kernels cannot take a stream:
-        nothing falls back to a plain version on the card."""
+    def _check_kernels_take(self, shape, attn_mask, route):
+        """Raise if the route's kernels cannot take a stream: nothing
+        falls back to a plain version on the card."""
         _, l, d = shape
         mlp_width = self.mlp.c_fc.kernel.shape[1]
-        if not flash_attn.supported(l, l, attn_mask, d // self.heads):
+        if route == "non_fused" and not flash_attn.supported(
+                l, l, attn_mask, d // self.heads):
             raise ValueError(
                 f"no kernel for stream {tuple(shape)} with {self.heads} heads"
                 f" and mask {None if attn_mask is None else tuple(attn_mask.shape)}"
                 ": neither the fused attention half (L <= 128, head dim 64, "
                 "no LayerScale) nor flash attention (no mask, head dim in "
                 f"{flash_attn.HEAD_DIMS}) takes it")
-        if not fused_mlp.supported(shape, mlp_width, self.act):
+        if not (route == "plain_core" and self._mlp_half_fused(shape)) \
+                and not fused_mlp.supported(shape, mlp_width, self.act):
             raise ValueError(
                 f"no kernel for MLP rows {tuple(shape)}, hidden width "
                 f"{mlp_width}, act {self.act!r}")
+
+    def _plain_core(self, x, attn_mask, kv, kernels):
+        h = self.ln_1(x)
+        if self.is_cross_attention:
+            a = self.attn(h, self.ln_1_kv(kv))
+        else:  # a 4-D mask: flash attention takes no mask
+            a = self.attn.self_attention(h, kernels, attn_mask)
+        x = x + (self.ls_1(a) if self.layer_scale else a)
+        if not self._mlp_half_fused(x.shape):
+            m = self.mlp(self.ln_2(x), kernels)
+            return x + (self.ls_2(m) if self.layer_scale else m)
+        mlp_half = fab.fused_mlp_half if kernels else fab.reference_mlp_half
+        m, dt = self.mlp, x.dtype
+        return mlp_half(x, self.ln_2.scale, self.ln_2.bias,
+                        m.c_fc.kernel.to(dt), m.c_fc.bias,
+                        m.c_proj.kernel.to(dt), m.c_proj.bias,
+                        self.act, self.norm_eps)
 
     def _non_fused(self, x, attn_mask, kernels):
         a = self.attn.self_attention(self.ln_1(x), kernels, attn_mask)

@@ -28,10 +28,15 @@ Options (vit.py:42-79), as JAX applies them:
   the pool is always followed by ``ln_post`` (vit.py:225-236), whatever
   the flag says; the port does the same.
 - ``grad_checkpointing``: per-block activation checkpointing (JAX's
-  ``remat``).
-
-``attentional_pool`` (CoCa's) raises NotImplementedError (ROADMAP Queue 1
-item 8).
+  ``remat``);
+- ``attentional_pool`` (CoCa's, vit.py:49-51, 210-221): the blocks'
+  output goes through ``attn_pool`` (models/layers.AttentionalPooler:
+  ``attn_pooler_queries`` queries of width ``output_dim`` over the
+  [B, L, width] stream, ``attn_pooler_heads`` heads), then ``ln_post``
+  (over ``output_dim``); the first query's row times ``proj``
+  [output_dim, output_dim] is the pooled feature, and the other rows,
+  unprojected, are the returned tokens (255 image embeddings for CoCa's
+  256 queries).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 from torch import nn
 
 from xtagclip_tpu_torch.models.layers import (
+    AttentionalPooler,
     Dense,
     LayerNorm,
     Transformer,
@@ -52,10 +58,9 @@ def _to_2tuple(x):
     return tuple(x) if isinstance(x, (tuple, list)) else (x, x)
 
 
-# options that mean nothing while attentional_pool is off or no learnable
-# tokens are set, and the JAX factory's output_tokens, which it always sets
-_INERT = {"attn_pooler_queries", "attn_pooler_heads", "add_learnable_tokens",
-          "output_tokens"}
+# an option that means nothing while no learnable tokens are set, and the
+# JAX factory's output_tokens, which it always sets
+_INERT = {"add_learnable_tokens", "output_tokens"}
 
 
 class VisionTransformer(nn.Module):
@@ -69,15 +74,12 @@ class VisionTransformer(nn.Module):
                  final_ln_after_pool: bool = False,
                  n_learnable_tokens: int = 0, insert_position: int = 1,
                  attentional_pool: bool = False,
+                 attn_pooler_queries: int = 256, attn_pooler_heads: int = 8,
                  grad_checkpointing: bool = False, **options):
         super().__init__()
         unknown = sorted(set(options) - _INERT)
         if unknown:
             raise TypeError(f"unknown vision tower options: {unknown}")
-        if attentional_pool:
-            raise NotImplementedError(
-                "attentional_pool (CoCa's) is not ported yet (ROADMAP Queue 1 "
-                "item 8)")
         if pool_type not in ("tok", "avg"):
             raise NotImplementedError(
                 f"vision pool_type {pool_type!r} is not ported yet")
@@ -114,8 +116,14 @@ class VisionTransformer(nn.Module):
         self.transformer = Transformer(width, layers, heads, mlp_ratio, act,
                                        norm_eps, ls_init_value,
                                        grad_checkpointing)
-        self.ln_post = LayerNorm(width, norm_eps)
-        self.proj = nn.Parameter(torch.empty(width, output_dim))
+        self.attentional_pool = attentional_pool
+        if attentional_pool:
+            self.attn_pool = AttentionalPooler(output_dim, width,
+                                               attn_pooler_heads,
+                                               attn_pooler_queries)
+        post = output_dim if attentional_pool else width
+        self.ln_post = LayerNorm(post, norm_eps)
+        self.proj = nn.Parameter(torch.empty(post, output_dim))
 
     @property
     def grid_size(self):
@@ -164,6 +172,10 @@ class VisionTransformer(nn.Module):
         if self.ln_pre is not None:
             x = self.ln_pre(x)
         tokens = self.transformer(x)
+        if self.attentional_pool:
+            normed = self.ln_post(self.attn_pool(tokens))
+            pooled = torch.matmul(normed[:, 0], self.proj.to(normed.dtype))
+            return pooled, normed[:, 1:]
         if self.pool_type == "tok":
             pooled = tokens[:, 0]
         else:  # the mean of the patch tokens, in fp32 as jnp.mean

@@ -137,6 +137,8 @@ class SimpleTokenizer:
             special_tokens += additional_special_tokens
         vocab.extend(special_tokens)
         self.encoder = {tok: i for i, tok in enumerate(vocab)}
+        self.decoder = {i: tok for tok, i in self.encoder.items()}
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.bpe_ranks = {m: i for i, m in enumerate(merges)}
         self.cache = {t: t for t in special_tokens}
         special = "|".join(special_tokens)
@@ -198,6 +200,14 @@ class SimpleTokenizer:
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids
 
+    def decode(self, tokens) -> str:
+        """Ids -> text (JAX bpe.py:186-192): byte-level BPE undone, invalid
+        UTF-8 replaced, each ``</w>`` a space; special tokens come back as
+        their names."""
+        text = "".join(self.decoder[int(t)] for t in tokens)
+        return (bytearray(self.byte_decoder[c] for c in text)
+                .decode("utf-8", errors="replace").replace("</w>", " "))
+
     def __call__(
         self,
         texts: Union[str, List[str]],
@@ -224,3 +234,17 @@ class SimpleTokenizer:
             result[i, : len(tokens)] = tokens
         return result
 
+
+_tokenizer: Optional[SimpleTokenizer] = None
+
+
+def _global_tokenizer() -> SimpleTokenizer:
+    global _tokenizer
+    if _tokenizer is None:
+        _tokenizer = SimpleTokenizer()
+    return _tokenizer
+
+
+def decode(output_ids) -> str:
+    """Ids -> text with the default vocabulary (JAX bpe.py:238)."""
+    return _global_tokenizer().decode(np.asarray(output_ids))

@@ -9,9 +9,12 @@ the XTag loss combination of the reference's train_other.py:117-136,
             + 2 * (DQNCOS(i2t) + DQNCOS(t2i)),
 
 the backward, one optimizer update and the logit_scale clamp. PyTorch runs
-it eagerly: there is no jit, and the gradients live in ``.grad``. The
-CoCa, SigLIP and distillation branches of the JAX step are not ported yet
-and raise.
+it eagerly: there is no jit, and the gradients live in ``.grad``. With
+``args_cfg["coca"]`` the step is CoCa's (loop.py:43-65): the contrastive
+loss times ``coca_contrastive_loss_weight`` plus the pad-masked caption
+cross-entropy times ``coca_caption_loss_weight`` (losses/coca.py). The
+SigLIP and distillation branches of the JAX step are not ported yet and
+raise.
 
 A ResNet tower's BatchNorms normalize with batch statistics in the
 train-mode forward and move their running ones in place, as JAX's
@@ -27,7 +30,11 @@ The accumulation step replays the reference's feature cache
 without gradients; pass 2 runs each microbatch again with gradients
 against all the cached negatives, and the summed gradients make one
 update. Its objective is the reference's, not the plain step's
-(trap 5): contrastive + ASL at 1x, and no DQNCOS.
+(trap 5): contrastive + ASL at 1x, and no DQNCOS. JAX's accumulation step
+cannot run a CoCa model: it calls the model with the XTag keywords
+(``prompt_table``, ``class_ids``, ``template_id``), which CoCa's
+``__call__`` does not take, and raises TypeError at the first step. The
+port refuses CoCa there too, when the step is made.
 """
 
 from __future__ import annotations
@@ -38,14 +45,19 @@ import torch
 from torch import nn
 
 from xtagclip_tpu_torch.convert.from_jax import stats_buffers
-from xtagclip_tpu_torch.losses import asymmetric_loss, clip_loss, dqncos_loss
+from xtagclip_tpu_torch.losses import (
+    asymmetric_loss,
+    caption_loss,
+    clip_loss,
+    dqncos_loss,
+)
 from xtagclip_tpu_torch.train.train_state import (
     TrainState,
     apply_gradients,
     optax_global_norm,
 )
 
-_UNPORTED = ("coca", "siglip")
+_UNPORTED = ("siglip",)
 
 
 def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
@@ -62,6 +74,9 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
     if unported:
         raise NotImplementedError(
             f"train-step branches not ported yet: {unported}")
+    if args_cfg.get("coca"):
+        return _coca_losses(model, batch, args_cfg, generator,
+                            deterministic)
     out = model(batch["images"], text=batch.get("texts"),
                 prompt_table=prompt_table, class_ids=batch.get("class_ids"),
                 template_id=batch.get("template_id", 0),
@@ -88,6 +103,22 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
         total = total + 2.0 * ce
     metrics["loss"] = total
     return total, metrics
+
+
+def _coca_losses(model, batch, args_cfg, generator, deterministic):
+    """CoCa's branch (loop.py:43-65): contrastive + pad-masked caption
+    cross-entropy over the decoder's fp32 logits, each times its weight."""
+    out = model(batch["images"], batch["texts"],
+                generator=None if deterministic else generator)
+    contrastive = clip_loss(out["image_features"], out["text_features"],
+                            out["logit_scale"]) * args_cfg.get(
+                                "coca_contrastive_loss_weight", 1.0)
+    caption = caption_loss(out["logits"], out["labels"],
+                           args_cfg.get("pad_id", 0)) * args_cfg.get(
+                               "coca_caption_loss_weight", 2.0)
+    total = contrastive + caption
+    return total, {"contrastive_loss": contrastive, "caption_loss": caption,
+                   "logit_scale": out["logit_scale"], "loss": total}
 
 
 def make_train_step(args_cfg: Dict[str, Any], prompt_table=None,
@@ -129,6 +160,12 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
     if unported:
         raise NotImplementedError(
             f"train-step branches not ported yet: {unported}")
+    if args_cfg.get("coca"):
+        raise TypeError(
+            "the accumulation step cannot run a CoCa model (--accum-freq "
+            "> 1): it calls the model with the XTag keywords, as JAX's "
+            "make_accum_train_step does, which raises TypeError for CoCa "
+            "(ROADMAP Queue 3)")
 
     def micro(batch, i):
         return {k: v[i] if isinstance(v, torch.Tensor) and v.dim() > 0

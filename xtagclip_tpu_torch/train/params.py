@@ -229,6 +229,4 @@ def unported(args) -> list:
         out.append(f"--pretrained {args.pretrained!r}: only a local .pt or "
                    ".npz file or a port checkpoint is ported; named tags "
                    "wait for pretrained.py (Queue 1 item 9)")
-    if "coca" in (args.model or "").lower():
-        out.append(f"--model {args.model} (Queue 1 item 8: CoCa)")
     return out
