@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--coca-only]
+    python3 chip_smoke.py [--profile] [--coca-only | --siglip-only]
+    python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe
 
 Drives the port's main paths at full width in bf16 with a seeded random
 init, through the entry points a user calls: the XTag ViT-B-32
@@ -179,7 +180,26 @@ fused MLP), in phases that each print one JSON line:
    rows (2 warm-up + 5 timed steps; samples/s, p50 step ms, peak memory,
    the checkpoint), evaluate on 256 more (eval img/s), launches per step
    and per eval batch asserted, and one step kernels on vs off at batch 32
-   at phase 6's bars.
+   at phase 6's bars;
+20. siglip: ViT-B-16-SigLIP (the config of open_clip's public webli
+   weights) through ``cli.main --siglip`` at full width and depth from a
+   seeded init, synthetic data with SigLIP's T5 tokenizer written to a
+   temporary HF_HUB_CACHE, 2 warm-up + 5 timed steps of 256 (its text
+   tower: #1, #2, #3; the timm MAP-pool vision tower plain, as JAX runs it
+   through XLA), then ViT-SO400M-14-SigLIP for 1 + 3 steps at the largest
+   batch that fits without checkpointing (its text tower: #6 at head dim
+   72, #4 at 1152 -> 4304); samples/s, p50 step ms, peak memory, launches
+   per step asserted, the logit bias moved from its init; one B-16 step
+   kernels on vs off at batch 64 at phase 6's bars, logit_bias's gradient
+   nonzero;
+21. distill: open_clip README's distillation (--distill-model ViT-L-14
+   --distill-pretrained) through ``cli.main``, student ViT-B-32 at batch
+   128, the teacher from a seeded .pt the port's exporter writes (1.7 GB,
+   deleted after), 2 warm-up + 5 timed steps (the student: #1, #2, #3;
+   the teacher: #6 and #4 in vision, #1 and #2 in text; #5), distill_loss
+   finite, launches per step asserted; one step with the teacher kernels
+   on vs off at batch 32, and one ``pure_bf16`` ViT-B-32 step kernels on
+   vs off, at phase 6's bars.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -198,7 +218,10 @@ split into the port's hand-written kernels and everything else.
 
 ``--coca-only`` runs the build, the kernel rows and phases 19 and 18
 alone, then prints the seconds, the kernel table with those phases'
-launches and the card.
+launches and the card; ``--siglip-only`` the same for phases 20 and 21.
+``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
+(ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
+out of memory, without and with --grad-checkpointing).
 
 Then each phase's seconds, the kernel table (every kernel's launches on
 the main paths, its times and its bound), the card's name and power limit
@@ -297,6 +320,42 @@ COCA_VAL_ROWS = 256
 COCA_PATH_BATCH = 32
 COCA_L = (IMAGE_SIZE // 14) ** 2 + 1  # ViT-L/14's 257 tokens
 COCA_TEXT_L = 77  # 76 tokens and the class token
+# ViT-B-16-SigLIP (the config behind open_clip's public webli weights):
+# timm ViT-B/16 with the MAP pool (plain PyTorch, as JAX runs it through
+# XLA), text 12 x 768 at 64 tokens without causal mask (#1, #2, #3), a
+# logit bias of -10; its published recipe's batch of 32k spans many cards,
+# so one card trains at 256. ViT-SO400M-14-SigLIP: timm SO400M/14 (plain)
+# and text 27 x 1152, 16 heads of 72, 16 tokens, MLP 4304 (#6 at dh 72, #4
+# at 1152 -> 4304), at the largest batch the card holds
+# (--siglip-batch-probe). Distillation as open_clip's README documents it
+# (--distill-model ViT-L-14 --distill-pretrained openai), the teacher a
+# seeded .pt written by the port's exporter, student ViT-B-32 at 128.
+SIGLIP_MODEL = "ViT-B-16-SigLIP"
+SIGLIP_TOKENIZER = "timm/ViT-B-16-SigLIP"  # both configs' hf_tokenizer_name
+SIGLIP_BATCH = 256
+SIGLIP_WARMUP, SIGLIP_STEPS = 2, 5
+SIGLIP_L = 64
+SIGLIP_PATH_BATCH = 64
+SO400M_MODEL = "ViT-SO400M-14-SigLIP"
+SO400M_BATCH = 64
+SO400M_WARMUP, SO400M_STEPS = 1, 3
+SO400M_L = 16
+SO400M_HIDDEN = 4304
+SO400M_PROBE = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+DISTILL_STUDENT, DISTILL_TEACHER = "ViT-B-32", "ViT-L-14"
+DISTILL_BATCH = 128
+DISTILL_WARMUP, DISTILL_STEPS = 2, 5
+DISTILL_PATH_BATCH = 32
+DISTILL_L = (IMAGE_SIZE // 14) ** 2 + 1  # the teacher's ViT-L/14 tokens
+SIGLIP_PER_STEP = dict(fused_attn_half=12, fused_mlp_half=12,
+                       fused_attn_half_bwd=12, normalize_images=1)
+SO400M_PER_STEP = dict(flash_mha=27, flash_mha_bwd=27, fused_mlp=27,
+                       normalize_images=1)
+# the student's 12 + 12 blocks forward and backward, the teacher's 24
+# vision blocks (#6, #4) and 12 text blocks (#1, #2) forward only
+DISTILL_PER_STEP = dict(fused_attn_half=36, fused_mlp_half=36,
+                        fused_attn_half_bwd=24, flash_mha=24, fused_mlp=24,
+                        normalize_images=1)
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -421,7 +480,14 @@ def _kernel_cases(gen):
             ("CoCa decoder generation", COCA_GEN_BATCH, COCA_SEQ_LEN, 768,
              12, True),
             ("CoCa decoder generation", COCA_GEN_BATCH * COCA_BEAMS,
-             COCA_SEQ_LEN, 768, 12, True)):
+             COCA_SEQ_LEN, 768, 12, True),
+            # ViT-B-16-SigLIP's text blocks (64 tokens, no mask) at its
+            # batch; distillation's student ViT-B-32 at 128 (vision, text)
+            # and its ViT-L-14 teacher's text blocks
+            ("SigLIP text", SIGLIP_BATCH, SIGLIP_L, 768, 12, False),
+            ("distill student vision", DISTILL_BATCH, 50, 768, 12, False),
+            ("distill student text", DISTILL_BATCH, 77, 512, 8, True),
+            ("distill teacher text", DISTILL_BATCH, 77, 768, 12, True)):
         x = rnd((batch, l, d), dtype=bf)
         args = (x, 1 + rnd(d, 0.1), rnd(d, 0.1),
                 rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1),
@@ -458,7 +524,12 @@ def _kernel_cases(gen):
             ("CoCa decoder generation", COCA_GEN_BATCH * COCA_BEAMS,
              COCA_SEQ_LEN, 768, ("gelu",)),
             ("CoCa text generation", COCA_GEN_BATCH * COCA_BEAMS,
-             COCA_SEQ_LEN + 1, 768, ("gelu",))):
+             COCA_SEQ_LEN + 1, 768, ("gelu",)),
+            # SigLIP's text rows; the distillation student's (its
+            # teacher's text rows are CoCa text's: 128 x 77 at D 768)
+            ("SigLIP text", SIGLIP_BATCH, SIGLIP_L, 768, ("gelu",)),
+            ("distill student vision", DISTILL_BATCH, 50, 768, ("gelu",)),
+            ("distill student text", DISTILL_BATCH, 77, 512, ("gelu",))):
         hd = 4 * d
         n = batch * l
         for act in acts:
@@ -476,7 +547,10 @@ def _kernel_cases(gen):
             ("ViT-H-14 text", CLIPA_PATH_BATCH, 32, 1024, 16, True),
             ("ViT-H-14 text", CLIPA_BATCH, 32, 1024, 16, True),
             ("ViT-H-14 text", CLIPA_BATCH, 8, 1024, 16, True),
-            ("CoCa decoder", COCA_BATCH, COCA_TEXT_L - 2, 768, 12, True)):
+            ("CoCa decoder", COCA_BATCH, COCA_TEXT_L - 2, 768, 12, True),
+            ("SigLIP text", SIGLIP_BATCH, SIGLIP_L, 768, 12, False),
+            ("distill student vision", DISTILL_BATCH, 50, 768, 12, False),
+            ("distill student text", DISTILL_BATCH, 77, 512, 8, True)):
         args = (rnd((b, l, d), dtype=bf), rnd((b, l, d), dtype=bf),
                 1 + rnd(d, 0.1), rnd(d, 0.1), rnd((d, 3 * d), d**-0.5, bf),
                 rnd(3 * d, 0.1), rnd((d, d), d**-0.5, bf),
@@ -501,7 +575,9 @@ def _kernel_cases(gen):
     for shape in ((SERVE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3), (5, 33, 47, 3),
                   (CLIPA_EVAL_BATCH, EVAL_IMAGE_SIZE, EVAL_IMAGE_SIZE, 3),
                   (BASELINE_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
-                  (COCA_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)):
+                  (COCA_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+                  (SIGLIP_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3),
+                  (SO400M_BATCH, IMAGE_SIZE, IMAGE_SIZE, 3)):
         images = torch.randint(0, 256, shape, generator=gen, device=dev,
                                dtype=torch.uint8)
         n = images.numel()
@@ -530,7 +606,10 @@ FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (2, 4, 257, 112),
                # coca_ViT-L-14's vision tower: the recipe's batch, and a
                # generation batch's encode
-               (COCA_BATCH, 16, COCA_L, 64), (COCA_GEN_BATCH, 16, COCA_L, 64))
+               (COCA_BATCH, 16, COCA_L, 64), (COCA_GEN_BATCH, 16, COCA_L, 64),
+               # ViT-SO400M-14-SigLIP's text tower: 16 tokens, 16 heads of
+               # 72 (the distillation teacher's vision is CoCa's shape)
+               (SO400M_BATCH, 16, SO400M_L, 72))
 
 
 def _gap_kernel_cases(gen):
@@ -594,6 +673,10 @@ def _gap_kernel_cases(gen):
                               # batch and a generation batch
                               (COCA_BATCH * COCA_L, 1024, 4096, ("gelu",)),
                               (COCA_GEN_BATCH * COCA_L, 1024, 4096,
+                               ("gelu",)),
+                              # ViT-SO400M-14-SigLIP's text MLP: a hidden
+                              # width of 4304 = 67 x 64 + 16 (ragged tiles)
+                              (SO400M_BATCH * SO400M_L, 1152, SO400M_HIDDEN,
                                ("gelu",))):
         for act in acts:
             x = torch.randn((rows, d), generator=gen, device=dev).to(bf)
@@ -603,7 +686,8 @@ def _gap_kernel_cases(gen):
                   * hd**-0.5).to(bf)
             b1 = torch.randn(hd, generator=gen, device=dev) * 0.1
             b2 = torch.randn(d, generator=gen, device=dev) * 0.1
-            cases.append(("fused_mlp", f"vision N={rows} D={d} H={hd} {act}",
+            tower = "text" if hd == SO400M_HIDDEN else "vision"
+            cases.append(("fused_mlp", f"{tower} N={rows} D={d} H={hd} {act}",
                           (x, w1, b1, w2, b2, act), 4 * rows * d * hd,
                           2 * 2 * rows * d + 2 * 2 * d * hd + 4 * (d + hd),
                           "bf16", None))
@@ -3706,6 +3790,331 @@ def _profile_coca_step(card: str, state, n_steps: int = 3) -> None:
                     run, card, top=25)
 
 
+def write_t5_tokenizer(directory: str, words, size: int = 32000) -> str:
+    """A SentencePiece-style (T5) tokenizer in ``directory``, as SigLIP's
+    hub repository holds one: tokenizer.json (a unigram model over
+    ``size`` pieces: <pad> 0, </s> 1, <unk> 2, the ``words`` and the
+    letters with and without the word-start mark, filled with unused
+    pieces; the Metaspace pre-tokenizer; </s> appended) and
+    tokenizer_config.json naming T5Tokenizer. Returns the directory."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+    from tokenizers import processors
+
+    letters = [chr(c) for c in range(97, 123)]
+    pieces = list(dict.fromkeys(["▁" + w for w in sorted(words)]
+                                + ["▁" + c for c in letters] + letters
+                                + ["▁"]))
+    vocab = [("<pad>", 0.0), ("</s>", 0.0), ("<unk>", 0.0)]
+    vocab += [(p, -math.log(2.0 + i)) for i, p in enumerate(pieces)]
+    vocab += [(f"<unused{i}>", -100.0) for i in range(size - len(vocab))]
+    tok = Tokenizer(models.Unigram(vocab, unk_id=2))
+    tok.pre_tokenizer = pre_tokenizers.Metaspace()
+    tok.decoder = decoders.Metaspace()
+    tok.post_processor = processors.TemplateProcessing(
+        single="$A </s>", pair="$A </s> $B </s>",
+        special_tokens=[("</s>", 1)])
+    os.makedirs(directory, exist_ok=True)
+    tok.save(os.path.join(directory, "tokenizer.json"))
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "T5Tokenizer", "eos_token": "</s>",
+                   "pad_token": "<pad>", "unk_token": "<unk>",
+                   "extra_ids": 0, "model_max_length": SIGLIP_L}, f)
+    return directory
+
+
+def _write_siglip_hub_cache(hub: str) -> str:
+    """SigLIP's tokenizer as a hub cache holds it offline
+    (models--timm--ViT-B-16-SigLIP/snapshots/<revision>/ with refs/main):
+    write_t5_tokenizer over the synthetic caption's and CLIPA_WORDS'
+    words. Returns the snapshot directory."""
+    rev = "41aec1c83b32e0a6fca20ad88ba058aa5b5ea394"
+    repo = os.path.join(hub, "models--" + SIGLIP_TOKENIZER.replace("/", "--"))
+    snap = write_t5_tokenizer(os.path.join(repo, "snapshots", rev),
+                              ("dummy", "caption", *CLIPA_WORDS))
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(rev)
+    return snap
+
+
+def _cli_main_args(model: str, batch: int, steps: int, logs: str,
+                   name: str, *extra) -> list:
+    """cli.main on synthetic data for ``steps`` steps of ``batch``, bf16
+    over fp32 masters, no checkpoint written, no eval."""
+    return ["--model", model, "--dataset-type", "synthetic",
+            "--train-num-samples", str(batch * steps), "--batch-size",
+            str(batch), "--epochs", "1", "--lr", "1e-4", "--wd", "0.1",
+            "--warmup", "10", "--precision", "amp_bf16", "--workers", "4",
+            "--log-every-n-steps", "1", "--save-frequency", "0",
+            "--val-frequency", "0", "--logs", logs, "--name", name,
+            "--seed", "0", *extra]
+
+
+def _cli_train(argv, warmup: int, batch: int) -> tuple:
+    """(cli.main's result, the train record: samples/s and p50 step ms
+    over the steps after ``warmup``, peak memory over what was resident,
+    the losses; launches of the run)."""
+    import gc
+
+    from xtagclip_tpu_torch.cli import main as cli_main
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = cli_main.main(argv)
+    finally:
+        close_logging()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    tm = out["epochs"][0]["train"]
+    timed = tm["interval_step_s"][warmup:]
+    rec = {"wall_s": wall, "steps": len(tm["interval_step_s"]),
+           "step_s": tm["interval_step_s"],
+           "samples_per_s": batch * len(timed) / sum(timed),
+           "p50_step_ms": 1e3 * statistics.median(timed),
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() - resident) / 1e9,
+           "data_wait_ms": [1e3 * t for t in tm["data_step_s"]],
+           "launches": counts,
+           **{k: tm[k] for k in ("loss", "contrastive_loss", "distill_loss",
+                                 "grad_norm", "logit_scale") if k in tm}}
+    rec["finite"] = all(math.isfinite(rec[k]) for k in
+                        ("loss", "contrastive_loss", "grad_norm") if k in rec)
+    return out, rec
+
+
+def _path_runs(kernels, plain, batch, p_batch):
+    """The kernels-on/off runs of _steps_vs_plain: kernels, plain, and the
+    plain step on images one bf16 step up and down (the noise floor)."""
+    return (("kernels", kernels, batch), ("plain", plain, p_batch),
+            ("plain_up", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], 1))),
+            ("plain_down", plain, dict(p_batch, images=_bf16_ulp_shift(
+                p_batch["images"], -1))))
+
+
+def _synthetic_batch(b: int, ctx: int, vocab: int, seed: int):
+    """(uint8 images, token ids) on the card: seeded 224x224 images and
+    ids of 5 to ``ctx`` - 1 tokens, zero-padded."""
+    rng = np.random.default_rng(seed)
+    texts = np.zeros((b, ctx), np.int64)
+    for i, n in enumerate(rng.integers(5, ctx, b)):
+        texts[i, :n] = rng.integers(1, vocab, n)
+    return _coca_images(b, seed), torch.from_numpy(texts).to("cuda")
+
+
+def _kernels_vs_plain_step(model_name: str, b: int, args_cfg: dict,
+                           precision: str = "bf16", teacher=None,
+                           seed: int = 61) -> dict:
+    """One train step of ``model_name`` with the kernels on and off from
+    the same weights and batch (``args_cfg``; a ``teacher`` pair (kernels,
+    plain) distils into each), at the train-path bars (_judge_steps)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    kernels = create_model(model_name, precision=precision, init_seed=1)
+    plain = copy.deepcopy(kernels)
+    set_use_kernels(plain, False)
+    cfg = kernels.model_cfg["text_cfg"]
+    u8, texts = _synthetic_batch(b, cfg.get("context_length", 77),
+                                 cfg.get("vocab_size", 49408), seed)
+    batch = {"images": preprocess.normalize_images(u8, dtype=torch.bfloat16),
+             "texts": texts}
+    p_batch = {"images": preprocess.normalize_images_reference(
+        u8, dtype=torch.bfloat16), "texts": texts}
+    start = copy.deepcopy(plain.state_dict())
+    steps = {m: make_train_step(args_cfg, teacher=t) for m, t in (
+        ("kernels", teacher and teacher[0]), ("plain", teacher and teacher[1]))}
+
+    def step(state, bt, gen):
+        return steps["kernels" if state.model is kernels else "plain"](
+            state, bt, gen)
+
+    out = _steps_vs_plain(_path_runs(kernels, plain, batch, p_batch), step,
+                          plain, start)
+    judged, _ = _judge_steps(out)
+    judged.update(batch=b, precision=precision)
+    if kernels.logit_bias is not None:
+        judged["logit_bias_grad"] = {k: out[k][1]["logit_bias"].item()
+                                     for k in ("kernels", "plain")}
+        judged["ok"] = judged["ok"] and all(
+            v != 0.0 for v in judged["logit_bias_grad"].values())
+    del kernels, plain, start, out
+    return judged
+
+
+def phase_siglip(card: str, tmp: str) -> dict:
+    """ViT-B-16-SigLIP and ViT-SO400M-14-SigLIP through ``cli.main
+    --siglip`` at full width and depth from a seeded init on synthetic data
+    (the T5 tokenizer in a temporary HF_HUB_CACHE): SIGLIP_WARMUP +
+    SIGLIP_STEPS steps of 256, then SO400M_WARMUP + SO400M_STEPS of
+    SO400M_BATCH; samples/s, p50 step ms, peak memory, launches per step
+    (SIGLIP_PER_STEP, SO400M_PER_STEP: #4 at hidden width 4304 among them),
+    the logit bias trained (moved from -10); then one B-16 step kernels on
+    vs off at SIGLIP_PATH_BATCH at the train-path bars, logit_bias's
+    gradient nonzero in both."""
+    import gc
+
+    hub = os.path.join(tmp, "siglip_hub")
+    _write_siglip_hub_cache(hub)
+    counts, runs = {}, {}
+    logs = os.path.join(tmp, "siglip")
+    try:
+        with _env(HF_HUB_CACHE=hub):
+            for key, model, batch, warm, steps, per, extra in (
+                    ("siglip", SIGLIP_MODEL, SIGLIP_BATCH, SIGLIP_WARMUP,
+                     SIGLIP_STEPS, SIGLIP_PER_STEP,
+                     ("--loss-dist-impl", "bidir")),
+                    ("so400m", SO400M_MODEL, SO400M_BATCH, SO400M_WARMUP,
+                     SO400M_STEPS, SO400M_PER_STEP, ())):
+                out, rec = _cli_train(_cli_main_args(
+                    model, batch, warm + steps, logs, key, "--siglip",
+                    *extra), warm, batch)
+                c = counts[key] = rec["launches"]
+                bias = out["state"].model.logit_bias.item()
+                rec.update(model=model, batch=batch, logit_bias=bias,
+                           launches_ok=c == _want(**_scaled(
+                               per, rec["steps"])))
+                runs[key] = rec
+                del out
+                gc.collect()
+                torch.cuda.empty_cache()
+        path = _kernels_vs_plain_step(SIGLIP_MODEL, SIGLIP_PATH_BATCH,
+                                      {"siglip": True,
+                                       "use_tagging_loss": False})
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+        shutil.rmtree(hub, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (path.pop("ok") and all(
+        r["finite"] and r["launches_ok"] and r["logit_bias"] != -10.0
+        for r in runs.values())
+        and counts["so400m"]["fused_mlp"] > 0)
+    result = {"phase": "siglip", "card": card, "weights": "seeded random init",
+              "data": "synthetic (cli.main --dataset-type synthetic)",
+              "cuts": "one process (the recipe's batch of 32k spans many "
+                      "cards); depth and widths as published",
+              **runs, "train_path": path, "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"siglip phase failed its checks: {result}")
+    return counts
+
+
+def phase_siglip_batch_probe(card: str, tmp: str) -> dict:
+    """cli.main --siglip on ViT-SO400M-14-SigLIP for 2 steps at each batch
+    of SO400M_PROBE in turn, until one runs out of memory: the largest
+    batch that fits, without and then with --grad-checkpointing (which
+    checkpoints the timm trunk's blocks and the text tower's)."""
+    import gc
+
+    hub = os.path.join(tmp, "siglip_hub")
+    _write_siglip_hub_cache(hub)
+    logs = os.path.join(tmp, "probe")
+    res = {}
+    with _env(HF_HUB_CACHE=hub):
+        for ckpt in (False, True):
+            fits = []
+            for batch in SO400M_PROBE:
+                try:
+                    _, rec = _cli_train(_cli_main_args(
+                        SO400M_MODEL, batch, 2, logs, f"b{batch}",
+                        "--siglip", *(("--grad-checkpointing",)
+                                      if ckpt else ())), 1, batch)
+                    fits.append({"batch": batch,
+                                 "peak_mem_gb": rec["peak_mem_gb"],
+                                 "step_ms": 1e3 * rec["step_s"][-1]})
+                except torch.OutOfMemoryError:
+                    break
+                finally:
+                    shutil.rmtree(logs, ignore_errors=True)
+                    gc.collect()
+                    torch.cuda.empty_cache()
+            res["grad_checkpointing" if ckpt else "plain"] = fits
+    shutil.rmtree(hub, ignore_errors=True)
+    _emit({"phase": "siglip_batch_probe", "card": card,
+           "model": SO400M_MODEL, "probed": list(SO400M_PROBE), **res})
+    return res
+
+
+def phase_distill(card: str, tmp: str) -> dict:
+    """Distillation as open_clip's README documents it, through cli.main:
+    student ViT-B-32 at DISTILL_BATCH, ``--distill-model ViT-L-14
+    --distill-pretrained`` a .pt the port's exporter writes from a seeded
+    init (1.7 GB, deleted after), synthetic data, DISTILL_WARMUP +
+    DISTILL_STEPS steps: samples/s, p50 step ms, peak memory, distill_loss
+    finite, launches per step (DISTILL_PER_STEP); then one step kernels on
+    vs off at DISTILL_PATH_BATCH with the teacher in each, and one
+    --precision pure_bf16 ViT-B-32 step kernels on vs off, at the
+    train-path bars."""
+    import gc
+
+    from xtagclip_tpu_torch.convert.export import save_open_clip_checkpoint
+    from xtagclip_tpu_torch.factory import cast_for_compute, create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+
+    pt = os.path.join(tmp, "teacher.pt")
+    logs = os.path.join(tmp, "distill")
+    try:
+        t0 = time.perf_counter()
+        teacher = create_model(DISTILL_TEACHER, init_seed=5)
+        save_open_clip_checkpoint(teacher, pt)
+        write_s = time.perf_counter() - t0
+        t_kernels = teacher.requires_grad_(False).eval()
+        cast_for_compute(t_kernels, torch.bfloat16)
+        t_plain = copy.deepcopy(t_kernels)
+        set_use_kernels(t_plain, False)
+        del teacher
+        gc.collect()
+        out, rec = _cli_train(_cli_main_args(
+            DISTILL_STUDENT, DISTILL_BATCH, DISTILL_WARMUP + DISTILL_STEPS,
+            logs, "distill", "--distill-model", DISTILL_TEACHER,
+            "--distill-pretrained", pt), DISTILL_WARMUP, DISTILL_BATCH)
+        c = rec["launches"]
+        rec.update(student=DISTILL_STUDENT, teacher=DISTILL_TEACHER,
+                   batch=DISTILL_BATCH, teacher_pt_bytes=os.path.getsize(pt),
+                   teacher_pt_write_s=write_s,
+                   launches_ok=c == _want(**_scaled(DISTILL_PER_STEP,
+                                                    rec["steps"])))
+        del out
+        path = _kernels_vs_plain_step(DISTILL_STUDENT, DISTILL_PATH_BATCH,
+                                      {"use_tagging_loss": False},
+                                      teacher=(t_kernels, t_plain))
+        del t_kernels, t_plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        pure = _kernels_vs_plain_step(DISTILL_STUDENT, DISTILL_PATH_BATCH,
+                                      {"use_tagging_loss": False},
+                                      precision="pure_bf16")
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+        if os.path.exists(pt):
+            os.remove(pt)
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (rec["finite"] and rec["launches_ok"]
+          and math.isfinite(rec.get("distill_loss", float("nan")))
+          and path.pop("ok") and pure.pop("ok"))
+    result = {"phase": "distill", "card": card,
+              "recipe": "open_clip README --distill-model ViT-L-14 "
+                        "--distill-pretrained openai, via cli.main",
+              "weights": "seeded random init; the teacher from a seeded .pt "
+                         "the port's exporter wrote",
+              "data": "synthetic", "train": rec, "train_path": path,
+              "pure_bf16_train_path": pure, "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"distill phase failed its checks: {result}")
+    return {"distill": c}
+
+
 def phase_rn50(card: str) -> dict:
     """The CLIP RN50 tower (models/resnet.py) in fp32 at batch 32 on the
     card, held to the CPU's forward on the same weights: pooled features
@@ -3967,6 +4376,12 @@ def main(argv=()) -> int:
     ap.add_argument("--coca-only", action="store_true",
                     help="run only the build, the kernel rows and the "
                          "coca_train and coca phases")
+    ap.add_argument("--siglip-only", action="store_true",
+                    help="run only the build, the kernel rows and the "
+                         "siglip and distill phases")
+    ap.add_argument("--siglip-batch-probe", action="store_true",
+                    help="run only the build and the search for the "
+                         "largest ViT-SO400M-14-SigLIP batch that fits")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3982,9 +4397,12 @@ def main(argv=()) -> int:
     _emit({"phase": "build", "card": card, "seconds": build_s,
            "kernels": {k: v["path"] for k, v in built.items()},
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
-    if args.clipa_batch_probe:
+    if args.clipa_batch_probe or args.siglip_batch_probe:
         with tempfile.TemporaryDirectory(prefix="xtag_probe_") as tmp:
-            phase_clipa_batch_probe(card, tmp)
+            if args.clipa_batch_probe:
+                phase_clipa_batch_probe(card, tmp)
+            if args.siglip_batch_probe:
+                phase_siglip_batch_probe(card, tmp)
         print(card, flush=True)
         return 0
 
@@ -3998,12 +4416,16 @@ def main(argv=()) -> int:
             seconds[name] = time.perf_counter() - t0
 
     entries = timed("kernels", phase_kernels, card)
-    if args.coca_only:
-        with tempfile.TemporaryDirectory(prefix="xtag_coca_") as tmp:
-            paths = timed("coca_train", phase_coca_train, card, tmp,
-                          profile=args.profile)
-            paths.update(timed("coca", phase_coca, card,
-                               profile=args.profile))
+    if args.coca_only or args.siglip_only:
+        with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
+            if args.coca_only:
+                paths = timed("coca_train", phase_coca_train, card, tmp,
+                              profile=args.profile)
+                paths.update(timed("coca", phase_coca, card,
+                                   profile=args.profile))
+            else:
+                paths = timed("siglip", phase_siglip, card, tmp)
+                paths.update(timed("distill", phase_distill, card, tmp))
         _emit({"phase": "seconds", "card": card, "build": build_s,
                **seconds})
         for e in entries:
@@ -4049,6 +4471,8 @@ def main(argv=()) -> int:
         paths.update(timed("coca", phase_coca, card, profile=args.profile))
         paths.update(timed("coca_train", phase_coca_train, card, tmp,
                            profile=args.profile))
+        paths.update(timed("siglip", phase_siglip, card, tmp))
+        paths.update(timed("distill", phase_distill, card, tmp))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

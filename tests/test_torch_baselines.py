@@ -46,6 +46,7 @@ from xtagclip_tpu_torch.convert.from_jax import (  # noqa: E402
     stats_buffers,
 )
 from xtagclip_tpu_torch.utils.constants import IMAGENET_MEAN, IMAGENET_STD  # noqa: E402
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -35,6 +35,7 @@ from xtagclip_tpu_torch.convert.from_jax import (
     port_name,
 )
 from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -57,6 +57,7 @@ from xtagclip_tpu_torch.tokenize.prompts import PromptTable  # noqa: E402
 from xtagclip_tpu_torch.train import loop, metadata  # noqa: E402
 from xtagclip_tpu_torch.train import train_state as ts  # noqa: E402
 from xtagclip_tpu_torch.train.logger import close_logging  # noqa: E402
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

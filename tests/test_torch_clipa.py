@@ -49,6 +49,7 @@ from xtagclip_tpu_torch.ops import flash_attn
 from xtagclip_tpu_torch.train.logger import close_logging
 from xtagclip_tpu_torch.train.loop import _model_losses
 from xtagclip_tpu_torch.train.params import parse_args, unported
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -442,7 +443,9 @@ def test_unported_messages_name_existing_roadmap_items():
                        "--remote-sync", "s3://x", "--pretrained",
                        "laion2b_s32b_b79k", "--model", "coca_ViT-B-32"])
     messages = unported(args)
-    assert len(messages) == 5  # --model coca_* is ported (CoCa's slice)
+    # --model coca_* (CoCa's slice), --siglip and --distill-model (SigLIP's
+    # and distillation's) are ported
+    assert len(messages) == 3
     items = _queue1_items()
     for msg in messages:
         named = [int(n) for n in re.findall(r"Queue 1 item (\d+)", msg)]
@@ -455,6 +458,10 @@ def test_unported_messages_name_existing_roadmap_items():
     coca = parse_args(["--model", "coca_ViT-L-14", "--coca-caption-loss-"
                        "weight", "1", "--coca-contrastive-loss-weight", "0"])
     assert unported(coca) == []
+    siglip = parse_args(["--model", "ViT-B-16-SigLIP", "--siglip",
+                         "--loss-dist-impl", "bidir", "--distill-model",
+                         "ViT-L-14", "--precision", "pure_bf16"])
+    assert unported(siglip) == []
 
 
 # -- (g) the CLI's two stages (tests/test_clipa_path.py, in the port) --------

@@ -54,6 +54,7 @@ from xtagclip_tpu_torch.ops import fused_mlp
 from xtagclip_tpu_torch.tokenize import bpe
 from xtagclip_tpu_torch.train.logger import close_logging
 from xtagclip_tpu_torch.train.loop import _model_losses, make_accum_train_step
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -463,11 +464,12 @@ def test_plain_core_route_runs_the_mlp_half_kernel_wrapper(monkeypatch):
 
 
 def test_plain_core_raises_off_the_cpu_without_an_mlp_kernel():
-    """A bf16 stream whose MLP no kernel takes (width 96) raises on a
-    device that is not the CPU (meta stands in for the card); the MLP half
-    of a width the kernels take reaches #2's wrapper there."""
-    blk = ResidualAttentionBlock(96, 2, is_cross_attention=True)
-    x = torch.empty((1, 8, 96), dtype=torch.bfloat16, device="meta")
+    """A bf16 stream whose MLP no kernel takes (width 100: #4 takes
+    multiples of 8, #2 of 64) raises on a device that is not the CPU (meta
+    stands in for the card); the MLP half of a width the kernels take
+    reaches #2's wrapper there."""
+    blk = ResidualAttentionBlock(100, 2, is_cross_attention=True)
+    x = torch.empty((1, 8, 100), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="no kernel for MLP rows"):
         blk(x, kv=x)
     with torch.device("meta"):
@@ -553,9 +555,11 @@ def test_factory_tokenize_cfg_and_loss(pair):
         "--model", "coca_ViT-L-14", "--coca-contrastive-loss-weight", "0",
         "--coca-caption-loss-weight", "1"]))
     assert (loss.clip_loss_weight, loss.caption_loss_weight) == (0.0, 1.0)
-    for flags in (["--siglip"], ["--distill-model", "RN50"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            factory.create_loss(parse_args(["--model", "ViT-B-32", *flags]))
+    # SigLIP and distillation are ported (their slice): JAX's order
+    for flags, kind in ((["--siglip"], "SigLipLoss"),
+                        (["--distill-model", "RN50"], "DistillClipLoss")):
+        loss = factory.create_loss(parse_args(["--model", "ViT-B-32", *flags]))
+        assert type(loss).__name__ == kind
 
 
 # -- the training CLI --------------------------------------------------------------

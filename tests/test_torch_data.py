@@ -20,6 +20,7 @@ import random
 import shutil
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +44,7 @@ from xtagclip_tpu_torch.ops.preprocess import (  # noqa: E402
     normalize_images_reference,
 )
 from xtagclip_tpu_torch.tokenize.bpe import SimpleTokenizer  # noqa: E402
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -85,8 +87,10 @@ def test_normalize_plain_matches_jax(shape):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_normalize_plain_matches_pallas_interpret(dtype):
     u8 = _u8((4, 32, 32, 3), seed=0)
-    ref = np.array(normalize_images_pallas(
-        jnp.asarray(u8), dtype=getattr(jnp, dtype), interpret=True)
+    # jitted: an eager call of an interpreted Pallas kernel can deadlock in
+    # the interpreter's callbacks (ROADMAP Ground rules)
+    ref = np.array(jax.jit(lambda u: normalize_images_pallas(
+        u, dtype=getattr(jnp, dtype), interpret=True))(jnp.asarray(u8))
         .astype(jnp.float32))
     out = normalize_images_reference(torch.from_numpy(u8),
                                      dtype=getattr(torch, dtype))

@@ -64,6 +64,7 @@ from xtagclip_tpu_torch.serving import (  # noqa: E402
 )
 from xtagclip_tpu_torch.train.logger import close_logging  # noqa: E402
 from xtagclip_tpu_torch.train.loop import _model_losses  # noqa: E402
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -91,6 +92,17 @@ def _jax_flash_paths():
         mp.setenv("XTAG_FUSED_BLOCK", "0")
         with pltpu.force_tpu_interpret_mode():
             yield
+
+
+def _jitted_vjp(fn, ct, *ins):
+    """jax.vjp of ``fn`` at ``ins`` under the cotangent ``ct``, jitted: an
+    eager call of the interpreted Pallas kernels can deadlock in the
+    interpreter's callbacks (ROADMAP Ground rules)."""
+    def grads(*a):
+        out, vjp = jax.vjp(fn, *a)
+        return vjp(jnp.asarray(ct, out.dtype))
+
+    return jax.jit(grads)(*ins)
 
 
 def _rng_arrays(seed, *shapes, scale=1.0):
@@ -137,7 +149,8 @@ def test_reference_flash_matches_pallas_flash(layout, bf16):
     shape = (1, 128, 2, 64) if layout == "blhd" else (1, 2, 128, 64)
     (jq, jk, jv), (q, k, v) = _qkv(shape, 1 + bf16, bf16)
     with jax.default_matmul_precision("highest"), _jax_flash_paths():
-        ref = jflash.flash_mha(jq, jk, jv, layout=layout)
+        ref = jax.jit(lambda *a: jflash.flash_mha(*a, layout=layout))(
+            jq, jk, jv)
     out = flash_attn.flash_mha(q, k, v, layout=layout)
     assert out.shape == shape and out.dtype == q.dtype
     if bf16:
@@ -172,8 +185,7 @@ def test_flash_grads_match_pallas_bwd_kernels(bf16):
     (jq, jk, jv), (q, k, v) = _qkv(shape, 5 + bf16, bf16)
     ct = _rng_arrays(7, shape)[0]
     with jax.default_matmul_precision("highest"), _jax_flash_paths():
-        out, vjp = jax.vjp(lambda *a: jflash.flash_mha(*a), jq, jk, jv)
-        ref = vjp(jnp.asarray(ct, out.dtype))
+        ref = _jitted_vjp(jflash.flash_mha, ct, jq, jk, jv)
     ins = [t.requires_grad_(True) for t in (q, k, v)]
     o = flash_attn.flash_mha(*ins)
     got = torch.autograd.grad(o, ins, torch.from_numpy(ct).to(o.dtype))
@@ -222,7 +234,7 @@ def test_reference_fused_mlp_matches_pallas_kernel(act):
     pairs = [_to(a, m) for a, m in zip(ins, _MLP_BF16)]
     j_ins, t_ins = [p[0] for p in pairs], [p[1] for p in pairs]
     with _jax_flash_paths():
-        ref = jmlp._fused_mlp_fwd(*j_ins, act)
+        ref = jax.jit(lambda *a: jmlp._fused_mlp_fwd(*a, act))(*j_ins)
     chain = jmlp.maybe_fused_mlp(*j_ins, act)
     out = fused_mlp.fused_mlp(*t_ins, act)
     assert out.dtype == torch.bfloat16 and out.shape == (256, 128)
@@ -241,8 +253,7 @@ def test_fused_mlp_grads_match_jax_vjp(act, bf16):
     j_ins = [p[0] for p in pairs]
     t_ins = [p[1].requires_grad_(True) for p in pairs]
     with _jax_flash_paths():
-        out, vjp = jax.vjp(lambda *a: jmlp.fused_mlp(*a, act), *j_ins)
-        ref = vjp(jnp.asarray(ct, out.dtype))
+        ref = _jitted_vjp(lambda *a: jmlp.fused_mlp(*a, act), ct, *j_ins)
     y = fused_mlp.fused_mlp(*t_ins, act)
     got = torch.autograd.grad(y, t_ins, torch.from_numpy(ct).to(y.dtype))
     for a, r, t in zip(got, ref, t_ins):

@@ -29,6 +29,7 @@ from xtagclip_tpu.models import hf_text as jhf_text
 from xtagclip_tpu_torch.convert import hf_bert
 from xtagclip_tpu_torch.convert.from_jax import _flatten, load_jax_params
 from xtagclip_tpu_torch.models import bert, hf_text
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -26,6 +26,7 @@ import transformers  # noqa: F401
 from xtagclip_tpu.tokenize.hf import HFTokenizer as JaxHF
 from xtagclip_tpu_torch import factory
 from xtagclip_tpu_torch.tokenize import hf
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 SPECIALS = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])

@@ -767,9 +767,12 @@ def test_flash_and_mlp_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="contiguous head dim"):
         flash_attn.flash_mha(q.transpose(2, 3), k.transpose(2, 3),
                              v.transpose(2, 3), layout="bhld")
-    x, _, _, w1, b1, w2, b2 = _mlp_args(16, 96, 256, seed=4, device=cuda)
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+    # widths that are no multiples of 8 (#4 takes ragged 64-column tiles
+    # since ViT-SO400M-14-SigLIP's 4304 hidden)
+    for d, h in ((100, 256), (96, 4300)):
+        x, _, _, w1, b1, w2, b2 = _mlp_args(16, d, h, seed=4, device=cuda)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
     blk = ResidualAttentionBlock(256, 4).to(cuda).bfloat16()
     mask = torch.zeros((256, 256), device=cuda)
     with pytest.raises(ValueError, match="neither the fused attention half"):
@@ -988,3 +991,125 @@ def test_normalize_kernel_matches_plain_at_coca_batch(cuda):
     ref = preprocess.normalize_images_reference(images, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     assert ((_ordered(out) - _ordered(ref)).abs() >> 16).max().item() <= 1
+
+
+# -- SigLIP's and distillation's shapes -----------------------------------------
+# ViT-B-16-SigLIP's text blocks (64 tokens, no mask, D 768) at its batch of
+# 256; ViT-SO400M-14-SigLIP's text tower (16 tokens, 16 heads of 72, MLP
+# 1152 -> 4304: ragged 64-column tiles in #4's c_fc and a ragged K tile in
+# its c_proj); distillation's student ViT-B-32 at batch 128 (its teacher's
+# shapes are CoCa's above); #4 at other widths that are multiples of 8
+# and not of 64.
+
+def test_attn_kernels_match_plain_at_siglip_text_shape(cuda):
+    b, l, d = 256, 64, 768
+    args = _attn_args(b, l, d, seed=264, device=cuda)
+    with torch.inference_mode():
+        out = fab.fused_attn_half(*args, None, 12, 1e-6)
+        ref = fab.reference_attn_half(*args, None, 12, 1e-6)
+    _assert_kernel_bar(out, ref)
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = args
+    g = _tensors({"x": ((b, l, d), 1.0)}, 265, cuda)["x"]
+    bwd_args = (x, g, ln_g, ln_b, wqkv, bqkv, wout, None, 12, 1e-6)
+    outs = fab.fused_attn_half_bwd(*bwd_args)
+    refs = fab.reference_attn_half_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("n,d", [(256 * 64, 768), (128 * 50, 768),
+                                 (128 * 77, 512)])
+def test_mlp_kernel_matches_plain_at_siglip_and_distill_rows(cuda, n, d):
+    args = _mlp_args(n, d, 4 * d, seed=n + d, device=cuda)
+    with torch.inference_mode():
+        out = fab.fused_mlp_half(*args, "gelu", 1e-6)
+        ref = fab.reference_mlp_half(*args, "gelu", 1e-6)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("b,l,d,h,causal", [(128, 50, 768, 12, False),
+                                            (128, 77, 512, 8, True)])
+def test_attn_kernels_match_plain_at_distill_student_shapes(cuda, b, l, d, h,
+                                                           causal):
+    args = _attn_args(b, l, d, seed=b + l, device=cuda)
+    x, ln_g, ln_b, wqkv, bqkv, wout, _ = args
+    mask = (torch.triu(torch.full((l, l), float("-inf"), device=cuda), 1)
+            if causal else None)
+    with torch.inference_mode():
+        out = fab.fused_attn_half(*args, mask, h, 1e-5)
+        ref = fab.reference_attn_half(*args, mask, h, 1e-5)
+    _assert_kernel_bar(out, ref)
+    g = _tensors({"x": ((b, l, d), 1.0)}, b + l + 1, cuda)["x"]
+    bwd_args = (x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, 1e-5)
+    for out, ref in zip(fab.fused_attn_half_bwd(*bwd_args),
+                        fab.reference_attn_half_bwd(*bwd_args)):
+        _assert_kernel_bar(out, ref)
+
+
+@pytest.mark.parametrize("b", [64, 4])
+def test_flash_kernels_match_plain_at_so400m_text_shapes(cuda, b):
+    q, k, v = _flash_inputs(b, 16, 16, 72, "blhd", seed=b + 72, device=cuda)
+    _flash_fwd_bwd_at_bar(q, k, v, "blhd", seed=b + 73, device=cuda)
+
+
+@pytest.mark.parametrize("n,d,h", [(64 * 16, 1152, 4304), (37, 1152, 4304),
+                                   (300, 144, 360), (129, 200, 520),
+                                   (8192, 1152, 4304)])
+@pytest.mark.parametrize("act", ["gelu", "quick_gelu"])
+def test_fused_mlp_kernel_matches_plain_at_widths_of_eight(cuda, n, d, h,
+                                                           act):
+    """SO400M's text MLP (hidden 4304 = 67 x 64 + 16) at a batch of 64 x 16
+    rows, a ragged row count and a large one, and widths whose D and
+    hidden are multiples of 8 but not of 64 (D 200: c_proj's output panel
+    ragged too): the ragged tiles load zeros past the width and store
+    nothing there."""
+    x, _, _, w1, b1, w2, b2 = _mlp_args(n, d, h, seed=n + h, device=cuda)
+    with torch.inference_mode():
+        out = fused_mlp.fused_mlp(x, w1, b1, w2, b2, act)
+        ref = fused_mlp.reference_fused_mlp(x, w1, b1, w2, b2, act)
+    torch.cuda.synchronize()
+    _assert_kernel_bar(out, ref)
+
+
+def test_fused_mlp_at_ragged_width_repeats_bit_for_bit(cuda):
+    """#4 at hidden 4304 on the same inputs twice: the same bits (the
+    ragged tiles' zero-filled columns are no uninitialized reads)."""
+    x, _, _, w1, b1, w2, b2 = _mlp_args(256, 1152, 4304, seed=5, device=cuda)
+    with torch.inference_mode():
+        a = fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+        b = fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_normalize_kernel_matches_plain_at_siglip_batch(cuda):
+    images = torch.from_numpy(np.random.default_rng(256).integers(
+        0, 256, (256, 224, 224, 3), dtype=np.uint8)).to(cuda)
+    out = preprocess.normalize_images(images, dtype=torch.bfloat16)
+    ref = preprocess.normalize_images_reference(images, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert ((_ordered(out) - _ordered(ref)).abs() >> 16).max().item() <= 1
+
+
+def test_pure_bf16_block_takes_the_kernels(cuda):
+    """A pure_bf16 block (bf16 biases; LayerNorms fp32, as JAX's): the
+    fused halves get the biases upcast and match the plain halves."""
+    blk = ResidualAttentionBlock(768, 12).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m in blk.modules():
+        if hasattr(m, "init_params"):
+            m.init_params(gen)
+    for name, p in blk.named_parameters():
+        if ".ln_" not in f".{name}":
+            p.data = p.data.to(torch.bfloat16)
+    x = torch.randn((8, 64, 768), device=cuda, generator=gen).bfloat16()
+    before = fab.fused_attn_half.launches
+    with torch.inference_mode():
+        out = blk(x)
+        set_use_kernels(blk, False)
+        ref = blk(x)
+    torch.cuda.synchronize()
+    assert fab.fused_attn_half.launches == before + 1
+    _assert_kernel_bar(out, ref)

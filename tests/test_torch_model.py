@@ -31,6 +31,7 @@ from xtagclip_tpu_torch.serving import (
     make_xtag_serve_step,
     precompute_prompt_features,
 )
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

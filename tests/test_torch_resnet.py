@@ -33,6 +33,7 @@ from xtagclip_tpu_torch.convert.from_jax import (
 )
 from xtagclip_tpu_torch.models import resnet, standard_resnet
 from xtagclip_tpu_torch.models.layers import BatchNorm
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

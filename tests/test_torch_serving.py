@@ -44,6 +44,7 @@ from xtagclip_tpu_torch.ops import flash_attn, fused_mlp, preprocess
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
 from xtagclip_tpu_torch.serving import CudaGraphRunner, make_serve_classify
 from xtagclip_tpu_torch.train.logger import close_logging
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 

@@ -62,6 +62,7 @@ from xtagclip_tpu_torch.train import train_state as ts  # noqa: E402
 from xtagclip_tpu_torch.train import zero_shot  # noqa: E402
 from xtagclip_tpu_torch.train.logger import close_logging  # noqa: E402
 from xtagclip_tpu_torch.train.loop import make_accum_train_step  # noqa: E402
+from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -450,10 +451,10 @@ def test_main_other_eval_only_save_embed(e2e, scar_root, tmp_path,
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--siglip"], "siglip"),
+    (["--remote-sync", "s3://bucket/x"], "remote-sync"),
     (["--pretrained", "laion400m_e32"], "laion400m_e32"),
     (["--fsdp"], "fsdp"),
-    (["--precision", "pure_bf16"], "pure_bf16"),
+    (["--distill-pretrained", "openai"], "openai"),
 ])
 def test_main_other_unported_flags_raise(flags, match, tmp_path,
                                         cli_logging):

@@ -20,15 +20,20 @@ data (``get_data``: CSV, synthetic or webdataset shards; ``--imagenet-val``
 an image folder) -> without train data one ``evaluate`` (the 336 px
 script's zero-shot ImageNet eval) -> tower locks, AdamW and the
 schedule -> ``--resume`` (a checkpoint tag: the full train state; a file:
-the weights) -> the contrastive step (``--model coca_*``: CoCa's
-contrastive + caption step, weighted by ``--coca-contrastive-loss-weight``
-and ``--coca-caption-loss-weight``; ``--accum-freq`` > 1: the
-accumulation step, which refuses CoCa as JAX's does) -> per epoch: ``train_one_epoch``, ``evaluate``
-(train/evaluate.py) and the epoch checkpoint.
+the weights) -> ``--distill-model`` (with ``--distill-pretrained``: a local
+.pt, .npz or port checkpoint), the frozen teacher, built with the
+student's precision and ``--force-image-size`` -> the contrastive step
+(``--siglip``: SigLIP's sigmoid loss with the model's ``logit_bias``;
+``--model coca_*``: CoCa's contrastive + caption step, weighted by
+``--coca-contrastive-loss-weight`` and ``--coca-caption-loss-weight``; a
+teacher adds the distillation term; ``--accum-freq`` > 1: the
+accumulation step, which refuses CoCa as JAX's does and drops the
+distillation with JAX's warning) -> per epoch: ``train_one_epoch``,
+``evaluate`` (train/evaluate.py) and the epoch checkpoint.
 
-One process: ``--local-loss`` and ``--gather-with-grad`` change nothing;
-flags whose branches are not ported (train/params.py ``unported``) raise
-NotImplementedError.
+One process: ``--local-loss``, ``--gather-with-grad`` and
+``--loss-dist-impl`` change nothing; flags whose branches are not ported
+(train/params.py ``unported``) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ import torch
 from xtagclip_tpu_torch.cli.main_other import PRECISION
 from xtagclip_tpu_torch.data.registry import get_data
 from xtagclip_tpu_torch.factory import (
+    cast_for_compute,
     create_model_and_transforms,
+    get_cast_dtype,
     get_tokenizer,
 )
 from xtagclip_tpu_torch.train.checkpoint import (
@@ -87,6 +94,25 @@ def _sinks(args, log_base_path):
         except ImportError:
             logging.warning("wandb unavailable")
     return tb_writer
+
+
+def _teacher(args, force_size):
+    """The frozen distillation teacher (JAX cli/main.py:175-198): the
+    student's precision and ``--force-image-size`` (it reads the
+    student's batches), ``--distill-pretrained`` loaded as
+    ``--pretrained`` is; no gradient, and with bf16 compute its matmul
+    weights cast once (``cast_for_compute``: the same arithmetic as the
+    casts at use)."""
+    teacher, _, _ = create_model_and_transforms(
+        args.distill_model, args.distill_pretrained or None,
+        precision=PRECISION[args.precision], device=args.device,
+        **({"vision_cfg": {"image_size": force_size}} if force_size else {}))
+    teacher.requires_grad_(False)
+    teacher.eval()
+    dtype = get_cast_dtype(PRECISION[args.precision])
+    if dtype != torch.float32:
+        cast_for_compute(teacher, dtype)
+    return teacher
 
 
 def main(argv=None):
@@ -194,20 +220,32 @@ def main(argv=None):
 
             load_checkpoint_into(model, args.resume)
 
+    teacher = None
+    if args.distill_model:
+        teacher = _teacher(args, force_size)
+        logging.info("Teacher %s: %.2fM params", args.distill_model,
+                     sum(p.numel() for p in teacher.parameters()) / 1e6)
+
     args_cfg = {
         "siglip": args.siglip, "use_tagging_loss": False,
         "lock_image_freeze_bn_stats": bool(
             args.lock_image and args.lock_image_freeze_bn_stats),
     }
+    if args.loss_dist_impl:
+        args_cfg["siglip_dist_impl"] = args.loss_dist_impl
     if "coca" in args.model.lower():
         args_cfg.update(
             coca=True,
             coca_caption_loss_weight=args.coca_caption_loss_weight,
             coca_contrastive_loss_weight=args.coca_contrastive_loss_weight)
     if args.accum_freq > 1:
+        if teacher is not None:
+            logging.warning(
+                "--distill-model is not supported with --accum-freq > 1 "
+                "(feature-cache replay path); distillation disabled.")
         step_fn = make_accum_train_step(args_cfg, args.accum_freq)
     else:
-        step_fn = make_train_step(args_cfg)
+        step_fn = make_train_step(args_cfg, teacher=teacher)
 
     ckpt_mgr = CheckpointManager(
         args.checkpoint_path, save_frequency=args.save_frequency,

@@ -53,9 +53,12 @@ from xtagclip_tpu_torch.train.train_state import (
 from xtagclip_tpu_torch.train.trainer import train_one_epoch
 from xtagclip_tpu_torch.train.zero_shot import train_data_eval, zero_shot_eval
 
-# --precision -> compute dtype over fp32 masters (main_other.py:106-110)
+# --precision -> the factory's precision (main_other.py:106-110): bf16
+# compute over fp32 masters, or bf16 parameters (pure_bf16); pure_fp16 runs
+# only on the CPU (factory.py)
 PRECISION = {"amp": "bf16", "amp_bf16": "bf16", "amp_bfloat16": "bf16",
-             "fp16": "bf16", "bf16": "bf16", "fp32": "fp32"}
+             "fp16": "bf16", "bf16": "bf16", "fp32": "fp32",
+             "pure_bf16": "pure_bf16", "pure_fp16": "pure_fp16"}
 
 
 def main(argv=None):

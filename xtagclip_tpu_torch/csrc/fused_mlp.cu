@@ -32,13 +32,16 @@ const char* xtag_error_string(int err) {
 
 // x, out: [N, D] bf16; w1: [D, Hd] bf16; b1: [Hd] fp32; w2: [Hd, D] bf16;
 // b2: [D] fp32; act: 0 = gelu, 1 = quick_gelu. Scratch from the caller:
-// hidden [N, Hd] bf16. D and Hd multiples of 64. Returns a cudaError_t
-// (0 = launched).
+// hidden [N, Hd] bf16. D and Hd multiples of 8 (16-byte rows for TMA);
+// a hidden width that is no multiple of 64 (ViT-SO400M-14-SigLIP's 4304)
+// ends c_fc on a ragged column tile and c_proj on a ragged K tile, whose
+// loads fill zeros past the width (zero products) and whose stores clip
+// at it (gemm_sm90.cuh). Returns a cudaError_t (0 = launched).
 int xtag_fused_mlp(const void* x, const void* w1, const float* b1, const void* w2,
                    const float* b2, void* hid_ws, void* out, int N, int D, int Hd,
                    int act, void* stream) {
   using namespace xtag::sm90;
-  if (N < 1 || D % 64 != 0 || Hd % 64 != 0 || (act != 0 && act != 1))
+  if (N < 1 || D % 8 != 0 || Hd % 8 != 0 || (act != 0 && act != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);

@@ -62,11 +62,15 @@
 // about as much as their 1024 tensor-core FLOP each, and the ping-pong
 // hides little of it. A block with a single tile (the serve shapes'
 // c_proj) has no second tile to overlap its epilogue with.
-// Needs N % 64 == 0, dense row-major operands with 16-byte aligned rows
+// Needs N % 8 == 0, dense row-major operands with 16-byte aligned rows
 // and bases (checked by the caller): a K-contiguous operand's K is a
 // multiple of 8; a ragged K (dwout's B L) is the outer dimension of the
-// M-major A and of B. The tensor maps are encoded on the host through
-// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint: no -lcuda.
+// M-major A and of B. A ragged N (the fused MLP's hidden width 4304 =
+// 67 x 64 + 16, ViT-SO400M-14-SigLIP's text tower) ends on a tile whose
+// last 64-wide panel reaches past N: its B columns load as zeros, its
+// epilogue runs on them in shared memory, and the TMA store clips them.
+// The tensor maps are encoded on the host through cuTensorMapEncodeTiled,
+// reached with cudaGetDriverEntryPoint: no -lcuda.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -219,7 +223,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a,
          n += CONSUMERS, tile += CONSUMERS * gridDim.x) {
       const int m0 = (tile / n_tiles) * BM;
       const int n0 = (tile % n_tiles) * BN;
-      const int panels = (N - n0) / 64 < BN / 64 ? (N - n0) / 64 : BN / 64;  // inside N
+      // 64-wide panels that reach inside N; a ragged last one (N % 64 !=
+      // 0) is stored clipped at N, and its loads fill zeros past N
+      const int panels = (N - n0 + 63) / 64 < BN / 64 ? (N - n0 + 63) / 64 : BN / 64;
       if (leader && EPI != EPI_F32) {
         // the previous tile's store has read the output tile; for
         // EPI_BIAS_RESID the residual tile lands there under the products
@@ -353,7 +359,7 @@ inline int pick_bn(int M, int N) {
   const long long sms = sm_count();
   const long long rows = (M + BM - 1) / BM;
   const long long waves128 = (rows * ((N + 127) / 128) + sms - 1) / sms;
-  const long long waves64 = (rows * (N / 64) + sms - 1) / sms;
+  const long long waves64 = (rows * ((N + 63) / 64) + sms - 1) / sms;
   return waves64 * 11 < waves128 * 20 ? 64 : 128;
 }
 
@@ -381,7 +387,7 @@ template <int EPI, bool A_T = false, bool B_T = false>
 inline cudaError_t launch_gemm(const bf16* A, const bf16* B, const float* bias,
                                const bf16* resid, void* C, int M, int N, int K,
                                cudaStream_t stream) {
-  if (M < 1 || K < 1 || N % 64 != 0 || N < 64 ||
+  if (M < 1 || K < 1 || N % 8 != 0 || N < 8 ||
       (EPI == EPI_BIAS_RESID && resid == nullptr))
     return cudaErrorInvalidValue;
   // A in [BM x 64 k] boxes, or [64 k x 64 m] with A_T; B in [64 k x 64 n]

@@ -20,11 +20,19 @@ transformer. A ``multimodal_cfg`` builds CoCa (models/coca.py) around the
 two towers, as JAX's factory does (factory.py:333-356). The families that
 wait for ROADMAP Queue 1 item 8 raise NotImplementedError.
 
-``precision`` has the JAX package's meaning: parameters are fp32 masters
-and ``"bf16"`` sets the compute dtype, to which every module casts its
-weights at use (models/layers.py). The model comes back trainable, with
-fp32 parameters. For serving, ``cast_for_compute`` casts the matmul
-weights to the compute dtype once, so the casts at use cost nothing;
+``precision`` has the JAX package's meaning (factory.py:106-115,
+311-315): ``"bf16"`` sets the compute dtype over fp32 master parameters,
+to which every module casts its weights at use (models/layers.py);
+``"pure_bf16"`` makes the parameters themselves bf16, biases, BatchNorms
+and logit scales included (JAX's ``param_dtype``); the LayerNorms keep
+fp32 parameters, as JAX's ``LayerNorm`` module does (layers.py:44-61; only
+its TPU fused halves declare them in ``param_dtype``). The kernels' fp32
+bias operands are upcast at the call, which is exact, and AdamW steps the
+bf16 parameters, as optax does; ``"fp16"`` and ``"pure_fp16"``
+compute in float16, which no kernel takes, so they run the plain versions
+on the CPU and raise on the card. The model comes back trainable. For
+serving, ``cast_for_compute`` casts the matmul weights to the compute
+dtype once, so the casts at use cost nothing;
 LayerNorm parameters (CoCa's pooler and cross-attention ``ln_1_kv``
 included), the logit scales and the biases of the transformer blocks
 (which the fused kernels add in fp32, as the Pallas kernels do; CoCa's
@@ -40,6 +48,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import warnings
 from pathlib import Path
 from typing import Dict, Optional
@@ -120,12 +129,67 @@ def add_model_config(path) -> None:
         _EXTRA_CONFIGS[path.stem] = json.load(f)
 
 
+def _natural_key(s: str):
+    return [int(t) if t.isdigit() else t
+            for t in re.split(r"(\d+)", s.lower())]
+
+
+def _valid_names(directory, strict: bool) -> list:
+    """The stems of the JSONs in ``directory`` that hold a model config
+    (``embed_dim``, ``vision_cfg``, ``text_cfg``, after the hub schema is
+    flattened), as JAX's ``_scan_config_dir`` keeps them."""
+    names = []
+    for f in sorted(Path(directory).glob("*.json")):
+        try:
+            with open(f) as fh:
+                cfg = _flatten_hub_schema(json.load(fh))
+        except (OSError, ValueError):
+            if strict:
+                raise
+            continue
+        if all(k in cfg for k in ("embed_dim", "vision_cfg", "text_cfg")):
+            names.append(f.stem)
+    return names
+
+
+def list_builtin_models() -> list:
+    """The shipped configs' names in natural order (JAX factory.py:87)."""
+    return sorted(_valid_names(asset_path("model_configs"), strict=True),
+                  key=_natural_key)
+
+
+def list_models() -> list:
+    """Every name ``create_model`` takes, as JAX's registry lists them
+    (factory.py:60-84): the shipped configs and those of the
+    XTAGCLIP_EXTRA_CONFIGS directories in natural order, then the names
+    ``add_model_config`` registered beside them, in registration order."""
+    names = set(list_builtin_models())
+    for d in os.environ.get("XTAGCLIP_EXTRA_CONFIGS", "").split(":"):
+        if d and os.path.isdir(d):
+            names.update(_valid_names(d, strict=False))
+    out = sorted(names, key=_natural_key)
+    return out + [n for n in _EXTRA_CONFIGS if n not in names]
+
+
+_CAST_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+                "pure_bf16": torch.bfloat16, "fp16": torch.float16,
+                "pure_fp16": torch.float16}
+
+
 def get_cast_dtype(precision: str) -> torch.dtype:
-    if precision == "bf16":
-        return torch.bfloat16
-    if precision == "fp32":
-        return torch.float32
-    raise NotImplementedError(f"precision {precision!r} is not ported yet")
+    """The compute dtype of ``precision`` (module doc)."""
+    if precision not in _CAST_DTYPES:
+        raise NotImplementedError(
+            f"precision {precision!r} is not ported yet (one of "
+            f"{sorted(_CAST_DTYPES)})")
+    return _CAST_DTYPES[precision]
+
+
+def get_input_dtype(precision: str) -> torch.dtype:
+    """The dtype a model's normalized images take (JAX factory.py:113)."""
+    return get_cast_dtype(precision)
+
+
 
 
 def resolve_device(device) -> torch.device:
@@ -143,7 +207,8 @@ def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
     ``_build_vision_tower`` reads (factory.py:166-222); others are ignored,
     as there."""
     if v.get("timm_model_name"):
-        return build_timm_vision_tower(embed_dim, v, dtype)
+        return build_timm_vision_tower(embed_dim, v, dtype,
+                                       grad_checkpointing)
     if isinstance(v.get("layers"), (list, tuple)):
         return ModifiedResNet(
             tuple(v["layers"]), output_dim=embed_dim,
@@ -247,6 +312,11 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
     ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override);
     ``skip_init`` leaves the parameters uninitialized (JAX's, for a build
     whose weights come next, or on the ``meta`` device)."""
+    if get_cast_dtype(precision) == torch.float16 and \
+            torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"precision {precision!r}: every kernel of the port is bf16, so "
+            "float16 runs only on the CPU (its plain versions)")
     dev = resolve_device(device)
     cfg = get_model_config(model_name.replace("/", "-"))
     if cfg is None:
@@ -281,6 +351,12 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
                          fusion_dim=cfg.get("fusion_dim", 512), **common)
     if not skip_init:
         init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
+    if precision.startswith("pure_"):  # JAX's param_dtype (factory.py:311)
+        keep = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
+                for p in m.parameters()}
+        for p in model.parameters():
+            if id(p) not in keep:
+                p.data = p.data.to(dtype)
     model.model_name = model_name
     model.model_cfg = cfg
     return model
@@ -319,6 +395,17 @@ def create_model_and_transforms(model_name: str, pretrained=None,
         image_transform_eval(pp)
 
 
+def create_model_from_pretrained(model_name: str, pretrained=None,
+                                 **kwargs):
+    """(model, eval transform) (JAX factory.py:527-541): an ``hf-hub:``
+    name is read as its last part, a config that ships in the registry."""
+    if model_name.startswith("hf-hub:"):
+        model_name = model_name[len("hf-hub:"):].split("/")[-1]
+    model, _, eval_t = create_model_and_transforms(model_name, pretrained,
+                                                   **kwargs)
+    return model, eval_t
+
+
 def get_model_preprocess_cfg(model) -> dict:
     """The preprocess config kept on a model (JAX factory.py:455), with
     its image size filled in."""
@@ -341,24 +428,33 @@ def get_model_tokenize_cfg(model) -> dict:
 
 
 def create_loss(args):
-    """The training loss ``args`` pick (JAX factory.py:475-500): CoCa's
-    for a ``--model coca_*``, else the contrastive loss on one process.
-    The distillation and SigLIP losses wait for ROADMAP Queue 1 item 8."""
-    from xtagclip_tpu_torch.losses import CoCaLoss, clip_loss
+    """The training loss ``args`` pick, in JAX's order (factory.py:475-500):
+    ``DistillClipLoss`` for a ``--distill-model``, CoCa's for a
+    ``--model coca_*``, ``SigLipLoss`` for ``--siglip`` (its
+    ``--loss-dist-impl`` kept), else ``ClipLoss``; all on one process."""
+    from xtagclip_tpu_torch.losses import (
+        ClipLoss,
+        CoCaLoss,
+        DistillClipLoss,
+        SigLipLoss,
+    )
 
+    world = getattr(args, "world_size", 1)
+    common = dict(local_loss=getattr(args, "local_loss", False),
+                  gather_with_grad=getattr(args, "gather_with_grad", False),
+                  cache_labels=True, rank=getattr(args, "rank", 0),
+                  world_size=world)
     if getattr(args, "distill", None) or getattr(args, "distill_model", None):
-        raise NotImplementedError(
-            "the distillation loss is not ported yet (ROADMAP Queue 1 item "
-            "8: distill.py)")
+        return DistillClipLoss(**common)
     if "coca" in getattr(args, "model", "").lower():
         return CoCaLoss(
             caption_loss_weight=getattr(args, "coca_caption_loss_weight", 2.0),
             clip_loss_weight=getattr(args, "coca_contrastive_loss_weight",
                                      1.0))
     if getattr(args, "siglip", False):
-        raise NotImplementedError(
-            "the SigLIP loss is not ported yet (ROADMAP Queue 1 item 8)")
-    return clip_loss
+        return SigLipLoss(rank=common["rank"], world_size=world,
+                          dist_impl=getattr(args, "loss_dist_impl", None))
+    return ClipLoss(**common)
 
 
 @torch.no_grad()

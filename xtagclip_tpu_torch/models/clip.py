@@ -99,6 +99,23 @@ class CLIP(nn.Module):
         projected, seq = self.text(text, generator)
         return (l2_normalize(projected) if normalize else projected), seq
 
+    def get_logits(self, image, text):
+        """(image logits [B, N], their transpose): ``exp(logit_scale)``
+        times the normalized features' products, plus ``logit_bias`` where
+        the model has one (SigLIP), in fp32 (JAX clip.py:157-164)."""
+        image_features, _ = self.encode_image(image, normalize=True)
+        text_features, _ = self.encode_text(text, normalize=True)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            scaled = self.logit_scale.exp().float() * image_features.float()
+            image_logits = scaled @ text_features.float().t()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        if self.logit_bias is not None:
+            image_logits = image_logits + self.logit_bias.float()
+        return image_logits, image_logits.t()
+
     # ---- XTag pieces -----------------------------------------------------
     def tag_forward(self, image_tokens, generator=None):
         """The 2*num_tags label queries over the image tokens -> [B, 44]."""

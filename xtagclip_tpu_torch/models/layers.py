@@ -364,8 +364,9 @@ class MLP(nn.Module):
         fn = fused_mlp.fused_mlp if use_kernels else \
             fused_mlp.reference_fused_mlp
         dt = x.dtype
-        return fn(x, self.c_fc.kernel.to(dt), self.c_fc.bias,
-                  self.c_proj.kernel.to(dt), self.c_proj.bias, self.act)
+        return fn(x, self.c_fc.kernel.to(dt), self.c_fc.bias.float(),
+                  self.c_proj.kernel.to(dt), self.c_proj.bias.float(),
+                  self.act)
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -413,7 +414,8 @@ class ResidualAttentionBlock(nn.Module):
     points are no-ops) and a bf16 stream with ``use_kernels`` off, the
     yardstick the chip smoke holds the kernels against. The fused halves
     take the weight matrices cast to the stream's dtype and the biases and
-    LayerNorm parameters in fp32 (layers.py:540-543)."""
+    LayerNorm parameters in fp32 (layers.py:540-543): under ``pure_bf16``
+    the biases are bf16 parameters, upcast at the call (exact)."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "gelu", norm_eps: float = 1e-5,
@@ -477,13 +479,17 @@ class ResidualAttentionBlock(nn.Module):
             attn_half = fab.reference_attn_half
             mlp_half = fab.reference_mlp_half
         a, m, dt = self.attn, self.mlp, x.dtype
-        x = attn_half(x, self.ln_1.scale, self.ln_1.bias,
-                      a.in_proj.kernel.to(dt), a.in_proj.bias,
-                      a.out_proj.kernel.to(dt), a.out_proj.bias,
+        x = attn_half(x, self.ln_1.scale.float(), self.ln_1.bias.float(),
+                      a.in_proj.kernel.to(dt), a.in_proj.bias.float(),
+                      a.out_proj.kernel.to(dt), a.out_proj.bias.float(),
                       attn_mask, self.heads, self.norm_eps)
-        return mlp_half(x, self.ln_2.scale, self.ln_2.bias,
-                        m.c_fc.kernel.to(dt), m.c_fc.bias,
-                        m.c_proj.kernel.to(dt), m.c_proj.bias,
+        return self._mlp_half(x, mlp_half)
+
+    def _mlp_half(self, x, mlp_half):
+        m, dt = self.mlp, x.dtype
+        return mlp_half(x, self.ln_2.scale.float(), self.ln_2.bias.float(),
+                        m.c_fc.kernel.to(dt), m.c_fc.bias.float(),
+                        m.c_proj.kernel.to(dt), m.c_proj.bias.float(),
                         self.act, self.norm_eps)
 
     def _check_kernels_take(self, shape, attn_mask, route):
@@ -515,12 +521,8 @@ class ResidualAttentionBlock(nn.Module):
         if not self._mlp_half_fused(x.shape):
             m = self.mlp(self.ln_2(x), kernels)
             return x + (self.ls_2(m) if self.layer_scale else m)
-        mlp_half = fab.fused_mlp_half if kernels else fab.reference_mlp_half
-        m, dt = self.mlp, x.dtype
-        return mlp_half(x, self.ln_2.scale, self.ln_2.bias,
-                        m.c_fc.kernel.to(dt), m.c_fc.bias,
-                        m.c_proj.kernel.to(dt), m.c_proj.bias,
-                        self.act, self.norm_eps)
+        return self._mlp_half(x, fab.fused_mlp_half if kernels
+                              else fab.reference_mlp_half)
 
     def _non_fused(self, x, attn_mask, kernels):
         a = self.attn.self_attention(self.ln_1(x), kernels, attn_mask)
@@ -538,11 +540,25 @@ def set_use_kernels(module: nn.Module, enabled: bool) -> None:
 
 
 def set_grad_checkpointing(module: nn.Module, enabled: bool = True) -> None:
-    """Turn per-block activation checkpointing on or off for every
-    Transformer under ``module`` (JAX's ``remat``; module doc)."""
+    """Turn per-block activation checkpointing on or off for every block
+    stack under ``module`` (a ``Transformer``, JAX's ``remat``, and the
+    timm trunk; module doc)."""
     for m in module.modules():
-        if isinstance(m, Transformer):
+        if hasattr(m, "grad_checkpointing"):
             m.grad_checkpointing = enabled
+
+
+def run_blocks(blocks, x, checkpointed: bool, *args):
+    """x through ``blocks`` (each called as ``blk(x, *args)``), each under
+    ``torch.utils.checkpoint`` while ``checkpointed`` and grad is on."""
+    remat = checkpointed and torch.is_grad_enabled()
+    for blk in blocks:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                blk, x, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = blk(x, *args)
+    return x
 
 
 class Transformer(nn.Module):
@@ -562,13 +578,6 @@ class Transformer(nn.Module):
             for _ in range(layers))
 
     def forward(self, x, attn_mask=None):
-        remat = self.grad_checkpointing and torch.is_grad_enabled()
-        for blk in self.resblocks:
-            if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    blk, x, attn_mask, use_reentrant=False,
-                    preserve_rng_state=False)
-            else:
-                x = blk(x, attn_mask=attn_mask)
-        return x
+        return run_blocks(self.resblocks, x, self.grad_checkpointing,
+                          attn_mask)
 

@@ -16,6 +16,10 @@ plain PyTorch on every device: attention is models/layers.py's
 the exact gelu. Variants (timm_vit.py:75-88): no class token + ``fc_norm``
 (the ``*_gap_*`` models), ``relpos`` (a per-model relative-position bias,
 no absolute table), ``conv_stem`` (MobileCLIP-B's 3-conv stem).
+``grad_checkpointing`` checkpoints each trunk block while grad is on, as
+the port's ``Transformer`` does (JAX's builder takes ``remat`` and leaves
+it unused; the recompute draws no random numbers, so the numbers are the
+same).
 
 Every name ``_TIMM_VIT_RE`` matches builds here, with the two named
 medium variants and ``vit_base_mci_224``; the other timm families
@@ -37,6 +41,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     attention,
     gelu_exact,
+    run_blocks,
 )
 
 
@@ -96,8 +101,10 @@ class TimmViT(nn.Module):
                  norm_eps: float = 1e-6, use_cls_token: bool = True,
                  use_abs_pos: bool = True, final_norm: bool = True,
                  relpos: bool = False, conv_stem: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 grad_checkpointing: bool = False):
         super().__init__()
+        self.grad_checkpointing = grad_checkpointing
         ih, iw = (tuple(image_size) if isinstance(image_size, (list, tuple))
                   else (image_size, image_size))
         self.patch_size = patch_size
@@ -154,8 +161,7 @@ class TimmViT(nn.Module):
         if self.pos_embed is not None:
             x = x + self.pos_embed.to(x.dtype)[None]
         bias = self.relpos() if self.relpos is not None else None
-        for blk in self.blocks:
-            x = blk(x, bias)
+        x = run_blocks(self.blocks, x, self.grad_checkpointing, bias)
         return self.norm(x) if self.norm is not None else x
 
 
@@ -249,7 +255,8 @@ _OTHER_FAMILIES = ("convnext", "eva_", "eva02_", "vitamin_", "swin_",
 
 
 def build_timm_vision_tower(embed_dim: int, vision_cfg: dict,
-                            dtype: torch.dtype = torch.float32) -> TimmModel:
+                            dtype: torch.dtype = torch.float32,
+                            grad_checkpointing: bool = False) -> TimmModel:
     """The tower of a ``timm_model_name`` config (timm_vit.py:315-408)."""
     name = vision_cfg["timm_model_name"]
     image_size = vision_cfg.get("image_size", 224)
@@ -263,7 +270,8 @@ def build_timm_vision_tower(embed_dim: int, vision_cfg: dict,
                          proj_bias=proj_bias, **kw)
 
     def vit(**kw):
-        return TimmViT(image_size=image_size, dtype=dtype, **kw)
+        return TimmViT(image_size=image_size, dtype=dtype,
+                       grad_checkpointing=grad_checkpointing, **kw)
 
     if name.startswith(_OTHER_FAMILIES):
         raise NotImplementedError(

@@ -40,8 +40,21 @@ from xtagclip_tpu_torch.ops.fused_attn_block import (
     _full_fp32_matmul,
     _needs_grad,
     check_device,
-    supported_mlp as supported,
 )
+
+# the GEMM's rows must be 16-byte TMA rows: D and the hidden width are
+# multiples of 8 bf16 values (csrc/fused_mlp.cu); #2 keeps its 64
+_WIDTH_MULTIPLE = 8
+
+
+def supported(shape, mlp_width: int, act_name: str,
+              dtype=torch.bfloat16) -> bool:
+    """Rows the kernel takes: bf16, a known activation, D and the hidden
+    width multiples of 8 (ragged 64-wide tiles are zero-filled and
+    clipped, csrc/gemm_sm90.cuh). Any other stream raises on the card."""
+    return (act_name in ACTIVATIONS and dtype == torch.bfloat16
+            and shape[-1] % _WIDTH_MULTIPLE == 0
+            and mlp_width % _WIDTH_MULTIPLE == 0)
 
 
 def _mm_f32(a, b):
@@ -92,7 +105,7 @@ def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
         raise ValueError(
             f"{what}: no kernel for rows {tuple(x.shape)} {x.dtype}, hidden "
             f"width {hd}, act {act!r} (needs bf16, gelu|quick_gelu, D and "
-            "hidden width multiples of 64)")
+            f"hidden width multiples of {_WIDTH_MULTIPLE})")
     bf, f32 = torch.bfloat16, torch.float32
     _check_args(what, x, dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2),
                 dict(x=bf, w1=bf, b1=f32, w2=bf, b2=f32),

@@ -245,6 +245,13 @@ def _global_tokenizer() -> SimpleTokenizer:
     return _tokenizer
 
 
+def tokenize(texts, context_length: int = DEFAULT_CONTEXT_LENGTH
+             ) -> np.ndarray:
+    """int32 [N, context_length] ids with the default vocabulary (JAX
+    bpe.py:234)."""
+    return _global_tokenizer()(texts, context_length=context_length)
+
+
 def decode(output_ids) -> str:
     """Ids -> text with the default vocabulary (JAX bpe.py:238)."""
     return _global_tokenizer().decode(np.asarray(output_ids))

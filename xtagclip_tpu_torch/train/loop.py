@@ -12,9 +12,14 @@ the backward, one optimizer update and the logit_scale clamp. PyTorch runs
 it eagerly: there is no jit, and the gradients live in ``.grad``. With
 ``args_cfg["coca"]`` the step is CoCa's (loop.py:43-65): the contrastive
 loss times ``coca_contrastive_loss_weight`` plus the pad-masked caption
-cross-entropy times ``coca_caption_loss_weight`` (losses/coca.py). The
-SigLIP and distillation branches of the JAX step are not ported yet and
-raise.
+cross-entropy times ``coca_caption_loss_weight`` (losses/coca.py).
+With ``args_cfg["siglip"]`` the contrastive term is SigLIP's sigmoid loss
+with the model's ``logit_bias`` (loop.py:95-141; on one process JAX's
+``else`` at :134-140: every ``siglip_dist_impl`` is the local loss). With a
+``teacher`` (loop.py:149-166) the frozen teacher runs deterministic, in
+eval mode and under ``torch.no_grad()`` (JAX's ``stop_gradient``) on the
+same batch, and ``distill_loss`` of the student's logits against its
+logits is added to the total and recorded as ``distill_loss``.
 
 A ResNet tower's BatchNorms normalize with batch statistics in the
 train-mode forward and move their running ones in place, as JAX's
@@ -29,12 +34,15 @@ The accumulation step replays the reference's feature cache
 (train_other.py:140-216): pass 1 computes every microbatch's features
 without gradients; pass 2 runs each microbatch again with gradients
 against all the cached negatives, and the summed gradients make one
-update. Its objective is the reference's, not the plain step's
-(trap 5): contrastive + ASL at 1x, and no DQNCOS. JAX's accumulation step
-cannot run a CoCa model: it calls the model with the XTag keywords
-(``prompt_table``, ``class_ids``, ``template_id``), which CoCa's
-``__call__`` does not take, and raises TypeError at the first step. The
-port refuses CoCa there too, when the step is made.
+update; with ``args_cfg["siglip"]`` its contrastive term is the SigLIP
+loss over the whole cached batch, a missing bias taken as 0
+(loop.py:343-349). It takes no teacher: the CLIs drop the distillation
+with ``--accum-freq`` > 1, as JAX's do. Its objective is the reference's,
+not the plain step's (trap 5): contrastive + ASL at 1x, and no DQNCOS.
+JAX's accumulation step cannot run a CoCa model: it calls the model with
+the XTag keywords (``prompt_table``, ``class_ids``, ``template_id``),
+which CoCa's ``__call__`` does not take, and raises TypeError at the
+first step. The port refuses CoCa there too, when the step is made.
 """
 
 from __future__ import annotations
@@ -49,15 +57,15 @@ from xtagclip_tpu_torch.losses import (
     asymmetric_loss,
     caption_loss,
     clip_loss,
+    distill_loss,
     dqncos_loss,
+    siglip_loss,
 )
 from xtagclip_tpu_torch.train.train_state import (
     TrainState,
     apply_gradients,
     optax_global_norm,
 )
-
-_UNPORTED = ("siglip",)
 
 
 def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
@@ -67,13 +75,9 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
     batch: ``images`` [B, H, W, 3] normalized, ``class_ids`` [B] (with a
     prompt table) or ``texts`` [B, ctx], optional ``additional`` [B, 22]
     multi-hot tags and ``template_id``. ``deterministic=False`` (the JAX
-    step's mode, loop.py:86) needs ``generator`` for the dropout masks."""
-    unported = [k for k in _UNPORTED if args_cfg.get(k)]
-    if teacher is not None:
-        unported.append("distillation")
-    if unported:
-        raise NotImplementedError(
-            f"train-step branches not ported yet: {unported}")
+    step's mode, loop.py:86) needs ``generator`` for the dropout masks.
+    ``teacher``: a model whose features and scale the student distills
+    (module doc)."""
     if args_cfg.get("coca"):
         return _coca_losses(model, batch, args_cfg, generator,
                             deterministic)
@@ -84,10 +88,27 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
                 visual_deterministic=bool(args_cfg.get(
                     "lock_image_freeze_bn_stats")))
     logit_scale = out["logit_scale"]
-    contrastive = clip_loss(out["image_features"], out["text_features"],
-                            logit_scale)
+    if args_cfg.get("siglip"):
+        contrastive = siglip_loss(out["image_features"], out["text_features"],
+                                  logit_scale, out.get("logit_bias"))
+    else:
+        contrastive = clip_loss(out["image_features"], out["text_features"],
+                                logit_scale)
     metrics = {"contrastive_loss": contrastive, "logit_scale": logit_scale}
     total = contrastive
+    if teacher is not None:
+        teacher.eval()
+        with torch.no_grad():
+            t_out = teacher(batch["images"], text=batch.get("texts"),
+                            prompt_table=prompt_table,
+                            class_ids=batch.get("class_ids"),
+                            template_id=batch.get("template_id", 0),
+                            deterministic=True)
+        dist_l = distill_loss(out["image_features"], out["text_features"],
+                              logit_scale, t_out["image_features"],
+                              t_out["text_features"], t_out["logit_scale"])
+        metrics["distill_loss"] = dist_l
+        total = total + dist_l
     if args_cfg.get("use_tagging_loss", True) and "additional" in batch:
         target = batch["additional"].repeat(1, 2)
         tag_l = asymmetric_loss(
@@ -156,10 +177,6 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
     ``deterministic=True`` turns dropout off (the parity tests). The
     metrics are the means over microbatches of ``contrastive_loss``,
     ``tagging_loss``, ``loss`` and ``logit_scale``, as JAX returns them."""
-    unported = [k for k in _UNPORTED if args_cfg.get(k)]
-    if unported:
-        raise NotImplementedError(
-            f"train-step branches not ported yet: {unported}")
     if args_cfg.get("coca"):
         raise TypeError(
             "the accumulation step cannot run a CoCa model (--accum-freq "
@@ -208,7 +225,14 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
                                 + img_f[i + 1:])
             all_txt = torch.cat(txt_f[:i] + [out["text_features"]]
                                 + txt_f[i + 1:])
-            contrastive = clip_loss(all_img, all_txt, out["logit_scale"])
+            if args_cfg.get("siglip"):
+                bias = out.get("logit_bias")
+                if bias is None:
+                    bias = torch.zeros((), device=all_img.device)
+                contrastive = siglip_loss(all_img, all_txt,
+                                          out["logit_scale"], bias)
+            else:
+                contrastive = clip_loss(all_img, all_txt, out["logit_scale"])
             total = contrastive
             metrics = {"contrastive_loss": contrastive,
                        "logit_scale": out["logit_scale"]}

@@ -213,10 +213,6 @@ def unported(args) -> list:
     (tests/test_torch_clipa.py checks that each item exists); a launcher
     world size above 1 (core/mesh.py) is among them."""
     out = []
-    if args.siglip:
-        out.append("--siglip (Queue 1 item 8: the SigLIP loss)")
-    if args.distill_model:
-        out.append("--distill-model (Queue 1 item 8: distill.py)")
     if args.fsdp or (args.model_parallel or 1) > 1:
         out.append("--fsdp / --model-parallel (Queue 1 item 7: "
                    "multi-process)")
@@ -229,4 +225,10 @@ def unported(args) -> list:
         out.append(f"--pretrained {args.pretrained!r}: only a local .pt or "
                    ".npz file or a port checkpoint is ported; named tags "
                    "wait for pretrained.py (Queue 1 item 9)")
+    if args.distill_pretrained and not os.path.exists(
+            args.distill_pretrained):
+        out.append(f"--distill-pretrained {args.distill_pretrained!r}: only "
+                   "a local .pt or .npz file or a port checkpoint is "
+                   "ported; named tags wait for pretrained.py (Queue 1 "
+                   "item 9)")
     return out

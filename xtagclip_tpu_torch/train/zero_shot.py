@@ -64,6 +64,15 @@ def build_zero_shot_classifier(model, tokenizer, classnames: Sequence[str],
     return (feats / feats.norm(dim=-1, keepdim=True)).T.contiguous()
 
 
+def build_zero_shot_classifier_legacy(model, tokenizer,
+                                      classnames: Sequence[str],
+                                      templates: Sequence[str]
+                                      ) -> torch.Tensor:
+    """One class a batch (JAX zero_shot.py:67-79): the same classifier."""
+    return build_zero_shot_classifier(model, tokenizer, classnames,
+                                      templates, num_classes_per_batch=1)
+
+
 def _pick_classnames_templates(data_key: str):
     key = data_key.lower()
     if "imagenet" in key:
