@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--coca-only | --siglip-only]
-    python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe
+    python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
+                                       --zoo-only]
+    python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
+                          --zoo-batch-probe
 
 Drives the port's main paths at full width in bf16 with a seeded random
 init, through the entry points a user calls: the XTag ViT-B-32
@@ -21,7 +23,9 @@ fused MLP), in phases that each print one JSON line:
    the shapes the main paths give it (and, for flash attention, at edge
    shapes: L = 128, 197, 257, 384, head dim 128; ViT-H-14's head dim 80 at
    L = 257 and 37 and, for the 336 px eval, L = 577 at batch 64; and head
-   dims 72, 88, 104, 112; the 336 px eval's text halves without a mask at
+   dims 72, 88, 104, 112; the zoo's EVA02-L-14 and ViTamin-L-256 trainer
+   shapes, EVA02-B-16's L = 197, EVA01-g's dh 88, EVA02-E's dh 112 and
+   ViTamin-XL's dh 72 at L = 256 and 196); the 336 px eval's text halves without a mask at
    one zero-shot classifier chunk, 800 prompts of 32 tokens, and its 36928
    vision MLP rows), every output within atol = max|ref|/128 and
    rtol = 1e-2 (one bf16 ULP at output scale); the image normalize (kernel
@@ -199,7 +203,21 @@ fused MLP), in phases that each print one JSON line:
    the teacher: #6 and #4 in vision, #1 and #2 in text; #5), distill_loss
    finite, launches per step asserted; one step with the teacher kernels
    on vs off at batch 32, and one ``pure_bf16`` ViT-B-32 step kernels on
-   vs off, at phase 6's bars.
+   vs off, at phase 6's bars;
+22. zoo: the model zoo's towers at full width and depth from a seeded
+   init. EVA02-L-14 (EVA-02 L/14: rope, SwiGLU, #6 in its 24 vision
+   blocks at L = 257) and ViTamin-L-256 (#6 in its 31 blocks at L = 256)
+   through ``cli.main`` on synthetic data, 2 warm-up + 5 timed steps at
+   the largest batch <= 128 that fits without checkpointing
+   (--zoo-batch-probe): samples/s, p50 step ms, peak memory, launches per
+   step asserted (their text towers on #1, #2, #3); one forward of 8 in
+   bf16 with the kernels on and off of EVA01-g-14 (#6 at dh 88),
+   EVA02-E-14-plus (dh 112), ViTamin-XL-256 (dh 72), convnext_base_w,
+   swin_base_patch4_window7_224, MobileCLIP-S2, mt5-base-ViT-B-32 and
+   nllb-clip-base (features at per-sample cosine >= 0.99, #6's launches
+   asserted); one train step kernels on vs off at batch 16 of EVA02-L-14,
+   ViTamin-L-256, convnext_base_w and MobileCLIP-S2 (BatchNorms in train
+   mode) at phase 6's bars.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -218,10 +236,13 @@ split into the port's hand-written kernels and everything else.
 
 ``--coca-only`` runs the build, the kernel rows and phases 19 and 18
 alone, then prints the seconds, the kernel table with those phases'
-launches and the card; ``--siglip-only`` the same for phases 20 and 21.
+launches and the card; ``--siglip-only`` the same for phases 20 and 21,
+``--zoo-only`` for phase 22.
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
-out of memory, without and with --grad-checkpointing).
+out of memory, without and with --grad-checkpointing);
+``--zoo-batch-probe`` the build and phase_zoo_batch_probe (the zoo
+trainers from batch 128 down until one fits).
 
 Then each phase's seconds, the kernel table (every kernel's launches on
 the main paths, its times and its bound), the card's name and power limit
@@ -356,6 +377,38 @@ SO400M_PER_STEP = dict(flash_mha=27, flash_mha_bwd=27, fused_mlp=27,
 DISTILL_PER_STEP = dict(fused_attn_half=36, fused_mlp_half=36,
                         fused_attn_half_bwd=24, flash_mha=24, fused_mlp=24,
                         normalize_images=1)
+# the model zoo's towers (EVA-01/02, ViTamin, ConvNeXt, Swin, FastViT, mT5,
+# NLLB; open_clip's configs of those names): EVA02-L-14 and ViTamin-L-256
+# train through cli.main at the largest batch <= 128 that fits without
+# checkpointing (--zoo-batch-probe: 112 for both, EVA02-L at 71.2 GB over
+# resident; ViTamin-L at 83.1 GB, 98% of the card, so it trains at 96),
+# 2 warm-up + 5 timed steps; eight
+# configs run one forward of ZOO_FWD_BATCH with the kernels on and off;
+# four run one train step kernels on vs off at ZOO_PATH_BATCH. #6 runs in
+# the EVA and ViTamin vision blocks (EVA02-L: 24 x L 257 at dh 64;
+# ViTamin-L: 31 x L 256 at dh 64), the text towers on #1-#3
+ZOO_TRAINERS = (("eva02_l", "EVA02-L-14", 112),
+                ("vitamin_l", "ViTamin-L-256", 96))
+ZOO_WARMUP, ZOO_STEPS = 2, 5
+ZOO_FWD_BATCH = 8
+ZOO_FORWARD = ("EVA01-g-14", "EVA02-E-14-plus", "ViTamin-XL-256",
+               "convnext_base_w", "swin_base_patch4_window7_224",
+               "MobileCLIP-S2", "mt5-base-ViT-B-32", "nllb-clip-base")
+ZOO_PATH = ("EVA02-L-14", "ViTamin-L-256", "convnext_base_w",
+            "MobileCLIP-S2")
+ZOO_PATH_BATCH = 16
+ZOO_PROBE = (128, 112, 96, 80, 64)
+_TEXT_HALVES = dict(fused_attn_half=12, fused_mlp_half=12,
+                    fused_attn_half_bwd=12, normalize_images=1)
+ZOO_PER_STEP = {"EVA02-L-14": dict(_TEXT_HALVES, flash_mha=24,
+                                   flash_mha_bwd=24),
+                "ViTamin-L-256": dict(_TEXT_HALVES, flash_mha=31,
+                                      flash_mha_bwd=31)}
+# #6's launches in one kernels-on forward of each ZOO_FORWARD config (its
+# vision blocks; every other wrapper counted is in the printed line)
+ZOO_FWD_FLASH = {"EVA01-g-14": 40, "EVA02-E-14-plus": 64,
+                 "ViTamin-XL-256": 32}
+ZOO_FWD_COS = 0.99  # per-sample cosine of kernels-on vs -off features
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -609,7 +662,15 @@ FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (COCA_BATCH, 16, COCA_L, 64), (COCA_GEN_BATCH, 16, COCA_L, 64),
                # ViT-SO400M-14-SigLIP's text tower: 16 tokens, 16 heads of
                # 72 (the distillation teacher's vision is CoCa's shape)
-               (SO400M_BATCH, 16, SO400M_L, 72))
+               (SO400M_BATCH, 16, SO400M_L, 72),
+               # the zoo: EVA02-L-14 and ViTamin-L-256 at their trainers'
+               # batch, EVA02-B-16 at 197, the forwards' EVA01-g (dh 88),
+               # EVA02-E (dh 112) and ViTamin-XL (dh 72, at 256 and 224 px)
+               (ZOO_TRAINERS[0][2], 16, 257, 64),
+               (ZOO_TRAINERS[1][2], 16, 256, 64),
+               (ZOO_FWD_BATCH, 12, 197, 64), (ZOO_FWD_BATCH, 16, 257, 88),
+               (ZOO_FWD_BATCH, 16, 257, 112), (ZOO_FWD_BATCH, 16, 256, 72),
+               (ZOO_FWD_BATCH, 16, 196, 72))
 
 
 def _gap_kernel_cases(gen):
@@ -3897,14 +3958,18 @@ def _path_runs(kernels, plain, batch, p_batch):
                 p_batch["images"], -1))))
 
 
-def _synthetic_batch(b: int, ctx: int, vocab: int, seed: int):
-    """(uint8 images, token ids) on the card: seeded 224x224 images and
-    ids of 5 to ``ctx`` - 1 tokens, zero-padded."""
+def _synthetic_batch(b: int, ctx: int, vocab: int, seed: int,
+                     side: int = IMAGE_SIZE, pad: int = 0):
+    """(uint8 images, token ids) on the card: seeded side x side images and
+    ids of 5 to ``ctx`` - 1 tokens above ``pad``, padded with it."""
     rng = np.random.default_rng(seed)
-    texts = np.zeros((b, ctx), np.int64)
+    texts = np.full((b, ctx), pad, np.int64)
     for i, n in enumerate(rng.integers(5, ctx, b)):
-        texts[i, :n] = rng.integers(1, vocab, n)
-    return _coca_images(b, seed), torch.from_numpy(texts).to("cuda")
+        texts[i, :n] = rng.integers(pad + 1, vocab, n)
+    images = np.random.default_rng(seed).integers(
+        0, 256, (b, side, side, 3), dtype=np.uint8)
+    return (torch.from_numpy(images).to("cuda"),
+            torch.from_numpy(texts).to("cuda"))
 
 
 def _kernels_vs_plain_step(model_name: str, b: int, args_cfg: dict,
@@ -3921,9 +3986,7 @@ def _kernels_vs_plain_step(model_name: str, b: int, args_cfg: dict,
     kernels = create_model(model_name, precision=precision, init_seed=1)
     plain = copy.deepcopy(kernels)
     set_use_kernels(plain, False)
-    cfg = kernels.model_cfg["text_cfg"]
-    u8, texts = _synthetic_batch(b, cfg.get("context_length", 77),
-                                 cfg.get("vocab_size", 49408), seed)
+    u8, texts = _model_batch(kernels, b, seed)
     batch = {"images": preprocess.normalize_images(u8, dtype=torch.bfloat16),
              "texts": texts}
     p_batch = {"images": preprocess.normalize_images_reference(
@@ -3947,6 +4010,158 @@ def _kernels_vs_plain_step(model_name: str, b: int, args_cfg: dict,
             v != 0.0 for v in judged["logit_bias_grad"].values())
     del kernels, plain, start, out
     return judged
+
+
+def _model_batch(model, b: int, seed: int):
+    """A seeded batch in ``model``'s image size, context length and
+    vocabulary (an HF text tower's from its resolved config, padded with
+    its pad id)."""
+    from xtagclip_tpu_torch.models.hf_text import resolve_hf_config
+
+    t = model.model_cfg["text_cfg"]
+    vocab = (resolve_hf_config(t["hf_model_name"])["vocab_size"]
+             if t.get("hf_model_name") else t.get("vocab_size", 49408))
+    return _synthetic_batch(
+        b, t.get("context_length", 77), vocab, seed,
+        model.model_cfg["vision_cfg"].get("image_size", IMAGE_SIZE),
+        pad=getattr(model.text, "pad_token_id", 0))
+
+
+def _zoo_forward(name: str, seed: int) -> dict:
+    """One bf16 forward of ``name`` (fp32 masters cast once for compute,
+    as the serving entry points do) at ZOO_FWD_BATCH with the kernels on,
+    then off: the launches of the kernels-on forward, the largest
+    difference of the image and text features and their least per-sample
+    cosine."""
+    import gc
+
+    from xtagclip_tpu_torch.factory import cast_for_compute, create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+
+    t0 = time.perf_counter()
+    model = create_model(name, precision="bf16", init_seed=3)
+    cast_for_compute(model, torch.bfloat16)
+    model.eval()
+    build_s = time.perf_counter() - t0
+    u8, texts = _model_batch(model, ZOO_FWD_BATCH, seed)
+    feats = {}
+    with torch.inference_mode():
+        for mode in ("kernels", "plain"):
+            set_use_kernels(model, mode == "kernels")
+            norm = (preprocess.normalize_images if mode == "kernels"
+                    else preprocess.normalize_images_reference)
+            _reset_counts()
+            t1 = time.perf_counter()
+            image, _ = model.encode_image(norm(u8, dtype=torch.bfloat16),
+                                          normalize=True)
+            text, _ = model.encode_text(texts, normalize=True)
+            torch.cuda.synchronize()
+            feats[mode] = (image, text, time.perf_counter() - t1,
+                           _counts())
+    (ik, tk, k_s, counts), (ip, tp, p_s, _) = feats["kernels"], feats["plain"]
+    rec = {"model": name, "batch": ZOO_FWD_BATCH,
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "build_s": build_s, "forward_s": k_s, "plain_forward_s": p_s,
+           "image_max_abs_diff": (ik - ip).abs().max().item(),
+           "text_max_abs_diff": (tk - tp).abs().max().item(),
+           "image_cos_min": _cosine(ik, ip).min().item(),
+           "text_cos_min": _cosine(tk, tp).min().item(),
+           "finite": bool(all(torch.isfinite(t).all().item()
+                              for t in (ik, tk, ip, tp))),
+           "launches": counts}
+    want_flash = ZOO_FWD_FLASH.get(name, 0)
+    rec["ok"] = (rec["finite"] and counts["flash_mha"] == want_flash
+                 and counts["normalize_images"] == 1
+                 and min(rec["image_cos_min"], rec["text_cos_min"])
+                 >= ZOO_FWD_COS)
+    del model, feats, ik, tk, ip, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zoo(card: str, tmp: str) -> dict:
+    """The model zoo's towers at full width from a seeded init:
+    EVA02-L-14 and ViTamin-L-256 through ``cli.main`` on synthetic data
+    (ZOO_WARMUP + ZOO_STEPS steps at their ZOO_TRAINERS batch; samples/s,
+    p50 step ms, peak memory, launches per step as ZOO_PER_STEP: #6 in
+    every vision block forward and backward), one forward of each
+    ZOO_FORWARD config with the kernels on and off (#6 at head dims 88,
+    112 and 72 in EVA01-g, EVA02-E and ViTamin-XL; the features within
+    ZOO_FWD_COS), and one train step kernels on vs off of each ZOO_PATH
+    config at ZOO_PATH_BATCH at the train-path bars (MobileCLIP-S2's
+    BatchNorms in train mode)."""
+    import gc
+
+    counts, runs = {}, {}
+    logs = os.path.join(tmp, "zoo")
+    try:
+        for key, model, batch in ZOO_TRAINERS:
+            out, rec = _cli_train(_cli_main_args(
+                model, batch, ZOO_WARMUP + ZOO_STEPS, logs, key),
+                ZOO_WARMUP, batch)
+            c = counts[f"zoo_{key}"] = rec["launches"]
+            rec.update(model=model, batch=batch, launches_ok=c == _want(
+                **_scaled(ZOO_PER_STEP[model], rec["steps"])))
+            runs[key] = rec
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    forwards = {}
+    for i, name in enumerate(ZOO_FORWARD):
+        rec = forwards[name] = _zoo_forward(name, 70 + i)
+        counts[f"zoo_fwd_{name}"] = rec["launches"]
+    paths = {}
+    for name in ZOO_PATH:
+        paths[name] = _kernels_vs_plain_step(name, ZOO_PATH_BATCH,
+                                             {"use_tagging_loss": False})
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = (all(r["finite"] and r["launches_ok"] for r in runs.values())
+          and all(r["ok"] for r in forwards.values())
+          and all(p.pop("ok") for p in paths.values()))
+    result = {"phase": "zoo", "card": card, "weights": "seeded random init",
+              "data": "synthetic (cli.main --dataset-type synthetic); "
+                      "seeded uint8 images and token ids",
+              "cuts": "one process; widths and depths as published",
+              **runs, "forward": forwards, "train_path": paths, "ok": ok}
+    _emit(result)
+    if not ok:
+        raise AssertionError(f"zoo phase failed its checks: {result}")
+    return counts
+
+
+def phase_zoo_batch_probe(card: str, tmp: str) -> dict:
+    """cli.main on each ZOO_TRAINERS model for 2 steps at each batch of
+    ZOO_PROBE in turn (largest first) until one fits, without
+    checkpointing: the largest batch <= 128 that fits."""
+    import gc
+
+    logs = os.path.join(tmp, "probe")
+    res = {}
+    for key, model, _ in ZOO_TRAINERS:
+        tried = []
+        for batch in ZOO_PROBE:
+            try:
+                _, rec = _cli_train(_cli_main_args(model, batch, 2, logs,
+                                                   f"b{batch}"), 1, batch)
+                tried.append({"batch": batch, "fits": True,
+                              "peak_mem_gb": rec["peak_mem_gb"],
+                              "step_ms": 1e3 * rec["step_s"][-1]})
+                break
+            except torch.OutOfMemoryError:
+                tried.append({"batch": batch, "fits": False})
+            finally:
+                shutil.rmtree(logs, ignore_errors=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+        res[model] = tried
+    _emit({"phase": "zoo_batch_probe", "card": card,
+           "probed": list(ZOO_PROBE), **res})
+    return res
 
 
 def phase_siglip(card: str, tmp: str) -> dict:
@@ -4382,6 +4597,12 @@ def main(argv=()) -> int:
     ap.add_argument("--siglip-batch-probe", action="store_true",
                     help="run only the build and the search for the "
                          "largest ViT-SO400M-14-SigLIP batch that fits")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="run only the build, the kernel rows and the zoo "
+                         "phase")
+    ap.add_argument("--zoo-batch-probe", action="store_true",
+                    help="run only the build and the search for the zoo "
+                         "trainers' largest batch that fits")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4397,12 +4618,15 @@ def main(argv=()) -> int:
     _emit({"phase": "build", "card": card, "seconds": build_s,
            "kernels": {k: v["path"] for k, v in built.items()},
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
-    if args.clipa_batch_probe or args.siglip_batch_probe:
+    if args.clipa_batch_probe or args.siglip_batch_probe or \
+            args.zoo_batch_probe:
         with tempfile.TemporaryDirectory(prefix="xtag_probe_") as tmp:
             if args.clipa_batch_probe:
                 phase_clipa_batch_probe(card, tmp)
             if args.siglip_batch_probe:
                 phase_siglip_batch_probe(card, tmp)
+            if args.zoo_batch_probe:
+                phase_zoo_batch_probe(card, tmp)
         print(card, flush=True)
         return 0
 
@@ -4416,13 +4640,15 @@ def main(argv=()) -> int:
             seconds[name] = time.perf_counter() - t0
 
     entries = timed("kernels", phase_kernels, card)
-    if args.coca_only or args.siglip_only:
+    if args.coca_only or args.siglip_only or args.zoo_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
             if args.coca_only:
                 paths = timed("coca_train", phase_coca_train, card, tmp,
                               profile=args.profile)
                 paths.update(timed("coca", phase_coca, card,
                                    profile=args.profile))
+            elif args.zoo_only:
+                paths = timed("zoo", phase_zoo, card, tmp)
             else:
                 paths = timed("siglip", phase_siglip, card, tmp)
                 paths.update(timed("distill", phase_distill, card, tmp))
@@ -4473,6 +4699,7 @@ def main(argv=()) -> int:
                            profile=args.profile))
         paths.update(timed("siglip", phase_siglip, card, tmp))
         paths.update(timed("distill", phase_distill, card, tmp))
+        paths.update(timed("zoo", phase_zoo, card, tmp))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

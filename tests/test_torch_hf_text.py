@@ -173,15 +173,25 @@ def test_resolve_hf_config_reads_a_local_config(tmp_path):
                                   "facebook/nllb-200-distilled-600M",
                                   "facebook/m2m100_418M"])
 def test_t5_and_m2m100_raise_and_name_item_8(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        hf_text.HFTextEncoder(name, 512)
+    """The T5 and M2M100 families no longer wait for ROADMAP Queue 1 item
+    8: each name resolves to JAX's config and builds its trunk (on the
+    meta device: the presets are full size)."""
+    cfg = hf_text.resolve_hf_config(name)
+    assert cfg == jhf_text.resolve_hf_config(name)
+    with torch.device("meta"):
+        enc = hf_text.HFTextEncoder(name, 512)
+    trunk = {"t5": "T5EncoderStack", "m2m100": "M2M100Encoder"}[cfg["family"]]
+    assert type(enc.transformer).__name__ == trunk
 
 
 @pytest.mark.parametrize("model_type", ["t5", "mt5", "m2m_100"])
 def test_local_t5_and_m2m100_configs_raise(tmp_path, model_type):
+    """A local config.json of each type resolves as JAX's does."""
     path = _config_dir(tmp_path / "toy", model_type)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        hf_text.resolve_hf_config(path)
+    assert hf_text.resolve_hf_config(path) == \
+        jhf_text.resolve_hf_config(path)
+    assert hf_text.resolve_hf_config(path)["family"] == (
+        "m2m100" if model_type == "m2m_100" else "t5")
 
 
 def test_dropout_is_seeded_and_off_without_a_generator():

@@ -116,8 +116,31 @@ def test_build_matches_jax_parameter_shapes(name):
                                   "vitamin_small_224", "swin_base_patch4_window7_224",
                                   "fastvit_mci1"])
 def test_other_timm_families_raise_and_name_item_8(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        timm_vit.build_timm_vision_tower(512, {"timm_model_name": name})
+    """The zoo families no longer wait for ROADMAP Queue 1 item 8: each
+    builds with JAX's parameter names and shapes, and a variant JAX does
+    not know (``eva02_base_patch14_224``) raises as JAX's does."""
+    cfg = {"timm_model_name": name, "image_size": 224}
+    try:
+        jmodel = jtimm.build_timm_vision_tower(512, cfg, jnp.float32,
+                                               jnp.float32)
+    except NotImplementedError as e:
+        with pytest.raises(NotImplementedError, match="unknown EVA variant"):
+            timm_vit.build_timm_vision_tower(512, cfg)
+        assert "unknown EVA variant" in str(e)
+        return
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3))))
+    with torch.device("meta"):
+        model = timm_vit.build_timm_vision_tower(512, cfg)
+    from xtagclip_tpu_torch.convert.from_jax import port_name, stats_buffers
+
+    theirs = {port_name(k): v.shape for k, v in _flatten(shapes["params"])}
+    ours = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    assert set(ours) == set(theirs)
+    for n, t in theirs.items():
+        assert ours[n] == (t if len(t) != 4 else (t[3], t[2], t[0], t[1])), n
+    assert set(stats_buffers(model)) == {
+        port_name(k) for k, _ in _flatten(shapes.get("batch_stats", {}))}
 
 
 def _timm_sd():
@@ -169,12 +192,23 @@ def test_timm_converter_refuses_unknown_keys():
     ("eva", "blocks.0.attn.q_proj.weight"),
     ("fastvit", "stem.0.reparam_conv.weight")])
 def test_other_trunk_families_raise_and_name_item_8(family, key):
-    from xtagclip_tpu.convert.timm_families import (
-        detect_trunk_family as jax_detect,
-    )
+    """The zoo families' keys no longer raise: each is detected as JAX
+    detects it and a one-key trunk converts to JAX's tree (the strict
+    converters raise alike on what the single key leaves out)."""
+    from xtagclip_tpu.convert import timm_families as jfam
 
-    assert timm_families.detect_trunk_family([key]) == jax_detect([key]) \
-        == family
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        timm_families.convert_timm_trunk(
-            {"visual.trunk." + key: np.zeros(1, np.float32)})
+    assert timm_families.detect_trunk_family([key]) == \
+        jfam.detect_trunk_family([key]) == family
+    val = np.arange(2 * 3 * 4 * 4, dtype=np.float32).reshape(2, 3, 4, 4)
+    sd = {"visual.trunk." + key: val[0, 0] if family == "swin" else val}
+    try:
+        want = jfam.convert_timm_trunk(dict(sd))
+    except Exception as e:  # noqa: BLE001 - the port must raise alike
+        with pytest.raises(type(e)):
+            timm_families.convert_timm_trunk(dict(sd))
+        return
+    got = dict(_flatten(timm_families.convert_timm_trunk(dict(sd))))
+    want = dict(_flatten(want))
+    assert set(got) == set(want) and got
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -23,13 +23,18 @@ vision tokens are ``visual.learnable_tokens`` [n, width], a key JAX's
 exporter leaves out and its loader refuses: a ``.pt`` of the JAX package
 carries none, and the port keeps its own init for them.
 
-Three towers are converted as whole groups, as JAX converts them, into
-flax-layout trees read by the names of convert/from_jax.py
-(``convert_tower_groups``): a timm trunk's ``visual.trunk.*``
-(convert/timm_families.py; its ``fc_norm`` and SigLIP ``attn_pool`` go
-onto the ``TimmModel`` head), an HF BERT's ``text.transformer.*``
-(convert/hf_bert.py) and a ModifiedResNet's ``visual.*`` (ROADMAP Queue 1
-item 4), whose BatchNorm running statistics go into the BN buffers.
+These towers are converted as whole groups into flax-layout trees read
+by the names of convert/from_jax.py (``convert_tower_groups``): a timm
+trunk's ``visual.trunk.*`` (convert/timm_families.py; its ``fc_norm`` and
+SigLIP ``attn_pool`` go onto the ``TimmModel`` head, a FastViT's
+BatchNorm running statistics into its buffers), an HF BERT's
+``text.transformer.*`` (convert/hf_bert.py) and a ModifiedResNet's
+``visual.*``, whose running statistics go into the BN buffers, as JAX
+converts them; and, where JAX's converter raises on their keys, a timm
+ConvNeXt trunk (models/convnext.py's converter) and an HF T5 or M2M100
+encoder's ``text.transformer.*`` (convert/hf_t5.py, convert/hf_m2m100.py;
+open_clip keeps the encoder alone there, so its keys lack the ``encoder.``
+the converters read, which is put back).
 """
 
 from __future__ import annotations
@@ -263,6 +268,29 @@ def _convert_modified_resnet_visual(sd: Dict[str, np.ndarray]):
     return vis, stats
 
 
+def _hf_encoder_converter(sd: Dict[str, np.ndarray]):
+    """The converter of an HF T5 or M2M100 encoder under
+    ``text.transformer.`` (open_clip's encoder alone, or the whole model's
+    ``encoder.``), or None."""
+    for k in sd:
+        rest = k[len("text.transformer."):] if k.startswith(
+            "text.transformer.") else None
+        if rest is None:
+            continue
+        rest = rest[len("encoder."):] if rest.startswith("encoder.") else rest
+        if rest.startswith("block."):
+            from xtagclip_tpu_torch.convert.hf_t5 import (
+                convert_hf_t5_state_dict,
+            )
+            return convert_hf_t5_state_dict
+        if rest.startswith("layers."):
+            from xtagclip_tpu_torch.convert.hf_m2m100 import (
+                convert_hf_m2m100_state_dict,
+            )
+            return convert_hf_m2m100_state_dict
+    return None
+
+
 def convert_tower_groups(sd: Dict[str, np.ndarray]):
     """The group-converted towers of ``sd`` (module doc) ->
     (parameters, statistics, rest): the first two map port names to
@@ -276,10 +304,20 @@ def convert_tower_groups(sd: Dict[str, np.ndarray]):
         params.update(("visual." + k, v) for k, v in _flatten(vis))
         stats.update(("visual." + k, v) for k, v in _flatten(vis_stats))
         rest = {k: v for k, v in rest.items() if not k.startswith("visual.")}
-    if any(k.startswith("visual.trunk.") for k in sd):
+    if "visual.trunk.stem.0.weight" in sd:  # ConvNeXt's stem conv
+        from xtagclip_tpu_torch.models.convnext import (
+            convert_timm_convnext_state_dict,
+        )
+
+        trunk = convert_timm_convnext_state_dict(sd, prefix="visual.trunk.")
+        params.update(("visual.trunk." + k, v) for k, v in _flatten(trunk))
+        rest = {k: v for k, v in rest.items()
+                if not k.startswith("visual.trunk.")}
+    elif any(k.startswith("visual.trunk.") for k in sd):
         from xtagclip_tpu_torch.convert.timm_families import convert_timm_trunk
 
         trunk = convert_timm_trunk(sd, prefix="visual.trunk.")
+        bn_stats = trunk.pop("__batch_stats__", None)
         for hoisted, name in (("__fc_norm__", "fc_norm"),
                               ("__attn_pool__", "attn_pool")):
             sub = trunk.pop(hoisted, None)
@@ -287,8 +325,20 @@ def convert_tower_groups(sd: Dict[str, np.ndarray]):
                 params.update((f"visual.{name}.{k}", v)
                               for k, v in _flatten(sub))
         params.update(("visual.trunk." + k, v) for k, v in _flatten(trunk))
+        if bn_stats:
+            stats.update(("visual.trunk." + k, v)
+                         for k, v in _flatten(bn_stats))
         rest = {k: v for k, v in rest.items()
                 if not k.startswith("visual.trunk.")}
+    hf_text = _hf_encoder_converter(sd)
+    if hf_text is not None:
+        enc = {("" if k.startswith("text.transformer.encoder.") else
+                "encoder.") + k[len("text.transformer."):]: v
+               for k, v in sd.items() if k.startswith("text.transformer.")}
+        params.update(("text.transformer." + k, v)
+                      for k, v in _flatten(hf_text(enc)))
+        rest = {k: v for k, v in rest.items()
+                if not k.startswith("text.transformer.")}
     if any(k.startswith("text.transformer.embeddings.") for k in sd):
         from xtagclip_tpu_torch.convert.hf_bert import convert_hf_bert_state_dict
 

@@ -72,6 +72,12 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+def channels_last(fn, x):
+    """``fn`` (a LayerNorm, a Dense chain) over the channels of an NCHW
+    stream, as flax applies it to the last axis of NHWC; NCHW back."""
+    return fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class Dense(nn.Module):
     """flax ``nn.Dense``: y = x @ kernel + bias, kernel [in, out]."""
 
@@ -111,18 +117,21 @@ class Embed(nn.Module):
 
 class Conv2d(nn.Module):
     """flax ``nn.Conv`` over an NCHW stream (cuDNN's layout). The
-    ``kernel`` is kept in torch's [out, in, kh, kw] layout
-    (convert/from_jax.py transposes flax's [kh, kw, in, out]); lecun-normal
-    init as flax's. ``padding`` is an int (symmetric, flax's
+    ``kernel`` is kept in torch's [out, in / groups, kh, kw] layout
+    (convert/from_jax.py transposes flax's [kh, kw, in / groups, out]);
+    lecun-normal init as flax's. ``padding`` is an int (symmetric, flax's
     ``[(p, p)] * 2``) or ``"SAME"`` (flax's default: any odd extra pixel
-    goes after, as XLA pads it)."""
+    goes after, as XLA pads it). ``groups`` is flax's
+    ``feature_group_count`` (a depthwise conv has ``groups == in_ch``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-                 padding=0, bias: bool = False):
+                 padding=0, bias: bool = False, groups: int = 1):
         super().__init__()
         self.stride = stride
         self.padding = padding
-        self.kernel = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel))
+        self.groups = groups
+        self.kernel = nn.Parameter(
+            torch.empty(out_ch, in_ch // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def init_params(self, generator):
@@ -143,7 +152,8 @@ class Conv2d(nn.Module):
                 pads += [total // 2, total - total // 2]
             x, pad = F.pad(x, pads), 0
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.kernel.to(x.dtype), bias, self.stride, pad)
+        return F.conv2d(x, self.kernel.to(x.dtype), bias, self.stride, pad,
+                        1, self.groups)
 
 
 class BatchNorm(nn.Module):
@@ -257,6 +267,28 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
     return out.transpose(1, 2).reshape(b, lq, e).to(q.dtype)
 
 
+# the head dims JAX's fused attention half takes (fused_attn_block.py:262)
+JAX_FUSED_HEAD_DIMS = (64, 80, 88, 104, 128)
+
+
+def self_attention_core(q, k, v, num_heads: int, use_kernels: bool,
+                        mask=None):
+    """The core of a self-attention over [B, L, E] streams without dropout,
+    as JAX's ``fused_attention`` routes it (layers.py:127-170): through
+    ``flash_attn.flash_mha`` (its kernel, or with ``use_kernels`` off its
+    plain version ``reference_flash_mha``) where ``flash_attn.supported``
+    takes the stream, else through the plain ``attention`` with the
+    additive ``mask`` (XLA's attention in JAX)."""
+    b, l, e = q.shape
+    dh = e // num_heads
+    if not flash_attn.supported(l, l, mask, dh):
+        return attention(q, k, v, num_heads, mask=mask)
+    core = (flash_attn.flash_mha if use_kernels
+            else flash_attn.reference_flash_mha)
+    heads = (t.reshape(b, l, num_heads, dh) for t in (q, k, v))
+    return core(*heads).reshape(b, l, e)
+
+
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention-style attention with a fused [E, 3E]
     ``in_proj`` and an ``out_proj``; with a key/value width ``kdim`` other
@@ -308,17 +340,10 @@ class MultiheadAttention(nn.Module):
         its plain version) where ``flash_attn.supported`` takes it, else
         through the plain ``attention`` with the additive ``mask`` (XLA's
         attention in JAX), then ``out_proj`` in x's dtype."""
-        b, l, e = x.shape
-        dh = e // self.num_heads
+        e = x.shape[-1]
         qkv = self._proj(x, 0, 3 * e)
-        if not flash_attn.supported(l, l, mask, dh):
-            return self.out_proj(attention(*qkv.split(e, dim=-1),
-                                           self.num_heads, mask=mask))
-        q, k, v = (t.reshape(b, l, self.num_heads, dh)
-                   for t in qkv.split(e, dim=-1))
-        core = (flash_attn.flash_mha if use_kernels
-                else flash_attn.reference_flash_mha)
-        return self.out_proj(core(q, k, v).reshape(b, l, e))
+        return self.out_proj(self_attention_core(
+            *qkv.split(e, dim=-1), self.num_heads, use_kernels, mask))
 
 
 class AttentionalPooler(nn.Module):
@@ -399,7 +424,9 @@ class ResidualAttentionBlock(nn.Module):
       (JAX's ``XTAG_FLASH_ATTN`` and ``XTAG_FUSED_MLP`` paths). A stream
       flash attention does not take (an [L, L] mask, another head dim)
       runs the plain ``attention`` there; it has no kernel, so a bf16 one
-      raises on the card. A LayerScale block (``ls_init_value``;
+      raises on the card, but for a masked one at a head dim JAX's fused
+      half refuses too (``JAX_FUSED_HEAD_DIMS``), which XLA runs in JAX
+      and the plain core here. A LayerScale block (``ls_init_value``;
       ``ls_1``/``ls_2.gamma`` scale the attention and MLP outputs before
       each residual add, layers.py:577-587) never takes the fused halves,
       as JAX keeps it off the fused kernels (:531).
@@ -494,11 +521,16 @@ class ResidualAttentionBlock(nn.Module):
 
     def _check_kernels_take(self, shape, attn_mask, route):
         """Raise if the route's kernels cannot take a stream: nothing
-        falls back to a plain version on the card."""
+        falls back to a plain version on the card. A masked stream whose
+        head dim JAX's fused half refuses too (``JAX_FUSED_HEAD_DIMS``:
+        ViTamin-XL's causal text at 72) has no TPU kernel there, so its
+        core is the plain attention, as XLA's is in JAX."""
         _, l, d = shape
         mlp_width = self.mlp.c_fc.kernel.shape[1]
-        if route == "non_fused" and not flash_attn.supported(
-                l, l, attn_mask, d // self.heads):
+        dh = d // self.heads
+        xla_core = attn_mask is not None and dh not in JAX_FUSED_HEAD_DIMS
+        if route == "non_fused" and not xla_core and not \
+                flash_attn.supported(l, l, attn_mask, dh):
             raise ValueError(
                 f"no kernel for stream {tuple(shape)} with {self.heads} heads"
                 f" and mask {None if attn_mask is None else tuple(attn_mask.shape)}"
@@ -532,10 +564,12 @@ class ResidualAttentionBlock(nn.Module):
 
 
 def set_use_kernels(module: nn.Module, enabled: bool) -> None:
-    """Route every block under ``module`` through the CUDA kernels
-    (``True``, the default) or the plain versions (``False``)."""
+    """Route every block under ``module`` (each module with a
+    ``use_kernels`` flag: the residual blocks, the zoo trunks' attention)
+    through the CUDA kernels (``True``, the default) or the plain versions
+    (``False``)."""
     for m in module.modules():
-        if isinstance(m, ResidualAttentionBlock):
+        if hasattr(m, "use_kernels"):
             m.use_kernels = enabled
 
 

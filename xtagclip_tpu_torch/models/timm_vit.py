@@ -22,9 +22,13 @@ it unused; the recompute draws no random numbers, so the numbers are the
 same).
 
 Every name ``_TIMM_VIT_RE`` matches builds here, with the two named
-medium variants and ``vit_base_mci_224``; the other timm families
-(convnext, eva, vitamin, swin, fastvit) raise and name ROADMAP Queue 1
-item 8.
+medium variants and ``vit_base_mci_224``. ``build_timm_vision_tower``
+routes the other timm families as JAX's does (timm_vit.py:314-350):
+``convnext*`` to models/convnext.py's tower, ``eva_*`` / ``eva02_*``,
+``vitamin_*``, ``swin_*`` and ``fastvit_*`` to their trunks
+(models/{eva,vitamin,swin,fastvit}.py) under this ``TimmModel`` head. The
+trunk is called with the forward's generator: FastViT's BatchNorms take
+their batch statistics under one; no other trunk draws on it.
 """
 
 from __future__ import annotations
@@ -138,7 +142,7 @@ class TimmViT(nn.Module):
         if self.pos_embed is not None:
             nn.init.normal_(self.pos_embed, 0.0, 0.02, generator=generator)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         b, hh, ww, c = x.shape
         p = self.patch_size
         gh, gw = hh // p, ww // p
@@ -229,9 +233,9 @@ class TimmModel(nn.Module):
         return self.trunk_head(t) if self.trunk_head is not None else t
 
     def forward(self, x, generator=None):
-        """[B, H, W, 3] -> (pooled [B, E], tokens [B, L, E]). The trunk
-        draws no random numbers, so ``generator`` changes nothing."""
-        tokens = self.trunk(x)
+        """[B, H, W, 3] -> (pooled [B, E], tokens [B, L, E]). The
+        ``generator`` (training) reaches the trunk (module doc)."""
+        tokens = self.trunk(x, generator)
         if self.pool in ("cls", "token"):
             pooled = tokens[:, 0]
         elif self.pool == "map":
@@ -250,8 +254,6 @@ _VIT_DIMS = {
     "large": (1024, 24, 16), "huge": (1280, 32, 16),
     "so400m": (1152, 27, 16),
 }
-_OTHER_FAMILIES = ("convnext", "eva_", "eva02_", "vitamin_", "swin_",
-                   "fastvit_")
 
 
 def build_timm_vision_tower(embed_dim: int, vision_cfg: dict,
@@ -273,10 +275,44 @@ def build_timm_vision_tower(embed_dim: int, vision_cfg: dict,
         return TimmViT(image_size=image_size, dtype=dtype,
                        grad_checkpointing=grad_checkpointing, **kw)
 
-    if name.startswith(_OTHER_FAMILIES):
-        raise NotImplementedError(
-            f"timm tower {name!r}: the convnext, eva, vitamin, swin and "
-            "fastvit families are not ported yet (ROADMAP Queue 1 item 8)")
+    if name.startswith("convnext"):
+        from xtagclip_tpu_torch.models.convnext import build_convnext_tower
+
+        return build_convnext_tower(embed_dim, vision_cfg, dtype)
+    if name.startswith(("eva_", "eva02_")):
+        from xtagclip_tpu_torch.models.eva import EVA_CONFIGS, EvaTrunk
+
+        if name not in EVA_CONFIGS:
+            raise NotImplementedError(f"unknown EVA variant {name!r}")
+        cfg = EVA_CONFIGS[name]
+        return wrap(EvaTrunk(image_size=image_size, dtype=dtype,
+                             grad_checkpointing=grad_checkpointing, **cfg),
+                    cfg["width"])
+    if name.startswith("vitamin_"):
+        from xtagclip_tpu_torch.models.vitamin import (
+            ViTaminTrunk,
+            vitamin_config,
+        )
+
+        cfg = vitamin_config(name)
+        return wrap(ViTaminTrunk(image_size=image_size, dtype=dtype,
+                                 grad_checkpointing=grad_checkpointing,
+                                 **cfg), cfg["width"])
+    if name.startswith("swin_"):
+        from xtagclip_tpu_torch.models.swin import SwinTrunk
+
+        # swin_base_patch4_window7_224 is the only registry config
+        return wrap(SwinTrunk(image_size=image_size, dtype=dtype), 8 * 128)
+    if name.startswith("fastvit_"):
+        from xtagclip_tpu_torch.models.fastvit import (
+            FASTVIT_CONFIGS,
+            FastVitTrunk,
+        )
+
+        if name not in FASTVIT_CONFIGS:
+            raise NotImplementedError(f"unknown FastViT variant {name!r}")
+        cfg = FASTVIT_CONFIGS[name]
+        return wrap(FastVitTrunk(dtype=dtype, **cfg), 2 * cfg["dims"][-1])
     if name == "vit_base_mci_224":  # MobileCLIP-B image tower
         return wrap(vit(patch_size=16, width=768, layers=12, heads=12,
                         conv_stem=True), 768)
