@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
-                                       --zoo-only]
+                                       --zoo-only | --pretrained-only]
     python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
                           --zoo-batch-probe
 
@@ -118,25 +118,27 @@ fused MLP), in phases that each print one JSON line:
    timed;
 12. clipa: the CLIPA ViT-H/14 GAP recipe (BASELINE config 5:
    scripts/h14_84_8_pretrain.sh, scripts/h14_224_32_finetune.sh) through
-   ``cli.main.main`` at full width and depth (986M parameters; vision 32
-   blocks of width 1280, 16 heads of 80; text 24 blocks of width 1024),
+   ``cli.main.main`` at full width and half depth (CLIPA_DEPTH_CUT: 16
+   of the 32 vision blocks of width 1280, 16 heads of 80; 12 of the 24
+   text blocks of width 1024; the published 986M parameters at full depth),
    --grad-checkpointing, batch 256 (not the scripts' 4096: one card's 80
    GB) and no --fsdp (one process), both stages reading 8 seeded tar
    shards of 224 (JPEG, caption) samples (--dataset-type webdataset):
    stage 1 (syntax-mask CL8 tokenizer, 84 px, L = 37, --native-decode)
    for 2 steps; stage 2 (CL32, 224 px, L = 257, squash, bilinear,
    ImageNet mean/std, the PIL decode) from stage 1's checkpoint for 2
-   warm-up + 5 timed steps; ``evaluate`` on a CSV of 128 seeded PNGs. It
+   warm-up + 3 timed steps; ``evaluate`` on a CSV of 128 seeded PNGs. It
    prints samples/s, p50 step ms, each step's data wait, the decode route
    and the samples each route decoded, peak memory, checkpoint bytes and
    save seconds, eval img/s and metrics, and fails on launches off
-   CLIPA_PER_STEP / CLIPA_PER_EVAL_BATCH, a value that is not finite,
+   _clipa_per_step / _clipa_per_eval_batch, a value that is not finite,
    fewer samples decoded than the steps took or syntax-mask ids off the
    front-truncation fallback;
 13. clipa_eval: scripts/clipav2_vit_h14_i84_224_336_cl32_gap_datacomp1b.sh's
-   flags through ``cli.main.main`` at full width and depth
-   (ViT-H-14-CL32-GAP-BigVision, --force-image-size 336: L = 577):
-   --pretrained a seeded big_vision .npz in the CLIPA-v2 layout (3.9 GB,
+   flags through ``cli.main.main`` at full width and half depth
+   (ViT-H-14-CL32-GAP-BigVision, CLIPA_DEPTH_CUT, --force-image-size 336:
+   L = 577): --pretrained a seeded big_vision .npz in the CLIPA-v2 layout
+   (2.0 GB at half depth, 3.9 GB at full,
    written to a temporary directory and deleted), the BERT WordPiece
    tokenizer found as bert-base-uncased in a temporary HF_HUB_CACHE, and
    --imagenet-val a folder of 192 seeded JPEGs in 8 class directories: the
@@ -146,8 +148,9 @@ fused MLP), in phases that each print one JSON line:
    with the kernels on vs off at cosine >= 0.999; the archive keys the
    converter leaves unread and the parameters kept at their init printed
    and held to the list JAX's converter implies;
-14. clipa_path: stage 2's model at batch 32: one step with
-   --grad-checkpointing on and off (loss and gradients bit for bit, peak
+14. clipa_path: stage 2's model (half depth, as phase 12) at batch 32:
+   one step with --grad-checkpointing on and off (loss and gradients bit
+   for bit, peak
    memory of each), one with the kernels on and off (phase 6's bars), a
    kernels-on step at --force-patch-dropout 0.5 (finite), and eval image
    features kernels vs plain (cosine >= 0.999);
@@ -181,14 +184,14 @@ fused MLP), in phases that each print one JSON line:
    off (see phase_coca) and the image encode at cosine >= 0.999;
 19. coca_train: open_clip README's coca_ViT-L-14 MSCOCO fine-tune flags
    through ``cli.main.main`` at batch 128 on 896 seeded PNG + caption CSV
-   rows (2 warm-up + 5 timed steps; samples/s, p50 step ms, peak memory,
+   rows (2 warm-up + 3 timed steps; samples/s, p50 step ms, peak memory,
    the checkpoint), evaluate on 256 more (eval img/s), launches per step
    and per eval batch asserted, and one step kernels on vs off at batch 32
    at phase 6's bars;
 20. siglip: ViT-B-16-SigLIP (the config of open_clip's public webli
    weights) through ``cli.main --siglip`` at full width and depth from a
    seeded init, synthetic data with SigLIP's T5 tokenizer written to a
-   temporary HF_HUB_CACHE, 2 warm-up + 5 timed steps of 256 (its text
+   temporary HF_HUB_CACHE, 2 warm-up + 3 timed steps of 256 (its text
    tower: #1, #2, #3; the timm MAP-pool vision tower plain, as JAX runs it
    through XLA), then ViT-SO400M-14-SigLIP for 1 + 3 steps at the largest
    batch that fits without checkpointing (its text tower: #6 at head dim
@@ -199,7 +202,7 @@ fused MLP), in phases that each print one JSON line:
 21. distill: open_clip README's distillation (--distill-model ViT-L-14
    --distill-pretrained) through ``cli.main``, student ViT-B-32 at batch
    128, the teacher from a seeded .pt the port's exporter writes (1.7 GB,
-   deleted after), 2 warm-up + 5 timed steps (the student: #1, #2, #3;
+   deleted after), 2 warm-up + 3 timed steps (the student: #1, #2, #3;
    the teacher: #6 and #4 in vision, #1 and #2 in text; #5), distill_loss
    finite, launches per step asserted; one step with the teacher kernels
    on vs off at batch 32, and one ``pure_bf16`` ViT-B-32 step kernels on
@@ -207,7 +210,7 @@ fused MLP), in phases that each print one JSON line:
 22. zoo: the model zoo's towers at full width and depth from a seeded
    init. EVA02-L-14 (EVA-02 L/14: rope, SwiGLU, #6 in its 24 vision
    blocks at L = 257) and ViTamin-L-256 (#6 in its 31 blocks at L = 256)
-   through ``cli.main`` on synthetic data, 2 warm-up + 5 timed steps at
+   through ``cli.main`` on synthetic data, 2 warm-up + 3 timed steps at
    the largest batch <= 128 that fits without checkpointing
    (--zoo-batch-probe): samples/s, p50 step ms, peak memory, launches per
    step asserted (their text towers on #1, #2, #3); one forward of 8 in
@@ -218,6 +221,28 @@ fused MLP), in phases that each print one JSON line:
    asserted); one train step kernels on vs off at batch 16 of EVA02-L-14,
    ViTamin-L-256, convnext_base_w and MobileCLIP-S2 (BatchNorms in train
    mode) at phase 6's bars.
+
+23. pretrained: the paper's recipes as their scripts write them. (a)
+   scar_openclip_pretrain.sh's flags through ``main_other.main`` with
+   ``--pretrained laion400m_e32`` resolved offline (HF_HUB_OFFLINE=1)
+   from a temporary HF_HUB_CACHE whose timm/vit_base_patch32_clip_224
+   .laion400m_e32 snapshot holds a seeded full-width ViT-B-32 checkpoint
+   as open_clip_model.safetensors (605 MB), one epoch of 64 + 32 seeded
+   scar rows at batch 32: every CLIP parameter at the first step equal to
+   the file's tensor, the tag head and TQN at their seeded init, #1, #2,
+   #3 and #5 launched, the loss finite; the resolve + load seconds and
+   the bytes printed; (b) ``create_model("ViT-B-32", pretrained=
+   "openai")`` from an fp16 OpenAI-layout archive in the openai repo's
+   snapshot, its values loaded exactly, one serve batch of 32 kernels vs
+   plain at phase 4's bars; (c) adamw (the default, for its time in the
+   same window), adam, sgd, lion and adafactor: 5 steps
+   of 32 on the XTag model (samples/s, p50 step ms, launches per step
+   asserted), one step kernels on vs off with each parameter's update at
+   phase 6's bars, and one update from fixed fp32 gradients on the card
+   against the CPU's within 1e-6 by norm; (d) ``save_hf_checkpoint`` of
+   the tuned model reloaded through ``pretrained="hf-hub:..."`` bit for
+   bit, and ``ops/int8.py`` at [4096, 768] x [768, 3072]: the int32 sums
+   equal the CPU's.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -237,7 +262,7 @@ split into the port's hand-written kernels and everything else.
 ``--coca-only`` runs the build, the kernel rows and phases 19 and 18
 alone, then prints the seconds, the kernel table with those phases'
 launches and the card; ``--siglip-only`` the same for phases 20 and 21,
-``--zoo-only`` for phase 22.
+``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23.
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
 out of memory, without and with --grad-checkpointing);
@@ -302,11 +327,11 @@ GAP_CONFIG = "ViT-B-16-GAP-256"
 GAP_L = (GAP_IMAGE_SIZE // 16) ** 2
 # the CLIPA ViT-H/14 recipe (BASELINE config 5; scripts/h14_84_8_pretrain.sh,
 # scripts/h14_224_32_finetune.sh) through cli.main: the per-device batch
-# (the scripts' 4096 cut to what one card's 80 GB holds), 2 warm-up + 5
+# (the scripts' 4096 cut to what one card's 80 GB holds), 2 warm-up + 3
 # timed stage-2 steps, the eval CSV's rows, and the batch of the clipa_path
 # comparisons and of the kernel rows at ViT-H widths
 CLIPA_BATCH = 256
-CLIPA_WARMUP, CLIPA_STEPS = 2, 5
+CLIPA_WARMUP, CLIPA_STEPS = 2, 3
 CLIPA_VAL_ROWS = 128
 CLIPA_PATH_BATCH = 32
 CLIPA_SHARDS = 8  # the stages' tar shards: 8 x 224 samples, stage 2's 1792
@@ -323,7 +348,7 @@ EVAL_L = (EVAL_IMAGE_SIZE // 14) ** 2 + 1
 # mscoco_finetuned checkpoints; 638M parameters): captions at batch 8 and
 # seq_len 30 by the three generation methods at JAX's defaults (top-k 1,
 # top-p 0.1, 6 beams in 3 groups), and open_clip README's MSCOCO
-# fine-tune recipe through cli.main at its batch of 128 (2 warm-up + 5
+# fine-tune recipe through cli.main at its batch of 128 (2 warm-up + 3
 # timed steps), then evaluate on a val CSV; the kernels-on/off step runs
 # at a smaller batch (the plain attention's fp32 scores of 24 ViT-L
 # blocks at 128 would not fit beside two models)
@@ -336,7 +361,7 @@ COCA_METHODS = {"top_k": dict(generation_type="top_k"),
                                     num_beams=COCA_BEAMS,
                                     num_beam_groups=3)}
 COCA_BATCH = 128
-COCA_WARMUP, COCA_STEPS = 2, 5
+COCA_WARMUP, COCA_STEPS = 2, 3
 COCA_VAL_ROWS = 256
 COCA_PATH_BATCH = 32
 COCA_L = (IMAGE_SIZE // 14) ** 2 + 1  # ViT-L/14's 257 tokens
@@ -354,7 +379,7 @@ COCA_TEXT_L = 77  # 76 tokens and the class token
 SIGLIP_MODEL = "ViT-B-16-SigLIP"
 SIGLIP_TOKENIZER = "timm/ViT-B-16-SigLIP"  # both configs' hf_tokenizer_name
 SIGLIP_BATCH = 256
-SIGLIP_WARMUP, SIGLIP_STEPS = 2, 5
+SIGLIP_WARMUP, SIGLIP_STEPS = 2, 3
 SIGLIP_L = 64
 SIGLIP_PATH_BATCH = 64
 SO400M_MODEL = "ViT-SO400M-14-SigLIP"
@@ -365,7 +390,7 @@ SO400M_HIDDEN = 4304
 SO400M_PROBE = (32, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
 DISTILL_STUDENT, DISTILL_TEACHER = "ViT-B-32", "ViT-L-14"
 DISTILL_BATCH = 128
-DISTILL_WARMUP, DISTILL_STEPS = 2, 5
+DISTILL_WARMUP, DISTILL_STEPS = 2, 3
 DISTILL_PATH_BATCH = 32
 DISTILL_L = (IMAGE_SIZE // 14) ** 2 + 1  # the teacher's ViT-L/14 tokens
 SIGLIP_PER_STEP = dict(fused_attn_half=12, fused_mlp_half=12,
@@ -382,14 +407,14 @@ DISTILL_PER_STEP = dict(fused_attn_half=36, fused_mlp_half=36,
 # train through cli.main at the largest batch <= 128 that fits without
 # checkpointing (--zoo-batch-probe: 112 for both, EVA02-L at 71.2 GB over
 # resident; ViTamin-L at 83.1 GB, 98% of the card, so it trains at 96),
-# 2 warm-up + 5 timed steps; eight
+# 2 warm-up + 3 timed steps; eight
 # configs run one forward of ZOO_FWD_BATCH with the kernels on and off;
 # four run one train step kernels on vs off at ZOO_PATH_BATCH. #6 runs in
 # the EVA and ViTamin vision blocks (EVA02-L: 24 x L 257 at dh 64;
 # ViTamin-L: 31 x L 256 at dh 64), the text towers on #1-#3
 ZOO_TRAINERS = (("eva02_l", "EVA02-L-14", 112),
                 ("vitamin_l", "ViTamin-L-256", 96))
-ZOO_WARMUP, ZOO_STEPS = 2, 5
+ZOO_WARMUP, ZOO_STEPS = 2, 3
 ZOO_FWD_BATCH = 8
 ZOO_FORWARD = ("EVA01-g-14", "EVA02-E-14-plus", "ViTamin-XL-256",
                "convnext_base_w", "swin_base_patch4_window7_224",
@@ -409,6 +434,35 @@ ZOO_PER_STEP = {"EVA02-L-14": dict(_TEXT_HALVES, flash_mha=24,
 ZOO_FWD_FLASH = {"EVA01-g-14": 40, "EVA02-E-14-plus": 64,
                  "ViTamin-XL-256": 32}
 ZOO_FWD_COS = 0.99  # per-sample cosine of kernels-on vs -off features
+# the paper's recipes as their scripts write them (scar_openclip_pretrain.sh
+# and the others pass --pretrained laion400m_e32): a seeded ViT-B-32
+# open_clip checkpoint as open_clip_model.safetensors in a hub cache for the
+# registry's repo, main_other.main with the script's flags at batch 32
+# for one short epoch; ViT-B-32 from an fp16 OpenAI-layout archive in the
+# openai repo's snapshot, served; each optimizer JAX's make_optimizer takes
+# for 5 steps of 32 on the XTag model, kernels on vs off and
+# one update card vs CPU; the HF export's round trip; int8 at a ViT-B MLP's
+# shape
+PRETRAINED_MODEL = "ViT-B-32"
+PRETRAINED_TAG = "laion400m_e32"
+PRETRAINED_HUB = "timm/vit_base_patch32_clip_224.laion400m_e32"
+OPENAI_HUB = "timm/vit_base_patch32_clip_224.openai"
+EXPORT_HUB = "xtag/vit-b-32-scar"
+PRETRAINED_ROWS = {"scar_train": 64, "scar_val": 32}
+PRETRAINED_PER_STEP = dict(fused_attn_half=24, fused_mlp_half=24,
+                           fused_attn_half_bwd=24, normalize_images=1)
+# AdamW first: the default's time in the same window as the others'
+OPTIMIZERS = ("adamw", "adam", "sgd", "lion", "adafactor")
+OPT_STEPS = 5  # the first is the warm-up of the timed window
+OPT_UPDATE_REL = 1e-6  # one update from fixed gradients, card vs CPU
+# the parameters of that update: the patch conv, a vision and a text block
+# and the token embedding (adafactor's factored and unfactored leaves), the
+# tag head, TQN and the logit scale (60.9M of the 174.3M, to keep the CPU's
+# side short)
+OPT_CPU_PARAMS = ("visual.conv1", "visual.transformer.resblocks.0.",
+                  "text.transformer.resblocks.0.", "text.token_embedding",
+                  "tag_", "fusion_model.", "logit_scale")
+INT8_SHAPE = (4096, 768, 3072)  # [M, K] x [K, N]: ViT-B-32 c_fc at 128 x 32
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -1196,18 +1250,20 @@ def _device_batch(host, keys, plain=False):
     return batch
 
 
-def _new_train_state(model):
+def _new_train_state(model, opt: str = "adamw", schedule=None):
+    """The recipe's ``--opt opt`` (betas (0.9, 0.98), eps 1e-6, wd 0.1) over
+    ``model``, on ``schedule`` (default: the recipe's warmup + cosine)."""
     from xtagclip_tpu_torch.train.scheduler import cosine_lr
     from xtagclip_tpu_torch.train.train_state import (
         create_train_state,
         make_optimizer,
     )
 
-    tx = make_optimizer(cosine_lr(TRAIN_LR, TRAIN_WARMUP, TRAIN_SCHEDULE_STEPS),
-                        beta1=0.9, beta2=0.98, eps=1e-6,
-                        weight_decay=TRAIN_WD,
-                        params=dict(model.named_parameters()))
-    return create_train_state(model, tx)
+    schedule = schedule or cosine_lr(TRAIN_LR, TRAIN_WARMUP,
+                                     TRAIN_SCHEDULE_STEPS)
+    return create_train_state(model, make_optimizer(
+        schedule, beta1=0.9, beta2=0.98, eps=1e-6, weight_decay=TRAIN_WD,
+        params=dict(model.named_parameters()), opt=opt))
 
 
 def phase_train(card: str, ptable, path: dict):
@@ -1355,8 +1411,8 @@ def _judge_steps(out) -> dict:
            "grads_under_0.99": len(under),
            "worst_under_0.99": dict(worst),
            "max_dist_over_noise": max(
-               (v["dist"] / v["noise_dist"] for v in under.values()),
-               default=0.0),
+               (v["dist"] / v["noise_dist"] if v["noise_dist"] else math.inf
+                for v in under.values()), default=0.0),
            "grads_failed": failed, "finite": finite}
     res["ok"] = (loss_rel <= 1e-2 and norm_rel <= 2e-2 and not failed
                  and finite and not res["grads_missing"])
@@ -2127,17 +2183,56 @@ def phase_gap_predict(card: str, model, table, tmp: str):
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
-# launches of each wrapper per ViT-H-14 CLIPA train step under
-# --grad-checkpointing: every forward kernel of the 32 vision blocks (flash
-# attention at dh 80, the fused MLP) and of the 24 text blocks (the two
-# halves) runs twice, once in the forward and once in the recompute of
-# its block's backward; the backward kernels once; one normalize
-CLIPA_PER_STEP = dict(flash_mha=64, flash_mha_bwd=32, fused_mlp=64,
-                      fused_attn_half=48, fused_mlp_half=48,
-                      fused_attn_half_bwd=24, normalize_images=1)
-# per eval batch: each forward kernel once
-CLIPA_PER_EVAL_BATCH = dict(flash_mha=32, fused_mlp=32, fused_attn_half=24,
-                            fused_mlp_half=24, normalize_images=1)
+# the CLIPA configs the no-argument run drives at half depth (vision 16 of
+# 32 blocks, text 12 of 24; widths as published), to keep its ~600 s aim
+# with the pretrained phase: a config of each name in a temporary
+# XTAGCLIP_EXTRA_CONFIGS directory (_depth_cut_configs)
+CLIPA_DEPTH_CUT = ("ViT-H-14-CL8-SyntaxMask-GAP", "ViT-H-14-CL32-GAP",
+                   "ViT-H-14-CL32-GAP-BigVision")
+
+
+def _tower_layers(name: str) -> tuple:
+    """(vision blocks, text blocks) of config ``name`` as the factory
+    finds it (a depth-cut config included)."""
+    from xtagclip_tpu_torch.factory import get_model_config
+
+    cfg = get_model_config(name)
+    return cfg["vision_cfg"]["layers"], cfg["text_cfg"]["layers"]
+
+
+def _clipa_per_step(name: str) -> dict:
+    """Launches of each wrapper per CLIPA train step under
+    --grad-checkpointing: every forward kernel of the vision blocks (flash
+    attention at dh 80, the fused MLP) and of the text blocks (the two
+    halves) runs twice, once in the forward and once in the recompute of
+    its block's backward; the backward kernels once; one normalize."""
+    v, t = _tower_layers(name)
+    return dict(flash_mha=2 * v, flash_mha_bwd=v, fused_mlp=2 * v,
+                fused_attn_half=2 * t, fused_mlp_half=2 * t,
+                fused_attn_half_bwd=t, normalize_images=1)
+
+
+def _clipa_per_eval_batch(name: str) -> dict:
+    """Per eval batch: each forward kernel once."""
+    v, t = _tower_layers(name)
+    return dict(flash_mha=v, fused_mlp=v, fused_attn_half=t,
+                fused_mlp_half=t, normalize_images=1)
+
+
+def _depth_cut_configs(tmp: str) -> str:
+    """A directory of CLIPA_DEPTH_CUT's configs at half depth, for
+    XTAGCLIP_EXTRA_CONFIGS."""
+    from xtagclip_tpu_torch.factory import get_model_config
+
+    d = os.path.join(tmp, "depth_cut")
+    os.makedirs(d)
+    for name in CLIPA_DEPTH_CUT:
+        cfg = get_model_config(name)
+        for tower in ("vision_cfg", "text_cfg"):
+            cfg[tower]["layers"] //= 2
+        with open(os.path.join(d, f"{name}.json"), "w") as f:
+            json.dump(cfg, f)
+    return d
 CLIPA_WORDS = ("red", "small", "dog", "cat", "tree", "house", "blue", "car",
                "on", "grass", "near", "water", "old", "photo", "of", "a")
 CLIPA_LONG_CAPTION = ("a photo of a very large fluffy orange cat sitting on "
@@ -2184,7 +2279,7 @@ def _clipa_args(stage: int, logs: str, batch: int = CLIPA_BATCH,
     no --fsdp, the per-device batch ``batch`` instead of 4096, one epoch
     of seeded JPEG tar shards (``shards``, --dataset-type webdataset as the
     scripts pass; synthetic data where none are given) of 2 steps (stage
-    1) and 2 + 5 steps (stage 2), and stage 2's preprocessing flags of the
+    1) and 2 + 3 steps (stage 2), and stage 2's preprocessing flags of the
     JAX package's CLIPA test (tests/test_clipa_path.py). Stage 1 adds
     --native-decode (the native library's decode and random resized crop,
     as "$@" can add it to the script); stage 2 decodes with PIL, as the
@@ -2287,12 +2382,14 @@ def _profile_clipa_step(card: str, state, n_steps: int = 3) -> None:
 
 
 def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
-    """The CLIPA ViT-H/14 recipe through cli.main at full width and depth,
+    """The CLIPA ViT-H/14 recipe through cli.main at full width (the
+    depth its configs have: CLIPA_DEPTH_CUT halves it in the no-argument
+    run),
     both stages reading seeded JPEG tar shards (--dataset-type
     webdataset): stage 1 (CL8 syntax mask, 84 px, L = 37, --native-decode)
     for 2 steps, then stage 2 (CL32, 224 px, L = 257, the PIL decode) from
     stage 1's checkpoint (--pretrained: the vision table resized 6x6 ->
-    16x16, the text table 8 -> 32) for 2 + 5 steps, then ``evaluate`` on a
+    16x16, the text table 8 -> 32) for 2 + 3 steps, then ``evaluate`` on a
     val CSV of seeded PNGs. Launch counts per step and per eval batch are
     asserted; each step's data wait and the decode route are printed; the
     shards and checkpoints are deleted."""
@@ -2352,7 +2449,9 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
                 "checkpoint_save_s": rec["checkpoint_s"],
                 "launches": counts[f"clipa_stage{stage}"],
                 "launches_ok": counts[f"clipa_stage{stage}"]
-                == _want(**_scaled(CLIPA_PER_STEP, steps)),
+                == _want(**_scaled(_clipa_per_step(model.model_name),
+                                   steps)),
+                "layers": _tower_layers(model.model_name),
                 "data_wait_ms": [1e3 * t for t in tm["data_step_s"]],
                 "decode": tm["decode"], "decoded": tm["decoded"],
                 "decoded_all": sum(tm["decoded"].values())
@@ -2397,7 +2496,8 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
                 "img_per_s": CLIPA_VAL_ROWS / eval_s, "metrics": metrics,
                 "launches": counts["clipa_eval"],
                 "launches_ok": counts["clipa_eval"]
-                == _want(**_scaled(CLIPA_PER_EVAL_BATCH, n_batches)),
+                == _want(**_scaled(_clipa_per_eval_batch(
+                    "ViT-H-14-CL32-GAP"), n_batches)),
                 "preprocess": {k: model.preprocess_cfg[k] for k in
                                ("mean", "std", "interpolation",
                                 "resize_mode")},
@@ -2435,15 +2535,13 @@ def phase_clipa(card: str, tmp: str, profile: bool = False) -> dict:
     return counts
 
 
-# the 336 px BigVision evaluation: the model the script names, its image
-# folder (ImageNet's layout: one directory of JPEGs per class), and the
-# launches of each wrapper per zero-shot classifier chunk (the text tower's
-# 24 blocks on 10 classes x 80 templates) and per eval batch (the vision
-# tower's 32 blocks at L = 577, one normalize)
+# the 336 px BigVision evaluation: the model the script names and its
+# image folder (ImageNet's layout: one directory of JPEGs per class); the
+# launches of each wrapper per zero-shot classifier chunk are the text
+# tower's blocks (10 classes x 80 templates), per eval batch the vision
+# tower's blocks at L = 577 and one normalize
 BV_MODEL = "ViT-H-14-CL32-GAP-BigVision"
 EVAL_CLASSES, EVAL_PER_CLASS = 8, 24
-EVAL_PER_CHUNK = dict(fused_attn_half=24, fused_mlp_half=24)
-EVAL_PER_BATCH = dict(flash_mha=32, fused_mlp=32, normalize_images=1)
 # what JAX's big_vision converter (and so the port's) leaves of a CLIPA-v2
 # archive: the keys it does not read, and the towers' parameters that keep
 # their init (ROADMAP Queue 3); the XTag tag head's, which no CLIPA archive
@@ -2742,6 +2840,35 @@ def scar_prompt_words() -> list:
     return sorted(set(re.findall(r"[a-z]+", text.lower())))
 
 
+def write_hub_snapshot(hub: str, repo_id: str,
+                       rev: str = "6f3e0b2c4d5a69788796a5b4c3d2e1f001122334"
+                       ) -> str:
+    """The snapshot directory of hub repo ``repo_id`` in the hub cache
+    ``hub``, laid out as the hub's cache is (``models--<org>--<name>/``
+    with ``refs/main`` naming ``snapshots/<rev>/``), made empty for the
+    caller's files."""
+    repo = os.path.join(hub, "models--" + repo_id.replace("/", "--"))
+    snap = os.path.join(repo, "snapshots", rev)
+    os.makedirs(snap, exist_ok=True)
+    os.makedirs(os.path.join(repo, "refs"), exist_ok=True)
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write(rev)
+    return snap
+
+
+def clip_layout_state_dict(model, dtype=torch.float32) -> dict:
+    """``model``'s CLIP towers as a public open_clip CLIP checkpoint holds
+    them (the OpenAI layout too): the text tower's keys at the top level,
+    no tag head or TQN, tensors in ``dtype`` (copies, never views of a
+    CPU model's parameters)."""
+    from xtagclip_tpu_torch.convert.export import to_openclip_state_dict
+
+    return {(k[len("text."):] if k.startswith("text.") else k):
+            torch.tensor(v).to(dtype)
+            for k, v in to_openclip_state_dict(model).items()
+            if not k.startswith(("tag_", "fusion_model."))}
+
+
 def _write_bert_hub_cache(hub: str) -> str:
     """bert-base-uncased as a hub cache holds it offline
     (models--bert-base-uncased/snapshots/<revision>/ with refs/main): a
@@ -2843,7 +2970,8 @@ def _env(**values):
 
 def phase_clipa_eval(card: str, tmp: str) -> dict:
     """scripts/clipav2_vit_h14_i84_224_336_cl32_gap_datacomp1b.sh through
-    cli.main at full width and depth: ViT-H-14-CL32-GAP-BigVision from a
+    cli.main at full width (the depth its config has: CLIPA_DEPTH_CUT
+    halves it in the no-argument run): ViT-H-14-CL32-GAP-BigVision from a
     seeded big_vision .npz (--pretrained), --force-image-size 336 (L =
     577, dh 80), squash, bilinear, ImageNet mean/std, the BERT WordPiece
     tokenizer found as bert-base-uncased in a temporary HF_HUB_CACHE, and
@@ -2925,8 +3053,12 @@ def phase_clipa_eval(card: str, tmp: str) -> dict:
                    * len(metadata.OPENAI_IMAGENET_TEMPLATES))
         chunks = -(-len(metadata.IMAGENET_CLASSNAMES) // 10)
         n_batches = -(-n_images // CLIPA_EVAL_BATCH)
-        want = _want(**_scaled(EVAL_PER_CHUNK, chunks),
-                     **_scaled(EVAL_PER_BATCH, n_batches))
+        v_layers, t_layers = _tower_layers(BV_MODEL)
+        want = _want(fused_attn_half=t_layers * chunks,
+                     fused_mlp_half=t_layers * chunks,
+                     flash_mha=v_layers * n_batches,
+                     fused_mlp=v_layers * n_batches,
+                     normalize_images=n_batches)
 
         # one eval batch's image features, kernels on vs off
         pp = PreprocessCfg(**model.preprocess_cfg)
@@ -4134,6 +4266,456 @@ def phase_zoo(card: str, tmp: str) -> dict:
     return counts
 
 
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _write_recipe_checkpoint(hub: str, dev) -> tuple:
+    """A seeded full-width ViT-B-32 open_clip CLIP checkpoint (fp32, the
+    public repo's layout) as ``open_clip_model.safetensors`` in the
+    snapshot of the registry's laion400m_e32 repo: (its tensors, path,
+    seconds to write)."""
+    from safetensors.torch import save_file
+
+    from xtagclip_tpu_torch.factory import create_model
+
+    t0 = time.perf_counter()
+    sd = clip_layout_state_dict(create_model(PRETRAINED_MODEL, device=dev,
+                                             init_seed=21))
+    path = os.path.join(write_hub_snapshot(hub, PRETRAINED_HUB),
+                        "open_clip_model.safetensors")
+    save_file({k: v.contiguous() for k, v in sd.items()}, path)
+    return sd, path, time.perf_counter() - t0
+
+
+def _pretrained_cli(tmp: str, hub: str, dev) -> dict:
+    """scar_openclip_pretrain.sh's flags through ``main_other.main`` (the
+    entry of ``python -m xtagclip_tpu_torch.cli.main_other``) with its
+    ``--pretrained laion400m_e32`` resolved offline from ``hub``: the
+    CLIP parameters at the first step against the file, the tag head and
+    TQN against a fresh seeded init, the launches, the loss."""
+    from xtagclip_tpu_torch import factory
+    from xtagclip_tpu_torch.cli import main_other
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    sd, path, write_s = _write_recipe_checkpoint(hub, dev)
+    rng = np.random.default_rng(5)
+    csvs = {split: _write_scar_split(os.path.join(tmp, split), n, rng)
+            for split, n in PRETRAINED_ROWS.items()}
+    argv = ["--batch-size", "4", "--workers", "4",
+            "--train-data", os.path.join(tmp, "scar_train"),
+            "--val-data", os.path.join(tmp, "scar_val"),
+            "--precision", "amp", "--save-frequency", "250", "--warmup", "50",
+            "--lr", "5e-5", "--wd", "0.1", "--epochs", "500", "--local-loss",
+            "--model", PRETRAINED_MODEL, "--pretrained", PRETRAINED_TAG,
+            "--prompt-template-setting", "total", "--use-tagging",
+            "--use-fusion",
+            # the script's "$@": this run's batch, length, files and device
+            "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+            "--scar-train-csv", csvs["scar_train"],
+            "--scar-val-csv", csvs["scar_val"], "--device", str(dev),
+            "--logs", os.path.join(tmp, "logs"), "--name", "pretrain",
+            "--seed", "0", "--log-every-n-steps", "1"]
+    at_first_step, load_s = {}, []
+    train_one_epoch = main_other.train_one_epoch
+
+    def first_epoch(*a, **k):
+        if not at_first_step:
+            model = a[0].model
+            at_first_step["clip"] = clip_layout_state_dict(model)
+            at_first_step["heads"] = {
+                n: p.detach().clone() for n, p in model.named_parameters()
+                if n.startswith(("tag_", "fusion_model."))}
+        return train_one_epoch(*a, **k)
+
+    main_other.train_one_epoch = first_epoch
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with _env(HF_HUB_CACHE=hub, HF_HUB_OFFLINE="1"), \
+                _timing(factory, "load_pretrained", load_s):
+            out = main_other.main(argv)
+    finally:
+        main_other.train_one_epoch = train_one_epoch
+        close_logging()
+    run_s = time.perf_counter() - t0
+    counts = _counts()
+    clip = at_first_step["clip"]
+    loaded = set(clip) == set(sd) and all(torch.equal(clip[k], sd[k])
+                                          for k in sd)
+    fresh = factory.create_model(PRETRAINED_MODEL, precision="bf16",
+                                 device=dev, use_tagging=True,
+                                 use_fusion=True, init_seed=0)
+    heads_kept = all(torch.equal(p, at_first_step["heads"][n])
+                     for n, p in fresh.named_parameters()
+                     if n in at_first_step["heads"])
+    del fresh
+    (rec,) = out["epochs"]
+    tm = rec["train"]
+    steps = PRETRAINED_ROWS["scar_train"] // TRAIN_BATCH
+    try:  # does this torch's torch.load read a .safetensors file? (JAX's
+        # hub route hands it one: ROADMAP Queue 3)
+        torch.load(path, map_location="cpu", weights_only=True)
+        torch_load_reads = True
+    except Exception:  # noqa: BLE001
+        torch_load_reads = False
+    res = {"entry": "xtagclip_tpu_torch.cli.main_other.main with "
+                    "scar_openclip_pretrain.sh's flags",
+           "pretrained": f"{PRETRAINED_TAG} -> {os.path.relpath(path, hub)}",
+           "checkpoint_bytes": os.path.getsize(path),
+           "checkpoint_write_s": write_s, "resolve_load_s": load_s,
+           "run_s": run_s, "steps": steps,
+           "samples_per_s": tm["samples_per_second"],
+           "p50_step_ms": 1e3 * tm["p50_step_s"], "loss": tm["loss"],
+           "eval": {k: v for k, v in rec["eval"].items()
+                    if k.endswith(("top1", "tag_accuracy", "-n"))},
+           "clip_params_equal_file": loaded,
+           "clip_tensors": len(clip), "tag_head_kept_seeded_init": heads_kept,
+           "launches": counts,
+           "torch_load_reads_safetensors": torch_load_reads}
+    res["ok"] = (loaded and heads_kept and len(load_s) == 1
+                 and math.isfinite(tm["loss"])
+                 and all(counts[k] >= steps * v
+                         for k, v in PRETRAINED_PER_STEP.items()))
+    return res
+
+
+def _openai_serve(hub: str, ptable, dev) -> dict:
+    """``create_model("ViT-B-32", pretrained="openai")`` from an fp16
+    OpenAI-layout archive in the openai repo's snapshot, then one serve
+    batch of 32 with the kernels on against the plain versions (the serve
+    bars of phase_serve_and_path)."""
+    from xtagclip_tpu_torch.factory import cast_for_compute, create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.serving import (
+        make_xtag_serve_step,
+        precompute_prompt_features,
+    )
+
+    sd16 = clip_layout_state_dict(create_model(
+        PRETRAINED_MODEL, device=dev, init_seed=22), torch.float16)
+    path = os.path.join(write_hub_snapshot(hub, OPENAI_HUB),
+                        "open_clip_pytorch_model.bin")
+    torch.save({**sd16, "input_resolution": torch.tensor(IMAGE_SIZE),
+                "context_length": torch.tensor(77),
+                "vocab_size": torch.tensor(49408)}, path)
+    with _env(HF_HUB_CACHE=hub, HF_HUB_OFFLINE="1"):
+        t0 = time.perf_counter()
+        model = create_model(PRETRAINED_MODEL, pretrained="openai",
+                             precision="bf16", device=dev, use_tagging=True,
+                             use_fusion=True, init_seed=0)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+    got = clip_layout_state_dict(model)
+    loaded = set(got) == set(sd16) and all(
+        torch.equal(got[k], sd16[k].float()) for k in sd16)
+    cast_for_compute(model, torch.bfloat16)
+    u8 = _serve_batches(IMAGE_SIZE)[0].to(dev)
+    _reset_counts()
+    table = precompute_prompt_features(model, ptable, template_id=0,
+                                       batch_size=PRECOMPUTE_BATCH)
+    feat, tags, logits = make_xtag_serve_step(model, table)(
+        preprocess.normalize_images(u8, dtype=torch.bfloat16))
+    _sync(dev)
+    counts = _counts()
+    set_use_kernels(model, False)
+    p_feat, p_tags, p_logits = make_xtag_serve_step(model, table)(
+        preprocess.normalize_images_reference(u8, dtype=torch.bfloat16))
+    set_use_kernels(model, True)
+    res = {"entry": "create_model('ViT-B-32', pretrained='openai')",
+           "archive": f"fp16 OpenAI layout, {os.path.getsize(path)} bytes",
+           "resolve_load_s": load_s, "clip_params_equal_archive": loaded,
+           "logits_max_abs_err": (logits.float() - p_logits.float()).abs()
+           .max().item(),
+           "image_feature_cos_min": _cosine(feat, p_feat).min().item(),
+           "tag_agreement": (tags == p_tags).float().mean().item(),
+           "finite": bool(torch.isfinite(logits.float()).all()
+                          and torch.isfinite(p_logits.float()).all()),
+           "launches": counts}
+    res["ok"] = (loaded and res["finite"]
+                 and torch.allclose(logits.float(), p_logits.float(),
+                                    atol=5e-2, rtol=5e-2)
+                 and res["image_feature_cos_min"] >= 0.999
+                 and res["tag_agreement"] >= 0.95
+                 and counts["fused_attn_half"] > 0
+                 and counts["normalize_images"] == 1)
+    del model
+    return res
+
+
+def _judge_updates(out) -> dict:
+    """The train-path bars on one optimizer update kernels on vs off
+    (``out``: run -> (metrics, {parameter: update}) for kernels and plain,
+    each also on images one bf16 step up and down): the loss within 1e-2
+    relative, the gradient norm within 2%, and each parameter's update at
+    cosine >= 0.99 with the plain one, or no further from it than twice
+    its one-ULP noise, the largest move of either path's update under the
+    one-step shifts. An update that takes a gradient's sign (adam's first
+    step, lion, adafactor's unfactored leaves) turns a near-zero element's
+    rounding noise into a whole step of either sign, so a tensor whose
+    gradient is mostly noise has a cosine far below 0.95 against its own
+    one-ULP repeat: here the noise is the bar, with no cosine floor
+    (_judge_steps keeps 0.95 for gradients). Left out, as ZERO_GRAD_PARAMS
+    leaves out whole key biases: the key third of every ``in_proj`` bias
+    (a softmax over keys is invariant to it, so its gradient is rounding
+    noise)."""
+    for _, upd in out.values():
+        for n, u in upd.items():
+            if n.endswith("in_proj.bias"):
+                u[u.shape[0] // 3:2 * u.shape[0] // 3] = 0.0
+    (mk, uk), (mp, up) = out["kernels"], out["plain"]
+    names = [n for n in up if up[n].abs().max().item() > 0
+             and not any(z in n for z in ZERO_GRAD_PARAMS)]
+    res, failed = {}, []
+    for n in names:
+        cos, dist = _cos(uk[n], up[n]), _dist(uk[n], up[n])
+        noise = max(_dist(out[a + s][1][n], out[a][1][n])
+                    for a in ("kernels", "plain") for s in ("_up", "_down"))
+        res[n] = {"cos": cos, "dist": dist, "noise_dist": noise}
+        if cos < 0.99 and dist > 2 * noise:
+            failed.append(n)
+    under = {n: v for n, v in res.items() if v["cos"] < 0.99}
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    norm_rel = abs(mk["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"]
+    finite = all(math.isfinite(v) for m in (mk, mp) for v in m.values())
+    judged = {"loss": [mk["loss"], mp["loss"]], "loss_rel_err": loss_rel,
+              "grad_norm_rel_err": norm_rel, "updates_compared": len(names),
+              "updates_missing": sorted(set(up) - set(uk)),
+              "update_cos_min": min(v["cos"] for v in res.values()),
+              "updates_cos_at_least_0.99": len(names) - len(under),
+              "updates_within_noise": len(under) - len(failed),
+              "max_dist_over_noise": max(
+                  (v["dist"] / v["noise_dist"] if v["noise_dist"]
+                   else math.inf for v in under.values()), default=0.0),
+              "worst_under_0.99": dict(sorted(
+                  under.items(), key=lambda kv: kv[1]["cos"])[:6]),
+              "updates_failed": failed, "finite": finite}
+    judged["ok"] = (loss_rel <= 1e-2 and norm_rel <= 2e-2 and not failed
+                    and finite and not judged["updates_missing"])
+    return judged
+
+
+def _optimizer_run(opt: str, ptable, dev) -> dict:
+    """``--opt opt`` on the XTag ViT-B-32 step: OPT_STEPS timed steps of
+    32 with the kernels (samples/s and p50 over all but the first); one
+    step kernels on vs off from the same weights and batch (lr 1), each
+    parameter's update held at the train-path bars (_judge_updates); and
+    one update from fixed fp32 gradients (constant lr 1) on the card
+    against the same on the CPU, within OPT_UPDATE_REL (each tensor's
+    update, by norm)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.train.loop import make_train_step
+    from xtagclip_tpu_torch.train.scheduler import const_lr
+    from xtagclip_tpu_torch.train.train_state import make_optimizer
+
+    table = torch.from_numpy(ptable.astype(np.int64)).to(dev)
+    host = _train_batches(ptable)
+
+    def on_card(h, plain=False):
+        norm = (preprocess.normalize_images_reference if plain
+                else preprocess.normalize_images)
+        return {"images": norm(h["images"].to(dev), dtype=torch.bfloat16),
+                **{k: h[k].to(dev) for k in ("class_ids", "additional",
+                                             "texts")}}
+
+    model = create_model(PRETRAINED_MODEL, use_tagging=True, use_fusion=True,
+                         precision="bf16", device=dev, init_seed=1)
+    state = _new_train_state(model, opt)
+    step = make_train_step({}, prompt_table=table)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _reset_counts()
+    times, losses = [], []
+    for i in range(OPT_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, on_card(host[i % N_TRAIN_BATCHES]), gen)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    counts = _counts()
+    timed = times[1:]
+    rec = {"opt": opt, "steps": OPT_STEPS, "step_s": times,
+           "samples_per_s": TRAIN_BATCH * len(timed) / sum(timed),
+           "p50_step_ms": 1e3 * statistics.median(timed), "losses": losses,
+           "launches": counts,
+           "launches_ok": counts == _want(**_scaled(PRETRAINED_PER_STEP,
+                                                    OPT_STEPS))}
+
+    # kernels on vs off: one update each from the same start, at lr 1 so
+    # that p_after - p_before is the update to fp32 rounding of it (at the
+    # recipe's first lr, 1e-6, it is a few ulps of p)
+    t0 = time.perf_counter()
+    plain = copy.deepcopy(model)
+    set_use_kernels(plain, False)
+    start = copy.deepcopy(plain.state_dict())
+    keys = ("additional", "texts")
+    h = host[0]
+    out = {}
+    step_one = make_train_step({})
+    for name, m_ in (("kernels", model), ("plain", plain)):
+        norm = (preprocess.normalize_images_reference if m_ is plain
+                else preprocess.normalize_images)
+        images = norm(h["images"].to(dev), dtype=torch.bfloat16)
+        for shift in (0, 1, -1):
+            m_.load_state_dict(start)
+            before = {n: p.detach().clone() for n, p in m_.named_parameters()}
+            st = _new_train_state(m_, opt, const_lr(1.0, 0, 1))
+            b = {"images": _bf16_ulp_shift(images, shift) if shift
+                 else images, **{k: h[k].to(dev) for k in keys}}
+            _, met = step_one(st, b,
+                              torch.Generator(device=dev).manual_seed(1))
+            _sync(dev)
+            out[name + {0: "", 1: "_up", -1: "_down"}[shift]] = (
+                {k: v.item() for k, v in met.items()},
+                {n: p.detach() - before[n] for n, p in m_.named_parameters()})
+            m_.zero_grad(set_to_none=True)
+    rec["kernels_vs_plain"] = _judge_updates(out)
+    rec["kernels_vs_plain_s"] = time.perf_counter() - t0
+    del plain, start, out
+
+    # one update from fixed fp32 gradients, card vs CPU, on a slice of
+    # the model that holds every kind of leaf (OPT_CPU_PARAMS)
+    t0 = time.perf_counter()
+    params = {n: p.detach().float().cpu() for n, p in
+              model.named_parameters() if n.startswith(OPT_CPU_PARAMS)}
+    g = torch.Generator().manual_seed(7)
+    grads = {n: torch.randn(p.shape, generator=g) for n, p in params.items()}
+    deltas = {}
+    for where in (dev, "cpu"):
+        named = {n: torch.nn.Parameter(p.clone().to(where))
+                 for n, p in params.items()}
+        tx = make_optimizer(const_lr(1.0, 0, 1), beta1=0.9, beta2=0.98,
+                            eps=1e-6, weight_decay=TRAIN_WD, params=named,
+                            opt=opt)
+        for n, p in named.items():
+            p.grad = grads[n].to(where)
+        tx.update(0)
+        deltas[str(where)] = {n: (p.detach().cpu() - params[n])
+                              for n, p in named.items()}
+    ref, got = deltas["cpu"], deltas[str(dev)]
+    rel = {n: ((got[n] - ref[n]).norm() / ref[n].norm()).item()
+           for n in ref if ref[n].norm() > 0}
+    rec["card_vs_cpu_s"] = time.perf_counter() - t0
+    rec["update_card_vs_cpu_rel_max"] = max(rel.values())
+    rec["update_card_vs_cpu_worst"] = max(rel, key=rel.get)
+    rec["ok"] = (rec["launches_ok"] and rec["kernels_vs_plain"]["ok"]
+                 and all(math.isfinite(v) for v in losses)
+                 and rec["update_card_vs_cpu_rel_max"] <= OPT_UPDATE_REL)
+    return rec, model
+
+
+def _export_round_trip(model, hub: str, dev) -> dict:
+    """``save_hf_checkpoint`` of ``model`` into a hub snapshot, reloaded
+    through ``create_model(..., pretrained="hf-hub:...")`` bit for bit."""
+    from xtagclip_tpu_torch.convert.export import save_hf_checkpoint
+    from xtagclip_tpu_torch.factory import create_model
+
+    snap = write_hub_snapshot(hub, EXPORT_HUB)
+    t0 = time.perf_counter()
+    save_hf_checkpoint(model, snap)
+    save_s = time.perf_counter() - t0
+    with _env(HF_HUB_CACHE=hub, HF_HUB_OFFLINE="1"):
+        t0 = time.perf_counter()
+        back = create_model(PRETRAINED_MODEL,
+                            pretrained=f"hf-hub:{EXPORT_HUB}",
+                            precision="bf16", device=dev, use_tagging=True,
+                            use_fusion=True, init_seed=9)
+        _sync(dev)
+        load_s = time.perf_counter() - t0
+    got = dict(back.named_parameters())
+    same = all(torch.equal(p, got[n]) for n, p in model.named_parameters())
+    res = {"save_s": save_s, "load_s": load_s,
+           "bytes": sum(os.path.getsize(os.path.join(snap, f))
+                        for f in os.listdir(snap)),
+           "files": sorted(os.listdir(snap)), "bit_for_bit": same,
+           "ok": same}
+    del back
+    return res
+
+
+def _int8_check(dev) -> dict:
+    """ops/int8.py at INT8_SHAPE: the int32 sums on the card (cuBLASLt
+    through torch._int_mm) equal the CPU's exactly, the scaled output
+    within fp32 rounding."""
+    from xtagclip_tpu_torch.ops import int8
+
+    m, k, n = INT8_SHAPE
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(m, k, generator=g)
+    w = torch.randn(k, n, generator=g) * 0.05
+    xq, xs = int8.quantize_activation(x)
+    wq, ws = int8.quantize_weight(w)
+    ref = int8.int8_dot(xq, wq)
+    args = [t.to(dev) for t in (xq, xs, wq, ws)]
+    acc = int8.int8_dot(args[0], args[2])
+    out = int8.int8_matmul(*args).cpu()
+    want = int8.int8_matmul(xq, xs, wq, ws)
+    ms = _median_ms(lambda: int8.int8_dot(args[0], args[2])) \
+        if torch.device(dev).type == "cuda" else None
+    res = {"shape": list(INT8_SHAPE), "int32_equal": torch.equal(
+        acc.cpu(), ref), "out_max_rel_err": ((out - want).abs().max()
+                                             / want.abs().max()).item(),
+           "int8_dot_ms": ms}
+    res["ok"] = res["int32_equal"] and res["out_max_rel_err"] <= 1e-6
+    return res
+
+
+def phase_pretrained(card: str, tmp: str, dev="cuda") -> dict:
+    """The paper's recipes as their scripts write them: (a) the pretrain
+    script's ``--pretrained laion400m_e32`` resolved offline from a hub
+    cache holding a seeded full-width ViT-B-32 checkpoint (605 MB of
+    safetensors) and trained one short epoch through ``main_other.main``;
+    (b) ``pretrained="openai"`` from an fp16 OpenAI-layout archive, one
+    serve batch kernels vs plain; (c) adamw, adam, sgd, lion and
+    adafactor on the XTag step (_optimizer_run); (d) the HF export's
+    round trip and int8 at a ViT-B MLP's shape. Fails unless every bar
+    holds; returns the launches of (a), (b) and (c)'s timed steps."""
+    root = os.path.join(tmp, "pretrained")
+    os.makedirs(root)
+    hub = os.path.join(root, "hub")
+    t0 = time.perf_counter()
+    cli = _pretrained_cli(root, hub, dev)
+    cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptable = _scar_prompt_table()
+    table_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oai = _openai_serve(hub, ptable, dev)
+    oai_s = time.perf_counter() - t0
+    opts, counts, model = {}, {}, None
+    for opt in OPTIMIZERS:
+        t0 = time.perf_counter()
+        del model
+        opts[opt], model = _optimizer_run(opt, ptable, dev)
+        opts[opt]["seconds"] = time.perf_counter() - t0
+        counts[f"pretrained_opt_{opt}"] = opts[opt]["launches"]
+    t0 = time.perf_counter()
+    export = _export_round_trip(model, hub, dev)
+    del model
+    shutil.rmtree(root, ignore_errors=True)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    i8 = _int8_check(dev)
+    int8_s = time.perf_counter() - t0
+    result = {"phase": "pretrained", "card": card,
+              "recipe": cli, "recipe_s": cli_s, "prompt_table_s": table_s,
+              "openai": oai, "openai_s": oai_s, "export_s": export_s,
+              "int8_s": int8_s,
+              "optimizers": opts, "export": export, "int8": i8}
+    _emit(result)
+    failed = [k for k, v in (("recipe", cli), ("openai", oai),
+                             *opts.items(), ("export", export),
+                             ("int8", i8)) if not v["ok"]]
+    if failed:
+        raise AssertionError(f"pretrained phase failed: {failed}")
+    return {"pretrained_recipe": cli["launches"],
+            "pretrained_openai": oai["launches"], **counts}
+
+
 def phase_zoo_batch_probe(card: str, tmp: str) -> dict:
     """cli.main on each ZOO_TRAINERS model for 2 steps at each batch of
     ZOO_PROBE in turn (largest first) until one fits, without
@@ -4481,8 +5063,9 @@ def phase_clipa_path(card: str):
               "eval_feature_cos_min": feat_cos}
     _emit(result)
     if not (same_bits and ok_judged and pd_finite and feat_cos >= 0.999
-            and c_on["flash_mha"] == 2 * c_off["flash_mha"] == 64
-            and c_pd["flash_mha"] == 32):
+            and c_on["flash_mha"] == 2 * c_off["flash_mha"]
+            == 2 * _tower_layers("ViT-H-14-CL32-GAP")[0]
+            and c_pd["flash_mha"] == _tower_layers("ViT-H-14-CL32-GAP")[0]):
         raise AssertionError(f"clipa_path failed its checks: {result}")
 
 
@@ -4600,6 +5183,9 @@ def main(argv=()) -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="run only the build, the kernel rows and the zoo "
                          "phase")
+    ap.add_argument("--pretrained-only", action="store_true",
+                    help="run only the build, the kernel rows and the "
+                         "pretrained phase")
     ap.add_argument("--zoo-batch-probe", action="store_true",
                     help="run only the build and the search for the zoo "
                          "trainers' largest batch that fits")
@@ -4638,9 +5224,12 @@ def main(argv=()) -> int:
             return fn(*a, **k)
         finally:
             seconds[name] = time.perf_counter() - t0
+            print(json.dumps({"phase_seconds": name,
+                              "seconds": seconds[name]}), flush=True)
 
     entries = timed("kernels", phase_kernels, card)
-    if args.coca_only or args.siglip_only or args.zoo_only:
+    if args.coca_only or args.siglip_only or args.zoo_only or \
+            args.pretrained_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
             if args.coca_only:
                 paths = timed("coca_train", phase_coca_train, card, tmp,
@@ -4649,6 +5238,8 @@ def main(argv=()) -> int:
                                    profile=args.profile))
             elif args.zoo_only:
                 paths = timed("zoo", phase_zoo, card, tmp)
+            elif args.pretrained_only:
+                paths = timed("pretrained", phase_pretrained, card, tmp)
             else:
                 paths = timed("siglip", phase_siglip, card, tmp)
                 paths.update(timed("distill", phase_distill, card, tmp))
@@ -4683,11 +5274,12 @@ def main(argv=()) -> int:
         paths["gap_trainer"] = timed("gap_trainer", phase_gap_trainer, card)
         paths["gap_predict"] = timed("gap_predict", phase_gap_predict, card,
                                      g_model, g_table, tmp)
-        paths.update(timed("clipa", phase_clipa, card, tmp,
-                           profile=args.profile))
-        paths["clipa_336_eval"] = timed("clipa_eval", phase_clipa_eval, card,
-                                        tmp)
-        timed("clipa_path", phase_clipa_path, card)
+        with _env(XTAGCLIP_EXTRA_CONFIGS=_depth_cut_configs(tmp)):
+            paths.update(timed("clipa", phase_clipa, card, tmp,
+                               profile=args.profile))
+            paths["clipa_336_eval"] = timed("clipa_eval", phase_clipa_eval,
+                                            card, tmp)
+            timed("clipa_path", phase_clipa_path, card)
         timed("rn50", phase_rn50, card)
         paths["biomedclip_scar"] = timed("biomedclip_scar",
                                          phase_biomedclip_scar, card, tmp,
@@ -4700,6 +5292,7 @@ def main(argv=()) -> int:
         paths.update(timed("siglip", phase_siglip, card, tmp))
         paths.update(timed("distill", phase_distill, card, tmp))
         paths.update(timed("zoo", phase_zoo, card, tmp))
+        paths.update(timed("pretrained", phase_pretrained, card, tmp))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

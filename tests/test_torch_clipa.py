@@ -444,8 +444,10 @@ def test_unported_messages_name_existing_roadmap_items():
                        "laion2b_s32b_b79k", "--model", "coca_ViT-B-32"])
     messages = unported(args)
     # --model coca_* (CoCa's slice), --siglip and --distill-model (SigLIP's
-    # and distillation's) are ported
-    assert len(messages) == 3
+    # and distillation's), --remote-sync and named --pretrained tags
+    # (item 9's slice) are ported: only --fsdp is left, item 7's
+    assert len(messages) == 1 and messages[0].startswith("--fsdp")
+    assert "Queue 1 item 7" in messages[0]
     items = _queue1_items()
     for msg in messages:
         named = [int(n) for n in re.findall(r"Queue 1 item (\d+)", msg)]

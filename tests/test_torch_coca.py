@@ -485,7 +485,7 @@ def test_export_refuses_coca(pair):
     from xtagclip_tpu.convert.export import to_openclip_state_dict as j_sd
 
     bundle, model = pair
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="export.py:154"):
         to_openclip_state_dict(model)
     leaves = {".".join(str(k.key) for k in path) for path, _ in
               jax.tree_util.tree_leaves_with_path(bundle.params)}

@@ -11,8 +11,8 @@ geometry).
 - ``cli.main --device cpu --distill-model ... --distill-pretrained <.pt>``
   on synthetic data, the teacher loaded from a ``.pt`` the port's exporter
   wrote in the test; ``--accum-freq 2`` drops the distillation with JAX's
-  warning; a named ``--distill-pretrained`` tag raises and names ROADMAP
-  Queue 1 item 9.
+  warning; a named ``--distill-pretrained`` tag the registry lacks for the
+  teacher raises as JAX's resolver does.
 
 JAX runs every function jitted (ROADMAP Ground rules).
 """
@@ -302,7 +302,13 @@ def test_cli_accum_freq_drops_the_distillation(models, teacher_pt, tmp_path):
 
 def test_named_distill_pretrained_tag_raises_before_the_model(models,
                                                              tmp_path):
+    """A named ``--distill-pretrained`` tag resolves through the registry,
+    as ``--pretrained`` does (ROADMAP Queue 1 item 9, ported); the toy
+    teacher has no ``openai`` tag there, so the CLI raises as JAX's
+    resolver does, naming the tag and the model, before the first step."""
     s_name, _, _, t_name, _, _ = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(FileNotFoundError,
+                       match=f"no pretrained tag 'openai' for model "
+                             f"'{t_name}'"):
         _cli(tmp_path, s_name, t_name, "openai")
-    assert not (tmp_path / "logs").exists()
+    assert not list((tmp_path / "logs").rglob("state.pt"))

@@ -288,7 +288,8 @@ def test_predict_cli_fusion_classify_on_cpu(tmp_path):
 ])
 def test_predict_cli_unported_paths_fail_clearly(case, tmp_path):
     """What the predict CLI refuses, each with a clear error: a named
-    --pretrained tag (pretrained.py is not ported), --serving-artifact
+    --pretrained tag the registry lacks for the model (as JAX's resolver
+    raises), --serving-artifact
     without --fusion-classify (as JAX's CLI), an artifact without a
     serve_classify entry, and an .npz that holds no big_vision weights
     (big_vision archives load since convert/big_vision.py was ported)."""
@@ -305,7 +306,9 @@ def test_predict_cli_unported_paths_fail_clearly(case, tmp_path):
     np.savez(npz, x=np.zeros(1))
     flags, err, match = {
         "named_pretrained_tag": (["--pretrained", "openai"],
-                                 NotImplementedError, "named tags"),
+                                 FileNotFoundError,
+                                 "no pretrained tag 'openai' for model "
+                                 "'torchtinyrefuse'"),
         "artifact_without_fusion_classify": (
             ["--serving-artifact", str(art)], SystemExit,
             "--serving-artifact requires --fusion-classify"),

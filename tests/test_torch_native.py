@@ -33,9 +33,17 @@ from xtagclip_tpu_torch.ops.preprocess import (
     resize_crop_normalize,
 )
 
-needs_lib = pytest.mark.skipif(
-    not native.native_available(),
-    reason=f"native library: {native.decode_route()}")
+@pytest.fixture
+def native_lib():
+    """Skip where the native library does not load. Decided when the test
+    runs, not when the module is imported: every xdist worker imports the
+    module, and a decision at import builds the library (``make -C
+    native``) in all of them at once."""
+    if not native.native_available():
+        pytest.skip(f"native library: {native.decode_route()}")
+
+
+needs_lib = pytest.mark.usefixtures("native_lib")
 
 
 def _jpeg(h=96, w=128, seed=0, quality=95):

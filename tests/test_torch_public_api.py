@@ -1,8 +1,8 @@
 """The PyTorch port's package surface against the JAX package's (CPU).
 
 - every name of tests/test_public_api.py's list resolves on the port; the
-  names whose modules wait for ROADMAP Queue 1 item 9 resolve to callables
-  that raise and name it;
+  ten names that waited for ROADMAP Queue 1 item 9 (the registry, the
+  OpenAI loader, the hub pushes) return JAX's results on the toy;
 - ``list_models()`` lists the shipped configs as JAX's does, in its order;
 - ``CLIPVisionCfg`` and ``CLIPTextCfg`` build models; ``CustomTextCLIP``
   is ``CLIP``; ``create_model_from_pretrained``; the precisions' dtypes;
@@ -30,6 +30,9 @@ sys.path.insert(0, os.path.dirname(__file__))
 import xtagclip_tpu_torch as port  # noqa: E402
 from test_public_api import REFERENCE_EXPORTS  # noqa: E402
 from xtagclip_tpu import factory as jfactory  # noqa: E402
+from xtagclip_tpu.convert.export import (  # noqa: E402
+    save_open_clip_checkpoint as jexport_save,
+)
 from xtagclip_tpu.train import loop as jloop  # noqa: E402
 from xtagclip_tpu.train import scheduler as jsched  # noqa: E402
 from xtagclip_tpu.train import train_state as jts  # noqa: E402
@@ -39,6 +42,7 @@ from xtagclip_tpu_torch.models.layers import LayerNorm  # noqa: E402
 from xtagclip_tpu_torch.train import scheduler  # noqa: E402
 from xtagclip_tpu_torch.train import train_state as ts  # noqa: E402
 from xtagclip_tpu_torch.train.loop import make_train_step  # noqa: E402
+from torch_hub import hub  # noqa: E402,F401
 from torch_tmp import remove_module_tmp, remove_test_tmp  # noqa: E402,F401
 
 torch.set_num_threads(1)
@@ -81,9 +85,75 @@ def test_reference_exports_resolve():
 
 
 @pytest.mark.parametrize("name", WAITING)
-def test_waiting_names_raise_and_name_their_item(name):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        getattr(port, name)()
+def test_waiting_names_raise_and_name_their_item(name, tmp_path, hub,
+                                                  monkeypatch):
+    """The names that waited for ROADMAP Queue 1 item 9 (ported since):
+    each returns JAX's result on the toy. The registry calls answer as
+    JAX's; the two OpenAI calls build ``ViT-B-32`` (the toy in both
+    packages) from an OpenAI archive in an offline hub cache; the two
+    pushes write JAX's directory and raise JAX's RuntimeError where the
+    upload cannot run (``huggingface_hub`` made unimportable)."""
+    import xtagclip_tpu as jpkg
+    from chip_smoke import clip_layout_state_dict, write_hub_snapshot
+
+    fn, jfn = getattr(port, name), getattr(jpkg, name)
+    assert not hasattr(port, "_WAITING")
+    registry = {
+        "list_pretrained": ((), ()), "list_openai_models": ((), ()),
+        "list_pretrained_models_by_tag": (("laion400m_e32",),) * 2,
+        "list_pretrained_tags_by_model": (("ViT-B-32",),) * 2,
+        "get_pretrained_cfg": (("ViT-B-32", "openai"),) * 2,
+        "get_pretrained_url": (("RN50", "openai"),) * 2,
+        "is_pretrained_cfg": (("RN50", "OPENAI"),) * 2,
+    }
+    if name in registry:
+        args, jargs = registry[name]
+        assert fn(*args) == jfn(*jargs) and fn(*args)
+        return
+    toy = json.loads(json.dumps(CFG))
+    monkeypatch.setitem(jfactory._MODEL_CONFIGS, "ViT-B-32", toy)
+    monkeypatch.setitem(factory._EXTRA_CONFIGS, "ViT-B-32", toy)
+    if name == "load_openai_model":
+        snap = write_hub_snapshot(hub, "timm/vit_base_patch32_clip_224.openai")
+        factory.register_model_config("torch-api-oai-src", CFG)
+        src = factory.create_model("torch-api-oai-src", device="cpu",
+                                   init_seed=8)
+        torch.save(clip_layout_state_dict(src, torch.float16),
+                   os.path.join(snap, "open_clip_pytorch_model.bin"))
+        model = fn("ViT-B-32", device="cpu")
+        want = _flat(jfactory.load_openai_model("ViT-B-32",
+                                                cache_dir=hub).params)
+        for n, p in model.named_parameters():
+            if not n.startswith(("tag_", "fusion_model.")):  # not in the file
+                np.testing.assert_array_equal(_np(p), want[n], err_msg=n)
+        return
+    # the pushes: one toy, JAX's weights in both
+    bundle = jfactory.create_model("ViT-B-32", init_seed=2)
+    model = factory.create_model("ViT-B-32", device="cpu")
+    load_jax_params(model, jax.tree.map(np.asarray, bundle.params))
+    pt = tmp_path / "w.pt"
+    jexport_save(bundle, str(pt))
+    monkeypatch.setitem(sys.modules, "huggingface_hub", None)
+    for push, obj, d in ((fn, model, tmp_path / "port"),
+                         (jfn, bundle, tmp_path / "jax")):
+        args = (obj, "xtag/b32") if name == "push_to_hf_hub" else \
+            ("ViT-B-32", str(pt), "xtag/b32")
+        kw = {"device": "cpu"} if (push is fn and name != "push_to_hf_hub") \
+            else {}
+        with pytest.raises(RuntimeError, match=f"checkpoint is at {d}"):
+            push(*args, local_dir=str(d), **kw)
+    for f in ("open_clip_config.json", "open_clip_pytorch_model.bin"):
+        assert (tmp_path / "port" / f).is_file()
+    assert json.loads((tmp_path / "port" / "open_clip_config.json")
+                      .read_text()) == json.loads(
+        (tmp_path / "jax" / "open_clip_config.json").read_text())
+    a = torch.load(tmp_path / "port" / "open_clip_pytorch_model.bin",
+                   weights_only=True)["state_dict"]
+    b = torch.load(tmp_path / "jax" / "open_clip_pytorch_model.bin",
+                   weights_only=False)["state_dict"]
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
 
 
 def test_list_models_equals_jax(tmp_path):

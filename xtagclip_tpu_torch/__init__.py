@@ -9,8 +9,7 @@ kernel (``csrc/``, built on first use into ``_build/``).
 The package exports the public names of the JAX package's ``__init__``
 (the reference open_clip surface). They resolve at first access, so that
 importing one module of the package (the serving artifact's ``ops``, say)
-imports nothing else. A name whose module waits for a later ROADMAP item
-resolves to a callable that raises and names the item.
+imports nothing else.
 """
 
 from __future__ import annotations
@@ -30,6 +29,8 @@ _CONSTANTS = "xtagclip_tpu_torch.utils.constants"
 _META = "xtagclip_tpu_torch.train.metadata"
 _ZERO_SHOT = "xtagclip_tpu_torch.train.zero_shot"
 _BPE = "xtagclip_tpu_torch.tokenize.bpe"
+_PRETRAINED = "xtagclip_tpu_torch.pretrained"
+_EXPORT = "xtagclip_tpu_torch.convert.export"
 
 # public name -> (module, attribute)
 _EXPORTS = {
@@ -38,8 +39,14 @@ _EXPORTS = {
         "create_model_and_transforms", "create_model_from_pretrained",
         "get_cast_dtype", "get_input_dtype", "get_model_config",
         "get_model_preprocess_cfg", "get_model_tokenize_cfg",
-        "get_tokenizer", "list_models", "load_checkpoint",
-        "set_model_preprocess_cfg")},
+        "get_tokenizer", "list_models", "list_openai_models",
+        "load_checkpoint", "load_openai_model", "set_model_preprocess_cfg")},
+    **{n: (_PRETRAINED, n) for n in (
+        "get_pretrained_cfg", "get_pretrained_url", "is_pretrained_cfg",
+        "list_pretrained", "list_pretrained_models_by_tag",
+        "list_pretrained_tags_by_model")},
+    **{n: (_EXPORT, n) for n in (
+        "push_to_hf_hub", "push_pretrained_to_hf_hub")},
     **{n: (_LOSSES, n) for n in (
         "ClipLoss", "CoCaLoss", "DistillClipLoss", "SigLipLoss")},
     "CLIP": ("xtagclip_tpu_torch.models.clip", "CLIP"),
@@ -62,29 +69,9 @@ _EXPORTS = {
         "OPENAI_DATASET_STD")},
 }
 
-# names whose modules wait for ROADMAP Queue 1 item 9 (pretrained.py, the
-# OpenAI archive converter, the HF hub push)
-_WAITING = {n: "9" for n in (
-    "list_openai_models", "load_openai_model", "list_pretrained",
-    "list_pretrained_models_by_tag", "list_pretrained_tags_by_model",
-    "get_pretrained_cfg", "get_pretrained_url", "is_pretrained_cfg",
-    "push_to_hf_hub", "push_pretrained_to_hf_hub")}
-
-
-def _waiting(name: str, item: str):
-    def not_ported(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item {item}: "
-            "converters, the registry and the remaining CLIs)")
-
-    not_ported.__name__ = not_ported.__qualname__ = name
-    return not_ported
-
 
 def __getattr__(name: str):
-    if name in _WAITING:
-        value = _waiting(name, _WAITING[name])
-    elif name in _EXPORTS:
+    if name in _EXPORTS:
         module, attr = _EXPORTS[name]
         value = getattr(importlib.import_module(module), attr)
     else:
@@ -93,4 +80,4 @@ def __getattr__(name: str):
     return value
 
 
-__all__ = ["__version__", "tokenize", *_EXPORTS, *_WAITING]
+__all__ = ["__version__", "tokenize", *_EXPORTS]

@@ -6,9 +6,10 @@ clip_baseline's fusion-head classifier over the BiomedCLIP image tower
 classifier) with the ``--lock-text-encoder`` switch (reference Config: bs
 4, lr 5e-6, wd 1e-4, 100 epochs, patience 5; the best model saved to
 best_biomedclip_scar_model.*). ``--pretrained`` is a local open_clip
-BiomedCLIP ``.pt``. As the reference's fallback ladder, and JAX's, a
-failed build logs a warning and trains a randomly initialized ViT-B-32
-instead (``FALLBACK_MODEL``).
+BiomedCLIP ``.pt``, a URL, an ``hf-hub:`` id or a registry tag. As the
+reference's fallback ladder, and JAX's, a failed build (a tag that does
+not resolve included) logs a warning and trains a randomly initialized
+ViT-B-32 instead (``FALLBACK_MODEL``).
 
     python -m xtagclip_tpu_torch.cli.baselines.biomedclip_baseline \\
         --train-root DIR --val-root DIR --pretrained biomedclip.pt

@@ -11,7 +11,7 @@ with the OpenAI mean and std, to fp32. Dropout masks come from a
 ``torch.Generator``.
 
     python -m xtagclip_tpu_torch.cli.baselines.clip_baseline \\
-        --train-root DIR --val-root DIR [--pretrained local.pt]
+        --train-root DIR --val-root DIR [--pretrained laion400m_e32]
 """
 
 from __future__ import annotations
@@ -40,7 +40,6 @@ from xtagclip_tpu_torch.data.transforms import (
 from xtagclip_tpu_torch.factory import (
     create_model,
     init_params,
-    load_checkpoint,
     resolve_device,
 )
 from xtagclip_tpu_torch.models.layers import Dense, dropout
@@ -90,12 +89,12 @@ class Classifier(nn.Module):
 def build_classifier(model_name: str, pretrained, num_classes: int,
                      lock_image: bool, device="cuda"):
     """(classifier, image size): the named model's image tower, with
-    ``pretrained`` (a local open_clip .pt) loaded, and a fusion head of
-    seeded init (clip_baseline.py:63-96)."""
+    ``pretrained`` (``create_model``'s: a registry tag, URL, ``hf-hub:`` id
+    or local file) loaded, and a fusion head of seeded init
+    (clip_baseline.py:63-96)."""
     device = resolve_device(device)
-    clip = create_model(model_name, precision="fp32", device=device)
-    if pretrained:
-        load_checkpoint(clip, pretrained)
+    clip = create_model(model_name, pretrained, precision="fp32",
+                        device=device)
     with device:
         model = Classifier(clip.visual, clip.embed_dim, num_classes,
                            lock_image)
@@ -112,7 +111,8 @@ def main(argv=None):
     p.add_argument("--val-csv", default=None)
     p.add_argument("--model", default="ViT-B-32")
     p.add_argument("--pretrained", default=None,
-                   help="local open_clip checkpoint (e.g. laion400m_e32 .pt)")
+                   help="registry tag (laion400m_e32), URL, hf-hub: id or "
+                        "local open_clip checkpoint")
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--epochs", type=int, default=100)
     p.add_argument("--lr", type=float, default=5e-6)

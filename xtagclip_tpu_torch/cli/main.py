@@ -8,10 +8,12 @@ CLIPA ViT-H/14 recipe):
         --pretrained logs/stage1/checkpoints/epoch_1 ...
 
 parse (train/params.py, without the XTag flags) -> experiment naming and
-out.log -> optional tensorboard / wandb sinks -> the model on ``--device``
+out.log -> optional tensorboard / wandb sinks -> ``--remote-sync`` (as
+main_other's; JAX's cli/main.py ignores the flag) -> the model on ``--device``
 (default cuda) with ``--force-image-size``, ``--force-quick-gelu``,
 ``--force-patch-dropout``, ``--grad-checkpointing``, the
-``--image-*`` preprocessing and ``--pretrained`` (a local open_clip .pt, a
+``--image-*`` preprocessing and ``--pretrained`` (a registry tag, URL or
+``hf-hub:`` id, fetched into ``--cache-dir``; a local open_clip .pt, a
 big_vision .npz or a port checkpoint tag; position tables of another
 length are resized) ->
 with ``--torchscript``/``--trace`` the serving artifact
@@ -20,8 +22,8 @@ data (``get_data``: CSV, synthetic or webdataset shards; ``--imagenet-val``
 an image folder) -> without train data one ``evaluate`` (the 336 px
 script's zero-shot ImageNet eval) -> tower locks, AdamW and the
 schedule -> ``--resume`` (a checkpoint tag: the full train state; a file:
-the weights) -> ``--distill-model`` (with ``--distill-pretrained``: a local
-.pt, .npz or port checkpoint), the frozen teacher, built with the
+the weights) -> ``--distill-model`` (with ``--distill-pretrained``, resolved
+as ``--pretrained``), the frozen teacher, built with the
 student's precision and ``--force-image-size`` -> the contrastive step
 (``--siglip``: SigLIP's sigmoid loss with the model's ``logit_bias``;
 ``--model coca_*``: CoCa's contrastive + caption step, weighted by
@@ -61,6 +63,7 @@ from xtagclip_tpu_torch.train.checkpoint import (
     state_tree,
 )
 from xtagclip_tpu_torch.train.evaluate import evaluate
+from xtagclip_tpu_torch.train.file_utils import remote_sync_running
 from xtagclip_tpu_torch.train.logger import setup_logging
 from xtagclip_tpu_torch.train.loop import make_accum_train_step, make_train_step
 from xtagclip_tpu_torch.train.params import parse_args, unported
@@ -106,6 +109,7 @@ def _teacher(args, force_size):
     teacher, _, _ = create_model_and_transforms(
         args.distill_model, args.distill_pretrained or None,
         precision=PRECISION[args.precision], device=args.device,
+        cache_dir=args.cache_dir,
         **({"vision_cfg": {"image_size": force_size}} if force_size else {}))
     teacher.requires_grad_(False)
     teacher.eval()
@@ -148,7 +152,12 @@ def main(argv=None):
 
         logging.info("copied codebase to %s", copy_codebase(args))
     tb_writer = _sinks(args, log_base_path)
+    with remote_sync_running(args, log_base_path):
+        return _run(args, tb_writer)
 
+
+def _run(args, tb_writer):
+    """The model, data, optimizer and epochs of ``main``."""
     force_size = args.force_image_size
     if force_size and len(force_size) == 1:
         force_size = force_size[0]
@@ -164,7 +173,7 @@ def main(argv=None):
         image_mean=args.image_mean, image_std=args.image_std,
         image_interpolation=args.image_interpolation,
         image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
-        **model_kwargs)
+        cache_dir=args.cache_dir, **model_kwargs)
     tokenizer = get_tokenizer(args.model)
     logging.info("Model %s: %.2fM params on %s", args.model,
                  sum(p.numel() for p in model.parameters()) / 1e6,
@@ -204,7 +213,8 @@ def main(argv=None):
     tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
                         eps=args.eps, weight_decay=args.wd,
                         grad_clip_norm=args.grad_clip_norm, params=named,
-                        train_mask=mask, opt=args.opt)
+                        train_mask=mask, opt=args.opt,
+                        momentum=args.momentum)
     state = create_train_state(model, tx)
 
     start_epoch = 0

@@ -4,8 +4,11 @@
         --use-tagging --use-fusion --train-data /data/scar_train \\
         --val-data /data/scar_val --batch-size 32 --epochs 10 ...
 
-parse -> experiment naming, params.txt, out.log -> resume-latest -> model
-(use_tagging/use_fusion) on ``--device`` (default cuda) -> tower locks ->
+parse -> experiment naming, params.txt, out.log -> resume-latest ->
+``--remote-sync`` (a daemon process mirroring the run directory, stopped
+when main returns or raises) -> model (use_tagging/use_fusion; its
+``--pretrained`` a registry tag, URL, ``hf-hub:`` id or local file,
+fetched into ``--cache-dir``) on ``--device`` (default cuda) -> tower locks ->
 optimizer -> partial or full resume -> data (get_data, falling back to
 get_data_other) -> scheduler -> epoch loop with the scar eval and the
 four-way best checkpoints -> a final 'last' save. Without train data it
@@ -41,6 +44,7 @@ from xtagclip_tpu_torch.train.checkpoint import (
     restore_train_state,
     state_tree,
 )
+from xtagclip_tpu_torch.train.file_utils import remote_sync_running
 from xtagclip_tpu_torch.train.logger import setup_logging
 from xtagclip_tpu_torch.train.loop import make_accum_train_step, make_train_step
 from xtagclip_tpu_torch.train.params import parse_args, unported
@@ -93,6 +97,12 @@ def main(argv=None):
         args.resume = os.path.join(args.checkpoint_path, tag) if tag else None
         logging.info("resume latest -> %s", args.resume)
 
+    with remote_sync_running(args, log_base_path):
+        return _run(args)
+
+
+def _run(args):
+    """The model, data, optimizer and epochs of ``main``."""
     if args.precision not in PRECISION:
         raise NotImplementedError(
             f"--precision {args.precision} is not ported yet")
@@ -118,7 +128,7 @@ def main(argv=None):
         image_mean=args.image_mean, image_std=args.image_std,
         image_interpolation=args.image_interpolation,
         image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
-        **model_kwargs)
+        cache_dir=args.cache_dir, **model_kwargs)
     tokenizer = get_tokenizer(args.model)
 
     if args.load_tagging_only and args.resume:
@@ -167,7 +177,8 @@ def main(argv=None):
     tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
                         eps=args.eps, weight_decay=args.wd,
                         grad_clip_norm=args.grad_clip_norm, params=named,
-                        train_mask=mask, opt=args.opt)
+                        train_mask=mask, opt=args.opt,
+                        momentum=args.momentum)
     state = create_train_state(model, tx)
 
     start_epoch = 0

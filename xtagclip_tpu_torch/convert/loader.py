@@ -1,11 +1,12 @@
 """Checkpoint loading into a port model (port of the open_clip branch of
 xtagclip_tpu/convert/loader.py:124-161).
 
-An open_clip-layout torch ``.pt`` (``--pretrained <file>``, ``--resume
-<file>``, ``--load-tagging-only``) is mapped name for name onto the
-model's parameters (convert/openclip.py). As in the JAX loader, a
-parameter the file lacks keeps its value and a key the model lacks is
-ignored (both are logged); ``key_filter(name)`` restricts which
+An open_clip-layout torch ``.pt`` or ``.bin``, or a ``.safetensors`` file
+(``--pretrained``, ``--resume <file>``, ``--load-tagging-only``; an OpenAI
+archive's state dict through ``load_state_dict_into``) is mapped name for
+name onto the model's parameters (convert/openclip.py). As in the JAX
+loader, a parameter the file lacks keeps its value and a key the model
+lacks is ignored (both are logged); ``key_filter(name)`` restricts which
 parameters load. A table of another length is resized as JAX's
 ``merge_converted_params`` (:82-106) resizes it: the vision table drops or
 gains the cls row and resizes bicubically, the text table linearly
@@ -79,14 +80,25 @@ def _fit(name: str, val: np.ndarray, p: torch.Tensor):
     return None
 
 
-@torch.no_grad()
 def load_checkpoint_into(model: nn.Module, path: str,
                          key_filter=None) -> nn.Module:
-    """Load the open_clip-layout state dict in ``path`` into ``model`` in
-    place; a table of another length is resized (module doc)."""
+    """Load the open_clip-layout state dict in ``path`` (a torch file or
+    ``.safetensors``) into ``model`` in place; a table of another length is
+    resized (module doc)."""
     if path.endswith(".npz"):
         return load_big_vision_into(model, path, key_filter)
-    sd = normalize_to_custom_text(load_torch_state_dict(path))
+    return load_state_dict_into(model, load_torch_state_dict(path), path,
+                                key_filter)
+
+
+@torch.no_grad()
+def load_state_dict_into(model: nn.Module, sd: dict, source: str = "",
+                         key_filter=None) -> nn.Module:
+    """Load an open_clip-layout (CLIP or CustomTextCLIP) state dict of
+    numpy arrays into ``model`` in place, as ``load_checkpoint_into``
+    does; an OpenAI archive's state dict (convert/openai.py) loads this
+    way, as JAX merges it (factory.py:436-444)."""
+    sd = normalize_to_custom_text(sd)
     groups, stats, sd = convert_tower_groups(sd)
     used, loaded, missing = set(), 0, []
     for name, p in model.named_parameters():
@@ -125,7 +137,7 @@ def load_checkpoint_into(model: nn.Module, path: str,
     if unused:
         logging.info("checkpoint had %d unused entries: %s", len(unused),
                      unused[:5])
-    logging.info("loaded %d params from %s", loaded, path)
+    logging.info("loaded %d params from %s", loaded, source)
     return model
 
 

@@ -43,7 +43,6 @@ import re
 from typing import Dict, Tuple
 
 import numpy as np
-import torch
 
 from xtagclip_tpu_torch.convert.from_jax import _flatten, port_name, port_value
 
@@ -166,9 +165,21 @@ def from_openclip(value: np.ndarray, kind: str, shape) -> np.ndarray:
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
-    """Read a torch checkpoint file into numpy arrays (``state_dict`` and
-    ``module.`` wrappers removed)."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    """Read a checkpoint file into fp32 numpy arrays (``state_dict`` and
+    ``module.`` wrappers removed): a ``.safetensors`` file through
+    ``safetensors``, as the reference open_clip reads the hub's
+    ``open_clip_model.safetensors`` (JAX hands it to ``torch.load``, which
+    reads it only in a torch that dispatches on the extension: ROADMAP
+    Queue 3), anything else through ``torch.load``, local or at an fsspec
+    URL (train/file_utils.py ``pt_load``)."""
+    if str(path).endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        ckpt = load_file(path, device="cpu")
+    else:
+        from xtagclip_tpu_torch.train.file_utils import pt_load
+
+        ckpt = pt_load(path, map_location="cpu")
     if isinstance(ckpt, dict) and "state_dict" in ckpt:
         ckpt = ckpt["state_dict"]
     if isinstance(ckpt, dict) and "module" in ckpt:

@@ -39,7 +39,11 @@ included), the logit scales and the biases of the transformer blocks
 cross-attention blocks too) stay fp32. Both give the same arithmetic.
 
 The model is built and initialized on ``device`` (default ``"cuda"``); a
-missing card raises before anything is allocated.
+missing card raises before anything is allocated. ``pretrained`` then
+loads weights as JAX's ``create_model`` resolves them (factory.py:428-450,
+``load_pretrained``): a registry tag, a URL or an ``hf-hub:`` id through
+pretrained.py, ``"openai"`` through convert/openai.py, a local file or a
+port checkpoint tag through ``load_checkpoint``.
 """
 
 from __future__ import annotations
@@ -126,7 +130,12 @@ def add_model_config(path) -> None:
     """Register a config JSON under its file stem (as the JAX factory)."""
     path = Path(path)
     with open(path) as f:
-        _EXTRA_CONFIGS[path.stem] = json.load(f)
+        register_model_config(path.stem, json.load(f))
+
+
+def register_model_config(name: str, cfg: dict) -> None:
+    """Register ``cfg`` under ``name``, over the files' configs."""
+    _EXTRA_CONFIGS[name] = cfg
 
 
 def _natural_key(s: str):
@@ -300,13 +309,20 @@ def cast_for_compute(model: nn.Module, dtype: torch.dtype) -> None:
             p.data = p.data.to(dtype)
 
 
-def create_model(model_name: str, precision: str = "fp32", device="cuda",
+def create_model(model_name: str, pretrained: Optional[str] = None,
+                 precision: str = "fp32", device="cuda",
                  use_tagging: bool = False,
                  use_fusion: bool = False, init_seed: int = 0,
                  grad_checkpointing: bool = False,
                  force_patch_dropout=None, skip_init: bool = False,
+                 cache_dir: Optional[str] = None,
                  **model_kwargs) -> CLIP:
-    """Build a CLIP/XTag model with seeded random init on ``device``.
+    """Build a CLIP/XTag model with seeded random init on ``device``, then
+    load ``pretrained`` if given (``load_pretrained``: a registry tag such
+    as ``laion400m_e32`` or ``openai``, a URL, an ``hf-hub:`` id or a local
+    file or checkpoint tag; ``cache_dir`` is where fetches are cached).
+    An ``hf-hub:<org>/<name>`` model name is the config ``<name>``, which
+    must ship in the registry, as in JAX (factory.py:287-306).
     ``grad_checkpointing`` checkpoints every block of both towers (JAX's
     ``remat``); ``force_patch_dropout`` overrides the vision config's
     ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override);
@@ -318,8 +334,18 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
             f"precision {precision!r}: every kernel of the port is bf16, so "
             "float16 runs only on the CPU (its plain versions)")
     dev = resolve_device(device)
-    cfg = get_model_config(model_name.replace("/", "-"))
+    hub_id = None
+    if model_name.startswith("hf-hub:"):
+        hub_id = model_name[len("hf-hub:"):]
+        model_name = hub_id.split("/")[-1]
+    model_name = model_name.replace("/", "-")
+    cfg = get_model_config(model_name)
     if cfg is None:
+        if hub_id is not None:
+            raise RuntimeError(
+                f"hf-hub model {hub_id!r} has no local config (looked for "
+                f"{model_name!r} in the registry): nothing is fetched; "
+                "register its open_clip_config.json with add_model_config")
         raise RuntimeError(f"Model config for {model_name} not found")
     for k, v in model_kwargs.items():
         if k in ("vision_cfg", "text_cfg") and isinstance(v, dict):
@@ -359,7 +385,34 @@ def create_model(model_name: str, precision: str = "fp32", device="cuda",
                 p.data = p.data.to(dtype)
     model.model_name = model_name
     model.model_cfg = cfg
+    if pretrained:
+        load_pretrained(model, pretrained, cache_dir)
     return model
+
+
+def load_pretrained(model: nn.Module, pretrained: str,
+                    cache_dir: Optional[str] = None) -> nn.Module:
+    """Load ``pretrained`` into a built model in place, resolved as JAX's
+    ``create_model`` resolves it (factory.py:428-450): ``"openai"`` through
+    the registry to an OpenAI archive (convert/openai.py), an existing
+    path as it is (``load_checkpoint``), anything else through
+    ``pretrained.resolve_pretrained`` (a tag of the model's registry
+    entries, a URL or an ``hf-hub:`` id, fetched into ``cache_dir`` or
+    found in the hub cache). As in JAX, the registry's ``quick_gelu`` is
+    not applied: the activation is the model config's (ROADMAP Queue 3)."""
+    from xtagclip_tpu_torch.pretrained import resolve_pretrained
+
+    if pretrained == "openai":
+        from xtagclip_tpu_torch.convert.loader import load_state_dict_into
+        from xtagclip_tpu_torch.convert.openai import load_openai_state_dict
+
+        path = resolve_pretrained(model.model_name, pretrained, cache_dir)
+        return load_state_dict_into(model, load_openai_state_dict(path),
+                                    path)
+    if not os.path.exists(pretrained):
+        pretrained = resolve_pretrained(model.model_name, pretrained,
+                                        cache_dir)
+    return load_checkpoint(model, pretrained)
 
 
 def create_model_and_transforms(model_name: str, pretrained=None,
@@ -371,20 +424,14 @@ def create_model_and_transforms(model_name: str, pretrained=None,
     """(model, train transform, eval transform). Both transforms yield
     uint8 HWC crops; normalize them on the device with
     ops.preprocess.normalize_images with ``transforms.image_mean_std``.
-    ``pretrained`` is a local open_clip-layout .pt file, a big_vision
-    .npz or a port checkpoint tag (``load_checkpoint``); named tags are
-    not ported. The
+    ``pretrained`` (and ``cache_dir`` among ``kwargs``) is
+    ``create_model``'s: a registry tag, URL, ``hf-hub:`` id, local
+    open_clip ``.pt`` / ``.bin`` / ``.safetensors``, big_vision ``.npz``
+    or port checkpoint tag. The
     preprocess config is kept on the model (``get_model_preprocess_cfg``),
     for a serving artifact's manifest and the device normalize."""
-    model = create_model(model_name, precision=precision, device=device,
-                         **kwargs)
-    if pretrained:
-        if not Path(pretrained).exists():
-            raise NotImplementedError(
-                f"pretrained {pretrained!r}: only a local .pt or .npz file or "
-                "a port checkpoint is ported; named tags wait for "
-                "pretrained.py (ROADMAP Queue 1 item 9)")
-        load_checkpoint(model, str(pretrained))
+    model = create_model(model_name, pretrained, precision=precision,
+                         device=device, **kwargs)
     pp = PreprocessCfg(
         size=model.model_cfg["vision_cfg"].get("image_size", 224),
         mean=image_mean, std=image_std,
@@ -455,6 +502,21 @@ def create_loss(args):
         return SigLipLoss(rank=common["rank"], world_size=world,
                           dist_impl=getattr(args, "loss_dist_impl", None))
     return ClipLoss(**common)
+
+
+def list_openai_models() -> list:
+    """The models with an ``openai`` tag in the registry (JAX
+    factory.py:504)."""
+    from xtagclip_tpu_torch.pretrained import list_pretrained_models_by_tag
+
+    return list_pretrained_models_by_tag("openai")
+
+
+def load_openai_model(name: str, precision: str = "fp32", **kwargs):
+    """``create_model(name, pretrained="openai")`` (JAX factory.py:511):
+    ``name`` is a registry model with an ``openai`` tag."""
+    return create_model(name, pretrained="openai", precision=precision,
+                        **kwargs)
 
 
 @torch.no_grad()

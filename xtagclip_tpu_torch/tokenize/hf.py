@@ -100,6 +100,10 @@ class HFTokenizer:
         self.clean_fn = get_clean_fn(clean)
         self.strip_sep_token = strip_sep_token
 
+    def save_pretrained(self, dest: str) -> None:
+        """Write the tokenizer's files into ``dest`` (the HF export)."""
+        self.tokenizer.save_pretrained(dest)
+
     def __call__(self, texts: Union[str, List[str]],
                  context_length: Optional[int] = None) -> np.ndarray:
         if isinstance(texts, str):

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import argparse
 import ast
-import os
 
 from xtagclip_tpu_torch.core.mesh import world_size_from_env
 
@@ -216,19 +215,7 @@ def unported(args) -> list:
     if args.fsdp or (args.model_parallel or 1) > 1:
         out.append("--fsdp / --model-parallel (Queue 1 item 7: "
                    "multi-process)")
-    if args.remote_sync:
-        out.append("--remote-sync (Queue 1 item 9)")
     var, world = world_size_from_env()
     if world > 1:
         out.append(f"{var}={world} (Queue 1 item 7: multi-process)")
-    if args.pretrained and not os.path.exists(args.pretrained):
-        out.append(f"--pretrained {args.pretrained!r}: only a local .pt or "
-                   ".npz file or a port checkpoint is ported; named tags "
-                   "wait for pretrained.py (Queue 1 item 9)")
-    if args.distill_pretrained and not os.path.exists(
-            args.distill_pretrained):
-        out.append(f"--distill-pretrained {args.distill_pretrained!r}: only "
-                   "a local .pt or .npz file or a port checkpoint is "
-                   "ported; named tags wait for pretrained.py (Queue 1 "
-                   "item 9)")
     return out

@@ -1,13 +1,16 @@
-"""Train state: AdamW with the reference's no-decay partition, tower locking
-through trainability masks, and the post-step logit_scale clamp (port of
-xtagclip_tpu/train/train_state.py).
+"""Train state: the ``--opt`` optimizers with the reference's no-decay
+partition, tower locking through trainability masks, and the post-step
+logit_scale clamp (port of xtagclip_tpu/train/train_state.py).
 
 Masks are dicts from the port's parameter names (``model.named_parameters()``,
 the flax paths joined by "." with the unrolled stacks as
 ``resblocks.{i}`` etc., convert/from_jax.port_name) to bools.
 
-optax's ``adamw`` with a weight-decay mask is ``torch.optim.AdamW`` over two
-parameter groups, decay and no-decay, with the lr set from the schedule
+Each optax optimizer of JAX's ``make_optimizer`` is a
+``torch.optim.Optimizer`` over the trainable parameters, in a decay and a
+no-decay group where it decays: ``adamw``, ``adam`` and ``sgd`` are
+PyTorch's (the same arithmetic as optax's), ``lion`` and ``adafactor``
+are written here as optax computes them. The lr is set from the schedule
 before each step (optax reads the schedule at the update count). Frozen
 parameters are in no group and never change; the optional global-norm
 clip, like optax's ``clip_by_global_norm`` inside ``multi_transform``,
@@ -21,6 +24,7 @@ import re
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -206,31 +210,21 @@ def trainable_mask(params: Dict[str, torch.Tensor], lock_image: bool = False,
     return {name: rule(name) for name in params}
 
 
-class AdamW:
-    """optax ``adamw`` (+ optional ``clip_by_global_norm``) over the
-    trainable parameters: a ``torch.optim.AdamW`` with a decay and a
-    no-decay group, its lr set from ``schedule`` at each update."""
+class Optimizer:
+    """optax's ``chain(clip_by_global_norm, <optimizer>)`` inside
+    ``multi_transform`` over the trainable parameters
+    (train_state.py:257-270): ``optimizer`` (a ``torch.optim.Optimizer``
+    over the trainable parameters only, its checkpointed state included)
+    steps from ``.grad`` with the lr that ``schedule`` gives at the update
+    count, as optax reads the schedule at its count."""
 
-    def __init__(self, params: Dict[str, torch.Tensor], schedule: Callable,
-                 beta1: float, beta2: float, eps: float, weight_decay: float,
-                 grad_clip_norm: Optional[float],
-                 train_mask: Optional[Dict[str, bool]]):
+    def __init__(self, optimizer: torch.optim.Optimizer, schedule: Callable,
+                 grad_clip_norm: Optional[float]):
+        self.optimizer = optimizer
         self.schedule = schedule
         self.grad_clip_norm = grad_clip_norm
-        wd = decay_mask(params)
-        self.trainable = [p for n, p in params.items()
-                          if train_mask is None or train_mask[n]]
-        groups = [
-            {"params": [p for n, p in params.items()
-                        if (train_mask is None or train_mask[n]) and wd[n]],
-             "weight_decay": weight_decay},
-            {"params": [p for n, p in params.items()
-                        if (train_mask is None or train_mask[n]) and not wd[n]],
-             "weight_decay": 0.0},
-        ]
-        self.optimizer = torch.optim.AdamW(
-            [g for g in groups if g["params"]], lr=0.0, betas=(beta1, beta2),
-            eps=eps)
+        self.trainable = [p for g in optimizer.param_groups
+                          for p in g["params"]]
 
     def update(self, count: int) -> None:
         """One update from the parameters' ``.grad`` (a missing gradient
@@ -259,32 +253,221 @@ def optax_global_norm(tensors) -> torch.Tensor:
         [t if t.dtype == torch.float32 else t.float() for t in tensors], 2.0)
 
 
+class Lion(torch.optim.Optimizer):
+    """optax ``lion`` (``scale_by_lion``, ``add_decayed_weights`` and the
+    learning rate): ``u = sign((1 - b1) g + b1 m)``, ``m <- (1 - b2) g +
+    b2 m``, ``p <- p - lr (u + wd p)``, each group with its own decay, in
+    multi-tensor ops. PyTorch has no Lion."""
+
+    def __init__(self, params, lr: float = 0.0, betas=(0.9, 0.99),
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            ps = group["params"]
+            grads = [p.grad for p in ps]
+            mus = []
+            for p in ps:
+                if "exp_avg" not in self.state[p]:
+                    self.state[p]["exp_avg"] = torch.zeros_like(p)
+                mus.append(self.state[p]["exp_avg"])
+            u = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(u, torch._foreach_mul(mus, b1))
+            torch._foreach_sign_(u)
+            torch._foreach_mul_(mus, b2)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - b2))
+            if group["weight_decay"]:
+                torch._foreach_add_(
+                    u, torch._foreach_mul(ps, group["weight_decay"]))
+            torch._foreach_mul_(u, -group["lr"])
+            torch._foreach_add_(ps, u)
+
+
+def _jax_axes(p: torch.Tensor) -> tuple:
+    """The port axis of each axis of the leaf's JAX layout: a conv kernel,
+    flax's [kh, kw, in, out], is [out, in, kh, kw] here
+    (convert/from_jax.py ``port_value``); every other leaf has JAX's
+    layout."""
+    return (2, 3, 1, 0) if p.dim() == 4 else tuple(range(p.dim()))
+
+
+def factored_dims(p: torch.Tensor, min_dim_size_to_factor: int = 128):
+    """optax's ``_factored_dims`` on the leaf's JAX shape, as port axes:
+    (the second largest axis, the largest) where the second largest has
+    at least ``min_dim_size_to_factor`` entries, else None. The axes are
+    picked on the JAX shape, ties and all, so a transposed conv kernel
+    factors over the same physical axes as in JAX."""
+    if p.dim() < 2:
+        return None
+    axes = _jax_axes(p)
+    shape = [p.shape[a] for a in axes]
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return axes[order[-2]], axes[order[-1]]
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax ``adafactor(learning_rate)`` with its defaults, as optax's
+    chain: ``scale_by_factored_rms`` (decay rate 0.8, factored over the
+    two largest axes where the second is >= 128, eps 1e-30),
+    ``clip_by_block_rms(1.0)``, the learning rate,
+    ``scale_by_param_block_rms`` (min scale 1e-3), no momentum, no decay.
+    ``torch.optim.Adafactor`` is another algorithm (its decay, clipping
+    and parameter scale differ). The unfactored leaves' statistics, the
+    block norms and the update run as multi-tensor ops; the factored
+    leaves' row and column statistics leaf by leaf. Every leaf of a group
+    steps together, so they share optax's count."""
+
+    # optax's defaults, the only values JAX's make_optimizer passes
+    DECAY_RATE, MIN_DIM_SIZE_TO_FACTOR, EPS = 0.8, 128, 1e-30
+    CLIPPING_THRESHOLD, MIN_SCALE = 1.0, 1e-3
+
+    def __init__(self, params, lr: float = 0.0):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            self._step_group(group)
+
+    def _init_state(self, p) -> None:
+        state = self.state[p]
+        if state:
+            return
+        state["step"] = 0
+        dims = factored_dims(p, self.MIN_DIM_SIZE_TO_FACTOR)
+        if dims is None:
+            state["v"] = torch.zeros_like(p)
+        else:
+            d1, d0 = dims
+            state["v_row"] = torch.zeros_like(p).mean(dim=d0)
+            state["v_col"] = torch.zeros_like(p).mean(dim=d1)
+
+    def _step_group(self, group) -> None:
+        ps = group["params"]
+        for p in ps:
+            self._init_state(p)
+        # optax's _decay_rate_pow, in fp32 as there
+        t = np.float32(self.state[ps[0]]["step"] + 1)
+        rate = float(np.float32(1.0) - t ** np.float32(-self.DECAY_RATE))
+        grads = [p.grad for p in ps]
+        grad_sqr = torch._foreach_mul(grads, grads)
+        torch._foreach_add_(grad_sqr, self.EPS)
+        updates = [None] * len(ps)
+        flat = [i for i, p in enumerate(ps) if "v" in self.state[p]]
+        if flat:
+            vs = [self.state[ps[i]]["v"] for i in flat]
+            torch._foreach_mul_(vs, rate)
+            torch._foreach_add_(vs, torch._foreach_mul(
+                [grad_sqr[i] for i in flat], 1.0 - rate))
+            for i, u in zip(flat, torch._foreach_mul(
+                    [grads[i] for i in flat], torch._foreach_pow(vs, -0.5))):
+                updates[i] = u
+        for i, p in enumerate(ps):
+            if updates[i] is not None:
+                continue
+            state = self.state[p]
+            d1, d0 = factored_dims(p, self.MIN_DIM_SIZE_TO_FACTOR)
+            v_row = state["v_row"].mul_(rate).add_(
+                (1.0 - rate) * grad_sqr[i].mean(dim=d0))
+            v_col = state["v_col"].mul_(rate).add_(
+                (1.0 - rate) * grad_sqr[i].mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)
+                          ).pow(-0.5)
+            updates[i] = (grads[i] * row_factor.unsqueeze(d0)
+                          * v_col.pow(-0.5).unsqueeze(d1))
+        # clip_by_block_rms, the learning rate and scale_by_param_block_rms:
+        # one scale a leaf, from the leaves' block norms, summed in fp64 (a
+        # CPU's fp32 norm of a 25M-element embedding is off by 1e-3)
+        root_n = torch.tensor([u.numel() for u in updates],
+                              dtype=torch.float64, device=ps[0].device).sqrt()
+        u_rms = (torch.stack(torch._foreach_norm(
+            updates, 2, dtype=torch.float64)) / root_n).float()
+        p_rms = (torch.stack(torch._foreach_norm(
+            ps, 2, dtype=torch.float64)) / root_n).float()
+        p_rms = torch.where(p_rms <= self.MIN_SCALE,
+                            torch.full_like(p_rms, self.MIN_SCALE), p_rms)
+        scale = group["lr"] * p_rms / torch.clamp(
+            u_rms / self.CLIPPING_THRESHOLD, min=1.0)
+        torch._foreach_mul_(updates, list(scale.unbind()))
+        torch._foreach_sub_(ps, updates)
+        for p in ps:
+            self.state[p]["step"] += 1
+
+
+def _groups(params: Dict[str, torch.Tensor],
+            train_mask: Optional[Dict[str, bool]],
+            weight_decay: Optional[float]) -> list:
+    """The trainable parameters as optimizer groups: one decayed and one
+    not (``decay_mask``), or one group where the optimizer decays
+    nothing (``weight_decay`` None)."""
+    trainable = {n: p for n, p in params.items()
+                 if train_mask is None or train_mask[n]}
+    if weight_decay is None:
+        return [{"params": list(trainable.values())}]
+    wd = decay_mask(params)
+    groups = [
+        {"params": [p for n, p in trainable.items() if wd[n]],
+         "weight_decay": weight_decay},
+        {"params": [p for n, p in trainable.items() if not wd[n]],
+         "weight_decay": 0.0},
+    ]
+    return [g for g in groups if g["params"]]
+
+
 def make_optimizer(schedule: Callable, beta1: float = 0.9,
                    beta2: float = 0.98, eps: float = 1e-6,
                    weight_decay: float = 0.2,
                    grad_clip_norm: Optional[float] = None,
                    params: Optional[Dict[str, torch.Tensor]] = None,
                    train_mask: Optional[Dict[str, bool]] = None,
-                   opt: str = "adamw") -> AdamW:
-    """The ``--opt adamw`` optimizer over ``params`` (name -> parameter);
-    the other ``--opt`` values are not ported yet."""
+                   opt: str = "adamw",
+                   momentum: Optional[float] = None) -> Optimizer:
+    """The ``--opt`` optimizer over ``params`` (name -> parameter), as JAX's
+    ``make_optimizer`` (train_state.py:218-270) picks it: adamw (decay
+    masked), adam (no decay: JAX ignores ``--wd`` there), sgd (decay
+    masked, then momentum 0.9 when ``momentum`` is None), lion (decay
+    masked) and adafactor (optax's defaults, the lr from ``schedule``).
+    Every one runs behind the optional global-norm clip and the train
+    mask. An unknown name raises ValueError."""
     name = (opt or "adamw").lower().replace("timm/", "")
-    if name != "adamw":
-        raise NotImplementedError(f"--opt {opt!r} is not ported yet")
     if params is None:
         raise ValueError("make_optimizer needs the parameters to optimize")
-    return AdamW(params, schedule, beta1, beta2, eps, weight_decay,
-                 grad_clip_norm, train_mask)
+    if name == "adamw":
+        optimizer = torch.optim.AdamW(
+            _groups(params, train_mask, weight_decay), lr=0.0,
+            betas=(beta1, beta2), eps=eps)
+    elif name == "adam":
+        optimizer = torch.optim.Adam(_groups(params, train_mask, None),
+                                     lr=0.0, betas=(beta1, beta2), eps=eps)
+    elif name == "sgd":
+        optimizer = torch.optim.SGD(
+            _groups(params, train_mask, weight_decay), lr=0.0,
+            momentum=0.9 if momentum is None else momentum)
+    elif name == "lion":
+        optimizer = Lion(_groups(params, train_mask, weight_decay),
+                         betas=(beta1, beta2))
+    elif name == "adafactor":
+        optimizer = Adafactor(_groups(params, train_mask, None))
+    else:
+        raise ValueError(f"unknown optimizer {opt!r}")
+    return Optimizer(optimizer, schedule, grad_clip_norm)
 
 
 @dataclass
 class TrainState:
     step: int
     model: nn.Module
-    tx: AdamW
+    tx: Optimizer
 
 
-def create_train_state(model: nn.Module, tx: AdamW) -> TrainState:
+def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
     return TrainState(step=0, model=model, tx=tx)
 
 
