@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
-                                       --zoo-only | --pretrained-only]
+                                       --zoo-only | --pretrained-only |
+                                       --dist-only]
     python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
                           --zoo-batch-probe
 
@@ -244,6 +245,32 @@ fused MLP), in phases that each print one JSON line:
    bit, and ``ops/int8.py`` at [4096, 768] x [768, 3072]: the int32 sums
    equal the CPU's.
 
+24. dist (last): the port's multi-process training on the one card.
+   (a) scar_openclip_pretrain.sh's flags (--local-loss, the XTag ViT-B-32
+   with tagging and fusion, seeded random init, batch 32, one epoch of
+   DIST_ROWS seeded scar PNGs, no --pretrained) through
+   ``main_other.main`` twice: launcher-free, and under ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1`` (NCCL, DDP at
+   world size 1), both with one loader thread and the train transform's
+   random.Random seeded (its crops are unseeded otherwise). Every step's
+   loss and the final parameters bit for bit equal, the launches of #1,
+   #2, #3 and #5 equal and at least the plain step's per step. (b) in
+   the launcher's process that ran (a): CLIPA ViT-H/14 stage 2 at 224 px
+   with the script's --fsdp --local-loss --gather-with-grad
+   --grad-checkpointing at batch 256 on seeded tar shards through
+   ``cli.main`` (FSDP2 at world size 1; half depth, CLIPA_DEPTH_CUT, or
+   full depth with --dist-only), its launches per step asserted; then
+   one step of the same model with and without --fsdp from the same
+   weights, batch and dropout seed at phase 6's bars (loss 1e-2,
+   gradient norm 2%, gradient cosines 0.99), each timed over
+   DIST_TIMED_STEPS steps with its peak memory. (c) two ranks on the one
+   card over gloo (NCCL takes one rank per card; gloo moves the CUDA
+   tensors of DDP's broadcast and all-reduce and the losses'
+   all-gathers, and refuses batch_isend_irecv, which only the SigLIP
+   rings use): the XTag ViT-B-32 step with tagging and fusion at 16 a
+   rank, deterministic, against the one-process step on the concatenated
+   32 at phase 6's bars.
+
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
 columns past dh and rows past L hold NaN (rows of dh + 48 columns,
@@ -262,7 +289,8 @@ split into the port's hand-written kernels and everything else.
 ``--coca-only`` runs the build, the kernel rows and phases 19 and 18
 alone, then prints the seconds, the kernel table with those phases'
 launches and the card; ``--siglip-only`` the same for phases 20 and 21,
-``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23.
+``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23,
+``--dist-only`` for phase 24 (with the CLIPA model at full depth).
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
 out of memory, without and with --grad-checkpointing);
@@ -287,6 +315,7 @@ import json
 import logging
 import math
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -463,6 +492,11 @@ OPT_CPU_PARAMS = ("visual.conv1", "visual.transformer.resblocks.0.",
                   "text.transformer.resblocks.0.", "text.token_embedding",
                   "tag_", "fusion_model.", "logit_scale")
 INT8_SHAPE = (4096, 768, 3072)  # [M, K] x [K, N]: ViT-B-32 c_fc at 128 x 32
+DIST_ROWS = 512  # (a): 16 steps of TRAIN_BATCH
+DIST_CLIPA_STEPS = 3  # (b): cli.main --fsdp steps of CLIPA_BATCH
+DIST_TIMED_STEPS = 3  # (b): the FSDP and no-FSDP steps timed after the first
+DIST_GLOO_BATCH = 16  # (c): a rank's batch; the one-process step takes 32
+DIST_TIMEOUT = 900  # seconds a worker command may take
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
 # fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
 # flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
@@ -5069,6 +5103,360 @@ def phase_clipa_path(card: str):
         raise AssertionError(f"clipa_path failed its checks: {result}")
 
 
+def _digest(sd: dict) -> str:
+    """sha256 of every entry of a state dict, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in sd.items():
+        h.update(k.encode())
+        h.update(v.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dist_cli(spec: dict) -> dict:
+    """--dist-worker's cli task: ``main_other.main`` or ``cli.main`` on
+    ``spec["argv"]``, the launches, each step's loss, throughput, peak
+    memory and the final parameters' digest."""
+    import torch.distributed as dist
+
+    from xtagclip_tpu_torch.cli import main as cli_main
+    from xtagclip_tpu_torch.cli import main_other
+    from xtagclip_tpu_torch.parallel.sharding import full_state_dict
+    from xtagclip_tpu_torch.train.logger import close_logging
+
+    entry = {"main_other": main_other.main, "main": cli_main.main}
+    real_random = random.Random
+    if spec.get("seed_crops"):
+        # the train transform draws its crops from an unseeded
+        # random.Random (with one loader thread, in item order)
+        class SeededRandom(real_random):
+            def __init__(self, x=0):
+                super().__init__(x)
+
+        random.Random = SeededRandom
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    try:
+        out = entry[spec["entry"]](spec["argv"])
+    finally:
+        random.Random = real_random
+        close_logging()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    tm = out["epochs"][-1]["train"]
+    digest = _digest(full_state_dict(out["state"].model))
+    del out
+    return {"distributed": dist.is_initialized(),
+            "backend": dist.get_backend() if dist.is_initialized() else None,
+            "world_size": dist.get_world_size() if dist.is_initialized()
+            else 1, "wall_s": wall, "launches": counts,
+            "losses": tm["losses"], "steps": len(tm["losses"]),
+            "samples_per_s": tm["samples_per_second"],
+            "global_samples_per_s": tm["global_samples_per_second"],
+            # the steps after the first (its warm-up), one a log interval
+            "samples_per_s_after_first": spec["batch"] * (
+                len(tm["interval_step_s"]) - 1) / sum(
+                    tm["interval_step_s"][1:]),
+            "p50_step_ms": 1e3 * tm["p50_step_s"],
+            "step_s": tm["interval_step_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params_sha256": digest}
+
+
+def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
+                    variants, seed: int = 1, timed: int = 0,
+                    deterministic: bool = False,
+                    checkpointed: bool = False) -> dict:
+    """One train step of ``model_name`` (bf16 over fp32 masters, seeded
+    init, ``checkpointed``: --grad-checkpointing) from the same weights,
+    batch and dropout seed for each of ``variants`` ((name, fsdp flag,
+    rows of the batch), ...), each wrapped as the CLIs wrap it
+    (parallel/sharding.py); then ``timed`` more steps timed. {name:
+    (metrics, {parameter: whole gradient}, record)}; the record's
+    launches are the first step's, its batch's normalize included."""
+    import gc
+    from types import SimpleNamespace
+
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.parallel.sharding import full, wrap_model
+    from xtagclip_tpu_torch.train.loop import make_train_step
+    from xtagclip_tpu_torch.train.train_state import (
+        create_train_state,
+        make_optimizer,
+    )
+
+    out = {}
+    for name, fsdp, rows in variants:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(model_name, precision="bf16", init_seed=1,
+                             grad_checkpointing=checkpointed,
+                             **({"use_tagging": True, "use_fusion": True}
+                                if "use_tagging_loss" in args_cfg else {}))
+        u8, texts = _model_batch(model, batch, seed)
+        ptable = None
+        _reset_counts()
+        b = {"images": preprocess.normalize_images(u8, dtype=torch.bfloat16),
+             "texts": texts}
+        if args_cfg.get("use_tagging_loss"):
+            ptable = torch.from_numpy(
+                _scar_prompt_table().astype(np.int64)).to("cuda")
+            rng = np.random.default_rng(seed)
+            b.update(_tag_batch(rng, batch))
+        b = {k: v[rows] for k, v in b.items()}
+        ddp = wrap_model(model, SimpleNamespace(fsdp=fsdp))
+        tx = make_optimizer(lambda _: 2.048e-4, beta2=0.95, eps=1e-8,
+                            weight_decay=0.2,
+                            params=dict(model.named_parameters()))
+        state = create_train_state(model, tx, ddp)
+        step = make_train_step(args_cfg, prompt_table=ptable,
+                               deterministic=deterministic)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        state, m = step(state, b, gen)
+        torch.cuda.synchronize()
+        launches = _counts()
+        metrics = {k: v.item() for k, v in m.items()}
+        grads = {n: full(p.grad).float().clone()
+                 for n, p in model.named_parameters() if p.grad is not None}
+        rec = {"launches_first_step": launches}
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                state, m = step(state, b, gen)
+            m["loss"].item()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / timed
+            rec.update(step_ms=1e3 * dt, samples_per_s=len(u8[rows]) / dt)
+        rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = (metrics, grads, rec)
+        del model, state, ddp, tx, step, b
+    return out
+
+
+def _dist_judge(got, ref) -> dict:
+    """Phase 6's bars between two ``_dist_step_runs`` results: loss within
+    1e-2 relative, gradient norm within 2%, each gradient that is nonzero
+    on the reference side (but the ZERO_GRAD_PARAMS) at cosine >= 0.99."""
+    (mg, gg, _), (mr, gr, _) = got, ref
+    names = [n for n in gr if gr[n].abs().max().item() > 0
+             and not any(z in n for z in ZERO_GRAD_PARAMS)]
+    cos = {n: _cos(gg[n], gr[n]) for n in names}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    res = {"loss": [mg["loss"], mr["loss"]],
+           "grad_norm": [mg["grad_norm"], mr["grad_norm"]],
+           "loss_rel_err": abs(mg["loss"] - mr["loss"]) / abs(mr["loss"]),
+           "grad_norm_rel_err": abs(mg["grad_norm"] - mr["grad_norm"])
+           / mr["grad_norm"], "grads_compared": len(names),
+           "grads_missing": sorted(set(gr) - set(gg)),
+           "grad_cos_min": min(cos.values()), "worst_cos": dict(worst)}
+    res["ok"] = (res["loss_rel_err"] <= 1e-2
+                 and res["grad_norm_rel_err"] <= 2e-2
+                 and res["grad_cos_min"] >= 0.99
+                 and not res["grads_missing"]
+                 and all(math.isfinite(v) for v in (*res["loss"],
+                                                    *res["grad_norm"])))
+    return res
+
+
+def _tag_batch(rng, b: int) -> dict:
+    """Class ids and one tag per category, on the card."""
+    additional = np.zeros((b, 22), np.float32)
+    for off, size in zip((0, 3, 7, 10, 14, 18), (3, 4, 3, 4, 4, 4)):
+        additional[np.arange(b), off + rng.integers(0, size, b)] = 1.0
+    return {"class_ids": torch.from_numpy(rng.integers(0, 3, b)).cuda(),
+            "additional": torch.from_numpy(additional).cuda()}
+
+
+def _dist_gloo2(spec: dict) -> dict:
+    """--dist-worker's gloo2 task, on 2 ranks of one card: rank 0 first
+    runs the one-process step on the concatenated batch; then both join
+    a gloo group (core/mesh.py ``init_distributed``) and run the DDP step
+    on their halves; rank 0 judges."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+
+    from xtagclip_tpu_torch.core.mesh import init_distributed
+
+    b = 2 * DIST_GLOO_BATCH
+    cfg = {"use_tagging_loss": True}
+    rank = int(os.environ["RANK"])
+    ref = _dist_step_runs(
+        "ViT-B-32", b, cfg, [("one_process", False, slice(0, b))],
+        deterministic=True)["one_process"] if rank == 0 else None
+    args = SimpleNamespace(device="cuda", dist_url=None, dist_backend="gloo",
+                           no_set_device_rank=True)
+    init_distributed(args)
+    rows = slice(rank * DIST_GLOO_BATCH, (rank + 1) * DIST_GLOO_BATCH)
+    got = _dist_step_runs(
+        "ViT-B-32", b, {**cfg, "world_size": 2, "rank": rank},
+        [("two_ranks", False, rows)], deterministic=True)["two_ranks"]
+    res = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+           "launches": got[2]["launches_first_step"]}
+    if rank == 0:
+        res.update(_dist_judge(got, ref))
+    dist.barrier()
+    return res
+
+
+def _dist_compare(spec: dict) -> dict:
+    """--dist-worker's compare task: one step of ``spec["model"]`` with
+    and without --fsdp (``_dist_step_runs``), judged at phase 6's bars."""
+    cfg = {"world_size": 1, "rank": 0, "local_loss": True}
+    b = spec["batch"]
+    runs = _dist_step_runs(spec["model"], b, cfg,
+                           [("ddp", False, slice(0, b)),
+                            ("fsdp", True, slice(0, b))],
+                           timed=DIST_TIMED_STEPS, checkpointed=True)
+    res = _dist_judge(runs["fsdp"], runs["ddp"])
+    res.update({k: runs[k][2] for k in runs})
+    return res
+
+
+def dist_worker(spec_path: str) -> int:
+    """Run the tasks of the JSON spec at ``spec_path`` (launched by
+    phase_dist, under the launcher or not), in order, and write rank 0's
+    results, one a task, to its ``out``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    tasks = {"cli": _dist_cli, "compare": _dist_compare,
+             "gloo2": _dist_gloo2}
+    out = [tasks[name](task) for name, task in spec["tasks"]]
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(spec["out"], "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def _run_dist(tmp: str, name: str, tasks: list, nproc=None,
+              env=None) -> list:
+    """chip_smoke.py --dist-worker on ``tasks`` ((task, spec), ...): under
+    ``python -m torch.distributed.run --standalone --nproc_per_node
+    nproc``, or launcher-free without ``nproc``. Its output goes to a log
+    in ``tmp``; a worker that fails or outlasts DIST_TIMEOUT fails the
+    phase."""
+    out = os.path.join(tmp, f"{name}.out.json")
+    path = os.path.join(tmp, f"{name}.spec.json")
+    with open(path, "w") as f:
+        json.dump({"tasks": tasks, "out": out}, f)
+    launcher = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(nproc)] if nproc else [
+                    sys.executable]
+    cmd = launcher + [os.path.abspath(__file__), "--dist-worker", path]
+    log = os.path.join(tmp, f"{name}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env={**os.environ, **(env or {})},
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=DIST_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = "timeout"
+    if rc != 0:
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"dist worker {name} ({' '.join(cmd)}) "
+                             f"ended {rc}:\n{tail}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
+    """Phase 24 (module doc): (a) DDP at world size 1 against the
+    launcher-free run, (b) FSDP2 at world size 1 on the CLIPA recipe (in
+    the launcher's process that ran (a)), (c) two ranks over gloo on the
+    card. Returns the launches of each run."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers are other processes
+    d = os.path.join(tmp, "dist")
+    os.makedirs(d)
+    rng = np.random.default_rng(7)
+    root = os.path.join(d, "scar_train")
+    csv_file = _write_scar_split(root, DIST_ROWS, rng)
+    shards = _write_wds_shards(os.path.join(d, "shards"), DIST_CLIPA_STEPS,
+                               CLIPA_BATCH, rng)
+    logs = os.path.join(d, "logs")
+    argv = ["--batch-size", str(TRAIN_BATCH), "--workers", "1",
+            "--train-data", root, "--scar-train-csv", csv_file,
+            "--precision", "amp", "--save-frequency", "250", "--warmup", "50",
+            "--lr", "5e-5", "--wd", "0.1", "--epochs", "1", "--local-loss",
+            "--model", "ViT-B-32", "--prompt-template-setting", "total",
+            "--use-tagging", "--use-fusion", "--log-every-n-steps", "1",
+            "--seed", "0", "--logs", logs]
+
+    def scar(name):
+        return ["cli", {"entry": "main_other", "batch": TRAIN_BATCH,
+                        "seed_crops": True, "argv": argv + ["--name", name]}]
+
+    clipa = "ViT-H-14-CL32-GAP"
+    b_argv = _clipa_args(2, logs, shards=shards)
+    i = b_argv.index("--pretrained")
+    b_argv = b_argv[:i] + b_argv[i + 2:] + [
+        "--fsdp", "--save-frequency", "0", "--val-frequency", "0",
+        "--name", "clipa_fsdp"]
+    b_argv[b_argv.index("--train-num-samples") + 1] = str(
+        DIST_CLIPA_STEPS * CLIPA_BATCH)
+    env = {} if full_depth else {
+        "XTAGCLIP_EXTRA_CONFIGS": _depth_cut_configs(d)}
+    free, = _run_dist(d, "launcher_free", [scar("free")])
+    ddp, fsdp, compare = _run_dist(d, "launcher", [
+        scar("ddp"),
+        ["cli", {"entry": "main", "batch": CLIPA_BATCH, "argv": b_argv}],
+        ["compare", {"model": clipa, "batch": CLIPA_BATCH}]], 1, env)
+    gloo, = _run_dist(d, "gloo2", [["gloo2", {}]], 2)
+
+    steps = DIST_ROWS // TRAIN_BATCH
+    per_step = _paths()["b32"]["per_step"]
+    a = {"free": free, "ddp": ddp,
+         "losses_bit_equal": free["losses"] == ddp["losses"],
+         "params_bit_equal": free["params_sha256"] == ddp["params_sha256"],
+         "launches_equal": free["launches"] == ddp["launches"],
+         "launches_cover_steps": all(
+             ddp["launches"][k] >= steps * v for k, v in per_step.items()
+             if v),
+         "ddp_samples_per_s_ratio": ddp["samples_per_s_after_first"]
+         / free["samples_per_s_after_first"],
+         "ddp_p50_step_ratio": ddp["p50_step_ms"] / free["p50_step_ms"]}
+    a["ok"] = (a["losses_bit_equal"] and a["params_bit_equal"]
+               and a["launches_equal"] and a["launches_cover_steps"]
+               and not free["distributed"] and ddp["distributed"]
+               and ddp["backend"] == "nccl" and len(ddp["losses"]) == steps)
+    with _env(**env):
+        want_b = _want(**_scaled(_clipa_per_step(clipa), DIST_CLIPA_STEPS))
+        layers = _tower_layers(clipa)
+    b = {"cli": fsdp, "compare": compare,
+         "depth": "full" if full_depth else "half (CLIPA_DEPTH_CUT)",
+         "layers": layers, "data": f"{DIST_CLIPA_STEPS} seeded tar shards",
+         "launches_ok": fsdp["launches"] == want_b,
+         "fsdp_samples_per_s_ratio": compare["fsdp"]["samples_per_s"]
+         / compare["ddp"]["samples_per_s"],
+         "fsdp_peak_mem_ratio": compare["fsdp"]["peak_mem_gb"]
+         / compare["ddp"]["peak_mem_gb"]}
+    b["ok"] = (b["launches_ok"] and compare["ok"] and fsdp["distributed"]
+               and len(fsdp["losses"]) == DIST_CLIPA_STEPS
+               and all(math.isfinite(v) for v in fsdp["losses"]))
+    c = dict(gloo, batch_per_rank=DIST_GLOO_BATCH)
+    c["ok"] = gloo["ok"] and gloo["backend"] == "gloo" \
+        and gloo["launches"] == per_step
+    result = {"phase": "dist", "card": card,
+              "a_ddp_world1_vs_launcher_free": a,
+              "b_fsdp_world1_clipa": b, "c_two_ranks_gloo": c,
+              "ok": a["ok"] and b["ok"] and c["ok"]}
+    _emit(result)
+    shutil.rmtree(d, ignore_errors=True)
+    if not result["ok"]:
+        raise AssertionError(f"dist phase failed its checks: {result}")
+    return {"dist_ddp": ddp["launches"], "dist_fsdp": fsdp["launches"],
+            "dist_gloo2": gloo["launches"]}
+
+
 def _ptxas_report(built: dict) -> dict:
     """{kernel entry: [registers, spill store bytes, spill load bytes]} from
     nvcc's -Xptxas -v report of one library (its .log beside it)."""
@@ -5189,10 +5577,17 @@ def main(argv=()) -> int:
     ap.add_argument("--zoo-batch-probe", action="store_true",
                     help="run only the build and the search for the zoo "
                          "trainers' largest batch that fits")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="run only the build, the kernel rows and the dist "
+                         "phase, with the CLIPA model at full depth")
+    ap.add_argument("--dist-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)  # a process of the dist phase
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     from xtagclip_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5229,9 +5624,11 @@ def main(argv=()) -> int:
 
     entries = timed("kernels", phase_kernels, card)
     if args.coca_only or args.siglip_only or args.zoo_only or \
-            args.pretrained_only:
+            args.pretrained_only or args.dist_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
-            if args.coca_only:
+            if args.dist_only:
+                paths = timed("dist", phase_dist, card, tmp, full_depth=True)
+            elif args.coca_only:
                 paths = timed("coca_train", phase_coca_train, card, tmp,
                               profile=args.profile)
                 paths.update(timed("coca", phase_coca, card,
@@ -5293,6 +5690,7 @@ def main(argv=()) -> int:
         paths.update(timed("distill", phase_distill, card, tmp))
         paths.update(timed("zoo", phase_zoo, card, tmp))
         paths.update(timed("pretrained", phase_pretrained, card, tmp))
+        paths.update(timed("dist", phase_dist, card, tmp))
     if args.profile:
         phase_profile(card, b32["label"], model, ptable, serve_one,
                       train_one)

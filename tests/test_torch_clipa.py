@@ -441,13 +441,15 @@ def _queue1_items():
 def test_unported_messages_name_existing_roadmap_items():
     args = parse_args(["--siglip", "--distill-model", "RN50", "--fsdp",
                        "--remote-sync", "s3://x", "--pretrained",
-                       "laion2b_s32b_b79k", "--model", "coca_ViT-B-32"])
+                       "laion2b_s32b_b79k", "--model", "coca_ViT-B-32",
+                       "--model-parallel", "2"])
     messages = unported(args)
     # --model coca_* (CoCa's slice), --siglip and --distill-model (SigLIP's
     # and distillation's), --remote-sync and named --pretrained tags
-    # (item 9's slice) are ported: only --fsdp is left, item 7's
-    assert len(messages) == 1 and messages[0].startswith("--fsdp")
-    assert "Queue 1 item 7" in messages[0]
+    # (item 9's slice) and --fsdp (item 7's) are ported: only
+    # --model-parallel is left, item 10's
+    assert len(messages) == 1 and messages[0].startswith("--model-parallel")
+    assert "Queue 1 item 10" in messages[0]
     items = _queue1_items()
     for msg in messages:
         named = [int(n) for n in re.findall(r"Queue 1 item (\d+)", msg)]
@@ -650,7 +652,7 @@ def test_evaluate_metrics_match_jax_cli(cl32, tmp_path, cli_logging,
         np.testing.assert_allclose(port[key], value, **TOL, err_msg=key)
 
 
-# -- (i) a multi-process launch is refused (ROADMAP Queue 3's closed fault) ---
+# -- (i) a multi-process launch joins the process group ---------------------
 
 WORLD_VARS = ("WORLD_SIZE", "PMI_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")
 LAUNCH_VARS = WORLD_VARS + (
@@ -679,39 +681,42 @@ def _stop_at_model(monkeypatch):
         monkeypatch.setattr(module, "create_model_and_transforms", stop)
 
 
+RANK_OF = {"WORLD_SIZE": "RANK", "PMI_SIZE": "PMI_RANK",
+           "SLURM_NTASKS": "SLURM_PROCID",
+           "OMPI_COMM_WORLD_SIZE": "OMPI_COMM_WORLD_RANK"}
+
+
 @pytest.mark.parametrize("cli", ["main", "main_other", "main_other_simple"])
 @pytest.mark.parametrize("var", WORLD_VARS)
-def test_multi_process_launch_raises_before_the_model(clean_launch_env,
+def test_multi_process_launch_joins_the_process_group(clean_launch_env,
                                                       tmp_path, cli, var):
     """WORLD_SIZE (or PMI_SIZE, SLURM_NTASKS, OMPI_COMM_WORLD_SIZE) = 2
-    makes every train CLI raise, naming Queue 1 item 7, before any model
-    is built; at 1 the CLI goes on to build its model."""
+    with that family's rank makes every train CLI join the process group
+    (gloo on the CPU, the coordinator's init method, the family's rank and
+    world size) before it builds its model."""
     from xtagclip_tpu_torch.cli import main_other_simple
+    from xtagclip_tpu_torch.core import mesh
 
     entry = {"main": port_main.main, "main_other": main_other.main,
              "main_other_simple": main_other_simple.main}[cli]
     _stop_at_model(clean_launch_env)
+    calls = []
+    clean_launch_env.setattr(mesh.dist, "init_process_group",
+                             lambda *a, **k: calls.append((a, k)))
     argv = ["--model", "ViT-B-32", "--dataset-type", "synthetic",
             "--train-num-samples", "8", "--batch-size", "4", "--device",
             "cpu", "--logs", str(tmp_path), "--name", "run"]
     clean_launch_env.setenv(var, "2")
-    with pytest.raises(NotImplementedError,
-                       match=rf"{var}=2 \(Queue 1 item 7: multi-process\)"):
-        entry(argv)
-    assert not (tmp_path / "run").exists()
-    clean_launch_env.setenv(var, "1")
+    clean_launch_env.setenv(RANK_OF[var], "1")
+    clean_launch_env.setenv("MASTER_ADDR", "10.0.0.1")
+    clean_launch_env.setenv("MASTER_PORT", "1357")
     with pytest.raises(_Built):
         entry(argv)
-
-
-def test_world_size_message_names_an_existing_roadmap_item(clean_launch_env):
-    clean_launch_env.setenv("SLURM_NTASKS", "8")
-    clean_launch_env.setenv("WORLD_SIZE", "4")  # torchrun's wins, as in JAX
-    messages = unported(parse_args(["--model", "ViT-B-32"]))
-    assert messages == ["WORLD_SIZE=4 (Queue 1 item 7: multi-process)"]
-    assert 7 in _queue1_items()
-    clean_launch_env.setenv("WORLD_SIZE", "1")
-    assert unported(parse_args(["--model", "ViT-B-32"])) == []
+    assert len(calls) == 1
+    args, kwargs = calls[0]
+    assert args == ("gloo",)
+    assert kwargs["init_method"] == "tcp://10.0.0.1:1357"
+    assert (kwargs["rank"], kwargs["world_size"]) == (1, 2)
 
 
 @pytest.mark.parametrize("family", [

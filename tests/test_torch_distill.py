@@ -126,8 +126,9 @@ def test_distill_clip_loss_matches_jax():
                                    rtol=1e-5, err_msg=k)
     assert torch.equal(pair[0], out["contrastive_loss"])
     assert torch.equal(pair[1], out["distill_loss"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        DistillClipLoss(world_size=2)
+    # across ranks the features are gathered (tests/test_torch_dist.py)
+    gathered = DistillClipLoss(world_size=2, rank=1)
+    assert (gathered.world_size, gathered.rank) == (2, 1)
 
 
 # -- the step with a teacher ----------------------------------------------------

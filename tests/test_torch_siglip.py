@@ -150,8 +150,9 @@ def test_siglip_loss_surface_is_the_local_loss():
     assert SigLipLoss().dist_impl == "bidir"
     with pytest.raises(ValueError, match="dist_impl"):
         SigLipLoss(dist_impl="ring")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        SigLipLoss(world_size=2)
+    # across ranks the ring runs (tests/test_torch_siglip_ring.py)
+    ring = SigLipLoss(world_size=2, rank=1)
+    assert (ring.world_size, ring.rank) == (2, 1)
 
 
 def test_create_loss_picks_siglip_in_jax_order():

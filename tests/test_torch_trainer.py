@@ -459,15 +459,16 @@ def test_main_other_eval_only_save_embed(e2e, scar_root, tmp_path,
 ])
 def test_main_other_unported_flags_raise(flags, match, tmp_path,
                                         cli_logging):
-    """``--fsdp`` (ROADMAP Queue 1 item 7) still raises before the model.
-    The other three were ported with item 9: ``unported`` passes them
-    (--remote-sync is held in tests/test_torch_file_utils.py, named
-    --pretrained tags in tests/test_torch_pretrained.py, a named
-    --distill-pretrained tag in tests/test_torch_distill.py)."""
+    """All four are ported: ``unported`` passes them (--remote-sync is
+    held in tests/test_torch_file_utils.py, named --pretrained tags in
+    tests/test_torch_pretrained.py, a named --distill-pretrained tag in
+    tests/test_torch_distill.py, --fsdp in tests/test_torch_fsdp.py).
+    Beside --fsdp, ``--model-parallel 2`` (ROADMAP Queue 1 item 10) still
+    raises before the model."""
     argv = ["--model", "ViT-B-32", "--device", "cpu", "--logs",
             str(tmp_path), "--name", "x", *flags]
+    assert unported(parse_args(argv)) == []
     if match != "fsdp":
-        assert unported(parse_args(argv)) == []
         return
-    with pytest.raises(NotImplementedError, match=match):
-        main_other.main(argv)
+    with pytest.raises(NotImplementedError, match="model-parallel"):
+        main_other.main(argv + ["--model-parallel", "2"])

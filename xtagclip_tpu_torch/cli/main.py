@@ -33,22 +33,35 @@ accumulation step, which refuses CoCa as JAX's does and drops the
 distillation with JAX's warning) -> per epoch: ``train_one_epoch``,
 ``evaluate`` (train/evaluate.py) and the epoch checkpoint.
 
-One process: ``--local-loss``, ``--gather-with-grad`` and
-``--loss-dist-impl`` change nothing; flags whose branches are not ported
+Under a launcher (``torchrun --nproc_per_node N -m
+xtagclip_tpu_torch.cli.main ...``) the run is data-parallel across the
+ranks as cli/main_other.py describes: DDP, or FSDP2 with ``--fsdp`` (the
+teacher sharded too, without gradients), ``--local-loss`` and
+``--loss-dist-impl`` choose how the contrastive terms span the ranks,
+and ``--gather-with-grad`` changes nothing (the gathers always carry
+their gradient, as JAX's). Flags whose branches are not ported
 (train/params.py ``unported``) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
 import time
-from datetime import datetime
 
 import torch
+import torch.distributed as dist
 
-from xtagclip_tpu_torch.cli.main_other import PRECISION
+from xtagclip_tpu_torch.cli.main_other import (
+    PRECISION,
+    build_train_state,
+    resolve_resume,
+    start_run,
+    step_config,
+)
+from xtagclip_tpu_torch.core.mesh import init_distributed, is_master
 from xtagclip_tpu_torch.data.registry import get_data
 from xtagclip_tpu_torch.factory import (
     cast_for_compute,
@@ -56,23 +69,13 @@ from xtagclip_tpu_torch.factory import (
     get_cast_dtype,
     get_tokenizer,
 )
-from xtagclip_tpu_torch.train.checkpoint import (
-    CheckpointManager,
-    find_latest_checkpoint,
-    restore_train_state,
-    state_tree,
-)
+from xtagclip_tpu_torch.parallel.sharding import fully_shard_model, unsharded
+from xtagclip_tpu_torch.train.checkpoint import CheckpointManager, state_tree
 from xtagclip_tpu_torch.train.evaluate import evaluate
 from xtagclip_tpu_torch.train.file_utils import remote_sync_running
-from xtagclip_tpu_torch.train.logger import setup_logging
 from xtagclip_tpu_torch.train.loop import make_accum_train_step, make_train_step
 from xtagclip_tpu_torch.train.params import parse_args, unported
 from xtagclip_tpu_torch.train.scheduler import create_scheduler
-from xtagclip_tpu_torch.train.train_state import (
-    create_train_state,
-    make_optimizer,
-    trainable_mask,
-)
 from xtagclip_tpu_torch.train.trainer import train_one_epoch
 
 
@@ -116,6 +119,8 @@ def _teacher(args, force_size):
     dtype = get_cast_dtype(PRECISION[args.precision])
     if dtype != torch.float32:
         cast_for_compute(teacher, dtype)
+    if args.fsdp and dist.is_initialized():  # JAX cli/main.py:193-196
+        fully_shard_model(teacher, requires_grad=False)
     return teacher
 
 
@@ -135,24 +140,16 @@ def main(argv=None):
     if args.precision not in PRECISION:
         raise NotImplementedError(
             f"--precision {args.precision} is not ported yet")
-
-    if args.name is None:
-        args.name = "-".join([
-            datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
-            f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
-            f"b_{args.batch_size}", f"p_{args.precision}"])
-    log_base_path = os.path.join(args.logs, args.name)
-    os.makedirs(log_base_path, exist_ok=True)
-    args.log_path = os.path.join(log_base_path, "out.log")
-    setup_logging(args.log_path, logging.DEBUG if args.debug else logging.INFO)
-    args.checkpoint_path = os.path.join(log_base_path, "checkpoints")
-    os.makedirs(args.checkpoint_path, exist_ok=True)
-    if args.copy_codebase:
+    init_distributed(args)
+    log_base_path = start_run(args)
+    if args.copy_codebase and is_master(args):
         from xtagclip_tpu_torch.train.file_utils import copy_codebase
 
         logging.info("copied codebase to %s", copy_codebase(args))
-    tb_writer = _sinks(args, log_base_path)
-    with remote_sync_running(args, log_base_path):
+    tb_writer = _sinks(args, log_base_path) if is_master(args) else None
+    sync = remote_sync_running(args, log_base_path) if is_master(args) \
+        else contextlib.nullcontext()
+    with sync:
         return _run(args, tb_writer)
 
 
@@ -173,13 +170,14 @@ def _run(args, tb_writer):
         image_mean=args.image_mean, image_std=args.image_std,
         image_interpolation=args.image_interpolation,
         image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
-        cache_dir=args.cache_dir, **model_kwargs)
+        cache_dir=args.cache_dir, use_bn_sync=args.use_bn_sync,
+        **model_kwargs)
     tokenizer = get_tokenizer(args.model)
     logging.info("Model %s: %.2fM params on %s", args.model,
                  sum(p.numel() for p in model.parameters()) / 1e6,
                  args.device)
 
-    if args.torchscript or args.trace:
+    if (args.torchscript or args.trace) and is_master(args):
         # the reference's trace_model (training.main:226): the serving
         # artifact, one torch.export program per entry
         from xtagclip_tpu_torch.convert.serving import save_serving
@@ -190,9 +188,7 @@ def _run(args, tb_writer):
             f"{k}={v['bytes'] / 1e6:.1f}MB"
             for k, v in manifest["entries"].items()))
 
-    if args.resume == "latest":
-        tag = find_latest_checkpoint(args.checkpoint_path)
-        args.resume = os.path.join(args.checkpoint_path, tag) if tag else None
+    resolve_resume(args)
 
     data = get_data(args, (preprocess_train, preprocess_val), epoch=0,
                     tokenizer=tokenizer)
@@ -203,32 +199,7 @@ def _run(args, tb_writer):
 
     steps_per_epoch = len(data["train"].dataloader)
     schedule = create_scheduler(args, steps_per_epoch * args.epochs)
-    named = dict(model.named_parameters())
-    mask = trainable_mask(
-        named, lock_image=args.lock_image,
-        lock_image_unlocked_groups=args.lock_image_unlocked_groups,
-        lock_text=args.lock_text,
-        lock_text_unlocked_layers=args.lock_text_unlocked_layers,
-        lock_text_freeze_layer_norm=args.lock_text_freeze_layer_norm)
-    tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
-                        eps=args.eps, weight_decay=args.wd,
-                        grad_clip_norm=args.grad_clip_norm, params=named,
-                        train_mask=mask, opt=args.opt,
-                        momentum=args.momentum)
-    state = create_train_state(model, tx)
-
-    start_epoch = 0
-    if args.resume:
-        if os.path.isdir(args.resume):
-            start_epoch = restore_train_state(
-                os.path.dirname(args.resume), os.path.basename(args.resume),
-                state) + 1
-            logging.info("resumed full state from %s (epoch %d)",
-                         args.resume, start_epoch)
-        else:
-            from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
-
-            load_checkpoint_into(model, args.resume)
+    state, start_epoch = build_train_state(model, args, schedule)
 
     teacher = None
     if args.distill_model:
@@ -237,12 +208,11 @@ def _run(args, tb_writer):
                      sum(p.numel() for p in teacher.parameters()) / 1e6)
 
     args_cfg = {
+        **step_config(args),
         "siglip": args.siglip, "use_tagging_loss": False,
         "lock_image_freeze_bn_stats": bool(
             args.lock_image and args.lock_image_freeze_bn_stats),
     }
-    if args.loss_dist_impl:
-        args_cfg["siglip_dist_impl"] = args.loss_dist_impl
     if "coca" in args.model.lower():
         args_cfg.update(
             coca=True,
@@ -260,8 +230,10 @@ def _run(args, tb_writer):
     ckpt_mgr = CheckpointManager(
         args.checkpoint_path, save_frequency=args.save_frequency,
         save_most_recent=args.save_most_recent,
-        delete_previous=args.delete_previous_checkpoint)
-    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+        delete_previous=args.delete_previous_checkpoint,
+        write=is_master(args))
+    generator = torch.Generator(device=args.device).manual_seed(
+        args.seed + args.rank)
     history = []
     for epoch in range(start_epoch, args.epochs):
         logging.info("Start epoch %d", epoch)
@@ -270,8 +242,9 @@ def _run(args, tb_writer):
             generator=generator, train_key="train")
         completed = epoch + 1
         t0 = time.perf_counter()
-        eval_metrics = evaluate(model, data, completed, args, tokenizer,
-                                tb_writer)
+        with unsharded(model):
+            eval_metrics = evaluate(model, data, completed, args, tokenizer,
+                                    tb_writer)
         eval_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ckpt_mgr.save_epoch(completed, state_tree(state, epoch))

@@ -15,12 +15,23 @@ four-way best checkpoints -> a final 'last' save. Without train data it
 evaluates once and returns the metrics.
 
 Images cross to the card as uint8 and are normalized there (the CUDA
-kernel of ops/preprocess.py). One process: flags whose branches are not
-ported (train/params.py ``unported``) raise NotImplementedError.
+kernel of ops/preprocess.py). Flags whose branches are not ported
+(train/params.py ``unported``) raise NotImplementedError.
+
+Under a launcher (``torchrun --nproc_per_node N -m
+xtagclip_tpu_torch.cli.main_other ...``, or any family core/mesh.py
+reads) each process joins the process group (NCCL on the card, one rank
+per GPU; gloo on the CPU), trains on its share of the train split, and
+steps through DDP, or FSDP2 with ``--fsdp`` (parallel/sharding.py). Rank
+0 names the run, writes params.txt, out.log (every rank its
+``out-{rank}`` with ``--log-local``), the checkpoints and the eval
+artifacts, and resolves ``--resume latest`` for every rank; every rank
+evaluates the whole val split, as in JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -31,11 +42,17 @@ from datetime import datetime
 import numpy as np
 import torch
 
+from xtagclip_tpu_torch.core.mesh import (
+    broadcast_object,
+    init_distributed,
+    is_master,
+)
 from xtagclip_tpu_torch.data.registry import get_data, get_data_other
 from xtagclip_tpu_torch.factory import (
     create_model_and_transforms,
     get_tokenizer,
 )
+from xtagclip_tpu_torch.parallel.sharding import unsharded, wrap_model
 from xtagclip_tpu_torch.tokenize.prompts import PromptTable
 from xtagclip_tpu_torch.train import metadata
 from xtagclip_tpu_torch.train.checkpoint import (
@@ -72,33 +89,93 @@ def main(argv=None):
     missing = unported(args)
     if missing:
         raise NotImplementedError(f"not ported yet: {'; '.join(missing)}")
-
-    if args.name is None:
-        args.name = "-".join([
-            datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
-            f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
-            f"b_{args.batch_size}", f"p_{args.precision}"])
-    log_base_path = os.path.join(args.logs, args.name)
-    os.makedirs(log_base_path, exist_ok=True)
-    args.log_path = os.path.join(log_base_path, "out.log")
-    setup_logging(args.log_path, logging.DEBUG if args.debug else logging.INFO)
-    args.checkpoint_path = os.path.join(log_base_path, "checkpoints")
-    os.makedirs(args.checkpoint_path, exist_ok=True)
-    with open(os.path.join(log_base_path, "params.txt"), "w") as f:
-        for name in sorted(vars(args)):
-            f.write(f"{name}: {getattr(args, name)}\n")
-    if args.copy_codebase:
+    init_distributed(args)
+    log_base_path = start_run(args)
+    if is_master(args):
+        with open(os.path.join(log_base_path, "params.txt"), "w") as f:
+            for name in sorted(vars(args)):
+                f.write(f"{name}: {getattr(args, name)}\n")
+    if args.copy_codebase and is_master(args):
         from xtagclip_tpu_torch.train.file_utils import copy_codebase
 
         logging.info("copied codebase to %s", copy_codebase(args))
+    resolve_resume(args)
+    sync = remote_sync_running(args, log_base_path) if is_master(args) \
+        else contextlib.nullcontext()
+    with sync:
+        return _run(args)
 
+
+def start_run(args) -> str:
+    """Name the run (rank 0's name for every rank), set up logging (rank
+    0's out.log, or every rank's out-{rank} with --log-local) and make
+    the run's directories on rank 0; returns the run directory."""
+    if args.name is None:
+        args.name = broadcast_object("-".join([
+            datetime.now().strftime("%Y_%m_%d-%H_%M_%S"),
+            f"model_{args.model.replace('/', '-')}", f"lr_{args.lr}",
+            f"b_{args.batch_size}", f"p_{args.precision}"]))
+    log_base_path = os.path.join(args.logs, args.name)
+    args.log_path = None
+    if is_master(args) or args.log_local:
+        os.makedirs(log_base_path, exist_ok=True)
+        args.log_path = os.path.join(
+            log_base_path, f"out-{args.rank}" if args.log_local else "out.log")
+    setup_logging(args.log_path, logging.DEBUG if args.debug else logging.INFO)
+    args.checkpoint_path = os.path.join(log_base_path, "checkpoints")
+    if is_master(args):
+        os.makedirs(args.checkpoint_path, exist_ok=True)
+    return log_base_path
+
+
+def resolve_resume(args) -> None:
+    """``--resume latest`` -> rank 0's latest tag, sent to every rank."""
     if args.resume == "latest":
-        tag = find_latest_checkpoint(args.checkpoint_path)
+        tag = find_latest_checkpoint(args.checkpoint_path) \
+            if is_master(args) else None
+        tag = broadcast_object(tag)
         args.resume = os.path.join(args.checkpoint_path, tag) if tag else None
         logging.info("resume latest -> %s", args.resume)
 
-    with remote_sync_running(args, log_base_path):
-        return _run(args)
+
+def build_train_state(model, args, schedule):
+    """The train state of ``model``: a ``--resume`` file's weights, the
+    wrap across ranks (DDP or FSDP), the tower locks and the optimizer,
+    then a ``--resume`` checkpoint tag's whole state. Returns (state,
+    first epoch)."""
+    if args.resume and not os.path.isdir(args.resume):
+        from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
+
+        load_checkpoint_into(model, args.resume)
+    ddp = wrap_model(model, args)
+    named = dict(model.named_parameters())
+    mask = trainable_mask(
+        named, lock_image=args.lock_image,
+        lock_image_unlocked_groups=args.lock_image_unlocked_groups,
+        lock_text=args.lock_text,
+        lock_text_unlocked_layers=args.lock_text_unlocked_layers,
+        lock_text_freeze_layer_norm=args.lock_text_freeze_layer_norm)
+    tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
+                        eps=args.eps, weight_decay=args.wd,
+                        grad_clip_norm=args.grad_clip_norm, params=named,
+                        train_mask=mask, opt=args.opt,
+                        momentum=args.momentum)
+    state = create_train_state(model, tx, ddp)
+    start_epoch = 0
+    if args.resume and os.path.isdir(args.resume):
+        start_epoch = restore_train_state(
+            os.path.dirname(args.resume), os.path.basename(args.resume),
+            state) + 1
+        logging.info("resumed full state from %s (epoch %d)", args.resume,
+                     start_epoch)
+    return state, start_epoch
+
+
+def step_config(args) -> dict:
+    """The step's view of the ranks (train/loop.py)."""
+    return {"world_size": args.world_size, "rank": args.rank,
+            "local_loss": args.local_loss,
+            "siglip_dist_impl": args.loss_dist_impl or "shift"}
 
 
 def _run(args):
@@ -128,7 +205,8 @@ def _run(args):
         image_mean=args.image_mean, image_std=args.image_std,
         image_interpolation=args.image_interpolation,
         image_resize_mode=args.image_resize_mode, aug_cfg=args.aug_cfg,
-        cache_dir=args.cache_dir, **model_kwargs)
+        cache_dir=args.cache_dir, use_bn_sync=args.use_bn_sync,
+        **model_kwargs)
     tokenizer = get_tokenizer(args.model)
 
     if args.load_tagging_only and args.resume:
@@ -167,34 +245,10 @@ def _run(args):
 
     steps_per_epoch = len(data[train_key].dataloader) if train_key else 0
     schedule = create_scheduler(args, max(steps_per_epoch * args.epochs, 1))
-    named = dict(model.named_parameters())
-    mask = trainable_mask(
-        named, lock_image=args.lock_image,
-        lock_image_unlocked_groups=args.lock_image_unlocked_groups,
-        lock_text=args.lock_text,
-        lock_text_unlocked_layers=args.lock_text_unlocked_layers,
-        lock_text_freeze_layer_norm=args.lock_text_freeze_layer_norm)
-    tx = make_optimizer(schedule, beta1=args.beta1, beta2=args.beta2,
-                        eps=args.eps, weight_decay=args.wd,
-                        grad_clip_norm=args.grad_clip_norm, params=named,
-                        train_mask=mask, opt=args.opt,
-                        momentum=args.momentum)
-    state = create_train_state(model, tx)
-
-    start_epoch = 0
-    if args.resume:
-        if os.path.isdir(args.resume):
-            start_epoch = restore_train_state(
-                os.path.dirname(args.resume), os.path.basename(args.resume),
-                state) + 1
-            logging.info("resumed full state from %s (epoch %d)",
-                         args.resume, start_epoch)
-        else:
-            from xtagclip_tpu_torch.convert.loader import load_checkpoint_into
-
-            load_checkpoint_into(model, args.resume)
+    state, start_epoch = build_train_state(model, args, schedule)
 
     args_cfg = {
+        **step_config(args),
         "siglip": args.siglip,
         "use_tagging_loss": args.use_tagging,
         # the reference main builds ASL with its defaults (main_other.py:553)
@@ -211,14 +265,17 @@ def _run(args):
     ckpt_mgr = CheckpointManager(
         args.checkpoint_path, save_frequency=args.save_frequency,
         save_most_recent=True, delete_previous=args.delete_previous_checkpoint,
-        save_best=args.save_best)
+        save_best=args.save_best, write=is_master(args))
 
     if train_key is None:  # eval-only (reference main_other.py:561-568)
-        metrics = zero_shot_eval(model, data, 0, args, tokenizer)
+        with unsharded(model):
+            metrics = zero_shot_eval(model, data, 0, args, tokenizer)
         logging.info("eval: %s", json.dumps(metrics, default=float))
         return metrics
 
-    generator = torch.Generator(device=args.device).manual_seed(args.seed)
+    # each rank draws its own dropout masks; rank 0's are one process's
+    generator = torch.Generator(device=args.device).manual_seed(
+        args.seed + args.rank)
     history = []
     last_tree = None
     for epoch in range(start_epoch, args.epochs):
@@ -233,13 +290,14 @@ def _run(args):
         zs_every = args.zeroshot_frequency or args.val_frequency
         if (completed % max(zs_every, 1) == 0) or completed == args.epochs:
             t0 = time.perf_counter()
-            eval_metrics = zero_shot_eval(model, data, completed, args,
-                                          tokenizer)
-            # the train-split validation pass (reference
-            # train_other.py:290-496): its top1 is the live train_top1
-            if args.use_tagging and train_key == "scar_train":
-                eval_metrics.update(train_data_eval(model, data, args,
-                                                    tokenizer))
+            with unsharded(model):
+                eval_metrics = zero_shot_eval(model, data, completed, args,
+                                              tokenizer)
+                # the train-split validation pass (reference
+                # train_other.py:290-496): its top1 is the live train_top1
+                if args.use_tagging and train_key == "scar_train":
+                    eval_metrics.update(train_data_eval(model, data, args,
+                                                        tokenizer))
             eval_s = time.perf_counter() - t0
             logging.info("Eval epoch %d: %s", completed,
                          json.dumps(eval_metrics, default=float))

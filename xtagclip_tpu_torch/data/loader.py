@@ -4,9 +4,12 @@ The host pipeline keeps N worker threads decoding and cropping (PIL
 releases the GIL in decode and resize) and collates numpy batches; the
 per-epoch order is the JAX loader's (numpy ``default_rng(seed + epoch)``
 permutation, the reference's DistributedSampler + SharedEpoch contract,
-data.py:50-58). ``device_prefetch`` then copies each batch to the card
-from pinned host memory, asynchronously on the current stream, while the
-previous step runs.
+data.py:50-58), and a train loader of rank r of W takes
+``idx[r::W]`` of it, padded to a multiple of W with the permutation's
+head, as the reference's DistributedSampler does (JAX loader.py:50-95).
+``device_prefetch`` then copies each batch to the card from pinned host
+memory, asynchronously on the current stream, while the previous step
+runs.
 """
 
 from __future__ import annotations
@@ -45,15 +48,19 @@ class DataLoader:
     PREFETCH = 4  # collated batches queued ahead of the consumer
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 drop_last: bool = False, num_workers: int = 8, seed: int = 0):
+                 drop_last: bool = False, num_workers: int = 8, seed: int = 0,
+                 rank: int = 0, world_size: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.rank = rank
+        self.world_size = world_size
         self._epoch = 0
-        n = len(dataset)
+        # a rank's share is ceil(n / W): the split pads (module doc)
+        n = -(-len(dataset) // world_size)
         if drop_last:
             self.num_batches = n // batch_size
         else:
@@ -69,6 +76,10 @@ class DataLoader:
             idx = np.random.default_rng(self.seed + self._epoch).permutation(n)
         else:
             idx = np.arange(n)
+        if self.world_size > 1:
+            total = -(-n // self.world_size) * self.world_size
+            idx = np.concatenate([idx, idx[:total - n]])
+            idx = idx[self.rank::self.world_size]
         if self.drop_last:
             idx = idx[: (len(idx) // self.batch_size) * self.batch_size]
         return idx

@@ -2,8 +2,10 @@
 xtagclip_tpu/data/registry.py; reference open_clip_train/data.py:526-564
 and others/data_other.py:93-115).
 
-One process: the loaders shard nothing (multi-process training is ROADMAP
-Queue 1 item 7, and the train CLIs refuse a launcher world size above 1).
+The train split is divided among the ranks (``args.rank`` of
+``args.world_size``, set by core/mesh.py ``init_distributed``: each rank
+reads ``idx[rank::world]`` of the epoch's order); the val and eval
+splits are read whole by every rank, as in JAX (registry.py:25-35).
 ``--dataset-type webdataset`` (or ``auto`` on a ``.tar``) reads tar shards
 (data/wds.py).
 """
@@ -25,7 +27,9 @@ def _loader(dataset, args, is_train: bool) -> DataInfo:
     return DataInfo(dataloader=DataLoader(
         dataset, batch_size=args.batch_size, shuffle=is_train,
         drop_last=is_train, num_workers=getattr(args, "workers", 8),
-        seed=getattr(args, "seed", 0)))
+        seed=getattr(args, "seed", 0),
+        rank=getattr(args, "rank", 0) if is_train else 0,
+        world_size=getattr(args, "world_size", 1) if is_train else 1))
 
 
 def get_csv_dataset(args, preprocess_fn, is_train, epoch=0, tokenizer=None):

@@ -69,6 +69,7 @@ from xtagclip_tpu_torch.models.clip import CLIP
 from xtagclip_tpu_torch.models.coca import CoCa, MultimodalTransformer
 from xtagclip_tpu_torch.models.hf_text import HFTextEncoder
 from xtagclip_tpu_torch.models.layers import (
+    BatchNorm,
     Dense,
     LayerNorm,
     ResidualAttentionBlock,
@@ -315,7 +316,7 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
                  use_fusion: bool = False, init_seed: int = 0,
                  grad_checkpointing: bool = False,
                  force_patch_dropout=None, skip_init: bool = False,
-                 cache_dir: Optional[str] = None,
+                 cache_dir: Optional[str] = None, use_bn_sync: bool = False,
                  **model_kwargs) -> CLIP:
     """Build a CLIP/XTag model with seeded random init on ``device``, then
     load ``pretrained`` if given (``load_pretrained``: a registry tag such
@@ -327,7 +328,10 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     ``remat``); ``force_patch_dropout`` overrides the vision config's
     ``patch_dropout`` (JAX's CLI passes it as a vision_cfg override);
     ``skip_init`` leaves the parameters uninitialized (JAX's, for a build
-    whose weights come next, or on the ``meta`` device)."""
+    whose weights come next, or on the ``meta`` device).
+    ``use_bn_sync`` marks a ModifiedResNet tower's BatchNorms ``sync``,
+    as JAX gives them ``bn_axis_name`` (factory.py:327); their statistics
+    span every rank either way (models/layers.py ``BatchNorm``)."""
     if get_cast_dtype(precision) == torch.float16 and \
             torch.device(device).type == "cuda":
         raise NotImplementedError(
@@ -362,6 +366,10 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     with dev:
         visual = _vision_tower(cfg["embed_dim"], cfg["vision_cfg"], act,
                                dtype, grad_checkpointing)
+        if use_bn_sync and isinstance(visual, ModifiedResNet):
+            for m in visual.modules():
+                if isinstance(m, BatchNorm):
+                    m.sync = True
         text = _text_tower(cfg["embed_dim"], cfg["text_cfg"], act, dtype,
                            grad_checkpointing)
         common = dict(init_logit_scale=cfg.get("init_logit_scale",

@@ -140,7 +140,8 @@ class CLIP(nn.Module):
     # ---- full forward ----------------------------------------------------
     def forward(self, image, text=None, prompt_table=None, class_ids=None,
                 template_id: int = 0, deterministic: bool = True,
-                generator=None, visual_deterministic: bool = False):
+                generator=None, visual_deterministic: bool = False,
+                gather_queries=None):
         """prompt_table: [T, C, K, ctx] token ids; class_ids: [B].
 
         ``deterministic=False`` turns on the tag head's, TQN's and an HF
@@ -150,7 +151,13 @@ class CLIP(nn.Module):
         turns a ResNet tower's BatchNorms to batch statistics (their running
         ones move). ``visual_deterministic=True`` runs the vision tower
         alone in eval mode (``--lock-image-freeze-bn-stats``, JAX's
-        clip.py:245-254)."""
+        clip.py:245-254).
+
+        ``gather_queries`` (the train step at world size > 1:
+        parallel/collectives.py ``gather_rows``) gives the fusion head the
+        pooled features of every rank's batch as its queries, so that
+        ``i2t_cls`` and ``t2i_cls`` are this rank's rows of JAX's [B, B]
+        matrices over the global batch (JAX clip.py:291-303)."""
         if deterministic:
             generator = None
         elif generator is None:
@@ -195,12 +202,13 @@ class CLIP(nn.Module):
         if self.use_fusion and text_features is not None:
             text_g = text_tokens.mean(dim=1)
             image_g = image_tokens.mean(dim=1)
+            gather = gather_queries or (lambda x: x)
             i2t = self.fusion_model(
-                torch.cat([image_g[:, None], image_tokens], dim=1), text_g,
-                generator)[..., 0]
+                torch.cat([image_g[:, None], image_tokens], dim=1),
+                gather(text_g), generator)[..., 0]
             t2i = self.fusion_model(
-                torch.cat([text_g[:, None], text_tokens], dim=1), image_g,
-                generator)[..., 0]
+                torch.cat([text_g[:, None], text_tokens], dim=1),
+                gather(image_g), generator)[..., 0]
             out.update(i2t_cls=i2t, t2i_cls=t2i, text_features_l=text_tokens,
                        text_features_g=text_g, image_features_l=image_tokens,
                        image_features_g=image_g)

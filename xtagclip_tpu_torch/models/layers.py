@@ -37,9 +37,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from xtagclip_tpu_torch.core.mesh import world_size
 from xtagclip_tpu_torch.ops import flash_attn
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
 from xtagclip_tpu_torch.ops import fused_mlp
+from xtagclip_tpu_torch.parallel.collectives import all_reduce_sum
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution has stddev sqrt(1 / fan_in)
@@ -167,12 +169,20 @@ class BatchNorm(nn.Module):
     where torch's BatchNorm2d takes the unbiased one (n / (n - 1) more).
     Without ``train`` it uses the running statistics. They are buffers
     named as flax's ``batch_stats`` leaves (``mean``, ``var``), so they
-    travel in ``state_dict`` and checkpoints. The output is in x's dtype."""
+    travel in ``state_dict`` and checkpoints. The output is in x's dtype.
 
-    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5):
+    At world size > 1 the batch statistics are those of every rank's
+    batch: the sums of x and x^2 and the count are all-reduced with their
+    gradient, as JAX's one program over the global batch takes them,
+    with or without ``--use-bn-sync`` (``sync`` records the flag, as
+    JAX's ``bn_axis_name`` does; ROADMAP Queue 3)."""
+
+    def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5,
+                 sync: bool = False):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.sync = sync
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
         self.register_buffer("mean", torch.zeros(dim))
@@ -186,10 +196,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         x32 = x.float()
-        if train:
+        if train and world_size() > 1:
+            n = torch.full((1,), x32.numel() // x32.shape[1],
+                           dtype=torch.float32, device=x.device)
+            sums = all_reduce_sum(torch.cat([
+                x32.sum(dim=(0, 2, 3)), x32.square().sum(dim=(0, 2, 3)), n]))
+            c = x32.shape[1]
+            mean = sums[:c] / sums[-1]
+            var = (sums[c:2 * c] / sums[-1] - mean.square()).clamp_min(0.0)
+        elif train:
             mean = x32.mean(dim=(0, 2, 3))
             var = (x32.square().mean(dim=(0, 2, 3))
                    - mean.square()).clamp_min(0.0)
+        if train:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

@@ -47,6 +47,7 @@ launcher itself, for the log-sum-exp its backward reads.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from xtagclip_tpu_torch.ops import cuda_build
 from xtagclip_tpu_torch.ops.fused_attn_block import (
@@ -241,3 +242,14 @@ class _FlashMHA(torch.autograd.Function):
         dq, dk, dv = flash_mha_bwd(q, k, v, o, lse, g.contiguous(),
                                    ctx.layout)
         return dq, dk, dv, None
+
+
+@register_flop_formula(torch.ops.xtagclip_tpu_torch.flash_mha)
+def _flash_mha_flops(q_shape, k_shape, v_shape, layout, *args,
+                     out_shape=None, **kwargs) -> int:
+    """QK^T and PV's FLOPs, as FlopCounterMode counts the plain
+    version's (the softmax is not counted)."""
+    b, lq, h, dh = q_shape if layout == "blhd" else (
+        q_shape[0], q_shape[2], q_shape[1], q_shape[3])
+    lk = k_shape[1] if layout == "blhd" else k_shape[2]
+    return 4 * b * h * lq * lk * dh

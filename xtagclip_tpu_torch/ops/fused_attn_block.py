@@ -45,11 +45,13 @@ autograd Functions call the launchers themselves, as before.
 
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from xtagclip_tpu_torch.ops import cuda_build
 
@@ -567,3 +569,21 @@ class _FusedMLPHalf(torch.autograd.Function):
             x, g, ln_scale, ln_bias, w1, b1, w2, ctx.act_name, ctx.eps)
         return (dx, dls.to(ln_scale.dtype), dlb.to(ln_bias.dtype), dw1,
                 db1.to(b1.dtype), dw2, db2.to(ctx.b2_dtype), None, None)
+
+
+# matmul FLOPs for torch.utils.flop_counter.FlopCounterMode, which sees a
+# custom op whole: the same count as the plain chain's matmuls (LayerNorm,
+# softmax and the activation are not counted there either)
+@register_flop_formula(torch.ops.xtagclip_tpu_torch.fused_attn_half)
+def _attn_half_flops(x_shape, ln_scale, ln_bias, wqkv_shape, *args,
+                     out_shape=None, **kwargs) -> int:
+    b, l, d = x_shape
+    return 2 * b * l * d * wqkv_shape[1] + 4 * b * l * l * d \
+        + 2 * b * l * d * d
+
+
+@register_flop_formula(torch.ops.xtagclip_tpu_torch.fused_mlp_half)
+def _mlp_half_flops(x_shape, ln_scale, ln_bias, w1_shape, *args,
+                    out_shape=None, **kwargs) -> int:
+    n = math.prod(x_shape[:-1])
+    return 4 * n * w1_shape[0] * w1_shape[1]

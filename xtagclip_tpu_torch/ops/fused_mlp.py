@@ -29,7 +29,10 @@ for ``torch.export``), as ops/fused_attn_block.py does for its halves.
 
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from xtagclip_tpu_torch.ops import cuda_build
 from xtagclip_tpu_torch.ops.fused_attn_block import (
@@ -175,3 +178,12 @@ class _FusedMLP(torch.autograd.Function):
         x, w1, b1, w2 = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = fused_mlp_bwd(x, g, w1, b1, w2, ctx.act)
         return (dx, dw1, db1.to(b1.dtype), dw2, db2.to(ctx.b2_dtype), None)
+
+
+@register_flop_formula(torch.ops.xtagclip_tpu_torch.fused_mlp)
+def _fused_mlp_flops(x_shape, w1_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    """The two matmuls' FLOPs, as FlopCounterMode counts the plain
+    version's (the activation is not counted)."""
+    n = math.prod(x_shape[:-1])
+    return 4 * n * w1_shape[0] * w1_shape[1]

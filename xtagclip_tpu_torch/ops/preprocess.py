@@ -31,6 +31,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from xtagclip_tpu_torch.ops import cuda_build
 from xtagclip_tpu_torch.ops.fused_attn_block import (
@@ -247,3 +248,10 @@ def pad_images_for_device(arrs, bucket: int = 64, max_side: int = 1024):
         out[i, : a.shape[0], : a.shape[1]] = a
         sizes[i] = (a.shape[0], a.shape[1])
     return out, sizes
+
+
+@register_flop_formula(torch.ops.xtagclip_tpu_torch.normalize_images)
+def _normalize_flops(*args, out_shape=None, **kwargs) -> int:
+    """No matmul: FlopCounterMode counts the plain version's elementwise
+    work as 0 too."""
+    return 0

@@ -10,6 +10,12 @@ counts), "step": update count}, "epoch": N}``. The update count is also
 the schedule's position. A save writes a temporary directory and renames
 it, so a crash never leaves a half-written tag. Reading the JAX package's
 orbax directories is not ported.
+
+Across ranks only rank 0 writes (``CheckpointManager(write=...)``, JAX's
+``is_master`` gates), and under FSDP the tree holds the whole model and
+optimizer state, gathered from every rank (``state_tree`` is a
+collective there), so a checkpoint of any world size resumes at any
+other, FSDP or not: every rank reads the file and keeps its piece.
 """
 
 from __future__ import annotations
@@ -22,14 +28,22 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from xtagclip_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    is_fsdp,
+    load_full_state_dict,
+    shard_optimizer_state,
+)
+
 BEST_KEYS = ("train_top1", "train_loss", "val_top1", "tag_acc")
 STATE_FILE = "state.pt"
 
 
 def state_tree(state, epoch: int) -> dict:
-    """What a checkpoint holds for ``state`` after ``epoch``."""
-    return {"state": {"model": state.model.state_dict(),
-                      "optimizer": state.tx.optimizer.state_dict(),
+    """What a checkpoint holds for ``state`` after ``epoch`` (every rank
+    calls it: module doc)."""
+    return {"state": {"model": full_state_dict(state.model),
+                      "optimizer": full_state_dict(state.tx.optimizer),
                       "step": state.step},
             "epoch": epoch}
 
@@ -57,8 +71,12 @@ def restore_train_state(ckpt_dir: str, tag: str, state) -> int:
     tree = torch.load(os.path.join(ckpt_dir, tag, STATE_FILE),
                       map_location="cpu", weights_only=True)
     saved = tree["state"]
-    state.model.load_state_dict(saved["model"])
-    state.tx.optimizer.load_state_dict(saved["optimizer"])
+    if is_fsdp(state.model):
+        load_full_state_dict(state.model, saved["model"])
+    else:
+        state.model.load_state_dict(saved["model"])
+    state.tx.optimizer.load_state_dict(
+        shard_optimizer_state(state.tx.optimizer, saved["optimizer"]))
     state.step = int(saved["step"])
     return int(tree["epoch"])
 
@@ -87,13 +105,18 @@ class CheckpointManager:
     """Epoch/latest/best checkpoint policy (reference main_other.py:580-644).
 
     Each distinct state is serialized once; the other tags of the same
-    state (epoch_latest, best_*, last) are hardlink clones of that save."""
+    state (epoch_latest, best_*, last) are hardlink clones of that save.
+    With ``write`` False (a rank other than 0) it keeps the best metrics
+    and writes nothing."""
 
     def __init__(self, ckpt_dir: str, save_frequency: int = 1,
                  save_most_recent: bool = True,
-                 delete_previous: bool = False, save_best: bool = False):
+                 delete_previous: bool = False, save_best: bool = False,
+                 write: bool = True):
         self.dir = ckpt_dir
-        os.makedirs(ckpt_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(ckpt_dir, exist_ok=True)
         self.save_frequency = save_frequency
         self.save_most_recent = save_most_recent
         self.delete_previous = delete_previous
@@ -104,6 +127,8 @@ class CheckpointManager:
 
     def _save_or_clone(self, tag: str, tree: Any) -> str:
         path = os.path.abspath(os.path.join(self.dir, tag))
+        if not self.write:
+            return path
         # id() alone can be reused after GC; epoch + step pin the content
         marker = (id(tree), tree.get("epoch"), tree["state"].get("step"))
         if self._last_saved is not None:
@@ -117,7 +142,7 @@ class CheckpointManager:
     def save_epoch(self, epoch: int, tree: Any):
         if self.save_frequency > 0 and (epoch % self.save_frequency) == 0:
             self._save_or_clone(f"epoch_{epoch}", tree)
-            if self.delete_previous:
+            if self.delete_previous and self.write:
                 prev = os.path.join(self.dir,
                                     f"epoch_{epoch - self.save_frequency}")
                 if os.path.isdir(prev):

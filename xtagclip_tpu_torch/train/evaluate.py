@@ -11,7 +11,9 @@ are exp(logit_scale) times their products; the per-batch loss is the mean
 of the two directions' cross-entropies, and ``clip_val_loss`` is its
 sample-weighted mean. The
 images cross to the device as uint8 and are normalized there with the
-model's ``--image-mean``/``--image-std`` (ops/preprocess.py).
+model's ``--image-mean``/``--image-std`` (ops/preprocess.py). Across
+ranks every rank evaluates the whole val split and rank 0 writes
+results.jsonl.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from xtagclip_tpu_torch.core.mesh import is_master
 from xtagclip_tpu_torch.data.loader import device_prefetch
 from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
@@ -88,7 +91,7 @@ def evaluate(model, data: Dict[str, Any], epoch: int, args, tokenizer=None,
         f"{k}: {round(v, 4) if isinstance(v, float) else v}"
         for k, v in metrics.items()))
     log_base = getattr(args, "checkpoint_path", None)
-    if log_base and getattr(args, "save_logs", True):
+    if log_base and getattr(args, "save_logs", True) and is_master(args):
         with open(os.path.join(os.path.dirname(log_base), "results.jsonl"),
                   "a") as f:
             f.write(json.dumps(metrics, default=float) + "\n")

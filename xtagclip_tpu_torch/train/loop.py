@@ -43,6 +43,21 @@ JAX's accumulation step cannot run a CoCa model: it calls the model with
 the XTag keywords (``prompt_table``, ``class_ids``, ``template_id``),
 which CoCa's ``__call__`` does not take, and raises TypeError at the
 first step. The port refuses CoCa there too, when the step is made.
+
+Across ranks (``args_cfg["world_size"]`` > 1, each rank stepping on its
+share of the global batch) JAX runs one program over the global batch;
+the port's step gives each rank a loss whose mean over the ranks is that
+program's loss, and DDP or FSDP (parallel/sharding.py) averages the
+gradients, so the update is the one-process update on the concatenated
+batch. The contrastive, SigLIP, distillation and caption terms gather
+across ranks (losses/), the fusion head's queries are every rank's pooled
+features and its [b, B] rows are gathered into the global [B, B]
+matrices before DQNCOS, and ASL, a sum over the batch, counts W times
+on each rank. The accumulation step caches every rank's features of
+each microbatch and reduces the gradients only in the last microbatch's
+backward. The returned metrics are the means over the ranks: the global
+values, as JAX's are. The step runs its forward through ``state.ddp``
+where DDP wraps it.
 """
 
 from __future__ import annotations
@@ -61,11 +76,51 @@ from xtagclip_tpu_torch.losses import (
     dqncos_loss,
     siglip_loss,
 )
+from xtagclip_tpu_torch.parallel.collectives import (
+    gather_rows,
+    gather_rows_no_grad,
+    mean_over_ranks,
+)
+from xtagclip_tpu_torch.parallel.sharding import grad_sync
 from xtagclip_tpu_torch.train.train_state import (
     TrainState,
     apply_gradients,
     optax_global_norm,
 )
+
+# metrics that are the same on every rank; the others are averaged
+_SHARED_METRICS = ("logit_scale", "grad_norm")
+
+
+def _ranks(args_cfg):
+    """(world size, rank, local_loss) of the step."""
+    return (int(args_cfg.get("world_size", 1)), int(args_cfg.get("rank", 0)),
+            bool(args_cfg.get("local_loss", False)))
+
+
+def _run(state: TrainState, fn):
+    """``fn(model)``, through DDP where it wraps the model."""
+    return state.ddp(fn) if state.ddp is not None else fn(state.model)
+
+
+def _global(metrics: Dict[str, torch.Tensor], world: int):
+    """The metrics averaged over the ranks (module doc)."""
+    if world == 1:
+        return metrics
+    keys = [k for k in metrics if k not in _SHARED_METRICS]
+    means = mean_over_ranks([metrics[k] for k in keys])
+    return {**metrics, **dict(zip(keys, means))}
+
+
+def _tag_loss(out, additional, args_cfg, world: int):
+    """ASL of the tag logits against the doubled tags: a sum over the
+    batch, counted ``world`` times on each rank (module doc)."""
+    tag_l = asymmetric_loss(
+        out["tag_logits"], additional.repeat(1, 2),
+        gamma_neg=args_cfg.get("asl_gamma_neg", 4),
+        gamma_pos=args_cfg.get("asl_gamma_pos", 1),
+        clip=args_cfg.get("asl_clip", 0.05))
+    return tag_l * world if world > 1 else tag_l
 
 
 def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
@@ -81,19 +136,23 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
     if args_cfg.get("coca"):
         return _coca_losses(model, batch, args_cfg, generator,
                             deterministic)
+    world, rank, local_loss = _ranks(args_cfg)
     out = model(batch["images"], text=batch.get("texts"),
                 prompt_table=prompt_table, class_ids=batch.get("class_ids"),
                 template_id=batch.get("template_id", 0),
                 deterministic=deterministic, generator=generator,
                 visual_deterministic=bool(args_cfg.get(
-                    "lock_image_freeze_bn_stats")))
+                    "lock_image_freeze_bn_stats")),
+                **({"gather_queries": gather_rows} if world > 1 else {}))
     logit_scale = out["logit_scale"]
     if args_cfg.get("siglip"):
-        contrastive = siglip_loss(out["image_features"], out["text_features"],
-                                  logit_scale, out.get("logit_bias"))
+        contrastive = siglip_loss(
+            out["image_features"], out["text_features"], logit_scale,
+            out.get("logit_bias"), args_cfg.get("siglip_dist_impl", "shift"),
+            world, rank)
     else:
         contrastive = clip_loss(out["image_features"], out["text_features"],
-                                logit_scale)
+                                logit_scale, local_loss, world, rank)
     metrics = {"contrastive_loss": contrastive, "logit_scale": logit_scale}
     total = contrastive
     if teacher is not None:
@@ -106,20 +165,20 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
                             deterministic=True)
         dist_l = distill_loss(out["image_features"], out["text_features"],
                               logit_scale, t_out["image_features"],
-                              t_out["text_features"], t_out["logit_scale"])
+                              t_out["text_features"], t_out["logit_scale"],
+                              local_loss, world, rank)
         metrics["distill_loss"] = dist_l
         total = total + dist_l
     if args_cfg.get("use_tagging_loss", True) and "additional" in batch:
-        target = batch["additional"].repeat(1, 2)
-        tag_l = asymmetric_loss(
-            out["tag_logits"], target,
-            gamma_neg=args_cfg.get("asl_gamma_neg", 4),
-            gamma_pos=args_cfg.get("asl_gamma_pos", 1),
-            clip=args_cfg.get("asl_clip", 0.05))
+        tag_l = _tag_loss(out, batch["additional"], args_cfg, world)
         metrics["tagging_loss"] = tag_l
         total = total + 2.0 * tag_l  # double-added as in train_other.py:135-136
     if out.get("i2t_cls") is not None:
-        ce = dqncos_loss(out["i2t_cls"]) + dqncos_loss(out["t2i_cls"])
+        # this rank's rows of the global [B, B] matrices, gathered whole
+        i2t, t2i = out["i2t_cls"], out["t2i_cls"]
+        if world > 1:
+            i2t, t2i = gather_rows(i2t), gather_rows(t2i)
+        ce = dqncos_loss(i2t) + dqncos_loss(t2i)
         metrics["ce_loss"] = ce
         total = total + 2.0 * ce
     metrics["loss"] = total
@@ -129,13 +188,15 @@ def _model_losses(model, batch, args_cfg: Dict[str, Any], prompt_table=None,
 def _coca_losses(model, batch, args_cfg, generator, deterministic):
     """CoCa's branch (loop.py:43-65): contrastive + pad-masked caption
     cross-entropy over the decoder's fp32 logits, each times its weight."""
+    world, rank, local_loss = _ranks(args_cfg)
     out = model(batch["images"], batch["texts"],
                 generator=None if deterministic else generator)
     contrastive = clip_loss(out["image_features"], out["text_features"],
-                            out["logit_scale"]) * args_cfg.get(
+                            out["logit_scale"], local_loss, world,
+                            rank) * args_cfg.get(
                                 "coca_contrastive_loss_weight", 1.0)
     caption = caption_loss(out["logits"], out["labels"],
-                           args_cfg.get("pad_id", 0)) * args_cfg.get(
+                           args_cfg.get("pad_id", 0), world) * args_cfg.get(
                                "coca_caption_loss_weight", 2.0)
     total = contrastive + caption
     return total, {"contrastive_loss": contrastive, "caption_loss": caption,
@@ -143,24 +204,29 @@ def _coca_losses(model, batch, args_cfg, generator, deterministic):
 
 
 def make_train_step(args_cfg: Dict[str, Any], prompt_table=None,
-                    teacher=None):
+                    teacher=None, deterministic: bool = False):
     """(state, batch, generator) -> (state, metrics): one step, with the
     metrics JAX returns (``contrastive_loss``, ``tagging_loss``,
     ``ce_loss``, ``loss``, ``logit_scale``, ``grad_norm``) as detached
     tensors on the model's device. ``generator`` draws this step's dropout
     masks; being stateful, it gives each step its own. The state is
-    updated in place."""
+    updated in place. ``deterministic=True`` turns dropout off (the
+    parity tests)."""
+
+    world = _ranks(args_cfg)[0]
 
     def step(state: TrainState, batch, generator):
         model = state.model
         model.zero_grad(set_to_none=True)
-        total, metrics = _model_losses(model, batch, args_cfg, prompt_table,
-                                       generator, teacher=teacher)
+        total, metrics = _run(state, lambda m: _model_losses(
+            m, batch, args_cfg, prompt_table, generator, deterministic,
+            teacher))
         total.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics["grad_norm"] = optax_global_norm(grads)
         state = apply_gradients(state)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, _global({k: v.detach() for k, v in metrics.items()},
+                              world)
 
     return step
 
@@ -194,6 +260,8 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
                      template_id=mb.get("template_id", 0),
                      deterministic=deterministic, generator=generator)
 
+    world = _ranks(args_cfg)[0]
+
     def step(state: TrainState, batch, generator):
         model: nn.Module = state.model
         model.zero_grad(set_to_none=True)
@@ -212,19 +280,17 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
                     gen_states.append(generator.get_state())
                 restore_stats()
                 out = forward(model, micro(batch, i), generator)
-                img_f.append(out["image_features"])
-                txt_f.append(out["text_features"])
-        per_micro = []
-        for i in range(accum_freq):  # pass 2: gradients vs all negatives
-            mb = micro(batch, i)
-            if not deterministic:
-                generator.set_state(gen_states[i])
-            restore_stats()
-            out = forward(model, mb, generator)
-            all_img = torch.cat(img_f[:i] + [out["image_features"]]
-                                + img_f[i + 1:])
-            all_txt = torch.cat(txt_f[:i] + [out["text_features"]]
-                                + txt_f[i + 1:])
+                img_f.append(gather_rows_no_grad(out["image_features"]))
+                txt_f.append(gather_rows_no_grad(out["text_features"]))
+
+        def losses(m, mb, i):
+            """Microbatch i's pass-2 loss against every cached feature of
+            every rank (the global loss on each rank), + its tag loss."""
+            out = forward(m, mb, generator)
+            all_img = torch.cat(img_f[:i] + [gather_rows(
+                out["image_features"])] + img_f[i + 1:])
+            all_txt = torch.cat(txt_f[:i] + [gather_rows(
+                out["text_features"])] + txt_f[i + 1:])
             if args_cfg.get("siglip"):
                 bias = out.get("logit_bias")
                 if bias is None:
@@ -239,18 +305,24 @@ def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
             # reference accum objective (train_other.py:191-194): tag loss
             # at 1x and no DQNCOS, unlike the plain step's 2x combination
             if args_cfg.get("use_tagging_loss") and "additional" in mb:
-                tag_l = asymmetric_loss(
-                    out["tag_logits"], mb["additional"].repeat(1, 2),
-                    gamma_neg=args_cfg.get("asl_gamma_neg", 4),
-                    gamma_pos=args_cfg.get("asl_gamma_pos", 1),
-                    clip=args_cfg.get("asl_clip", 0.05))
+                tag_l = _tag_loss(out, mb["additional"], args_cfg, world)
                 total = total + tag_l
                 metrics["tagging_loss"] = tag_l
             metrics["loss"] = total
-            total.backward()  # .grad sums over the microbatches
+            return total, metrics
+
+        per_micro = []
+        for i in range(accum_freq):  # pass 2: gradients vs all negatives
+            mb = micro(batch, i)
+            if not deterministic:
+                generator.set_state(gen_states[i])
+            restore_stats()
+            with grad_sync(state.ddp, model, i == accum_freq - 1):
+                total, metrics = _run(state, lambda m: losses(m, mb, i))
+                total.backward()  # .grad sums over the microbatches
             per_micro.append({k: v.detach() for k, v in metrics.items()})
         state = apply_gradients(state)
-        return state, {k: torch.stack([m[k] for m in per_micro]).mean()
-                       for k in per_micro[0]}
+        return state, _global({k: torch.stack([m[k] for m in per_micro]).mean()
+                               for k in per_micro[0]}, world)
 
     return step

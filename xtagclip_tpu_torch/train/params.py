@@ -5,18 +5,18 @@ custom flags (main_other_simple.py:81-141). ``--device`` defaults to
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels.
 ``unported`` names the flags whose branches the port does not have yet:
 the train CLIs raise on them. ``--grad-checkpointing`` checkpoints every
-tower block (models/layers.py). On one process ``--local-loss`` and
-``--gather-with-grad`` change nothing; the flags the JAX package accepts
-as no-ops (``--torchcompile``, ``--use-bnb-linear``, ``--horovod``, the
-distributed plumbing) are accepted as no-ops here too.
+tower block (models/layers.py). ``--dist-url``, ``--dist-backend``,
+``--no-set-device-rank`` and ``--ddp-static-graph`` shape the process
+group and DDP (core/mesh.py, parallel/sharding.py); ``--gather-with-grad``
+changes nothing, as in JAX (the gathers carry their gradient); the flags
+the JAX package accepts as no-ops (``--torchcompile``,
+``--use-bnb-linear``, ``--horovod``) are accepted as no-ops here too.
 """
 
 from __future__ import annotations
 
 import argparse
 import ast
-
-from xtagclip_tpu_torch.core.mesh import world_size_from_env
 
 
 def get_default_params(model_name: str) -> dict:
@@ -153,7 +153,7 @@ def parse_args(args=None, include_xtag: bool = True):
     parser.add_argument("--profile-steps", default=5, type=int,
                         help="number of steps to trace")
     parser.add_argument("--accum-freq", type=int, default=1)
-    # device; the distributed plumbing is kept for the CLI's surface
+    # device and process group (core/mesh.py init_distributed)
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device; 'cpu' runs the plain versions")
     parser.add_argument("--dist-url", default=None, type=str)
@@ -166,8 +166,9 @@ def parse_args(args=None, include_xtag: bool = True):
     parser.add_argument("--horovod", default=False, action="store_true")
     parser.add_argument("--ddp-static-graph", default=False, action="store_true")
     parser.add_argument("--no-set-device-rank", default=False, action="store_true")
-    # parameter + optimizer-state sharding and tensor sharding of the
-    # JAX package; not ported yet (ROADMAP Queue 1 item 7)
+    # FSDP2 parameter + optimizer-state sharding (parallel/sharding.py);
+    # tensor sharding (--model-parallel > 1) is not ported yet (ROADMAP
+    # Queue 1 item 10)
     parser.add_argument("--fsdp", default=False, action="store_true")
     parser.add_argument("--model-parallel", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
@@ -209,13 +210,9 @@ def parse_args(args=None, include_xtag: bool = True):
 def unported(args) -> list:
     """The flags set in ``args`` whose branches are not ported yet, each
     with the ROADMAP Queue 1 item that ports it
-    (tests/test_torch_clipa.py checks that each item exists); a launcher
-    world size above 1 (core/mesh.py) is among them."""
+    (tests/test_torch_clipa.py checks that each item exists)."""
     out = []
-    if args.fsdp or (args.model_parallel or 1) > 1:
-        out.append("--fsdp / --model-parallel (Queue 1 item 7: "
-                   "multi-process)")
-    var, world = world_size_from_env()
-    if world > 1:
-        out.append(f"{var}={world} (Queue 1 item 7: multi-process)")
+    if (args.model_parallel or 1) > 1:
+        out.append(f"--model-parallel {args.model_parallel} (Queue 1 item "
+                   "10: tensor parallelism)")
     return out

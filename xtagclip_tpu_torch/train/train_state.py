@@ -28,6 +28,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from xtagclip_tpu_torch.parallel.sharding import (
+    full,
+    is_sharded,
+    jax_axes,
+    local,
+    local_piece,
+)
+
 MAX_LOGIT_SCALE = math.log(100.0)
 
 _RESBLOCK = re.compile(r"resblocks\.(\d+)\.")
@@ -235,7 +243,7 @@ class Optimizer:
         if self.grad_clip_norm is not None:
             grads = [p.grad for p in self.trainable]
             norm = optax_global_norm(grads)
-            for g in grads:
+            for g in map(local, grads):
                 g.copy_(torch.where(norm < self.grad_clip_norm, g,
                                     g / norm * self.grad_clip_norm))
         lr = self.schedule(count)
@@ -245,12 +253,27 @@ class Optimizer:
 
 
 def optax_global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32
-    (loop.py:262-265), as one multi-tensor norm: a step has ~400
-    gradients, and three ops for each cost more host time than the
-    device work they launch."""
-    return torch.nn.utils.get_total_norm(
-        [t if t.dtype == torch.float32 else t.float() for t in tensors], 2.0)
+    """sqrt of the sum of squares of every element (loop.py:262-265), as
+    one multi-tensor norm (a step has ~400 gradients, and three ops for
+    each cost more host time than the device work they launch), summed in
+    fp64 and returned in fp32: a CPU's fp32 norm of a 2.4M-element
+    gradient is off by 1e-4, so that two summation orders of the same
+    gradients (one process, DDP, FSDP's pieces) would disagree at that
+    size. Over FSDP's sharded gradients (beside the whole ones of the
+    parameters it leaves whole) it is the norm of the whole gradients: the
+    pieces' squares are summed over the ranks."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros(())
+    sq = torch.stack(torch._foreach_norm(
+        [local(t) for t in tensors], 2.0, dtype=torch.float64)).square()
+    sharded = torch.tensor([is_sharded(t) for t in tensors],
+                           device=sq.device)
+    if sharded.any():
+        pieces = sq[sharded].sum()
+        torch.distributed.all_reduce(pieces)
+        return (pieces + sq[~sharded].sum()).sqrt().float()
+    return sq.sum().sqrt().float()
 
 
 class Lion(torch.optim.Optimizer):
@@ -287,14 +310,6 @@ class Lion(torch.optim.Optimizer):
             torch._foreach_add_(ps, u)
 
 
-def _jax_axes(p: torch.Tensor) -> tuple:
-    """The port axis of each axis of the leaf's JAX layout: a conv kernel,
-    flax's [kh, kw, in, out], is [out, in, kh, kw] here
-    (convert/from_jax.py ``port_value``); every other leaf has JAX's
-    layout."""
-    return (2, 3, 1, 0) if p.dim() == 4 else tuple(range(p.dim()))
-
-
 def factored_dims(p: torch.Tensor, min_dim_size_to_factor: int = 128):
     """optax's ``_factored_dims`` on the leaf's JAX shape, as port axes:
     (the second largest axis, the largest) where the second largest has
@@ -303,7 +318,7 @@ def factored_dims(p: torch.Tensor, min_dim_size_to_factor: int = 128):
     factors over the same physical axes as in JAX."""
     if p.dim() < 2:
         return None
-    axes = _jax_axes(p)
+    axes = jax_axes(p)
     shape = [p.shape[a] for a in axes]
     order = np.argsort(shape)
     if shape[order[-2]] < min_dim_size_to_factor:
@@ -321,7 +336,10 @@ class Adafactor(torch.optim.Optimizer):
     and parameter scale differ). The unfactored leaves' statistics, the
     block norms and the update run as multi-tensor ops; the factored
     leaves' row and column statistics leaf by leaf. Every leaf of a group
-    steps together, so they share optax's count."""
+    steps together, so they share optax's count. Over FSDP's sharded
+    parameters it steps on the whole leaves (the factored statistics and
+    the block norms are the whole leaf's) and each rank keeps its piece
+    of the result; the statistics are whole tensors."""
 
     # optax's defaults, the only values JAX's make_optimizer passes
     DECAY_RATE, MIN_DIM_SIZE_TO_FACTOR, EPS = 0.8, 128, 1e-30
@@ -335,33 +353,34 @@ class Adafactor(torch.optim.Optimizer):
         for group in self.param_groups:
             self._step_group(group)
 
-    def _init_state(self, p) -> None:
+    def _init_state(self, p, whole) -> None:
         state = self.state[p]
         if state:
             return
         state["step"] = 0
-        dims = factored_dims(p, self.MIN_DIM_SIZE_TO_FACTOR)
+        dims = factored_dims(whole, self.MIN_DIM_SIZE_TO_FACTOR)
         if dims is None:
-            state["v"] = torch.zeros_like(p)
+            state["v"] = torch.zeros_like(whole)
         else:
             d1, d0 = dims
-            state["v_row"] = torch.zeros_like(p).mean(dim=d0)
-            state["v_col"] = torch.zeros_like(p).mean(dim=d1)
+            state["v_row"] = torch.zeros_like(whole).mean(dim=d0)
+            state["v_col"] = torch.zeros_like(whole).mean(dim=d1)
 
     def _step_group(self, group) -> None:
-        ps = group["params"]
-        for p in ps:
-            self._init_state(p)
+        owners = group["params"]
+        ps = [full(p) for p in owners]
+        for p, whole in zip(owners, ps):
+            self._init_state(p, whole)
         # optax's _decay_rate_pow, in fp32 as there
-        t = np.float32(self.state[ps[0]]["step"] + 1)
+        t = np.float32(self.state[owners[0]]["step"] + 1)
         rate = float(np.float32(1.0) - t ** np.float32(-self.DECAY_RATE))
-        grads = [p.grad for p in ps]
+        grads = [full(p.grad) for p in owners]
         grad_sqr = torch._foreach_mul(grads, grads)
         torch._foreach_add_(grad_sqr, self.EPS)
         updates = [None] * len(ps)
-        flat = [i for i, p in enumerate(ps) if "v" in self.state[p]]
+        flat = [i for i, p in enumerate(owners) if "v" in self.state[p]]
         if flat:
-            vs = [self.state[ps[i]]["v"] for i in flat]
+            vs = [self.state[owners[i]]["v"] for i in flat]
             torch._foreach_mul_(vs, rate)
             torch._foreach_add_(vs, torch._foreach_mul(
                 [grad_sqr[i] for i in flat], 1.0 - rate))
@@ -371,7 +390,7 @@ class Adafactor(torch.optim.Optimizer):
         for i, p in enumerate(ps):
             if updates[i] is not None:
                 continue
-            state = self.state[p]
+            state = self.state[owners[i]]
             d1, d0 = factored_dims(p, self.MIN_DIM_SIZE_TO_FACTOR)
             v_row = state["v_row"].mul_(rate).add_(
                 (1.0 - rate) * grad_sqr[i].mean(dim=d0))
@@ -397,7 +416,9 @@ class Adafactor(torch.optim.Optimizer):
             u_rms / self.CLIPPING_THRESHOLD, min=1.0)
         torch._foreach_mul_(updates, list(scale.unbind()))
         torch._foreach_sub_(ps, updates)
-        for p in ps:
+        for p, whole in zip(owners, ps):
+            if is_sharded(p):
+                p.to_local().copy_(local_piece(whole, p))
             self.state[p]["step"] += 1
 
 
@@ -462,13 +483,18 @@ def make_optimizer(schedule: Callable, beta1: float = 0.9,
 
 @dataclass
 class TrainState:
+    """``model`` is the model itself (FSDP shards it in place); ``ddp``
+    the DDP wrapper its step runs through across ranks, or None
+    (parallel/sharding.py ``wrap_model``)."""
     step: int
     model: nn.Module
     tx: Optimizer
+    ddp: Optional[nn.Module] = None
 
 
-def create_train_state(model: nn.Module, tx: Optimizer) -> TrainState:
-    return TrainState(step=0, model=model, tx=tx)
+def create_train_state(model: nn.Module, tx: Optimizer,
+                       ddp: Optional[nn.Module] = None) -> TrainState:
+    return TrainState(step=0, model=model, tx=tx, ddp=ddp)
 
 
 @torch.no_grad()

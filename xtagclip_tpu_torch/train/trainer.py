@@ -15,6 +15,12 @@ as in the JAX trainer.
 PyTorch dispatches the card's work asynchronously, so, as the JAX trainer
 does, throughput is measured over whole log intervals ending in a read of
 the step's metrics, which waits for the card.
+
+Across ranks each rank steps on its share of the train split (the
+loader's ``set_epoch`` reshuffles every rank's share alike), the step's
+metrics are already global, and throughput is logged for the ranks
+together (``samples/s``, this rank's times the world size) and for this
+rank (``samples/s/device``).
 """
 
 from __future__ import annotations
@@ -103,6 +109,8 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
     interval_step_s = []
     host_rng = random.Random(args.seed + epoch)
     accum_freq = max(int(getattr(args, "accum_freq", 1) or 1), 1)
+    world = max(int(getattr(args, "world_size", 1) or 1), 1)
+    losses = []  # every logged step's loss, unrounded
 
     # --profile: a torch.profiler trace of a short steady-state window
     # (past the first steps) in epoch 0
@@ -153,6 +161,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
 
         if (i % args.log_every_n_steps) == 0 or i == num_batches - 1:
             metrics = {k: v.item() for k, v in metrics.items()}  # waits
+            losses.append(metrics.get("loss", float("nan")))
             for k, v in metrics.items():
                 meters.setdefault(k, AverageMeter()).update(v)
             now = time.time()
@@ -170,10 +179,11 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
                 "samples/s: %.1f samples/s/device: %.1f",
                 epoch, i, num_batches, metrics.get("loss", float("nan")), lr,
                 metrics.get("logit_scale", float("nan")), data_time.val,
-                interval_step_s[-1], samples_per_s, samples_per_s)
+                interval_step_s[-1], samples_per_s * world, samples_per_s)
         end = time.time()
 
     epoch_metrics = {k: m.avg for k, m in meters.items()}
+    epoch_metrics["losses"] = losses
     epoch_metrics["data_step_s"] = data_steps
     if hasattr(dataloader, "decode"):  # the webdataset loader's route
         epoch_metrics["decode"] = dataloader.decode
@@ -181,6 +191,8 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
     if epoch_samples:
         epoch_metrics["samples_per_second"] = epoch_samples / max(epoch_time,
                                                                   1e-9)
+        epoch_metrics["global_samples_per_second"] = (
+            epoch_metrics["samples_per_second"] * world)
         epoch_metrics["p50_step_s"] = statistics.median(interval_step_s)
         epoch_metrics["interval_step_s"] = interval_step_s
     return state, epoch_metrics

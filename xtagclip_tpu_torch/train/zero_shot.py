@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from xtagclip_tpu_torch.core.mesh import is_master
 from xtagclip_tpu_torch.data.loader import device_prefetch
 from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
@@ -213,12 +214,14 @@ def run_scar_eval(model, classifier: torch.Tensor, dataloader,
         metrics[f"tag_{g.lower().replace(' ', '_')}_f1"] = wavg(
             ("groups", g, "f1"))
 
-    if class_output_path and class_lines:
+    # every rank evaluates the whole split; rank 0 writes the artifacts
+    write = is_master()
+    if write and class_output_path and class_lines:
         with open(class_output_path, "w") as f:
             f.write("\n".join(class_lines) + "\n")
             f.write(f"\n전체 정확도: {metrics['top1']:.4f}\n")
 
-    if tagging_output_path:
+    if write and tagging_output_path:
         with open(tagging_output_path, "w") as f:
             f.write("\n".join(tag_lines) + "\n")
             f.write(f"\n전체 태그 정확도: {metrics['tag_accuracy']:.4f}\n")
@@ -226,7 +229,7 @@ def run_scar_eval(model, classifier: torch.Tensor, dataloader,
                     f"재현율: {metrics['tag_recall']:.4f} "
                     f"F1: {metrics['tag_f1']:.4f}\n")
 
-    if save_embed and all_img_feats:
+    if write and save_embed and all_img_feats:
         img = np.concatenate(all_img_feats)
         labels = np.concatenate(all_labels)
         txt = classifier.T.float().cpu().numpy()
