@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
                                        --zoo-only | --pretrained-only |
-                                       --dist-only]
+                                       --dist-only | --tp-only]
     python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
                           --zoo-batch-probe
 
@@ -271,6 +271,31 @@ fused MLP), in phases that each print one JSON line:
    rank, deterministic, against the one-process step on the concatenated
    32 at phase 6's bars.
 
+25. tp: tensor parallelism (``--model-parallel``, parallel/sharding.py
+   and parallel/tensor_parallel.py). (a) every partial-mode kernel at its
+   sharded path shape (N = TP_N = 2: the attention half and its backward
+   at the vision stream B 32 x L 50, D 768, 6 of 12 heads and the causal
+   text stream B 32 x L 77, D 512, 4 of 8 heads; the MLP half at 1600 x
+   768 and 2464 x 512 rows on half the hidden width; the fused MLP at
+   ViT-H-14's 8224 x 1280 rows on 2560 of 5120; flash attention on 8 of
+   ViT-H-14's 16 heads of 80 at L 257) against its plain version and,
+   its N shards' partials summed in fp32 with the bias and residual
+   added once, against the whole-width kernel, both within atol =
+   max|ref|/128 and rtol 1e-2; the rows join the kernel table with their
+   device time, plain time and bound. (b) scar_openclip_pretrain.sh's
+   flags (phase 24's) plus --model-parallel 2 through ``main_other.main``
+   on two gloo ranks of the one card (seeded crops, one loader thread),
+   against the launcher-free run on the same rows: each step's loss
+   within 1e-2 relative, both finite, and each rank launching #1, #2, #3
+   and #5 as the launcher-free run does. Phase 24 makes it in its (c)'s
+   two processes, against its (a)'s launcher-free run (DIST_ROWS rows,
+   16 steps of 32), and prints its own ``tp`` line. (c) with
+   ``--tp-only``: CLIPA ViT-H-14 stage 2 at full width and
+   depth, --grad-checkpointing, batch 32: one step on two gloo ranks at
+   --model-parallel 2 against the one-process step at phase 6's bars,
+   with each rank's peak memory beside the one-process peak. Gloo stages
+   CUDA tensors through the host, so no time of (b) or (c) is a speed.
+
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
 columns past dh and rows past L hold NaN (rows of dh + 48 columns,
@@ -290,7 +315,9 @@ split into the port's hand-written kernels and everything else.
 alone, then prints the seconds, the kernel table with those phases'
 launches and the card; ``--siglip-only`` the same for phases 20 and 21,
 ``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23,
-``--dist-only`` for phase 24 (with the CLIPA model at full depth).
+``--dist-only`` for phase 24 (with the CLIPA model at full depth) and
+phase 25's (b), ``--tp-only`` for phase 25's (c); ``--tp-nccl`` (four
+cards) runs the build and phase_tp_nccl alone.
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
 out of memory, without and with --grad-checkpointing);
@@ -5145,6 +5172,9 @@ def _dist_cli(spec: dict) -> dict:
         close_logging()
     wall = time.perf_counter() - t0
     counts = _counts()
+    from xtagclip_tpu_torch.core.mesh import all_gather_object
+
+    by_rank = all_gather_object(counts)
     tm = out["epochs"][-1]["train"]
     digest = _digest(full_state_dict(out["state"].model))
     del out
@@ -5152,6 +5182,7 @@ def _dist_cli(spec: dict) -> dict:
             "backend": dist.get_backend() if dist.is_initialized() else None,
             "world_size": dist.get_world_size() if dist.is_initialized()
             else 1, "wall_s": wall, "launches": counts,
+            "launches_by_rank": by_rank,
             "losses": tm["losses"], "steps": len(tm["losses"]),
             "samples_per_s": tm["samples_per_second"],
             "global_samples_per_s": tm["global_samples_per_second"],
@@ -5181,7 +5212,11 @@ def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
 
     from xtagclip_tpu_torch.factory import create_model
     from xtagclip_tpu_torch.ops import preprocess
-    from xtagclip_tpu_torch.parallel.sharding import full, wrap_model
+    from xtagclip_tpu_torch.parallel.sharding import (
+        full,
+        model_shards,
+        wrap_model,
+    )
     from xtagclip_tpu_torch.train.loop import make_train_step
     from xtagclip_tpu_torch.train.train_state import (
         create_train_state,
@@ -5218,11 +5253,14 @@ def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
         gen = torch.Generator(device="cuda").manual_seed(seed)
         state, m = step(state, b, gen)
         torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
         launches = _counts()
         metrics = {k: v.item() for k, v in m.items()}
-        grads = {n: full(p.grad).float().clone()
+        shards = model_shards(model)
+        grads = {n: full(p.grad, shards.get(n)).float().clone()
                  for n, p in model.named_parameters() if p.grad is not None}
-        rec = {"launches_first_step": launches}
+        rec = {"launches_first_step": launches,
+               "step_peak_mem_gb": step_peak}
         if timed:
             t0 = time.perf_counter()
             for _ in range(timed):
@@ -5323,7 +5361,7 @@ def dist_worker(spec_path: str) -> int:
     with open(spec_path) as f:
         spec = json.load(f)
     tasks = {"cli": _dist_cli, "compare": _dist_compare,
-             "gloo2": _dist_gloo2}
+             "gloo2": _dist_gloo2, "tp_step": _tp_step}
     out = [tasks[name](task) for name, task in spec["tasks"]]
     if int(os.environ.get("RANK", "0")) == 0:
         with open(spec["out"], "w") as f:
@@ -5366,11 +5404,30 @@ def _run_dist(tmp: str, name: str, tasks: list, nproc=None,
         return json.load(f)
 
 
+def _scar_task(root: str, csv_file: str, logs: str, name: str,
+               *extra) -> list:
+    """--dist-worker's ``cli`` task: ``main_other`` with
+    scar_openclip_pretrain.sh's flags on the scar split at ``root`` /
+    ``csv_file`` (one loader thread, seeded crops, TRAIN_BATCH), run
+    ``name`` under ``logs``, with ``extra`` flags."""
+    argv = ["--batch-size", str(TRAIN_BATCH), "--workers", "1",
+            "--train-data", root, "--scar-train-csv", csv_file,
+            "--precision", "amp", "--save-frequency", "250", "--warmup", "50",
+            "--lr", "5e-5", "--wd", "0.1", "--epochs", "1", "--local-loss",
+            "--model", "ViT-B-32", "--prompt-template-setting", "total",
+            "--use-tagging", "--use-fusion", "--log-every-n-steps", "1",
+            "--seed", "0", "--logs", logs, "--name", name, *extra]
+    return ["cli", {"entry": "main_other", "batch": TRAIN_BATCH,
+                    "seed_crops": True, "argv": argv}]
+
+
 def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
     """Phase 24 (module doc): (a) DDP at world size 1 against the
     launcher-free run, (b) FSDP2 at world size 1 on the CLIPA recipe (in
     the launcher's process that ran (a)), (c) two ranks over gloo on the
-    card. Returns the launches of each run."""
+    card, and in (c)'s two processes phase 25's (b) against (a)'s
+    launcher-free run, printed as the ``tp`` line. Returns the launches
+    of each run."""
     import gc
 
     gc.collect()
@@ -5383,17 +5440,9 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
     shards = _write_wds_shards(os.path.join(d, "shards"), DIST_CLIPA_STEPS,
                                CLIPA_BATCH, rng)
     logs = os.path.join(d, "logs")
-    argv = ["--batch-size", str(TRAIN_BATCH), "--workers", "1",
-            "--train-data", root, "--scar-train-csv", csv_file,
-            "--precision", "amp", "--save-frequency", "250", "--warmup", "50",
-            "--lr", "5e-5", "--wd", "0.1", "--epochs", "1", "--local-loss",
-            "--model", "ViT-B-32", "--prompt-template-setting", "total",
-            "--use-tagging", "--use-fusion", "--log-every-n-steps", "1",
-            "--seed", "0", "--logs", logs]
 
-    def scar(name):
-        return ["cli", {"entry": "main_other", "batch": TRAIN_BATCH,
-                        "seed_crops": True, "argv": argv + ["--name", name]}]
+    def scar(name, *extra):
+        return _scar_task(root, csv_file, logs, name, *extra)
 
     clipa = "ViT-H-14-CL32-GAP"
     b_argv = _clipa_args(2, logs, shards=shards)
@@ -5410,7 +5459,8 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
         scar("ddp"),
         ["cli", {"entry": "main", "batch": CLIPA_BATCH, "argv": b_argv}],
         ["compare", {"model": clipa, "batch": CLIPA_BATCH}]], 1, env)
-    gloo, = _run_dist(d, "gloo2", [["gloo2", {}]], 2)
+    gloo, tp = _run_dist(d, "gloo2", [["gloo2", {}], scar("tp", *TP_FLAGS)],
+                         2)
 
     steps = DIST_ROWS // TRAIN_BATCH
     per_step = _paths()["b32"]["per_step"]
@@ -5450,11 +5500,363 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
               "b_fsdp_world1_clipa": b, "c_two_ranks_gloo": c,
               "ok": a["ok"] and b["ok"] and c["ok"]}
     _emit(result)
+    tp_b = _tp_scar_judge(free, tp, steps)
+    _emit({"phase": "tp", "card": card, "b_scar_model_parallel_2": tp_b,
+           "ok": tp_b["ok"]})
+    result["ok"] = result["ok"] and tp_b["ok"]
     shutil.rmtree(d, ignore_errors=True)
     if not result["ok"]:
         raise AssertionError(f"dist phase failed its checks: {result}")
     return {"dist_ddp": ddp["launches"], "dist_fsdp": fsdp["launches"],
-            "dist_gloo2": gloo["launches"]}
+            "dist_gloo2": gloo["launches"], "tp_scar": tp["launches"]}
+
+
+# ---- tensor parallelism (--model-parallel) --------------------------------
+
+TP_N = 2  # the model axis of the tp phase's shards
+TP_STEPS = 8  # --tp-nccl: steps of the scar flags a data rank
+
+
+def _tp_shards():
+    from xtagclip_tpu_torch.parallel.sharding import ModelShard
+
+    return {"qkv_w": ModelShard(1, qkv=True), "qkv_b": ModelShard(0, True),
+            "rows": ModelShard(0), "cols": ModelShard(1),
+            "col_b": ModelShard(0), "dqkv": ModelShard(2, qkv=True)}
+
+
+def _tp_piece(t, kind, r, n=TP_N):
+    from xtagclip_tpu_torch.parallel.sharding import model_piece
+
+    return model_piece(t, _tp_shards()[kind], r, n).contiguous()
+
+
+def _tp_kernel_cases(gen):
+    """The partial modes' cases at the sharded path shapes (N = TP_N):
+    (name, shape, whole args, rank -> partial args, flops, bytes, combine,
+    library) where ``combine(partials, whole args)`` gives what the
+    whole-width kernel gives and ``library`` is one PyTorch call computing
+    rank 0's function, or None."""
+    import torch.nn.functional as F
+
+    from xtagclip_tpu_torch.models.text import build_causal_mask
+    from xtagclip_tpu_torch.parallel.sharding import ModelShard, model_whole
+
+    dev, bf, n = "cuda", torch.bfloat16, TP_N
+
+    def rnd(shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def finish(x, part_sum, bias):
+        return (x.float() + (part_sum + bias.float())).to(x.dtype)
+
+    cases = []
+    for tower, b, l, d, h, causal in (
+            ("vision", TRAIN_BATCH, 50, 768, 12, False),
+            ("text", TRAIN_BATCH, 77, 512, 8, True)):
+        mask = build_causal_mask(l, dev) if causal else None
+        x, g = rnd((b, l, d), dtype=bf), rnd((b, l, d), dtype=bf)
+        ls, lb = 1 + rnd(d, 0.1), rnd(d, 0.1)
+        wqkv, bqkv = rnd((d, 3 * d), d**-0.5, bf), rnd(3 * d, 0.1)
+        wout, bout = rnd((d, d), d**-0.5, bf), rnd(d, 0.1)
+        hl, dl = h // n, d // n
+
+        def fwd_args(r, x=x, ls=ls, lb=lb, wqkv=wqkv, bqkv=bqkv, wout=wout,
+                     bout=bout, mask=mask, hl=hl):
+            return (x, ls, lb, _tp_piece(wqkv, "qkv_w", r),
+                    _tp_piece(bqkv, "qkv_b", r), _tp_piece(wout, "rows", r),
+                    bout, mask, hl, 1e-5)
+
+        def bwd_args(r, x=x, g=g, ls=ls, lb=lb, wqkv=wqkv, bqkv=bqkv,
+                     wout=wout, mask=mask, hl=hl):
+            return (x, g, ls, lb, _tp_piece(wqkv, "qkv_w", r),
+                    _tp_piece(bqkv, "qkv_b", r), _tp_piece(wout, "rows", r),
+                    mask, hl, 1e-5)
+
+        def fwd_combine(parts, whole):
+            return finish(whole[0], sum(parts), whole[6])
+
+        def bwd_combine(parts, whole):
+            g = whole[1]
+            dx = (g.float() + sum(p[0] for p in parts)).to(g.dtype)
+            return (dx, model_whole([p[1] for p in parts],
+                                    ModelShard(2, True)),
+                    torch.cat([p[2] for p in parts]), parts[0][3],
+                    sum(p[4] for p in parts), sum(p[5] for p in parts))
+
+        label = (f"{tower} B={b} L={l} D={d} H_l={hl} of {h}"
+                 f"{' causal' if causal else ''}, N={n}")
+        flops = 2 * b * l * dl * (4 * d + 2 * l)
+        nbytes = (2 * b * l * d + 4 * b * l * d + 2 * 4 * d * dl
+                  + 4 * (2 * d + 3 * dl) + (4 * l * l if causal else 0))
+        cases.append(("fused_attn_half", label,
+                      (x, ls, lb, wqkv, bqkv, wout, bout, mask, h, 1e-5),
+                      fwd_args, flops, nbytes, fwd_combine, None))
+        flops = 2 * b * l * dl * (8 * d + 6 * l)
+        nbytes = (2 * 2 * b * l * d + 2 * 4 * d * dl + 4 * b * l * d
+                  + 2 * 3 * b * l * dl + 4 * d * dl + 4 * 8 * d
+                  + (4 * l * l if causal else 0))
+        cases.append(("fused_attn_half_bwd", label,
+                      (x, g, ls, lb, wqkv, bqkv, wout, mask, h, 1e-5),
+                      bwd_args, flops, nbytes, bwd_combine, None))
+    for tower, rows, d in (("vision", TRAIN_BATCH * 50, 768),
+                           ("text", TRAIN_BATCH * 77, 512)):
+        hd = 4 * d
+        x = rnd((rows, d), dtype=bf)
+        ls, lb = 1 + rnd(d, 0.1), rnd(d, 0.1)
+        w1, b1 = rnd((d, hd), d**-0.5, bf), rnd(hd, 0.1)
+        w2, b2 = rnd((hd, d), hd**-0.5, bf), rnd(d, 0.1)
+
+        def half_args(r, x=x, ls=ls, lb=lb, w1=w1, b1=b1, w2=w2, b2=b2):
+            return (x, ls, lb, _tp_piece(w1, "cols", r),
+                    _tp_piece(b1, "col_b", r), _tp_piece(w2, "rows", r), b2,
+                    "gelu", 1e-5)
+
+        cases.append((
+            "fused_mlp_half", f"{tower} N={rows} D={d} Hd={hd // n} of {hd} "
+            f"gelu, N_model={n}",
+            (x, ls, lb, w1, b1, w2, b2, "gelu", 1e-5), half_args,
+            4 * rows * d * hd // n,
+            2 * rows * d + 4 * rows * d + 2 * 2 * d * hd // n
+            + 4 * (2 * d + hd // n),
+            lambda parts, whole: finish(whole[0], sum(parts), whole[6]),
+            None))
+    # ViT-H-14's vision MLP at stage 2 (batch 32, L = 257), hidden 5120
+    rows, d, hd = CLIPA_PATH_BATCH * 257, 1280, 5120
+    x = rnd((rows, d), dtype=bf)
+    w1, b1 = rnd((d, hd), d**-0.5, bf), rnd(hd, 0.1)
+    w2, b2 = rnd((hd, d), hd**-0.5, bf), rnd(d, 0.1)
+
+    def mlp_args(r, x=x, w1=w1, b1=b1, w2=w2, b2=b2):
+        return (x, _tp_piece(w1, "cols", r), _tp_piece(b1, "col_b", r),
+                _tp_piece(w2, "rows", r), b2, "gelu")
+
+    cases.append((
+        "fused_mlp", f"ViT-H-14 vision N={rows} D={d} Hd={hd // n} of {hd} "
+        f"gelu, N_model={n}", (x, w1, b1, w2, b2, "gelu"), mlp_args,
+        4 * rows * d * hd // n,
+        2 * rows * d + 4 * rows * d + 2 * 2 * d * hd // n + 4 * hd // n,
+        lambda parts, whole: (sum(parts) + whole[4].float()).to(bf), None))
+    # flash attention on ViT-H-14's local heads, 8 of 16 heads of 80: q, k,
+    # v column views of a rank's [B, L, 3 x 640] projection, as the
+    # sharded block makes them
+    b, l, h, dh = CLIPA_PATH_BATCH, 257, 16, 80
+    qkv = rnd((b, l, 3 * h * dh), dtype=bf)
+
+    def heads(t, hh):
+        return tuple(p.reshape(b, l, hh, dh)
+                     for p in t.split(hh * dh, dim=-1))
+
+    def flash_args(r, qkv=qkv):
+        return heads(_tp_piece(qkv, "dqkv", r), h // n)
+
+    local = flash_args(0)
+    sdpa_in = [t.transpose(1, 2) for t in local]
+    cases.append((
+        "flash_mha", f"ViT-H-14 vision ({b}, {h // n} of {h}, {l}, {dh}), "
+        f"N_model={n}", heads(qkv, h), flash_args,
+        4 * b * (h // n) * l * l * dh, 2 * 4 * b * (h // n) * l * dh,
+        lambda parts, whole: torch.cat(parts, dim=2),
+        lambda a=sdpa_in: F.scaled_dot_product_attention(*a)))
+    return cases
+
+
+def phase_tp_kernels(card: str) -> list:
+    """The tp phase's (a) (module doc): each partial-mode kernel at its
+    sharded path shape against its plain version, and the shards'
+    partials, summed and finished as the block finishes them, against the
+    whole-width kernel; both within atol = max|ref|/128, rtol 1e-2. Rows
+    in the ``kernels`` line's format, with ``tp`` holding the whole-width
+    check."""
+    peak_flops, peak_rate = _peaks(card)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    fns = _kernel_fns()
+    rows = []
+    with torch.inference_mode():
+        for name, shape, whole, rank_args, flops, nbytes, combine, \
+                library in _tp_kernel_cases(gen):
+            kernel, plain = fns[name]
+            partial = {} if name == "flash_mha" else {"partial": True}
+            parts, checks = [], []
+            for r in range(TP_N):
+                a = rank_args(r)
+                out = kernel(*a, **partial)
+                ref = plain(*a, **partial)
+                outs, refs = ((out, ref) if isinstance(out, tuple)
+                              else ((out,), (ref,)))
+                checks += [_close(o, f) for o, f in zip(outs, refs)]
+                parts.append(out)
+            got = combine(parts, whole)
+            want = kernel(*whole)
+            torch.cuda.synchronize()
+            gots, wants = ((got, want) if isinstance(got, tuple)
+                           else ((got,), (want,)))
+            vs_whole = [_close(o, w) for o, w in zip(gots, wants)]
+            bad = [c for c in checks + vs_whole if not c[0]]
+            if bad:
+                raise AssertionError(
+                    f"tp {name} [{shape}]: partial kernel vs plain {checks}"
+                    f", shards vs whole-width kernel {vs_whole}")
+            t_flops, t_bytes = flops / peak_flops["bf16"], nbytes / peak_rate
+            source, replaces = _KERNEL_META[name]
+            a0 = rank_args(0)
+            rows.append({
+                "name": name, "shape": shape, "card": card, "route": "cuda",
+                "peak_type": "bf16", "source": source, "replaces": replaces,
+                "launches": None,
+                "max_abs_err": max(c[1] for c in checks),
+                "atol": max(c[2] for c in checks),
+                "tp": {"mode": "partial" if partial else "local heads",
+                       "model_size": TP_N,
+                       "vs_whole_max_abs_err": max(c[1] for c in vs_whole),
+                       "vs_whole_atol": max(c[2] for c in vs_whole)},
+                **_times(lambda: kernel(*a0, **partial),
+                         lambda: plain(*a0, **partial), library),
+                "bound_ms": 1e3 * max(t_flops, t_bytes),
+                "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+            })
+    _emit({"phase": "tp_kernels", "card": card, "rows": len(rows),
+           "ok": True})
+    return rows
+
+
+def _tp_step(spec: dict) -> dict:
+    """--dist-worker's tp_step task, on 2 ranks of one card: rank 0 first
+    runs the one-process step of ``spec["model"]`` (bf16 over fp32
+    masters, --grad-checkpointing, batch ``spec["batch"]``); then both
+    join a gloo group at --model-parallel 2 and run the step on the whole
+    batch with the blocks split; rank 0 judges at phase 6's bars. Each
+    rank's peak memory beside the one-process peak."""
+    import gc
+    from types import SimpleNamespace
+
+    import torch.distributed as dist
+
+    from xtagclip_tpu_torch.core.mesh import all_gather_object, init_distributed
+
+    b, name, cfg = spec["batch"], spec["model"], {"local_loss": True}
+    rank = int(os.environ["RANK"])
+    ref = None
+    if rank == 0:  # its gradients wait on the host: the peaks are the steps'
+        m, g, rec = _dist_step_runs(
+            name, b, cfg, [("one_process", False, slice(0, b))],
+            checkpointed=True)["one_process"]
+        ref = (m, {k: v.cpu() for k, v in g.items()}, rec)
+        del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = SimpleNamespace(device="cuda", dist_url=None, dist_backend="gloo",
+                           no_set_device_rank=True, model_parallel=TP_N)
+    init_distributed(args)
+    got = _dist_step_runs(name, b, {**cfg, "world_size": 1, "rank": 0},
+                          [("tp", False, slice(0, b))],
+                          checkpointed=True)["tp"]
+    peaks = all_gather_object(got[2]["step_peak_mem_gb"])
+    launches = all_gather_object(got[2]["launches_first_step"])
+    res = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+           "model_parallel": TP_N, "peak_mem_gb_by_rank": peaks,
+           "launches_by_rank": launches}
+    if rank == 0:
+        ref = (ref[0], {k: v.cuda() for k, v in ref[1].items()}, ref[2])
+        res.update(_dist_judge(got, ref))
+        res["one_process_peak_mem_gb"] = ref[2]["step_peak_mem_gb"]
+        res["one_process_launches"] = ref[2]["launches_first_step"]
+    dist.barrier()
+    return res
+
+
+# (b)'s flags beside the scar flags: two ranks of one card over gloo
+TP_FLAGS = ("--model-parallel", str(TP_N), "--dist-backend", "gloo",
+            "--no-set-device-rank")
+
+
+def _tp_scar_judge(free: dict, tp: dict, steps: int) -> dict:
+    """(b): the scar CLI at --model-parallel 2 (``tp``, ``_dist_cli``'s
+    record) against the launcher-free run on the same rows (``free``):
+    each step's loss within 1e-2 relative, both finite, each rank's
+    launches equal to the launcher-free run's and at least the plain
+    step's per step."""
+    per_step = _paths()["b32"]["per_step"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(tp["losses"], free["losses"])]
+    b = {"free": free, "tp": tp, "steps": len(tp["losses"]),
+         "loss_rel_err_max": max(rel) if rel else None,
+         # the run's launches (the steps, then the end-of-epoch eval on
+         # the train rows) over its steps, each rank's
+         "launches_per_step_per_rank": [
+             {k: v / len(tp["losses"]) for k, v in r.items()}
+             for r in tp["launches_by_rank"]]}
+    b["ok"] = (len(tp["losses"]) == len(free["losses"]) == steps
+               and tp["distributed"] and tp["backend"] == "gloo"
+               and all(math.isfinite(v) for v in tp["losses"] + free["losses"])
+               and b["loss_rel_err_max"] <= 1e-2
+               and all(r == free["launches"] for r in tp["launches_by_rank"])
+               and all(free["launches"][k] >= steps * v
+                       for k, v in per_step.items()))
+    return b
+
+
+def phase_tp(card: str, tmp: str) -> dict:
+    """Phase 25 (c) (module doc), behind --tp-only: the CLIPA ViT-H-14
+    step on two gloo ranks at --model-parallel 2 against the one-process
+    step. Returns its launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers are other processes
+    d = os.path.join(tmp, "tp")
+    os.makedirs(d)
+    c, = _run_dist(d, "tp_clipa", [["tp_step", {
+        "model": "ViT-H-14-CL32-GAP", "batch": CLIPA_PATH_BATCH}]], TP_N)
+    c["peak_mem_ratio_by_rank"] = [
+        p / c["one_process_peak_mem_gb"] for p in c["peak_mem_gb_by_rank"]]
+    c["launches_equal_one_process"] = all(
+        r == c["one_process_launches"] for r in c["launches_by_rank"])
+    c["ok"] = c["ok"] and c["launches_equal_one_process"]
+    result = {"phase": "tp", "card": card,
+              "c_clipa_vit_h14_model_parallel_2": c, "ok": c["ok"]}
+    _emit(result)
+    shutil.rmtree(d, ignore_errors=True)
+    if not result["ok"]:
+        raise AssertionError(f"tp phase failed its checks: {result}")
+    return {"tp_clipa": c["launches_by_rank"][0]}
+
+
+def phase_tp_nccl(card: str, tmp: str) -> dict:
+    """--tp-nccl, on four cards: the scar flags under ``torchrun
+    --nproc_per_node 4`` at --model-parallel 2, a (2 data x 2 model) mesh
+    over NCCL, against ``--nproc_per_node 2`` without it (DDP over the
+    same 2 data ranks: the same rows and seeded crops a data rank), each
+    step's loss within 1e-2, with both runs' samples/s and each rank's
+    launches."""
+    d = os.path.join(tmp, "tp_nccl")
+    os.makedirs(d)
+    rng = np.random.default_rng(26)
+    root = os.path.join(d, "scar_train")
+    csv_file = _write_scar_split(root, 2 * TP_STEPS * TRAIN_BATCH, rng)
+
+    def scar(name, *extra):
+        return _scar_task(root, csv_file, os.path.join(d, "logs"), name,
+                          *extra)
+
+    ddp, = _run_dist(d, "ddp2", [scar("ddp2")], 2)
+    tp, = _run_dist(d, "tp4", [scar("tp4", "--model-parallel", "2")], 4)
+    rel = [abs(a - b) / abs(b) for a, b in zip(tp["losses"], ddp["losses"])]
+    res = {"phase": "tp_nccl", "card": card, "ddp_2x1": ddp, "tp_2x2": tp,
+           "loss_rel_err_max": max(rel) if rel else None,
+           "samples_per_s_ratio": tp["samples_per_s_after_first"]
+           / ddp["samples_per_s_after_first"]}
+    res["ok"] = (tp["backend"] == ddp["backend"] == "nccl"
+                 and tp["world_size"] == 4 and len(tp["losses"]) == TP_STEPS
+                 and len(ddp["losses"]) == TP_STEPS
+                 and all(math.isfinite(v) for v in tp["losses"])
+                 and res["loss_rel_err_max"] <= 1e-2
+                 and all(r == tp["launches_by_rank"][0]
+                         for r in tp["launches_by_rank"]))
+    _emit(res)
+    shutil.rmtree(d, ignore_errors=True)
+    if not res["ok"]:
+        raise AssertionError(f"tp_nccl failed its checks: {res}")
+    return {"tp_nccl": tp["launches"]}
 
 
 def _ptxas_report(built: dict) -> dict:
@@ -5549,6 +5951,16 @@ def phase_profile(card, label, model, ptable, serve_one, train_one,
                     run_train, card)
 
 
+def _launches(entries, paths) -> None:
+    """Each kernel row's launches by path and in all: a partial-mode row
+    (``tp``) counts the tp phase's paths, a whole row the others."""
+    for e in entries:
+        e["launches_by_path"] = {
+            k: v[e["name"]] for k, v in paths.items()
+            if k.startswith("tp_") == ("tp" in e)}
+        e["launches"] = sum(e["launches_by_path"].values())
+
+
 def main(argv=()) -> int:
     """Run the phases; ``argv`` holds the command-line arguments."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -5579,7 +5991,15 @@ def main(argv=()) -> int:
                          "trainers' largest batch that fits")
     ap.add_argument("--dist-only", action="store_true",
                     help="run only the build, the kernel rows and the dist "
-                         "phase, with the CLIPA model at full depth")
+                         "phase (with the tp phase's scar run), the CLIPA "
+                         "model at full depth")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="run only the build, the kernel rows and the tp "
+                         "phase's CLIPA ViT-H-14 step at full depth")
+    ap.add_argument("--tp-nccl", action="store_true",
+                    help="on four cards: run only the build and the scar "
+                         "flags at --model-parallel 2 on a 2 x 2 NCCL mesh "
+                         "against DDP on 2 cards")
     ap.add_argument("--dist-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)  # a process of the dist phase
     args = ap.parse_args(argv)
@@ -5599,6 +6019,11 @@ def main(argv=()) -> int:
     _emit({"phase": "build", "card": card, "seconds": build_s,
            "kernels": {k: v["path"] for k, v in built.items()},
            "ptxas": {k: _ptxas_report(v) for k, v in built.items()}})
+    if args.tp_nccl:
+        with tempfile.TemporaryDirectory(prefix="xtag_tp4_") as tmp:
+            phase_tp_nccl(card, tmp)
+        print(card, flush=True)
+        return 0
     if args.clipa_batch_probe or args.siglip_batch_probe or \
             args.zoo_batch_probe:
         with tempfile.TemporaryDirectory(prefix="xtag_probe_") as tmp:
@@ -5623,10 +6048,13 @@ def main(argv=()) -> int:
                               "seconds": seconds[name]}), flush=True)
 
     entries = timed("kernels", phase_kernels, card)
+    entries += timed("tp_kernels", phase_tp_kernels, card)
     if args.coca_only or args.siglip_only or args.zoo_only or \
-            args.pretrained_only or args.dist_only:
+            args.pretrained_only or args.dist_only or args.tp_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
-            if args.dist_only:
+            if args.tp_only:
+                paths = timed("tp", phase_tp, card, tmp)
+            elif args.dist_only:
                 paths = timed("dist", phase_dist, card, tmp, full_depth=True)
             elif args.coca_only:
                 paths = timed("coca_train", phase_coca_train, card, tmp,
@@ -5642,10 +6070,7 @@ def main(argv=()) -> int:
                 paths.update(timed("distill", phase_distill, card, tmp))
         _emit({"phase": "seconds", "card": card, "build": build_s,
                **seconds})
-        for e in entries:
-            e["launches_by_path"] = {k: v[e["name"]] for k, v in
-                                     paths.items()}
-            e["launches"] = sum(e["launches_by_path"].values())
+        _launches(entries, paths)
         _emit({"kernels": entries})
         print(card, flush=True)
         return 0
@@ -5698,9 +6123,7 @@ def main(argv=()) -> int:
                       g_train_one)
     _emit({"phase": "seconds", "card": card, "build": build_s, **seconds,
            "total": time.perf_counter() - t0})
-    for e in entries:
-        e["launches_by_path"] = {k: v[e["name"]] for k, v in paths.items()}
-        e["launches"] = sum(e["launches_by_path"].values())
+    _launches(entries, paths)
     _emit({"kernels": entries})
     print(card, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -367,7 +367,7 @@ def _attn_bwd_buffers(x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, h, eps):
         *(buf[k].data_ptr() for k in ("xn", "qkv", "datt", "att", "dxn")),
         stats.data_ptr(), partial.data_ptr(), fab._ptr(mask_ws),
         dx.data_ptr(), buf["dqkv"].data_ptr(), buf["dwout"].data_ptr(),
-        *(t.data_ptr() for t in sums), b, l, d, h, float(eps),
+        *(t.data_ptr() for t in sums), b, l, d, h, 0, float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, "xtag_fused_attn_half_bwd")
     torch.cuda.synchronize()

@@ -463,12 +463,17 @@ def test_main_other_unported_flags_raise(flags, match, tmp_path,
     held in tests/test_torch_file_utils.py, named --pretrained tags in
     tests/test_torch_pretrained.py, a named --distill-pretrained tag in
     tests/test_torch_distill.py, --fsdp in tests/test_torch_fsdp.py).
-    Beside --fsdp, ``--model-parallel 2`` (ROADMAP Queue 1 item 10) still
-    raises before the model."""
+    Beside --fsdp, ``--model-parallel 2`` (tests/test_torch_tp.py) raises
+    before the model in one process, whose world size 2 does not divide
+    (JAX's mesh assert), and with a timm tower ROADMAP Queue 1 item 11's
+    refusal names the flag."""
     argv = ["--model", "ViT-B-32", "--device", "cpu", "--logs",
             str(tmp_path), "--name", "x", *flags]
     assert unported(parse_args(argv)) == []
     if match != "fsdp":
         return
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    with pytest.raises(ValueError, match="model-parallel 2 does not divide"):
         main_other.main(argv + ["--model-parallel", "2"])
+    timm = argv + ["--model-parallel", "2", "--model", "ViT-B-16-SigLIP"]
+    with pytest.raises(NotImplementedError, match="model-parallel"):
+        main_other.main(timm)

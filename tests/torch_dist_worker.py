@@ -55,9 +55,11 @@ OPTS = ("adamw", "adam", "sgd", "lion", "adafactor")
 
 def register(directory) -> str:
     path = os.path.join(str(directory), CFG_NAME + ".json")
-    if not os.path.exists(path):
-        with open(path, "w") as f:
+    if not os.path.exists(path):  # written aside: other ranks read it
+        tmp = f"{path}.{os.getpid()}"
+        with open(tmp, "w") as f:
             json.dump(CFG, f)
+        os.replace(tmp, path)
     factory.add_model_config(path)
     return CFG_NAME
 
@@ -427,7 +429,10 @@ SCENARIOS = {"dp": scenario_dp, "fsdp": scenario_fsdp,
              "losses": scenario_losses, "bn": scenario_bn}
 
 
-def main(scenario: str, rank: int, world: int, directory: str) -> None:
+def main(scenario: str, rank: int, world: int, directory: str,
+         scenarios: dict = None) -> None:
+    """Run ``scenario`` (of ``scenarios``, by default this file's) on this
+    rank and save what it returns."""
     dist.init_process_group(
         "gloo", init_method="file://" + os.path.join(directory, "rdv"),
         rank=rank, world_size=world,
@@ -436,15 +441,16 @@ def main(scenario: str, rank: int, world: int, directory: str) -> None:
         inputs = torch.load(os.path.join(directory, "inputs.pt"),
                             weights_only=False)
         register(directory)
-        out = SCENARIOS[scenario](inputs, directory)
+        out = (scenarios or SCENARIOS)[scenario](inputs, directory)
         torch.save(out, os.path.join(directory, f"out_{rank}.pt"))
     finally:
         dist.destroy_process_group()
 
 
 def spawn(scenario: str, world: int, directory, inputs: dict,
-          timeout: float = 240.0) -> list:
-    """Run ``scenario`` on ``world`` ranks; returns each rank's output.
+          timeout: float = 240.0, script: str = __file__) -> list:
+    """Run ``scenario`` of ``script`` (a worker file whose ``__main__``
+    calls ``main``) on ``world`` ranks; returns each rank's output.
     Raises on a worker's failure or on the timeout (killing them all)."""
     directory = str(directory)
     torch.save(inputs, os.path.join(directory, "inputs.pt"))
@@ -454,7 +460,7 @@ def spawn(scenario: str, world: int, directory, inputs: dict,
     for r in range(world):  # logs to files: a full pipe would stall a rank
         with open(logs[r], "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), scenario, str(r),
+                [sys.executable, os.path.abspath(script), scenario, str(r),
                  str(world), directory], env=env, stdout=log,
                 stderr=subprocess.STDOUT))
     try:

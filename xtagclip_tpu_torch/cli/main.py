@@ -61,7 +61,11 @@ from xtagclip_tpu_torch.cli.main_other import (
     start_run,
     step_config,
 )
-from xtagclip_tpu_torch.core.mesh import init_distributed, is_master
+from xtagclip_tpu_torch.core.mesh import (
+    data_rank_of,
+    init_distributed,
+    is_master,
+)
 from xtagclip_tpu_torch.data.registry import get_data
 from xtagclip_tpu_torch.factory import (
     cast_for_compute,
@@ -233,7 +237,7 @@ def _run(args, tb_writer):
         delete_previous=args.delete_previous_checkpoint,
         write=is_master(args))
     generator = torch.Generator(device=args.device).manual_seed(
-        args.seed + args.rank)
+        args.seed + data_rank_of(args))
     history = []
     for epoch in range(start_epoch, args.epochs):
         logging.info("Start epoch %d", epoch)

@@ -22,7 +22,12 @@ Under a launcher (``torchrun --nproc_per_node N -m
 xtagclip_tpu_torch.cli.main_other ...``, or any family core/mesh.py
 reads) each process joins the process group (NCCL on the card, one rank
 per GPU; gloo on the CPU), trains on its share of the train split, and
-steps through DDP, or FSDP2 with ``--fsdp`` (parallel/sharding.py). Rank
+steps through DDP, or FSDP2 with ``--fsdp`` (parallel/sharding.py). With
+``--model-parallel N`` the ranks form a (world / N data) x (N model) mesh
+(core/mesh.py): every ``ResidualAttentionBlock`` is split over the N
+ranks of a model group, which read the same rows, and DDP or FSDP2 runs
+over the data group; every rank runs the evaluations, since the sharded
+forward meets its model group in each block. Rank
 0 names the run, writes params.txt, out.log (every rank its
 ``out-{rank}`` with ``--log-local``), the checkpoints and the eval
 artifacts, and resolves ``--resume latest`` for every rank; every rank
@@ -44,6 +49,8 @@ import torch
 
 from xtagclip_tpu_torch.core.mesh import (
     broadcast_object,
+    data_rank_of,
+    data_size_of,
     init_distributed,
     is_master,
 )
@@ -172,8 +179,9 @@ def build_train_state(model, args, schedule):
 
 
 def step_config(args) -> dict:
-    """The step's view of the ranks (train/loop.py)."""
-    return {"world_size": args.world_size, "rank": args.rank,
+    """The step's view of the ranks (train/loop.py): the data group's
+    size and rank (core/mesh.py)."""
+    return {"world_size": data_size_of(args), "rank": data_rank_of(args),
             "local_loss": args.local_loss,
             "siglip_dist_impl": args.loss_dist_impl or "shift"}
 
@@ -273,9 +281,10 @@ def _run(args):
         logging.info("eval: %s", json.dumps(metrics, default=float))
         return metrics
 
-    # each rank draws its own dropout masks; rank 0's are one process's
+    # each data rank draws its own dropout masks, the ranks of a model
+    # group the same ones; data rank 0's are one process's
     generator = torch.Generator(device=args.device).manual_seed(
-        args.seed + args.rank)
+        args.seed + data_rank_of(args))
     history = []
     last_tree = None
     for epoch in range(start_epoch, args.epochs):

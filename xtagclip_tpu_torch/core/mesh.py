@@ -13,6 +13,17 @@ the port's processes each run the step on their share of the batch and
 meet in the collectives of parallel/collectives.py and the wrappers of
 parallel/sharding.py (DDP, FSDP2), so that a step on N ranks is the
 one-process step on the concatenated batch.
+
+``init_mesh`` lays the ranks out as JAX's ``create_mesh`` lays out the
+devices (xtagclip_tpu/core/mesh.py:113-125): a (data, model) grid in
+row-major order, rank = data_index * N + model_index for ``--model-parallel
+N``, so the N ranks of a model group are neighbours. The data group (the
+ranks of one model index) carries what JAX's ``data`` axis carries: the
+batch split, the gradient average, the loss gathers, the BatchNorm
+statistics; the model group (the ranks of one data index) the
+tensor-parallel all-reduces of the sharded blocks
+(parallel/tensor_parallel.py). Before ``init_mesh`` (or at N = 1) the
+data group is the whole process group and the model axis has size 1.
 """
 
 from __future__ import annotations
@@ -90,9 +101,11 @@ def init_distributed(args=None) -> dict:
     above 1, or at 1 under a launcher that gives a coordinator (so that
     ``torchrun --nproc_per_node 1`` runs the DDP or FSDP step); one
     process without a group otherwise. The init method is ``--dist-url``
-    or ``tcp://`` the coordinator of ``coordinator_from_env``. Sets
-    ``args.{distributed, world_size, rank, local_rank, device_count}``
-    and, on the card, ``args.device`` to this rank's card."""
+    or ``tcp://`` the coordinator of ``coordinator_from_env``. Lays the
+    ranks out with ``init_mesh(args.model_parallel)``. Sets
+    ``args.{distributed, world_size, rank, local_rank, device_count}``,
+    ``args.{data_size, data_rank, model_size, model_rank}`` and, on the
+    card, ``args.device`` to this rank's card."""
     local_rank, rank, world, launched = process_identity()
     url = getattr(args, "dist_url", None)
     coord = coordinator_from_env()
@@ -119,7 +132,13 @@ def init_distributed(args=None) -> dict:
                      backend, rank, world)
     info = {"world_size": world, "rank": rank, "local_rank": local_rank,
             "distributed": join, "device_count": world}
+    layout = init_mesh(getattr(args, "model_parallel", 1) or 1)
+    info.update(data_size=layout["data"], data_rank=layout["data_rank"],
+                model_size=layout["model"], model_rank=layout["model_rank"])
     if args is not None:
+        args.data_size, args.data_rank = layout["data"], layout["data_rank"]
+        args.model_size = layout["model"]
+        args.model_rank = layout["model_rank"]
         args.distributed = info["distributed"]
         args.world_size = world
         args.rank = rank
@@ -139,7 +158,7 @@ def rank() -> int:
 
 
 def world_size() -> int:
-    """The process count: the unit the train split is divided by."""
+    """The process count (the data axis times the model axis)."""
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
@@ -189,3 +208,89 @@ def all_gather_object(obj) -> list:
     dist.all_gather(parts, buf)
     return [pickle.loads(p[:int(s.item())].cpu().numpy().tobytes())
             for p, s in zip(parts, sizes)]
+
+
+# the (data, model) layout of init_mesh: sizes, this rank's indices, and
+# its two process groups (None: the default group, or no model group)
+_MESH = {"model": 1, "model_rank": 0, "data_group": None,
+         "model_group": None, "data": None, "data_rank": None}
+
+
+def init_mesh(model_parallel: int = 1) -> dict:
+    """Lay the process group out as a (world / N data) x (N model) grid
+    (module doc) and make each rank's data and model groups. Every rank
+    calls it, in the same order as its other group constructors. Raises
+    where N does not divide the world size (JAX's assert,
+    core/mesh.py:121). Returns ``{"data", "model", "data_rank",
+    "model_rank"}``."""
+    n = int(model_parallel or 1)
+    world, r = world_size(), rank()
+    if n < 1 or world % n:
+        raise ValueError(
+            f"--model-parallel {n} does not divide the world size {world}: "
+            "the (data, model) mesh needs world = data x model")
+    data = world // n
+    data_group = model_group = None
+    if dist.is_initialized() and n > 1:
+        for m in range(n):
+            g = dist.new_group([d * n + m for d in range(data)])
+            if r % n == m:
+                data_group = g
+        for d in range(data):
+            g = dist.new_group([d * n + m for m in range(n)])
+            if r // n == d:
+                model_group = g
+    _MESH.update(model=n, model_rank=r % n, data=data, data_rank=r // n,
+                 data_group=data_group, model_group=model_group)
+    return {"data": data, "model": n, "data_rank": r // n,
+            "model_rank": r % n}
+
+
+def model_size() -> int:
+    """N, the model axis's size (1 before ``init_mesh``)."""
+    return _MESH["model"]
+
+
+def model_rank() -> int:
+    return _MESH["model_rank"]
+
+
+def model_group():
+    """This rank's model group (None at model size 1)."""
+    return _MESH["model_group"]
+
+
+def data_size() -> int:
+    """The data axis's size: the world size over N, the unit the train
+    split is divided by."""
+    return world_size() // model_size() if _MESH["data"] is None \
+        else _MESH["data"]
+
+
+def data_rank() -> int:
+    return rank() // model_size() if _MESH["data_rank"] is None \
+        else _MESH["data_rank"]
+
+
+def data_group():
+    """This rank's data group (None: the default group)."""
+    return _MESH["data_group"]
+
+
+def data_global_rank(index: int) -> int:
+    """The global rank of data index ``index`` in this rank's data
+    group."""
+    return index * model_size() + model_rank()
+
+
+def data_size_of(args) -> int:
+    """The data-parallel size ``init_distributed`` set on ``args`` (its
+    world size where it set none)."""
+    return getattr(args, "data_size", None) or getattr(args, "world_size", 1)
+
+
+def data_rank_of(args) -> int:
+    """The data rank ``init_distributed`` set on ``args`` (its rank where
+    it set none)."""
+    rank_ = getattr(args, "data_rank", None)
+    return getattr(args, "rank", 0) if rank_ is None else rank_

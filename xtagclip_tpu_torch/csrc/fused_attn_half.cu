@@ -14,6 +14,17 @@
 // Both products read the weights N-major as stored; M = N = B L rows is
 // ragged, and TMA zero-fills and clips it.
 //
+// Partial mode (tensor parallelism, parallel/tensor_parallel.py): a rank
+// holds H_l of the block's heads, the q, k and v columns of those heads
+// (wqkv [D, 3 H_l 64], bqkv [3 H_l 64]) and their rows of the
+// out-projection (wout [H_l 64, D]). The model width D (x, LN, the
+// output) and the local width Dl = H_l 64 (qkv, the core, att) come
+// apart: step 2 is n x 3 Dl with K = D, the core runs over H_l heads at
+// row stride Dl, and step 4 has K = Dl and stores its fp32 sums as they
+// are (EPI_F32), without bout and x. The ranks' partials then sum in
+// fp32 over the model group, and the caller adds bout and x and rounds
+// once, as step 4's epilogue does for the whole block.
+//
 // What bounds it on the H100: operations. 2 B L D (4 D + 2 L) FLOP: 88.9
 // GFLOP at the precompute chunk (B = 512, L = 77, D = 512), 0.090 ms at
 // 989 TFLOP/s; the bytes (x, y, the weights, and the xn, qkv and att round
@@ -244,25 +255,24 @@ cudaError_t launch_core(const bf16* qkv, const float* mask, float* mask_ws, bf16
 }  // namespace attn_fwd
 }  // namespace xtag
 
-extern "C" {
+namespace xtag {
 
-const char* xtag_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// x, out: [B, L, D] bf16; ln_g/ln_b: [D] fp32; wqkv: [D, 3D] bf16;
-// bqkv: [3D] fp32; wout: [D, D] bf16; bout: [D] fp32; mask: [L, L] fp32
-// or null. Scratch from the caller: xn [B*L, D], qkv [B*L, 3D],
-// att [B*L, D], all bf16; with a mask, mask_ws [128 * 128] fp32 (else
-// unread). Returns a cudaError_t (0 = launched).
-int xtag_fused_attn_half(const void* x, const float* ln_g, const float* ln_b,
-                         const void* wqkv, const float* bqkv, const void* wout,
-                         const float* bout, const float* mask, void* xn_ws,
-                         void* qkv_ws, void* att_ws, float* mask_ws, void* out, int B,
-                         int L, int D, int H, float eps, void* stream) {
-  using namespace xtag;
+// x: [B, L, D] bf16; ln_g/ln_b: [D] fp32; wqkv: [D, 3 Dl] bf16 (the q,
+// k and v columns of this call's H heads, Dl = 64 H); bqkv: [3 Dl] fp32;
+// wout: [Dl, D] bf16; bout: [D] fp32 (unread when partial); mask: [L, L]
+// fp32 or null. out: [B, L, D] bf16, or with ``partial`` the fp32 sums
+// att @ wout (no bias, no residual). Whole blocks have Dl = D. Scratch
+// from the caller: xn [B*L, D], qkv [B*L, 3 Dl], att [B*L, Dl], all
+// bf16; with a mask, mask_ws [128 * 128] fp32 (else unread). Returns a
+// cudaError_t (0 = launched).
+inline int attn_half(const void* x, const float* ln_g, const float* ln_b, const void* wqkv,
+                     const float* bqkv, const void* wout, const float* bout, const float* mask,
+                     void* xn_ws, void* qkv_ws, void* att_ws, float* mask_ws, void* out, int B,
+                     int L, int D, int H, bool partial, float eps, void* stream) {
   using attn_fwd::DH;
-  if (B < 1 || D != H * DH || L < 1 || L > attn_fwd::MAX_L || D % 64 != 0)
+  const int Dl = H * DH;
+  if (B < 1 || H < 1 || L < 1 || L > attn_fwd::MAX_L || D % 64 != 0 || Dl > D ||
+      (!partial && Dl != D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = B * L;
@@ -273,15 +283,38 @@ int xtag_fused_attn_half(const void* x, const float* ln_g, const float* ln_b,
   cudaError_t e = launch_ln(xb, ln_g, ln_b, xn, n, D, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = sm90::launch_gemm<sm90::EPI_BIAS>(xn, static_cast<const bf16*>(wqkv), bqkv, nullptr, qkv,
-                                        n, 3 * D, D, s);
+                                        n, 3 * Dl, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
-  e = L <= 64 ? attn_fwd::launch_core<64>(qkv, mask, mask_ws, att, B, L, D, H, scale, s)
-              : attn_fwd::launch_core<128>(qkv, mask, mask_ws, att, B, L, D, H, scale, s);
+  e = L <= 64 ? attn_fwd::launch_core<64>(qkv, mask, mask_ws, att, B, L, Dl, H, scale, s)
+              : attn_fwd::launch_core<128>(qkv, mask, mask_ws, att, B, L, Dl, H, scale, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = sm90::launch_gemm<sm90::EPI_BIAS_RESID>(att, static_cast<const bf16*>(wout), bout, xb,
-                                              static_cast<bf16*>(out), n, D, D, s);
+  const bf16* wo = static_cast<const bf16*>(wout);
+  if (partial)
+    e = sm90::launch_gemm<sm90::EPI_F32>(att, wo, nullptr, nullptr, out, n, D, Dl, s);
+  else
+    e = sm90::launch_gemm<sm90::EPI_BIAS_RESID>(att, wo, bout, xb, out, n, D, Dl, s);
   return static_cast<int>(e);
+}
+
+}  // namespace xtag
+
+extern "C" {
+
+const char* xtag_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The block y = x + out_proj(MHA(LN1(x))) at Dl = D, or with ``partial``
+// != 0 this rank's H heads' fp32 att @ wout into out, bout unread
+// (xtag::attn_half).
+int xtag_fused_attn_half(const void* x, const float* ln_g, const float* ln_b,
+                         const void* wqkv, const float* bqkv, const void* wout,
+                         const float* bout, const float* mask, void* xn_ws,
+                         void* qkv_ws, void* att_ws, float* mask_ws, void* out, int B,
+                         int L, int D, int H, int partial, float eps, void* stream) {
+  return xtag::attn_half(x, ln_g, ln_b, wqkv, bqkv, wout, bout, mask, xn_ws, qkv_ws, att_ws,
+                         mask_ws, out, B, L, D, H, partial != 0, eps, stream);
 }
 
 }  // extern "C"

@@ -60,6 +60,17 @@
 // Each output rounds once to bf16, rows past L not stored. Shared memory:
 // 64 KB a block at NK = 64, 193 KB at NK = 128.
 //
+// Partial mode (tensor parallelism, parallel/tensor_parallel.py): the
+// rank's H_l heads, wqkv [D, 3 Dl], bqkv [3 Dl] and wout [Dl, D] with
+// Dl = 64 H_l, as the forward's partial mode. The products run at the
+// local width (qkv and dqkv n x 3 Dl, datt and att n x Dl, dwout
+// [Dl, D], dxn = dqkv wqkv^T with K = 3 Dl), and step 7 writes the
+// LN backward's term of dx in fp32 without the residual cotangent g. That
+// term, dls and dlb are linear in dxn, so the ranks' values sum over the
+// model group to the whole block's; the caller sums them, adds g and
+// rounds dx once. dbout (the column sums of g) is the whole block's on
+// every rank.
+//
 // Bound on the H100: operations (2 B L D (8 D + 6 L) FLOP, the Pallas
 // CostEstimate), about 16 us at the ViT-B/32 vision shape at 989 TFLOP/s.
 #include "flash_common.cuh"
@@ -300,11 +311,11 @@ cudaError_t launch_core(const bf16* qkv, const bf16* datt, const float* mask, fl
 // the row's mean and rstd for the column sums. As ln_rows.cuh, the row's
 // x and dxn are read once, 16 bytes a lane, into registers (VPL vectors
 // of 8 a lane).
-template <int VPL>
+template <int VPL, bool PARTIAL>
 __global__ void __launch_bounds__(LN_THREADS)
 ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                    const bf16* __restrict__ dxn, const float* __restrict__ gamma,
-                   bf16* __restrict__ dx, float* __restrict__ mean_out,
+                   void* __restrict__ dx, float* __restrict__ mean_out,
                    float* __restrict__ rstd_out, int n_rows, int d, float eps) {
   const int row = (blockIdx.x * LN_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -364,8 +375,21 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
   }
   const float m1 = warp_sum(s1) / (float)d;
   const float m2 = warp_sum(s2) / (float)d;
+  if (PARTIAL) {  // fp32, without g: 8 values a vector, two float4 stores
+    float4* out = reinterpret_cast<float4*>(static_cast<float*>(dx) + (size_t)row * d);
+#pragma unroll
+    for (int i = 0; i < VPL; ++i) {
+      const int c = lane + 32 * i;
+      if (c >= nv) continue;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = rstd * (dv[i][e] - m1 - xv[i][e] * m2);
+      out[2 * c] = make_float4(o[0], o[1], o[2], o[3]);
+      out[2 * c + 1] = make_float4(o[4], o[5], o[6], o[7]);
+    }
+  } else {
   const uint4* gr = reinterpret_cast<const uint4*>(g + (size_t)row * d);
-  uint4* out = reinterpret_cast<uint4*>(dx + (size_t)row * d);
+  uint4* out = reinterpret_cast<uint4*>(static_cast<bf16*>(dx) + (size_t)row * d);
 #pragma unroll
   for (int i = 0; i < VPL; ++i) {
     const int c = lane + 32 * i;
@@ -383,6 +407,7 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
     }
     out[c] = o;
   }
+  }
   if (lane == 0) {
     mean_out[row] = mean;
     rstd_out[row] = rstd;
@@ -390,24 +415,26 @@ ln_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
 }
 
 // Needs d % 8 == 0, d <= 32 * 8 * LN_MAX_VPL, 16-byte aligned rows and gamma.
+// dx is bf16 [n_rows, d], or fp32 without g when PARTIAL.
+template <bool PARTIAL>
 inline cudaError_t launch_ln_bwd_rows(const bf16* x, const bf16* g, const bf16* dxn,
-                                      const float* gamma, bf16* dx, float* mean, float* rstd,
+                                      const float* gamma, void* dx, float* mean, float* rstd,
                                       int n_rows, int d, float eps, cudaStream_t stream) {
   if (d < 8 || d % 8 != 0 || d > 32 * 8 * LN_MAX_VPL) return cudaErrorInvalidValue;
   const int vpl = (d / 8 + 31) / 32;
   const dim3 grid((n_rows + LN_THREADS / 32 - 1) / (LN_THREADS / 32));
   if (vpl <= 1)
-    ln_bwd_rows_kernel<1><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean, rstd,
-                                                           n_rows, d, eps);
-  else if (vpl <= 2)
-    ln_bwd_rows_kernel<2><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean, rstd,
-                                                           n_rows, d, eps);
-  else if (vpl <= 4)
-    ln_bwd_rows_kernel<4><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean, rstd,
-                                                           n_rows, d, eps);
-  else
-    ln_bwd_rows_kernel<LN_MAX_VPL><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean,
+    ln_bwd_rows_kernel<1, PARTIAL><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean,
                                                                     rstd, n_rows, d, eps);
+  else if (vpl <= 2)
+    ln_bwd_rows_kernel<2, PARTIAL><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean,
+                                                                    rstd, n_rows, d, eps);
+  else if (vpl <= 4)
+    ln_bwd_rows_kernel<4, PARTIAL><<<grid, LN_THREADS, 0, stream>>>(x, g, dxn, gamma, dx, mean,
+                                                                    rstd, n_rows, d, eps);
+  else
+    ln_bwd_rows_kernel<LN_MAX_VPL, PARTIAL><<<grid, LN_THREADS, 0, stream>>>(
+        x, g, dxn, gamma, dx, mean, rstd, n_rows, d, eps);
   return cudaGetLastError();
 }
 
@@ -468,25 +495,28 @@ const char* xtag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, g, dx: [B, L, D] bf16; ln_g/ln_b: [D] fp32; wqkv: [D, 3D] bf16;
-// bqkv: [3D] fp32; wout: [D, D] bf16; mask: [L, L] fp32 or null.
-// Outputs: dx, dqkv [B, L, 3D] bf16; dwout [D, D] fp32; dbout, dls, dlb
-// [D] fp32. Scratch from the caller: xn, datt, att, dxn [B*L, D] and qkv
-// [B*L, 3D] bf16; stats [2 * B*L] fp32; partial [32 * 3 * D] fp32; with
+// x, g: [B, L, D] bf16; ln_g/ln_b: [D] fp32; wqkv: [D, 3 Dl] bf16 (the
+// q, k and v columns of this call's H heads, Dl = 64 H); bqkv: [3 Dl]
+// fp32; wout: [Dl, D] bf16; mask: [L, L] fp32 or null. Whole blocks have
+// Dl = D. Outputs: dx [B, L, D] bf16, or with ``partial`` fp32 without g;
+// dqkv [B, L, 3 Dl] bf16; dwout [Dl, D] fp32; dbout, dls, dlb [D] fp32.
+// Scratch from the caller: xn, dxn [B*L, D], datt, att [B*L, Dl] and qkv
+// [B*L, 3 Dl] bf16; stats [2 * B*L] fp32; partial [32 * 3 * D] fp32; with
 // a mask, mask_ws [128 * 128] fp32 (else unread). Returns a cudaError_t
 // (0 = launched).
-int xtag_fused_attn_half_bwd(const void* x, const void* g, const float* ln_g,
-                             const float* ln_b, const void* wqkv, const float* bqkv,
-                             const void* wout, const float* mask, void* xn_ws,
-                             void* qkv_ws, void* datt_ws, void* att_ws, void* dxn_ws,
-                             float* stats_ws, float* partial_ws, float* mask_ws, void* dx,
-                             void* dqkv,
-                             float* dwout, float* dbout, float* dls, float* dlb, int B,
-                             int L, int D, int H, float eps, void* stream) {
+static int attn_half_bwd(const void* x, const void* g, const float* ln_g, const float* ln_b,
+                         const void* wqkv, const float* bqkv, const void* wout,
+                         const float* mask, void* xn_ws, void* qkv_ws, void* datt_ws,
+                         void* att_ws, void* dxn_ws, float* stats_ws, float* partial_ws,
+                         float* mask_ws, void* dx, void* dqkv, float* dwout, float* dbout,
+                         float* dls, float* dlb, int B, int L, int D, int H, bool partial,
+                         float eps, void* stream) {
   using namespace xtag;
   using attn_bwd::DH;
   using sm90::launch_gemm;
-  if (D != H * DH || L < 1 || L > attn_bwd::MAX_L || D % 64 != 0 || B < 1)
+  const int Dl = H * DH;
+  if (H < 1 || L < 1 || L > attn_bwd::MAX_L || D % 64 != 0 || B < 1 || Dl > D ||
+      (!partial && Dl != D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = B * L;
@@ -501,23 +531,24 @@ int xtag_fused_attn_half_bwd(const void* x, const void* g, const float* ln_g,
   bf16* dq = static_cast<bf16*>(dqkv);
   cudaError_t e = launch_ln(xb, ln_g, ln_b, xn, n, D, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<sm90::EPI_BIAS>(xn, wq, bqkv, nullptr, qkv, n, 3 * D, D, s);
+  e = launch_gemm<sm90::EPI_BIAS>(xn, wq, bqkv, nullptr, qkv, n, 3 * Dl, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = launch_gemm<sm90::EPI_NONE, false, true>(gb, static_cast<const bf16*>(wout), nullptr,
-                                               nullptr, datt, n, D, D, s);
+                                               nullptr, datt, n, Dl, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   const float scale = 1.0f / sqrtf(static_cast<float>(DH));
   e = L <= 64
-          ? attn_bwd::launch_core<64>(qkv, datt, mask, mask_ws, att, dq, B, L, D, H, scale, s)
-          : attn_bwd::launch_core<128>(qkv, datt, mask, mask_ws, att, dq, B, L, D, H, scale, s);
+          ? attn_bwd::launch_core<64>(qkv, datt, mask, mask_ws, att, dq, B, L, Dl, H, scale, s)
+          : attn_bwd::launch_core<128>(qkv, datt, mask, mask_ws, att, dq, B, L, Dl, H, scale, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<sm90::EPI_F32, true, false>(att, gb, nullptr, nullptr, dwout, D, D, n, s);
+  e = launch_gemm<sm90::EPI_F32, true, false>(att, gb, nullptr, nullptr, dwout, Dl, D, n, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<sm90::EPI_NONE, false, true>(dq, wq, nullptr, nullptr, dxn, n, D, 3 * D, s);
+  e = launch_gemm<sm90::EPI_NONE, false, true>(dq, wq, nullptr, nullptr, dxn, n, D, 3 * Dl, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   float* mean = stats_ws;
   float* rstd = stats_ws + n;
-  e = launch_ln_bwd_rows(xb, gb, dxn, ln_g, static_cast<bf16*>(dx), mean, rstd, n, D, eps, s);
+  e = partial ? launch_ln_bwd_rows<true>(xb, gb, dxn, ln_g, dx, mean, rstd, n, D, eps, s)
+              : launch_ln_bwd_rows<false>(xb, gb, dxn, ln_g, dx, mean, rstd, n, D, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   ln_bwd_cols_kernel<<<dim3(D / 32, COL_SPLITS), dim3(32, 8), 0, s>>>(xb, gb, dxn, mean, rstd,
                                                                      partial_ws, n, D);
@@ -525,6 +556,21 @@ int xtag_fused_attn_half_bwd(const void* x, const void* g, const float* ln_g,
   if (e != cudaSuccess) return static_cast<int>(e);
   col_sum_kernel<<<(3 * D + 255) / 256, 256, 0, s>>>(partial_ws, dbout, dls, dlb, COL_SPLITS, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The block's backward, or with ``partial`` != 0 this rank's H heads'
+// with dx in fp32 without g (attn_half_bwd above).
+int xtag_fused_attn_half_bwd(const void* x, const void* g, const float* ln_g,
+                             const float* ln_b, const void* wqkv, const float* bqkv,
+                             const void* wout, const float* mask, void* xn_ws,
+                             void* qkv_ws, void* datt_ws, void* att_ws, void* dxn_ws,
+                             float* stats_ws, float* partial_ws, float* mask_ws, void* dx,
+                             void* dqkv,
+                             float* dwout, float* dbout, float* dls, float* dlb, int B,
+                             int L, int D, int H, int partial, float eps, void* stream) {
+  return attn_half_bwd(x, g, ln_g, ln_b, wqkv, bqkv, wout, mask, xn_ws, qkv_ws, datt_ws,
+                       att_ws, dxn_ws, stats_ws, partial_ws, mask_ws, dx, dqkv, dwout, dbout,
+                       dls, dlb, B, L, D, H, partial != 0, eps, stream);
 }
 
 }  // extern "C"

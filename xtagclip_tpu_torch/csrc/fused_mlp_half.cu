@@ -16,6 +16,11 @@
 //      (EPI_BIAS_RESID), rounded once -> y.
 // xn and the hidden round to bf16 where the Pallas kernel rounds them, so
 // their round trips through device memory change no number.
+// Partial mode (tensor parallelism, parallel/tensor_parallel.py): w1, b1
+// and w2 are a rank's slice of the hidden width (its columns of c_fc, its
+// rows of c_proj), and step 3 stores its fp32 sums as they are (EPI_F32),
+// without b2 and x; the caller sums the ranks' partials in fp32 and adds
+// b2 and x with one rounding, as step 3's epilogue does.
 //
 // What bounds it on the H100: operations. The two products are 4 N D 4D
 // FLOP: 15.1 GFLOP at the ViT-B-32 vision rows (N = 1600, D = 768), 0.0153
@@ -39,14 +44,16 @@ const char* xtag_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x, out: [N, D] bf16; ln_g/ln_b: [D] fp32; w1: [D, Hd] bf16; b1: [Hd]
-// fp32; w2: [Hd, D] bf16; b2: [D] fp32; act: 0 = gelu, 1 = quick_gelu.
-// Scratch from the caller: xn [N, D] and hidden [N, Hd], bf16. D and Hd
-// multiples of 64. Returns a cudaError_t (0 = launched).
-int xtag_fused_mlp_half(const void* x, const float* ln_g, const float* ln_b,
-                        const void* w1, const float* b1, const void* w2,
-                        const float* b2, void* xn_ws, void* hid_ws, void* out,
-                        int N, int D, int Hd, int act, float eps, void* stream) {
+// x: [N, D] bf16; ln_g/ln_b: [D] fp32; w1: [D, Hd] bf16; b1: [Hd] fp32;
+// w2: [Hd, D] bf16; b2: [D] fp32 (unread when partial); act: 0 = gelu,
+// 1 = quick_gelu. out: [N, D] bf16, or with ``partial`` the fp32 sums
+// hidden @ w2 (no b2, no residual). Scratch from the caller: xn [N, D]
+// and hidden [N, Hd], bf16. D and Hd multiples of 64. Returns a
+// cudaError_t (0 = launched).
+static int mlp_half(const void* x, const float* ln_g, const float* ln_b, const void* w1,
+                    const float* b1, const void* w2, const float* b2, void* xn_ws,
+                    void* hid_ws, void* out, int N, int D, int Hd, int act, bool partial,
+                    float eps, void* stream) {
   using namespace xtag::sm90;
   if (N < 1 || D % 64 != 0 || Hd % 64 != 0 || (act != 0 && act != 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -55,14 +62,26 @@ int xtag_fused_mlp_half(const void* x, const float* ln_g, const float* ln_b,
   bf16* xn = static_cast<bf16*>(xn_ws);
   bf16* hid = static_cast<bf16*>(hid_ws);
   const bf16* w1b = static_cast<const bf16*>(w1);
+  const bf16* w2b = static_cast<const bf16*>(w2);
   cudaError_t e = xtag::launch_ln(xb, ln_g, ln_b, xn, N, D, eps, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = act == 0 ? launch_gemm<EPI_BIAS_GELU>(xn, w1b, b1, nullptr, hid, N, Hd, D, s)
                : launch_gemm<EPI_BIAS_QGELU>(xn, w1b, b1, nullptr, hid, N, Hd, D, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_gemm<EPI_BIAS_RESID>(hid, static_cast<const bf16*>(w2), b2, xb,
-                                  static_cast<bf16*>(out), N, D, Hd, s);
+  e = partial ? launch_gemm<EPI_F32>(hid, w2b, nullptr, nullptr, out, N, D, Hd, s)
+              : launch_gemm<EPI_BIAS_RESID>(hid, w2b, b2, xb, out, N, D, Hd, s);
   return static_cast<int>(e);
+}
+
+// The half, or with ``partial`` != 0 a slice of the hidden width's fp32
+// hidden @ w2 into out, b2 unread (mlp_half above).
+int xtag_fused_mlp_half(const void* x, const float* ln_g, const float* ln_b,
+                        const void* w1, const float* b1, const void* w2,
+                        const float* b2, void* xn_ws, void* hid_ws, void* out,
+                        int N, int D, int Hd, int act, int partial, float eps,
+                        void* stream) {
+  return mlp_half(x, ln_g, ln_b, w1, b1, w2, b2, xn_ws, hid_ws, out, N, D, Hd, act,
+                  partial != 0, eps, stream);
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 xtagclip_tpu/data/registry.py; reference open_clip_train/data.py:526-564
 and others/data_other.py:93-115).
 
-The train split is divided among the ranks (``args.rank`` of
-``args.world_size``, set by core/mesh.py ``init_distributed``: each rank
-reads ``idx[rank::world]`` of the epoch's order); the val and eval
+The train split is divided among the data ranks (``args.data_rank`` of
+``args.data_size``, set by core/mesh.py ``init_distributed``: each rank
+reads ``idx[rank::world]`` of the epoch's order, and the ranks of a
+model group read the same rows); the val and eval
 splits are read whole by every rank, as in JAX (registry.py:25-35).
 ``--dataset-type webdataset`` (or ``auto`` on a ``.tar``) reads tar shards
 (data/wds.py).
@@ -12,6 +13,7 @@ splits are read whole by every rank, as in JAX (registry.py:25-35).
 
 from __future__ import annotations
 
+from xtagclip_tpu_torch.core.mesh import data_rank_of, data_size_of
 from xtagclip_tpu_torch.data.datasets import (
     CsvDataset,
     ImageFolderDataset,
@@ -28,8 +30,8 @@ def _loader(dataset, args, is_train: bool) -> DataInfo:
         dataset, batch_size=args.batch_size, shuffle=is_train,
         drop_last=is_train, num_workers=getattr(args, "workers", 8),
         seed=getattr(args, "seed", 0),
-        rank=getattr(args, "rank", 0) if is_train else 0,
-        world_size=getattr(args, "world_size", 1) if is_train else 1))
+        rank=data_rank_of(args) if is_train else 0,
+        world_size=data_size_of(args) if is_train else 1))
 
 
 def get_csv_dataset(args, preprocess_fn, is_train, epoch=0, tokenizer=None):

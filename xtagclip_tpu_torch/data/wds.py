@@ -41,6 +41,7 @@ from typing import Iterator, List, Optional
 
 import numpy as np
 
+from xtagclip_tpu_torch.core.mesh import data_rank_of, data_size_of
 from xtagclip_tpu_torch.data.loader import DataInfo, background
 
 IMG_EXTS = ("jpg", "jpeg", "png", "webp", "bmp", "tif", "tiff", "ppm", "pgm")
@@ -363,8 +364,8 @@ def get_wds_dataset(args, preprocess_fn, is_train, epoch=0, tokenizer=None):
                     "via `--train-num-samples`.")
             num_samples = 0
 
-    world = getattr(args, "world_size", 1)
-    rank = getattr(args, "rank", 0)
+    world = data_size_of(args)
+    rank = data_rank_of(args)
     if is_train:
         global_batch = args.batch_size * max(world, 1)
         num_batches = max(1, num_samples // global_batch) if num_samples else 1

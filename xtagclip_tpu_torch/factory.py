@@ -76,7 +76,10 @@ from xtagclip_tpu_torch.models.layers import (
 )
 from xtagclip_tpu_torch.models.resnet import ModifiedResNet
 from xtagclip_tpu_torch.models.text import TextTransformer
-from xtagclip_tpu_torch.models.timm_vit import build_timm_vision_tower
+from xtagclip_tpu_torch.models.timm_vit import (
+    TimmModel,
+    build_timm_vision_tower,
+)
 from xtagclip_tpu_torch.models.vit import VisionTransformer
 from xtagclip_tpu_torch.tokenize.bpe import SimpleTokenizer
 from xtagclip_tpu_torch.utils.assets import asset_path
@@ -212,14 +215,37 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def vision_tower_type(v: dict) -> type:
+    """The class of the vision tower of ``vision_cfg`` ``v``, picked on
+    the keys JAX's ``_build_vision_tower`` picks it on."""
+    if v.get("timm_model_name"):
+        return TimmModel
+    if isinstance(v.get("layers"), (list, tuple)):
+        return ModifiedResNet
+    return VisionTransformer
+
+
+def text_tower_type(t: dict) -> type:
+    """The class of the text tower of ``text_cfg`` ``t``."""
+    return HFTextEncoder if t.get("hf_model_name") else TextTransformer
+
+
+def tower_types(model_cfg: dict) -> Dict[str, type]:
+    """{"visual": class, "text": class}: the towers ``create_model``
+    builds from ``model_cfg``, without building them."""
+    return {"visual": vision_tower_type(model_cfg.get("vision_cfg") or {}),
+            "text": text_tower_type(model_cfg.get("text_cfg") or {})}
+
+
 def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
     """The vision tower of ``vision_cfg`` ``v``, reading the keys JAX's
     ``_build_vision_tower`` reads (factory.py:166-222); others are ignored,
     as there."""
-    if v.get("timm_model_name"):
+    kind = vision_tower_type(v)
+    if kind is TimmModel:
         return build_timm_vision_tower(embed_dim, v, dtype,
                                        grad_checkpointing)
-    if isinstance(v.get("layers"), (list, tuple)):
+    if kind is ModifiedResNet:
         return ModifiedResNet(
             tuple(v["layers"]), output_dim=embed_dim,
             heads=v.get("width", 64) * 32 // v.get("head_width", 64),
@@ -249,7 +275,7 @@ def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
 def _text_tower(embed_dim, t, act, dtype, grad_checkpointing=False):
     """The text transformer of ``text_cfg`` ``t``, reading the keys JAX's
     ``_build_text_tower`` reads (factory.py:225-260)."""
-    if t.get("hf_model_name"):
+    if text_tower_type(t) is HFTextEncoder:
         return HFTextEncoder(t["hf_model_name"], output_dim=embed_dim,
                              proj_type=t.get("hf_proj_type", "mlp"),
                              pooler_type=t.get("hf_pooler_type",
@@ -358,9 +384,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
             cfg[k] = v
     if force_patch_dropout is not None:
         cfg["vision_cfg"]["patch_dropout"] = force_patch_dropout
-    unported = {"nonscalar_logit_scale"} & set(cfg)
-    if unported:
-        raise NotImplementedError(f"config keys not ported yet: {unported}")
     act = "quick_gelu" if cfg.get("quick_gelu") else "gelu"
     dtype = get_cast_dtype(precision)
     with dev:
@@ -382,7 +405,9 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
         else:
             model = CLIP(visual, text, embed_dim=cfg["embed_dim"],
                          use_tagging=use_tagging, use_fusion=use_fusion,
-                         fusion_dim=cfg.get("fusion_dim", 512), **common)
+                         fusion_dim=cfg.get("fusion_dim", 512),
+                         nonscalar_logit_scale=cfg.get(
+                             "nonscalar_logit_scale", False), **common)
     if not skip_init:
         init_params(model, torch.Generator(device=dev).manual_seed(init_seed))
     if precision.startswith("pure_"):  # JAX's param_dtype (factory.py:311)

@@ -44,7 +44,10 @@ def l2_normalize(x, dim=-1, eps=1e-12):
 
 class CLIP(nn.Module):
     """Two-tower CLIP + tag head + TQN fusion (``fusion_model`` exists only
-    with ``use_fusion``, as the JAX tree has it only then)."""
+    with ``use_fusion``, as the JAX tree has it only then).
+    ``nonscalar_logit_scale``: ``logit_scale`` of shape (1,) instead of
+    () (JAX clip.py:82; open_clip's checkpoints hold it 0-d, and the
+    loader and exporter reshape it)."""
 
     def __init__(self, visual: nn.Module, text: nn.Module, embed_dim: int,
                  use_tagging: bool = False, use_fusion: bool = False,
@@ -53,6 +56,7 @@ class CLIP(nn.Module):
                  num_tags: int = NUM_TAGS, fusion_dim: int = 512,
                  init_logit_scale: float = math.log(1 / 0.07),
                  init_logit_bias=None,
+                 nonscalar_logit_scale: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if use_fusion and embed_dim != fusion_dim:
@@ -68,7 +72,8 @@ class CLIP(nn.Module):
         self.tag_hidden_size = tag_hidden_size
         self.init_logit_scale = init_logit_scale
         self.dtype = dtype
-        self.logit_scale = nn.Parameter(torch.empty(()))
+        self.logit_scale = nn.Parameter(
+            torch.empty((1,) if nonscalar_logit_scale else ()))
         self.init_logit_bias = init_logit_bias
         self.logit_bias = (nn.Parameter(torch.empty(()))
                            if init_logit_bias is not None else None)

@@ -32,16 +32,22 @@ bits; the global RNG state needs no saving (``preserve_rng_state=False``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from xtagclip_tpu_torch.core.mesh import world_size
+from xtagclip_tpu_torch.core.mesh import data_size
 from xtagclip_tpu_torch.ops import flash_attn
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
 from xtagclip_tpu_torch.ops import fused_mlp
-from xtagclip_tpu_torch.parallel.collectives import all_reduce_sum
+from xtagclip_tpu_torch.parallel import tensor_parallel as tp
+from xtagclip_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_model,
+)
 
 # flax lecun_normal: truncated normal on [-2, 2] std, rescaled so the
 # truncated distribution has stddev sqrt(1 / fan_in)
@@ -171,10 +177,11 @@ class BatchNorm(nn.Module):
     named as flax's ``batch_stats`` leaves (``mean``, ``var``), so they
     travel in ``state_dict`` and checkpoints. The output is in x's dtype.
 
-    At world size > 1 the batch statistics are those of every rank's
-    batch: the sums of x and x^2 and the count are all-reduced with their
-    gradient, as JAX's one program over the global batch takes them,
-    with or without ``--use-bn-sync`` (``sync`` records the flag, as
+    At a data-parallel size > 1 (core/mesh.py's data group) the batch
+    statistics are those of every rank's batch: the sums of x and x^2
+    and the count are all-reduced with their gradient, as JAX's one
+    program over the global batch takes them, with or without
+    ``--use-bn-sync`` (``sync`` records the flag, as
     JAX's ``bn_axis_name`` does; ROADMAP Queue 3)."""
 
     def __init__(self, dim: int, momentum: float = 0.9, eps: float = 1e-5,
@@ -196,7 +203,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool = False):
         x32 = x.float()
-        if train and world_size() > 1:
+        if train and data_size() > 1:
             n = torch.full((1,), x32.numel() // x32.shape[1],
                            dtype=torch.float32, device=x.device)
             sums = all_reduce_sum(torch.cat([
@@ -461,7 +468,23 @@ class ResidualAttentionBlock(nn.Module):
     yardstick the chip smoke holds the kernels against. The fused halves
     take the weight matrices cast to the stream's dtype and the biases and
     LayerNorm parameters in fp32 (layers.py:540-543): under ``pure_bf16``
-    the biases are bf16 parameters, upcast at the call (exact)."""
+    the biases are bf16 parameters, upcast at the call (exact).
+
+    Tensor parallelism (``tp_size`` > 1, set by parallel/sharding.py
+    ``shard_tensor_parallel``): the block holds ``local_heads`` of its
+    heads and 1 / ``tp_size`` of the MLP's hidden width, and every route
+    runs on them, with the model group's all-reduces in
+    parallel/tensor_parallel.py. ``fused_halves``: the partial modes of
+    #1 and #2, each followed by an fp32 model all-reduce and the bias and
+    residual add (``tp.attn_half``, ``tp.mlp_half``); ``non_fused``:
+    ``copy_to_model`` of LN1(x), the local [E, 3 E / N] product, #6 over
+    the local heads, the local out-projection, ``reduce_from_model``, +
+    bias + residual; then ``copy_to_model`` of LN2(x), #4's partial mode
+    on the hidden slice, ``reduce_from_model``, + c_proj's bias;
+    ``plain_core``: the plain attention over the local heads (CoCa's
+    cross-attention and per-sample masks), then the MLP half as above.
+    The route is chosen on the local shapes (the MLP's hidden slice), and
+    on the card a stream no kernel takes at the local shape raises."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "gelu", norm_eps: float = 1e-5,
@@ -486,6 +509,8 @@ class ResidualAttentionBlock(nn.Module):
             self.ls_1 = LayerScale(width, ls_init_value)
             self.ls_2 = LayerScale(width, ls_init_value)
         self.layer_scale = ls_init_value is not None
+        self.tp_size = 1
+        self.local_heads = heads
 
     def route(self, shape, attn_mask=None) -> str:
         """The route of a stream of this shape under this mask (class
@@ -518,17 +543,24 @@ class ResidualAttentionBlock(nn.Module):
             return self._plain_core(x, attn_mask, kv, kernels)
         return self._non_fused(x, attn_mask, kernels)
 
-    def _fused_halves(self, x, attn_mask, kernels):
+    def _halves(self, kernels):
+        """(attention half, MLP half) of the fused route: the kernel
+        wrappers, the plain versions, or, sharded, the tensor-parallel
+        halves."""
+        if self.tp_size > 1:
+            return (functools.partial(tp.attn_half, kernels=kernels),
+                    functools.partial(tp.mlp_half, kernels=kernels))
         if kernels:
-            attn_half, mlp_half = fab.fused_attn_half, fab.fused_mlp_half
-        else:
-            attn_half = fab.reference_attn_half
-            mlp_half = fab.reference_mlp_half
+            return fab.fused_attn_half, fab.fused_mlp_half
+        return fab.reference_attn_half, fab.reference_mlp_half
+
+    def _fused_halves(self, x, attn_mask, kernels):
+        attn_half, mlp_half = self._halves(kernels)
         a, m, dt = self.attn, self.mlp, x.dtype
         x = attn_half(x, self.ln_1.scale.float(), self.ln_1.bias.float(),
                       a.in_proj.kernel.to(dt), a.in_proj.bias.float(),
                       a.out_proj.kernel.to(dt), a.out_proj.bias.float(),
-                      attn_mask, self.heads, self.norm_eps)
+                      attn_mask, self.local_heads, self.norm_eps)
         return self._mlp_half(x, mlp_half)
 
     def _mlp_half(self, x, mlp_half):
@@ -564,22 +596,60 @@ class ResidualAttentionBlock(nn.Module):
 
     def _plain_core(self, x, attn_mask, kv, kernels):
         h = self.ln_1(x)
-        if self.is_cross_attention:
+        if self.tp_size > 1:
+            a = self._attn_tp(h, attn_mask, kernels, kv)
+        elif self.is_cross_attention:
             a = self.attn(h, self.ln_1_kv(kv))
         else:  # a 4-D mask: flash attention takes no mask
             a = self.attn.self_attention(h, kernels, attn_mask)
         x = x + (self.ls_1(a) if self.layer_scale else a)
         if not self._mlp_half_fused(x.shape):
-            m = self.mlp(self.ln_2(x), kernels)
+            m = self._mlp(self.ln_2(x), kernels)
             return x + (self.ls_2(m) if self.layer_scale else m)
-        return self._mlp_half(x, fab.fused_mlp_half if kernels
-                              else fab.reference_mlp_half)
+        return self._mlp_half(x, self._halves(kernels)[1])
 
     def _non_fused(self, x, attn_mask, kernels):
-        a = self.attn.self_attention(self.ln_1(x), kernels, attn_mask)
+        h = self.ln_1(x)
+        a = (self._attn_tp(h, attn_mask, kernels) if self.tp_size > 1
+             else self.attn.self_attention(h, kernels, attn_mask))
         x = x + (self.ls_1(a) if self.layer_scale else a)
-        m = self.mlp(self.ln_2(x), kernels)
+        m = self._mlp(self.ln_2(x), kernels)
         return x + (self.ls_2(m) if self.layer_scale else m)
+
+    def _attn_tp(self, h, attn_mask, kernels, kv=None):
+        """out_proj(MHA(h)) of a sharded block off the fused half (class
+        doc): the local heads' projections of ``copy_to_model(h)``, the
+        core over the local heads (#6 where it takes them, else the plain
+        attention), then ``tp.out_projection``. ``kv`` is a
+        cross-attention block's key/value stream, before ``ln_1_kv``."""
+        a, h = self.attn, copy_to_model(h)
+        if self.is_cross_attention:
+            kvn = copy_to_model(self.ln_1_kv(kv))
+            if a.separate:
+                q, k, v = a.q_proj(h), a.k_proj(kvn), a.v_proj(kvn)
+            else:
+                el = a.in_proj.kernel.shape[1] // 3
+                q = a._proj(h, 0, el)
+                k, v = a._proj(kvn, el, 3 * el).split(el, dim=-1)
+            o = attention(q, k, v, self.local_heads)
+        else:
+            el = a.in_proj.kernel.shape[1] // 3
+            q, k, v = a._proj(h, 0, 3 * el).split(el, dim=-1)
+            o = self_attention_core(q, k, v, self.local_heads, kernels,
+                                    attn_mask)
+        return tp.out_projection(o, a.out_proj.kernel, a.out_proj.bias)
+
+    def _mlp(self, h, kernels):
+        """MLP(h) off the fused half; sharded, #4's partial mode on the
+        hidden slice of ``copy_to_model(h)`` (or its plain version), the
+        model group's fp32 sum and c_proj's bias, rounded once."""
+        if self.tp_size == 1:
+            return self.mlp(h, kernels)
+        m, dt = self.mlp, h.dtype
+        fn = fused_mlp.fused_mlp if kernels else fused_mlp.reference_fused_mlp
+        part = fn(copy_to_model(h), m.c_fc.kernel.to(dt), m.c_fc.bias.float(),
+                  m.c_proj.kernel.to(dt), None, self.act, partial=True)
+        return tp.finish_sum(part, m.c_proj.bias, dt)
 
 
 def set_use_kernels(module: nn.Module, enabled: bool) -> None:

@@ -104,26 +104,26 @@ _ARGTYPES = {
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, ln_g, ln_b, wqkv, bqkv, wout, bout, mask
         _VP, _VP, _VP, _VP, _VP,                 # xn, qkv, att, mask scratch; out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
-        ctypes.c_float, _VP,                     # eps, stream
+        ctypes.c_int, ctypes.c_float, _VP,       # partial, eps, stream
     ],
     "xtag_fused_attn_half_bwd": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # x, g, ln_g, ln_b, wqkv, bqkv, wout, mask
         _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,  # xn, qkv, datt, att, dxn, stats, partial, mask scratch
         _VP, _VP, _VP, _VP, _VP, _VP,            # dx, dqkv, dwout, dbout, dls, dlb
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, L, D, H
-        ctypes.c_float, _VP,                     # eps, stream
+        ctypes.c_int, ctypes.c_float, _VP,       # partial, eps, stream
     ],
     "xtag_fused_mlp_half": [
         _VP, _VP, _VP, _VP, _VP, _VP, _VP,       # x, ln_g, ln_b, w1, b1, w2, b2
         _VP, _VP, _VP,                           # xn, hidden scratch; out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, D, Hd, act
-        ctypes.c_float, _VP,                     # eps, stream
+        ctypes.c_int, ctypes.c_float, _VP,       # partial, eps, stream
     ],
     "xtag_fused_mlp": [
         _VP, _VP, _VP, _VP, _VP,                 # x, w1, b1, w2, b2
         _VP, _VP,                                # hidden scratch; out
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # N, D, Hd, act
-        _VP,                                     # stream
+        ctypes.c_int, _VP,                       # partial, stream
     ],
     "xtag_flash_attn_fwd": [
         _VP, _VP, _VP, _VP, _VP,                 # q, k, v, o, lse (or null)

@@ -34,6 +34,20 @@ kernel and ``mlp_half_bwd``, a PyTorch backward that recomputes the half
 from x (the JAX MLP backward is XLA, not Pallas). Under ``no_grad`` or
 ``inference_mode`` the wrappers launch only the forward kernels.
 
+Partial mode (tensor parallelism, parallel/tensor_parallel.py): with
+``partial=True`` each of the wrappers and plain versions takes a rank's
+share of the block, the q, k and v columns of its heads (wqkv [D, 3 Dl],
+Dl = 64 local heads; wout [Dl, D]) or its slice of the MLP's hidden
+width, and returns its term of the block's output in fp32, without the
+out-projection's bias and the residual: ``out_proj(MHA_local(LN(x)))`` or
+``c_proj(act(c_fc_local(LN(x))))``. The backward's partial mode returns
+dx in fp32 without the residual cotangent g (dx, dls and dlb are linear
+in the LN output's cotangent, so the ranks' terms sum to the whole
+block's). The caller sums the ranks' terms in fp32 and adds the bias,
+the residual and g once, with one rounding, as the whole kernels'
+epilogues do. The partial wrappers are forward launchers with no
+autograd of their own: the tensor-parallel Functions train through them.
+
 Custom ops: without grad the wrappers call the forward kernels through
 ``torch.library`` custom ops, ``xtagclip_tpu_torch::fused_attn_half`` and
 ``xtagclip_tpu_torch::fused_mlp_half``, so that ``torch.export`` and CUDA
@@ -122,7 +136,8 @@ def _layer_norm_rounded(x32, ln_scale, ln_bias, eps, dtype):
 def _ln_backward(g32, dxn, gamma, xhat, rstd, dtype):
     """dx of y = x + f(LN(x)) from the residual cotangent g32 and the LN
     output's cotangent dxn, summed in fp32 and rounded once
-    (fused_attn_block.py:666-670)."""
+    (fused_attn_block.py:666-670). The partial mode passes g32 = 0 and
+    dtype fp32: the LN term alone, unrounded."""
     dxhat = dxn * gamma
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
@@ -130,26 +145,32 @@ def _ln_backward(g32, dxn, gamma, xhat, rstd, dtype):
 
 
 def reference_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                        mask=None, num_heads: int = 8, eps: float = 1e-5):
+                        mask=None, num_heads: int = 8, eps: float = 1e-5,
+                        partial: bool = False):
     """Plain y = x + out_proj(MHA(LN(x))) over [B, L, D] (the composed chain
-    the kernel replaces)."""
+    the kernel replaces); with ``partial`` the fp32 out_proj(MHA(LN(x)))
+    of the ``num_heads`` heads whose columns wqkv and rows wout hold
+    (module doc; ``bout`` unread)."""
     with _full_fp32_matmul():
-        b, l, d = x.shape
-        dh = d // num_heads
+        b, l, _ = x.shape
+        dl = wqkv.shape[1] // 3
+        dh = dl // num_heads
         x32 = x.float()
         xn = _layer_norm_rounded(x32, ln_scale, ln_bias, eps, x.dtype)
         qkv = (xn.float() @ wqkv.float() + bqkv.float()).to(x.dtype)
 
-        def heads(t):  # [B, L, D] -> [B, H, L, dh]
+        def heads(t):  # [B, L, Dl] -> [B, H, L, dh]
             return t.reshape(b, l, num_heads, dh).transpose(1, 2).float()
 
-        q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+        q, k, v = (heads(t) for t in qkv.split(dl, dim=-1))
         s = (q @ k.transpose(-1, -2)) * dh**-0.5
         if mask is not None:
             s = s + mask.float()
         p = torch.softmax(s, dim=-1)
         o = (p.to(x.dtype).float() @ v).to(x.dtype)
-        att = o.transpose(1, 2).reshape(b, l, d)
+        att = o.transpose(1, 2).reshape(b, l, dl)
+        if partial:
+            return att.float() @ wout.float()
         y = att.float() @ wout.float() + bout.float()
         return (x32 + y).to(x.dtype)
 
@@ -163,28 +184,35 @@ def _act(name: str, v):
 
 
 def reference_mlp_half(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                       act_name: str, eps: float = 1e-5):
-    """Plain y = x + c_proj(act(c_fc(LN(x)))) over [..., D] rows."""
+                       act_name: str, eps: float = 1e-5,
+                       partial: bool = False):
+    """Plain y = x + c_proj(act(c_fc(LN(x)))) over [..., D] rows; with
+    ``partial`` the fp32 c_proj(act(c_fc(LN(x)))) of the hidden slice w1,
+    b1 and w2 hold (module doc; ``b2`` unread)."""
     with _full_fp32_matmul():
         x32 = x.float()
         xn = _layer_norm_rounded(x32, ln_scale, ln_bias, eps, x.dtype)
         hid = _act(act_name, xn.float() @ w1.float() + b1.float())
+        if partial:
+            return hid.to(x.dtype).float() @ w2.float()
         y = hid.to(x.dtype).float() @ w2.float() + b2.float()
         return (x32 + y).to(x.dtype)
 
 
 def reference_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
                             mask=None, num_heads: int = 8,
-                            eps: float = 1e-5):
+                            eps: float = 1e-5, partial: bool = False):
     """Plain backward of ``reference_attn_half`` from x and the output
     cotangent g: (dx [B, L, D], dqkv [B, L, 3D] in x's dtype; dwout [D, D],
     dbout, dls, dlb [D] in fp32, summed over the batch). The analytic
     backward with the Pallas kernel's rounding points (:560-565): datt, p,
     dp, dv, dq, dk and dxn round to x's dtype; dq = ds k and dk = ds^T q
-    take fp32 operands."""
+    take fp32 operands. With ``partial`` (module doc) dqkv is
+    [B, L, 3 Dl], dwout [Dl, D], and dx the fp32 LN term without g."""
     with _full_fp32_matmul():
         b, l, d = x.shape
-        dh = d // num_heads
+        dl = wqkv.shape[1] // 3
+        dh = dl // num_heads
         scale = dh**-0.5
         dt = x.dtype
         rstd, xhat = _ln_stats(x.float(), eps)
@@ -192,13 +220,13 @@ def reference_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
         xn = (xhat * gamma + ln_bias.float()).to(dt)
         qkv = (xn.float() @ wqkv.float() + bqkv.float()).to(dt)
 
-        def heads(t):  # [B, L, D] -> [B, H, L, dh], fp32
+        def heads(t):  # [B, L, Dl] -> [B, H, L, dh], fp32
             return t.reshape(b, l, num_heads, dh).transpose(1, 2).float()
 
-        def merge(t):  # [B, H, L, dh] -> [B, L, D]
-            return t.transpose(1, 2).reshape(b, l, d)
+        def merge(t):  # [B, H, L, dh] -> [B, L, Dl]
+            return t.transpose(1, 2).reshape(b, l, dl)
 
-        q, k, v = (heads(t) for t in qkv.split(d, dim=-1))
+        q, k, v = (heads(t) for t in qkv.split(dl, dim=-1))
         g32 = g.float()
         datt = (g32 @ wout.float().t()).to(dt)
         s = (q @ k.transpose(-1, -2)) * scale
@@ -214,15 +242,16 @@ def reference_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
         dq = (ds @ k).to(dt)
         dk = (ds.transpose(-1, -2) @ q).to(dt)
         dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
-        dwout = att.float().reshape(-1, d).t() @ g32.reshape(-1, d)
+        dwout = att.float().reshape(-1, dl).t() @ g32.reshape(-1, d)
         dxn = (dqkv.float() @ wqkv.float().t()).to(dt).float()
-        dx = _ln_backward(g32, dxn, gamma, xhat, rstd, dt)
+        dx = (_ln_backward(0.0, dxn, gamma, xhat, rstd, torch.float32)
+              if partial else _ln_backward(g32, dxn, gamma, xhat, rstd, dt))
         return (dx, dqkv, dwout, g32.sum(dim=(0, 1)),
                 (dxn * xhat).sum(dim=(0, 1)), dxn.sum(dim=(0, 1)))
 
 
 def mlp_half_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, act_name: str,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, partial: bool = False):
     """Backward of the MLP half from x and the output cotangent g: (dx,
     dls, dlb, dw1, db1, dw2, db2). Counterpart of ``_mlp_bwd``'s fallback
     branch (:953-958), ``jax.vjp`` of ``_reference_mlp_chain``: it
@@ -231,7 +260,8 @@ def mlp_half_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, act_name: str,
     each cotangent to its primal's dtype where autodiff of the chain does.
     A product of an fp32 cotangent with a bf16 weight runs in fp32 (TF32
     off); the residual and LN contributions to dx add in fp32 and round
-    once (:904-913)."""
+    once (:904-913). With ``partial`` (module doc) w1, b1, w2 are a hidden
+    slice and dx is the fp32 LN term without g."""
     with _full_fp32_matmul():
         d = x.shape[-1]
         dt = x.dtype
@@ -246,7 +276,8 @@ def mlp_half_bwd(x, g, ln_scale, ln_bias, w1, b1, w2, act_name: str,
         dpre = dhid * _act_grad(act_name, pre)
         dxn = (dpre @ w1.float().t()).to(dt).float()
         dw1 = (xn.t() @ dpre).to(w1.dtype)
-        dx = _ln_backward(g32, dxn, gamma, xhat, rstd, dt)
+        dx = (_ln_backward(0.0, dxn, gamma, xhat, rstd, torch.float32)
+              if partial else _ln_backward(g32, dxn, gamma, xhat, rstd, dt))
         return (dx.reshape(x.shape), (dxn * xhat).sum(0), dxn.sum(0), dw1,
                 dpre.sum(0), dw2, g32.sum(0))
 
@@ -305,19 +336,38 @@ def _needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def _attn_launch_checks(what, x, num_heads, mask, gate):
+def _attn_launch_checks(what, x, num_heads, mask, gate,
+                        partial: bool = False):
+    """Raise unless the kernel takes the stream; in the partial mode the
+    stream of its ``num_heads`` heads, [B, L, 64 num_heads], inside a
+    model width D that is a multiple of 64."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     mshape = None if mask is None else tuple(mask.shape)
-    if not gate(x.shape, num_heads, x.dtype, mshape):
+    shape = tuple(x.shape)
+    if partial and len(shape) == 3:
+        if shape[-1] % _TILE or num_heads * _HEAD_DIM > shape[-1]:
+            raise ValueError(
+                f"{what}: no kernel for {num_heads} local heads of 64 in "
+                f"model width {shape[-1]}")
+        shape = shape[:2] + (num_heads * _HEAD_DIM,)
+    if not gate(shape, num_heads, x.dtype, mshape):
         raise ValueError(
             f"{what}: no kernel for stream {tuple(x.shape)} {x.dtype} with "
             f"{num_heads} heads and mask {mshape} (needs bf16, head dim 64, "
             f"D % 64 == 0, L <= {_MAX_LEN}, mask None or [L, L])")
 
 
+def _no_grad_partial(what, *tensors):
+    if _needs_grad(*tensors):
+        raise ValueError(
+            f"{what}: the partial mode has no autograd of its own; "
+            "parallel/tensor_parallel.py trains through it")
+
+
 def fused_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
-                    mask=None, num_heads: int = 8, eps: float = 1e-5):
+                    mask=None, num_heads: int = 8, eps: float = 1e-5,
+                    partial: bool = False):
     """y = x + out_proj(MHA(LN(x))): the CUDA kernel on a CUDA tensor, the
     plain version on a CPU tensor (see the module doc); differentiable
     through ``_FusedAttnHalf`` when an input requires grad.
@@ -325,10 +375,16 @@ def fused_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
     x [B, L, D] bf16; ln_scale/ln_bias [D] fp32; wqkv [D, 3D] bf16 (flax
     Dense layout [in, out]); bqkv [3D] fp32; wout [D, D] bf16; bout [D]
     fp32; mask None or an additive [L, L] fp32 mask (it gets no
-    gradient)."""
+    gradient). ``partial``: the fp32 term of ``num_heads`` local heads
+    (module doc), wqkv [D, 3 Dl], bqkv [3 Dl], wout [Dl, D], bout
+    unread."""
     args = (x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask, num_heads,
             eps)
     check_device("fused_attn_half", x)
+    if partial:
+        _no_grad_partial("fused_attn_half", x, ln_scale, ln_bias, wqkv, bqkv,
+                         wout)
+        return _attn_half_fwd(*args, partial=True)
     if _needs_grad(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout):
         return _FusedAttnHalf.apply(*args)
     return fused_attn_half_op(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
@@ -336,34 +392,39 @@ def fused_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
 
 
 def _attn_half_fwd(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, mask,
-                   num_heads, eps):
+                   num_heads, eps, partial: bool = False):
     if x.device.type == "cpu":
         return reference_attn_half(x, ln_scale, ln_bias, wqkv, bqkv, wout,
-                                   bout, mask, num_heads, eps)
+                                   bout, mask, num_heads, eps, partial)
     what = "fused_attn_half"
-    _attn_launch_checks(what, x, num_heads, mask, supported)
+    _attn_launch_checks(what, x, num_heads, mask, supported, partial)
     b, l, d = x.shape
+    dl = num_heads * _HEAD_DIM if partial else d
     bf, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv,
-                 bqkv=bqkv, wout=wout, bout=bout, mask=mask)
+                 bqkv=bqkv, wout=wout, bout=None if partial else bout,
+                 mask=mask)
     dtypes = dict(x=bf, ln_scale=f32, ln_bias=f32, wqkv=bf, bqkv=f32,
                   wout=bf, bout=f32, mask=f32)
-    shapes = dict(x=(b, l, d), ln_scale=(d,), ln_bias=(d,), wqkv=(d, 3 * d),
-                  bqkv=(3 * d,), wout=(d, d), bout=(d,), mask=(l, l))
+    shapes = dict(x=(b, l, d), ln_scale=(d,), ln_bias=(d,),
+                  wqkv=(d, 3 * dl), bqkv=(3 * dl,), wout=(dl, d), bout=(d,),
+                  mask=(l, l))
     _check_args(what, x, named, dtypes, shapes)
     n = b * l
     xn = torch.empty((n, d), dtype=bf, device=x.device)
-    qkv = torch.empty((n, 3 * d), dtype=bf, device=x.device)
-    att = torch.empty((n, d), dtype=bf, device=x.device)
+    qkv = torch.empty((n, 3 * dl), dtype=bf, device=x.device)
+    att = torch.empty((n, dl), dtype=bf, device=x.device)
     mask_ws = _mask_scratch(mask)
-    out = torch.empty_like(x)
+    out = torch.empty((b, l, d), dtype=f32 if partial else bf,
+                      device=x.device)
     lib = cuda_build.load("fused_attn_half")
     err = lib.xtag_fused_attn_half(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(), bout.data_ptr(),
+        wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(),
+        None if partial else bout.data_ptr(),
         _ptr(mask), xn.data_ptr(), qkv.data_ptr(), att.data_ptr(),
         _ptr(mask_ws), out.data_ptr(),
-        b, l, d, num_heads, float(eps),
+        b, l, d, num_heads, int(partial), float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_attn_half.launches += 1
@@ -393,36 +454,39 @@ def _fused_attn_half_fake(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout,
 
 
 def fused_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
-                        mask=None, num_heads: int = 8, eps: float = 1e-5):
+                        mask=None, num_heads: int = 8, eps: float = 1e-5,
+                        partial: bool = False):
     """Backward of the attention half from x and the output cotangent g:
     (dx, dqkv, dwout, dbout, dls, dlb) as ``reference_attn_half_bwd``
-    returns them. The CUDA kernel on a CUDA tensor (shapes in
-    ``supported_bwd``, else it raises), the plain version on a CPU
-    tensor."""
+    returns them (``partial`` as there). The CUDA kernel on a CUDA tensor
+    (shapes in ``supported_bwd``, else it raises), the plain version on a
+    CPU tensor."""
     if x.device.type == "cpu":
         return reference_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv,
-                                       wout, mask, num_heads, eps)
+                                       wout, mask, num_heads, eps, partial)
     what = "fused_attn_half_bwd"
-    _attn_launch_checks(what, x, num_heads, mask, supported_bwd)
+    _attn_launch_checks(what, x, num_heads, mask, supported_bwd, partial)
     b, l, d = x.shape
+    dl = num_heads * _HEAD_DIM if partial else d
     bf, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, g=g, ln_scale=ln_scale, ln_bias=ln_bias, wqkv=wqkv,
                  bqkv=bqkv, wout=wout, mask=mask)
     dtypes = dict(x=bf, g=bf, ln_scale=f32, ln_bias=f32, wqkv=bf, bqkv=f32,
                   wout=bf, mask=f32)
     shapes = dict(x=(b, l, d), g=(b, l, d), ln_scale=(d,), ln_bias=(d,),
-                  wqkv=(d, 3 * d), bqkv=(3 * d,), wout=(d, d), mask=(l, l))
+                  wqkv=(d, 3 * dl), bqkv=(3 * dl,), wout=(dl, d),
+                  mask=(l, l))
     _check_args(what, x, named, dtypes, shapes)
     n = b * l
     dev = x.device
     scratch = [torch.empty((n, w), dtype=bf, device=dev)
-               for w in (d, 3 * d, d, d, d)]     # xn, qkv, datt, att, dxn
+               for w in (d, 3 * dl, dl, dl, d)]  # xn, qkv, datt, att, dxn
     stats = torch.empty(2 * n, dtype=f32, device=dev)
-    partial = torch.empty(_COL_SPLITS * 3 * d, dtype=f32, device=dev)
+    col_ws = torch.empty(_COL_SPLITS * 3 * d, dtype=f32, device=dev)
     mask_ws = _mask_scratch(mask)
-    dx = torch.empty_like(x)
-    dqkv = torch.empty((b, l, 3 * d), dtype=bf, device=dev)
-    dwout = torch.empty((d, d), dtype=f32, device=dev)
+    dx = torch.empty((b, l, d), dtype=f32 if partial else bf, device=dev)
+    dqkv = torch.empty((b, l, 3 * dl), dtype=bf, device=dev)
+    dwout = torch.empty((dl, d), dtype=f32, device=dev)
     dbout, dls, dlb = (torch.empty(d, dtype=f32, device=dev)
                        for _ in range(3))
     lib = cuda_build.load("fused_attn_half_bwd")
@@ -430,9 +494,9 @@ def fused_attn_half_bwd(x, g, ln_scale, ln_bias, wqkv, bqkv, wout,
         x.data_ptr(), g.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         wqkv.data_ptr(), bqkv.data_ptr(), wout.data_ptr(),
         _ptr(mask), *(t.data_ptr() for t in scratch), stats.data_ptr(),
-        partial.data_ptr(), _ptr(mask_ws), dx.data_ptr(), dqkv.data_ptr(),
+        col_ws.data_ptr(), _ptr(mask_ws), dx.data_ptr(), dqkv.data_ptr(),
         dwout.data_ptr(), dbout.data_ptr(), dls.data_ptr(), dlb.data_ptr(),
-        b, l, d, num_heads, float(eps),
+        b, l, d, num_heads, int(partial), float(eps),
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_attn_half_bwd.launches += 1
@@ -464,10 +528,9 @@ class _FusedAttnHalf(torch.autograd.Function):
         dx, dqkv, dwout, dbout, dls, dlb = fused_attn_half_bwd(
             x, g.contiguous(), ln_scale, ln_bias, wqkv, bqkv, wout, mask,
             ctx.num_heads, ctx.eps)
-        d = x.shape[-1]
         xn = _layer_norm_rounded(x.float(), ln_scale, ln_bias, ctx.eps,
-                                 x.dtype).reshape(-1, d)
-        dqkv2 = dqkv.reshape(-1, 3 * d)
+                                 x.dtype).reshape(-1, x.shape[-1])
+        dqkv2 = dqkv.reshape(-1, dqkv.shape[-1])
         with _full_fp32_matmul():  # fp32 accumulation, one rounding
             dwqkv = torch.matmul(xn.t(), dqkv2)
         dbqkv = dqkv2.float().sum(0)
@@ -478,25 +541,31 @@ class _FusedAttnHalf(torch.autograd.Function):
 
 
 def fused_mlp_half(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                   act_name: str, eps: float = 1e-5):
+                   act_name: str, eps: float = 1e-5, partial: bool = False):
     """y = x + c_proj(act(c_fc(LN(x)))): the CUDA kernel on a CUDA tensor,
     the plain version on a CPU tensor (see the module doc); differentiable
     through ``_FusedMLPHalf`` when an input requires grad.
 
     x [..., D] bf16; w1 [D, Hd], w2 [Hd, D] bf16 (flax layout [in, out]);
-    ln_scale/ln_bias/b2 [D], b1 [Hd] fp32; act_name gelu|quick_gelu."""
+    ln_scale/ln_bias/b2 [D], b1 [Hd] fp32; act_name gelu|quick_gelu.
+    ``partial``: the fp32 term of a hidden slice (module doc), b2
+    unread."""
     args = (x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps)
     check_device("fused_mlp_half", x)
+    if partial:
+        _no_grad_partial("fused_mlp_half", x, ln_scale, ln_bias, w1, b1, w2)
+        return _mlp_half_fwd(*args, partial=True)
     if _needs_grad(x, ln_scale, ln_bias, w1, b1, w2, b2):
         return _FusedMLPHalf.apply(*args)
     return fused_mlp_half_op(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name,
                              float(eps))
 
 
-def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps):
+def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps,
+                  partial: bool = False):
     if x.device.type == "cpu":
         return reference_mlp_half(x, ln_scale, ln_bias, w1, b1, w2, b2,
-                                  act_name, eps)
+                                  act_name, eps, partial)
     what = "fused_mlp_half"
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
@@ -509,7 +578,7 @@ def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps):
             "D and hidden width multiples of 64)")
     bf, f32 = torch.bfloat16, torch.float32
     named = dict(x=x, ln_scale=ln_scale, ln_bias=ln_bias, w1=w1, b1=b1,
-                 w2=w2, b2=b2)
+                 w2=w2, b2=None if partial else b2)
     dtypes = dict(x=bf, ln_scale=f32, ln_bias=f32, w1=bf, b1=f32, w2=bf,
                   b2=f32)
     shapes = dict(x=tuple(x.shape), ln_scale=(d,), ln_bias=(d,), w1=(d, hd),
@@ -518,13 +587,14 @@ def _mlp_half_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name, eps):
     n = x.numel() // d
     xn = torch.empty((n, d), dtype=bf, device=x.device)
     hid = torch.empty((n, hd), dtype=bf, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=f32 if partial else bf, device=x.device)
     lib = cuda_build.load("fused_mlp_half")
     err = lib.xtag_fused_mlp_half(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        None if partial else b2.data_ptr(),
         xn.data_ptr(), hid.data_ptr(), out.data_ptr(),
-        n, d, hd, ACTIVATIONS[act_name], float(eps),
+        n, d, hd, ACTIVATIONS[act_name], int(partial), float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_mlp_half.launches += 1

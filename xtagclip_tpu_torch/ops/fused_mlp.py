@@ -22,6 +22,15 @@ fused halves, behind ``XTAG_FUSED_MLP`` there):
   result on the card (``_mm_f32``), not as an fp32 product of upcast
   operands.
 
+Partial mode (tensor parallelism, parallel/tensor_parallel.py): with
+``partial=True`` w1, b1 and w2 are a rank's slice of the hidden width
+and the result is the fp32 c_proj(act(c_fc(x))) of that slice, without
+b2; the caller sums the ranks' terms in fp32, adds b2 and rounds once,
+as the whole kernel's epilogue does. ``b2`` may be None there. The
+partial mode trains through ``_FusedMLP`` as the whole one does: its
+cotangent, the fp32 term's, rounds to x's dtype as JAX's ``_bwd``
+rounds the output's.
+
 Without grad the wrapper calls the forward through the custom op
 ``xtagclip_tpu_torch::fused_mlp`` (the launcher; a fake implementation
 for ``torch.export``), as ops/fused_attn_block.py does for its halves.
@@ -73,32 +82,40 @@ def _mm_f32(a, b):
         return a.float() @ b.float()
 
 
-def reference_fused_mlp(x, w1, b1, w2, b2, act: str = "gelu"):
-    """Plain c_proj(act(c_fc(x))) over [..., D] rows (module doc)."""
+def reference_fused_mlp(x, w1, b1, w2, b2, act: str = "gelu",
+                        partial: bool = False):
+    """Plain c_proj(act(c_fc(x))) over [..., D] rows (module doc); with
+    ``partial`` the fp32 term of the hidden slice, without b2."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     hid = _act(act, _mm_f32(x2, w1) + b1.float())
-    out = _mm_f32(hid.to(x.dtype), w2) + b2.float()
+    out = _mm_f32(hid.to(x.dtype), w2)
+    if partial:
+        return out.reshape(x.shape)
+    out = out + b2.float()
     return out.to(x.dtype).reshape(x.shape)
 
 
-def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu"):
+def fused_mlp(x, w1, b1, w2, b2, act: str = "gelu", partial: bool = False):
     """c_proj(act(c_fc(x))): the CUDA kernel on a CUDA tensor, the plain
     version on a CPU tensor (module doc); differentiable through
     ``_FusedMLP`` when an input requires grad.
 
     x [..., D] bf16; w1 [D, Hd], w2 [Hd, D] bf16 (flax layout [in, out]);
-    b1 [Hd], b2 [D] fp32; act gelu|quick_gelu."""
+    b1 [Hd], b2 [D] fp32; act gelu|quick_gelu. ``partial``: the fp32
+    term of a hidden slice (module doc); b2 unread."""
     args = (x, w1, b1, w2, b2, act)
     check_device("fused_mlp", x)
-    if _needs_grad(x, w1, b1, w2, b2):
-        return _FusedMLP.apply(*args)
+    if _needs_grad(x, w1, b1, w2, None if partial else b2):
+        return _FusedMLP.apply(*args, partial)
+    if partial:
+        return _fused_mlp_fwd(*args, partial=True)
     return fused_mlp_op(*args)
 
 
-def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
+def _fused_mlp_fwd(x, w1, b1, w2, b2, act, partial: bool = False):
     if x.device.type == "cpu":
-        return reference_fused_mlp(x, w1, b1, w2, b2, act)
+        return reference_fused_mlp(x, w1, b1, w2, b2, act, partial)
     what = "fused_mlp"
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
@@ -110,18 +127,20 @@ def _fused_mlp_fwd(x, w1, b1, w2, b2, act):
             f"width {hd}, act {act!r} (needs bf16, gelu|quick_gelu, D and "
             f"hidden width multiples of {_WIDTH_MULTIPLE})")
     bf, f32 = torch.bfloat16, torch.float32
-    _check_args(what, x, dict(x=x, w1=w1, b1=b1, w2=w2, b2=b2),
+    _check_args(what, x, dict(x=x, w1=w1, b1=b1, w2=w2,
+                              b2=None if partial else b2),
                 dict(x=bf, w1=bf, b1=f32, w2=bf, b2=f32),
                 dict(x=tuple(x.shape), w1=(d, hd), b1=(hd,), w2=(hd, d),
                      b2=(d,)))
     n = x.numel() // d
     hid = torch.empty((n, hd), dtype=bf, device=x.device)
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=f32 if partial else bf, device=x.device)
     lib = cuda_build.load("fused_mlp")
     err = lib.xtag_fused_mlp(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), hid.data_ptr(), out.data_ptr(), n, d, hd,
-        ACTIVATIONS[act], torch.cuda.current_stream(x.device).cuda_stream)
+        None if partial else b2.data_ptr(), hid.data_ptr(), out.data_ptr(),
+        n, d, hd, ACTIVATIONS[act], int(partial),
+        torch.cuda.current_stream(x.device).cuda_stream)
     cuda_build.check(lib, err, what)
     fused_mlp.launches += 1
     return out
@@ -165,19 +184,22 @@ def fused_mlp_bwd(x, g, w1, b1, w2, act: str = "gelu"):
 
 class _FusedMLP(torch.autograd.Function):
     """The MLP under autograd: the forward kernel, saving x and the
-    weights, and ``fused_mlp_bwd``."""
+    weights, and ``fused_mlp_bwd``; in the partial mode b2 takes no
+    part."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, act):
+    def forward(ctx, x, w1, b1, w2, b2, act, partial=False):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.act, ctx.b2_dtype = act, b2.dtype
-        return _fused_mlp_fwd(x, w1, b1, w2, b2, act)
+        ctx.act, ctx.partial = act, partial
+        ctx.b2_dtype = None if partial else b2.dtype
+        return _fused_mlp_fwd(x, w1, b1, w2, b2, act, partial)
 
     @staticmethod
     def backward(ctx, g):
         x, w1, b1, w2 = ctx.saved_tensors
         dx, dw1, db1, dw2, db2 = fused_mlp_bwd(x, g, w1, b1, w2, ctx.act)
-        return (dx, dw1, db1.to(b1.dtype), dw2, db2.to(ctx.b2_dtype), None)
+        return (dx, dw1, db1.to(b1.dtype), dw2,
+                None if ctx.partial else db2.to(ctx.b2_dtype), None, None)
 
 
 @register_flop_formula(torch.ops.xtagclip_tpu_torch.fused_mlp)

@@ -12,10 +12,11 @@ it, so a crash never leaves a half-written tag. Reading the JAX package's
 orbax directories is not ported.
 
 Across ranks only rank 0 writes (``CheckpointManager(write=...)``, JAX's
-``is_master`` gates), and under FSDP the tree holds the whole model and
-optimizer state, gathered from every rank (``state_tree`` is a
-collective there), so a checkpoint of any world size resumes at any
-other, FSDP or not: every rank reads the file and keeps its piece.
+``is_master`` gates), and under FSDP and ``--model-parallel`` the tree
+holds the whole model and optimizer state, every tensor in its
+one-process shape, gathered from every rank (``state_tree`` is a collective there), so a
+checkpoint of any (data, model) layout resumes at any other, FSDP or not:
+every rank reads the file and keeps its piece.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from xtagclip_tpu_torch.parallel.sharding import (
     full_state_dict,
     is_fsdp,
     load_full_state_dict,
+    model_shards,
     shard_optimizer_state,
 )
 
@@ -71,7 +73,7 @@ def restore_train_state(ckpt_dir: str, tag: str, state) -> int:
     tree = torch.load(os.path.join(ckpt_dir, tag, STATE_FILE),
                       map_location="cpu", weights_only=True)
     saved = tree["state"]
-    if is_fsdp(state.model):
+    if is_fsdp(state.model) or model_shards(state.model):
         load_full_state_dict(state.model, saved["model"])
     else:
         state.model.load_state_dict(saved["model"])

@@ -45,7 +45,9 @@ which CoCa's ``__call__`` does not take, and raises TypeError at the
 first step. The port refuses CoCa there too, when the step is made.
 
 Across ranks (``args_cfg["world_size"]`` > 1, each rank stepping on its
-share of the global batch) JAX runs one program over the global batch;
+share of the global batch; under ``--model-parallel`` the size and rank
+of the data group, core/mesh.py, and every rank of a model group steps on
+the same rows) JAX runs one program over the global batch;
 the port's step gives each rank a loss whose mean over the ranks is that
 program's loss, and DDP or FSDP (parallel/sharding.py) averages the
 gradients, so the update is the one-process update on the concatenated
@@ -81,7 +83,7 @@ from xtagclip_tpu_torch.parallel.collectives import (
     gather_rows_no_grad,
     mean_over_ranks,
 )
-from xtagclip_tpu_torch.parallel.sharding import grad_sync
+from xtagclip_tpu_torch.parallel.sharding import grad_sync, is_model_sharded
 from xtagclip_tpu_torch.train.train_state import (
     TrainState,
     apply_gradients,
@@ -222,8 +224,9 @@ def make_train_step(args_cfg: Dict[str, Any], prompt_table=None,
             m, batch, args_cfg, prompt_table, generator, deterministic,
             teacher))
         total.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics["grad_norm"] = optax_global_norm(grads)
+        params = [p for p in model.parameters() if p.grad is not None]
+        metrics["grad_norm"] = optax_global_norm(
+            [p.grad for p in params], [is_model_sharded(p) for p in params])
         state = apply_gradients(state)
         return state, _global({k: v.detach() for k, v in metrics.items()},
                               world)

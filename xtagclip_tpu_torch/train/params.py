@@ -166,9 +166,9 @@ def parse_args(args=None, include_xtag: bool = True):
     parser.add_argument("--horovod", default=False, action="store_true")
     parser.add_argument("--ddp-static-graph", default=False, action="store_true")
     parser.add_argument("--no-set-device-rank", default=False, action="store_true")
-    # FSDP2 parameter + optimizer-state sharding (parallel/sharding.py);
-    # tensor sharding (--model-parallel > 1) is not ported yet (ROADMAP
-    # Queue 1 item 10)
+    # FSDP2 parameter + optimizer-state sharding and tensor parallelism
+    # of the ResidualAttentionBlock towers (--model-parallel > 1) on a
+    # (data, model) mesh (core/mesh.py, parallel/sharding.py)
     parser.add_argument("--fsdp", default=False, action="store_true")
     parser.add_argument("--model-parallel", type=int, default=1)
     parser.add_argument("--seed", type=int, default=0)
@@ -210,9 +210,23 @@ def parse_args(args=None, include_xtag: bool = True):
 def unported(args) -> list:
     """The flags set in ``args`` whose branches are not ported yet, each
     with the ROADMAP Queue 1 item that ports it
-    (tests/test_torch_clipa.py checks that each item exists)."""
-    out = []
-    if (args.model_parallel or 1) > 1:
-        out.append(f"--model-parallel {args.model_parallel} (Queue 1 item "
-                   "10: tensor parallelism)")
-    return out
+    (tests/test_torch_clipa.py checks that each item exists):
+    ``--model-parallel`` above 1 with a tower of ``--model``'s config
+    that tensor parallelism does not cover (parallel/sharding.py
+    ``towers_outside_slice``: a timm vision tower, the ResNets, an HF
+    text tower)."""
+    n = args.model_parallel or 1
+    if n == 1:
+        return []
+    from xtagclip_tpu_torch.factory import get_model_config, tower_types
+    from xtagclip_tpu_torch.parallel.sharding import (
+        ITEM_11,
+        towers_outside_slice,
+    )
+
+    cfg = get_model_config(str(args.model).replace("/", "-"))
+    outside = towers_outside_slice(tower_types(cfg)) if cfg else []
+    if not outside:
+        return []
+    return [f"--model-parallel {n} with {' and '.join(outside)} of "
+            f"{args.model} ({ITEM_11})"]

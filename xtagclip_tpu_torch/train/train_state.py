@@ -28,8 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from xtagclip_tpu_torch.core import mesh
 from xtagclip_tpu_torch.parallel.sharding import (
     full,
+    is_model_sharded,
     is_sharded,
     jax_axes,
     local,
@@ -242,7 +244,8 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         if self.grad_clip_norm is not None:
             grads = [p.grad for p in self.trainable]
-            norm = optax_global_norm(grads)
+            norm = optax_global_norm(
+                grads, [is_model_sharded(p) for p in self.trainable])
             for g in map(local, grads):
                 g.copy_(torch.where(norm < self.grad_clip_norm, g,
                                     g / norm * self.grad_clip_norm))
@@ -252,7 +255,7 @@ class Optimizer:
         self.optimizer.step()
 
 
-def optax_global_norm(tensors) -> torch.Tensor:
+def optax_global_norm(tensors, model_sharded=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (loop.py:262-265), as
     one multi-tensor norm (a step has ~400 gradients, and three ops for
     each cost more host time than the device work they launch), summed in
@@ -261,19 +264,26 @@ def optax_global_norm(tensors) -> torch.Tensor:
     gradients (one process, DDP, FSDP's pieces) would disagree at that
     size. Over FSDP's sharded gradients (beside the whole ones of the
     parameters it leaves whole) it is the norm of the whole gradients: the
-    pieces' squares are summed over the ranks."""
+    pieces' squares are summed over the data group; the squares of the
+    tensor-parallel pieces (``model_sharded``, one flag a tensor) over the
+    model group, and a leaf whole on every model rank counts once."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
     sq = torch.stack(torch._foreach_norm(
         [local(t) for t in tensors], 2.0, dtype=torch.float64)).square()
-    sharded = torch.tensor([is_sharded(t) for t in tensors],
-                           device=sq.device)
-    if sharded.any():
-        pieces = sq[sharded].sum()
-        torch.distributed.all_reduce(pieces)
-        return (pieces + sq[~sharded].sum()).sqrt().float()
-    return sq.sum().sqrt().float()
+    fsdp = torch.tensor([is_sharded(t) for t in tensors], device=sq.device)
+    tp = torch.tensor(list(model_sharded) if model_sharded is not None
+                      else [False] * len(tensors), device=sq.device)
+    if not (fsdp.any() or tp.any()):
+        return sq.sum().sqrt().float()
+    pieces = torch.stack([sq[fsdp & tp].sum(), sq[fsdp & ~tp].sum()])
+    if fsdp.any():  # FSDP's pieces: over the data group
+        torch.distributed.all_reduce(pieces, group=mesh.data_group())
+    split = pieces[0] + sq[~fsdp & tp].sum()
+    if tp.any():  # the tensor-parallel pieces: over the model group
+        torch.distributed.all_reduce(split, group=mesh.model_group())
+    return (split + pieces[1] + sq[~fsdp & ~tp].sum()).sqrt().float()
 
 
 class Lion(torch.optim.Optimizer):
@@ -339,11 +349,17 @@ class Adafactor(torch.optim.Optimizer):
     steps together, so they share optax's count. Over FSDP's sharded
     parameters it steps on the whole leaves (the factored statistics and
     the block norms are the whole leaf's) and each rank keeps its piece
-    of the result; the statistics are whole tensors."""
+    of the result; the statistics are whole tensors. So it does over the
+    tensor-parallel pieces of ``--model-parallel``: each leaf is gathered
+    over the model group (after FSDP's data group), stepped whole, and
+    each rank keeps its piece."""
 
     # optax's defaults, the only values JAX's make_optimizer passes
     DECAY_RATE, MIN_DIM_SIZE_TO_FACTOR, EPS = 0.8, 128, 1e-30
     CLIPPING_THRESHOLD, MIN_SCALE = 1.0, 1e-3
+    # its statistics are the whole leaf's on every rank: a checkpoint's
+    # whole state loads as it is (parallel/sharding.py)
+    whole_state = True
 
     def __init__(self, params, lr: float = 0.0):
         super().__init__(params, dict(lr=lr))
@@ -369,12 +385,13 @@ class Adafactor(torch.optim.Optimizer):
     def _step_group(self, group) -> None:
         owners = group["params"]
         ps = [full(p) for p in owners]
+        shards = [getattr(p, "model_shard", None) for p in owners]
         for p, whole in zip(owners, ps):
             self._init_state(p, whole)
         # optax's _decay_rate_pow, in fp32 as there
         t = np.float32(self.state[owners[0]]["step"] + 1)
         rate = float(np.float32(1.0) - t ** np.float32(-self.DECAY_RATE))
-        grads = [full(p.grad) for p in owners]
+        grads = [full(p.grad, s) for p, s in zip(owners, shards)]
         grad_sqr = torch._foreach_mul(grads, grads)
         torch._foreach_add_(grad_sqr, self.EPS)
         updates = [None] * len(ps)
@@ -417,8 +434,8 @@ class Adafactor(torch.optim.Optimizer):
         torch._foreach_mul_(updates, list(scale.unbind()))
         torch._foreach_sub_(ps, updates)
         for p, whole in zip(owners, ps):
-            if is_sharded(p):
-                p.to_local().copy_(local_piece(whole, p))
+            if is_sharded(p) or is_model_sharded(p):
+                local(p).copy_(local_piece(whole, p))
             self.state[p]["step"] += 1
 
 

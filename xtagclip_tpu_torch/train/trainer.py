@@ -19,8 +19,11 @@ the step's metrics, which waits for the card.
 Across ranks each rank steps on its share of the train split (the
 loader's ``set_epoch`` reshuffles every rank's share alike), the step's
 metrics are already global, and throughput is logged for the ranks
-together (``samples/s``, this rank's times the world size) and for this
-rank (``samples/s/device``).
+together (``samples/s``, this rank's times the data-parallel size: the
+ranks of a model group step on the same rows) and for this rank
+(``samples/s/device``). Under ``--model-parallel`` each step's batch is
+model rank 0's, broadcast over the model group
+(``broadcast_over_model``), so that the ranks' random crops agree.
 """
 
 from __future__ import annotations
@@ -34,9 +37,11 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from xtagclip_tpu_torch.core.mesh import data_size_of
 from xtagclip_tpu_torch.data.loader import device_prefetch
 from xtagclip_tpu_torch.data.transforms import image_mean_std
 from xtagclip_tpu_torch.ops.preprocess import normalize_images
+from xtagclip_tpu_torch.parallel.collectives import broadcast_over_model
 from xtagclip_tpu_torch.train.logger import AverageMeter
 
 
@@ -109,7 +114,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
     interval_step_s = []
     host_rng = random.Random(args.seed + epoch)
     accum_freq = max(int(getattr(args, "accum_freq", 1) or 1), 1)
-    world = max(int(getattr(args, "world_size", 1) or 1), 1)
+    world = max(int(data_size_of(args) or 1), 1)
     losses = []  # every logged step's loss, unrounded
 
     # --profile: a torch.profiler trace of a short steady-state window
@@ -142,6 +147,7 @@ def train_one_epoch(state, step_fn, data: Dict[str, Any], epoch: int, args,
             rng=host_rng)
         batch_dict["images"] = normalize_images(batch_dict["images"], *norm,
                                                 dtype=compute_dtype)
+        batch_dict = broadcast_over_model(batch_dict)
         if accum_freq > 1:
             batch_dict = _to_microbatches(batch_dict, accum_freq)
         data_time.update(time.time() - end)
