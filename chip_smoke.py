@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
                                        --zoo-only | --pretrained-only |
-                                       --dist-only | --tp-only]
+                                       --dist-only | --tp-only |
+                                       --tp-zoo-only]
     python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
                           --zoo-batch-probe
 
@@ -293,8 +294,25 @@ fused MLP), in phases that each print one JSON line:
    ``--tp-only``: CLIPA ViT-H-14 stage 2 at full width and
    depth, --grad-checkpointing, batch 32: one step on two gloo ranks at
    --model-parallel 2 against the one-process step at phase 6's bars,
-   with each rank's peak memory beside the one-process peak. Gloo stages
-   CUDA tensors through the host, so no time of (b) or (c) is a speed.
+   with each rank's peak memory beside the one-process peak. (d) tp_zoo,
+   the towers outside the ResidualAttentionBlocks (parallel/sharding.py's
+   plans): in (b)'s two processes, after it, EVA02-L-14 at full width
+   (1024, 16 heads of 64, SwiGLU 2730 with its mlp_norm, rope) cut to
+   TP_ZOO_LAYERS vision blocks, its ResidualAttentionBlock text tower
+   whole: one contrastive step of TP_ZOO_BATCH at --model-parallel 2
+   against the one-process step at phase 6's bars, each rank launching
+   #6 (on 8 of 16 heads) and the text tower's #1-#3 as the one-process
+   run does; with ``--tp-zoo-only``, at full depth, EVA02-L-14 at
+   TP_ZOO_BATCH, ViT-SO400M-14-SigLIP at TP_ZOO_BATCH (the timm ViT with
+   its map pool, the text tower at hidden width 4304) and mt5-xl-ViT-H-14
+   at TP_ZOO_MT5_BATCH (T5 with its token table split by rows, its
+   dropout on; in fp32, beside the one-process bf16 step's distance from
+   the fp32 one: TP_ZOO_MODELS says why), each rank's peak memory beside
+   the one-process peak and the share of the parameters' bytes each rank
+   holds. Gloo stages CUDA
+   tensors through the host, so no time of (b), (c) or (d) is a speed.
+   (a) holds #6 at EVA02-L-14's local shape (TP_ZOO_BATCH, 8 of 16, 257,
+   64), forward and backward, to the whole-head kernel too.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -316,7 +334,8 @@ alone, then prints the seconds, the kernel table with those phases'
 launches and the card; ``--siglip-only`` the same for phases 20 and 21,
 ``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23,
 ``--dist-only`` for phase 24 (with the CLIPA model at full depth) and
-phase 25's (b), ``--tp-only`` for phase 25's (c); ``--tp-nccl`` (four
+phase 25's (b), ``--tp-only`` for phase 25's (c), ``--tp-zoo-only``
+for phase 25's (d) at full depth; ``--tp-nccl`` (four
 cards) runs the build and phase_tp_nccl alone.
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
@@ -5199,12 +5218,16 @@ def _dist_cli(spec: dict) -> dict:
 def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
                     variants, seed: int = 1, timed: int = 0,
                     deterministic: bool = False,
-                    checkpointed: bool = False) -> dict:
-    """One train step of ``model_name`` (bf16 over fp32 masters, seeded
-    init, ``checkpointed``: --grad-checkpointing) from the same weights,
+                    checkpointed: bool = False, wrap: bool = True,
+                    precision: str = "bf16") -> dict:
+    """One train step of ``model_name`` (``precision``: bf16 over fp32
+    masters, or fp32; seeded init; ``checkpointed``: --grad-checkpointing)
+    from the same weights,
     batch and dropout seed for each of ``variants`` ((name, fsdp flag,
     rows of the batch), ...), each wrapped as the CLIs wrap it
-    (parallel/sharding.py); then ``timed`` more steps timed. {name:
+    (parallel/sharding.py; not with ``wrap`` off: the one-process step
+    in a process whose group exists); then ``timed`` more steps timed.
+    {name:
     (metrics, {parameter: whole gradient}, record)}; the record's
     launches are the first step's, its batch's normalize included."""
     import gc
@@ -5217,6 +5240,7 @@ def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
         model_shards,
         wrap_model,
     )
+    from xtagclip_tpu_torch.parallel.sharding import local as sharding_local
     from xtagclip_tpu_torch.train.loop import make_train_step
     from xtagclip_tpu_torch.train.train_state import (
         create_train_state,
@@ -5228,22 +5252,23 @@ def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        model = create_model(model_name, precision="bf16", init_seed=1,
+        model = create_model(model_name, precision=precision, init_seed=1,
                              grad_checkpointing=checkpointed,
                              **({"use_tagging": True, "use_fusion": True}
                                 if "use_tagging_loss" in args_cfg else {}))
         u8, texts = _model_batch(model, batch, seed)
         ptable = None
         _reset_counts()
-        b = {"images": preprocess.normalize_images(u8, dtype=torch.bfloat16),
-             "texts": texts}
+        b = {"images": preprocess.normalize_images(
+                 u8, dtype=torch.bfloat16 if precision == "bf16"
+                 else torch.float32), "texts": texts}
         if args_cfg.get("use_tagging_loss"):
             ptable = torch.from_numpy(
                 _scar_prompt_table().astype(np.int64)).to("cuda")
             rng = np.random.default_rng(seed)
             b.update(_tag_batch(rng, batch))
         b = {k: v[rows] for k, v in b.items()}
-        ddp = wrap_model(model, SimpleNamespace(fsdp=fsdp))
+        ddp = wrap_model(model, SimpleNamespace(fsdp=fsdp)) if wrap else None
         tx = make_optimizer(lambda _: 2.048e-4, beta2=0.95, eps=1e-8,
                             weight_decay=0.2,
                             params=dict(model.named_parameters()))
@@ -5260,7 +5285,9 @@ def _dist_step_runs(model_name: str, batch: int, args_cfg: dict,
         grads = {n: full(p.grad, shards.get(n)).float().clone()
                  for n, p in model.named_parameters() if p.grad is not None}
         rec = {"launches_first_step": launches,
-               "step_peak_mem_gb": step_peak}
+               "step_peak_mem_gb": step_peak,
+               "param_gb": sum(sharding_local(p).numel() * p.element_size()
+                               for p in model.parameters()) / 1e9}
         if timed:
             t0 = time.perf_counter()
             for _ in range(timed):
@@ -5459,8 +5486,10 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
         scar("ddp"),
         ["cli", {"entry": "main", "batch": CLIPA_BATCH, "argv": b_argv}],
         ["compare", {"model": clipa, "batch": CLIPA_BATCH}]], 1, env)
-    gloo, tp = _run_dist(d, "gloo2", [["gloo2", {}], scar("tp", *TP_FLAGS)],
-                         2)
+    gloo, tp, zoo = _run_dist(d, "gloo2", [
+        ["gloo2", {}], scar("tp", *TP_FLAGS),
+        ["tp_step", {"model": "EVA02-L-14", "batch": TP_ZOO_BATCH,
+                     "trunk_layers": TP_ZOO_LAYERS}]], 2)
 
     steps = DIST_ROWS // TRAIN_BATCH
     per_step = _paths()["b32"]["per_step"]
@@ -5501,20 +5530,36 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
               "ok": a["ok"] and b["ok"] and c["ok"]}
     _emit(result)
     tp_b = _tp_scar_judge(free, tp, steps)
+    zoo["ok"] = zoo["ok"] and _launched_zoo(zoo)
     _emit({"phase": "tp", "card": card, "b_scar_model_parallel_2": tp_b,
-           "ok": tp_b["ok"]})
-    result["ok"] = result["ok"] and tp_b["ok"]
+           "d_zoo_eva02_l_model_parallel_2": zoo,
+           "ok": tp_b["ok"] and zoo["ok"]})
+    result["ok"] = result["ok"] and tp_b["ok"] and zoo["ok"]
     shutil.rmtree(d, ignore_errors=True)
     if not result["ok"]:
         raise AssertionError(f"dist phase failed its checks: {result}")
     return {"dist_ddp": ddp["launches"], "dist_fsdp": fsdp["launches"],
-            "dist_gloo2": gloo["launches"], "tp_scar": tp["launches"]}
+            "dist_gloo2": gloo["launches"], "tp_scar": tp["launches"],
+            "tp_zoo": zoo["launches_by_rank"][0]}
 
 
 # ---- tensor parallelism (--model-parallel) --------------------------------
 
 TP_N = 2  # the model axis of the tp phase's shards
 TP_STEPS = 8  # --tp-nccl: steps of the scar flags a data rank
+# (d) tp_zoo: EVA02-L-14's step at this batch, its vision trunk cut to
+# TP_ZOO_LAYERS blocks in the no-argument run; with --tp-zoo-only the
+# three models at full depth (tp_step specs). mt5-xl's T5 at random init
+# is ill-conditioned in bf16: 24 blocks of unscaled attention make its
+# one-process bf16 step differ from the fp32 one by more than phase 6's
+# bars allow, so its split is judged in fp32 (T5 runs no kernel), beside
+# the bf16 one-process step's own distance from fp32 (``bf16_noise``)
+TP_ZOO_BATCH, TP_ZOO_LAYERS, TP_ZOO_MT5_BATCH = 32, 2, 8
+TP_ZOO_MODELS = (
+    ("eva02_l", {"model": "EVA02-L-14", "batch": TP_ZOO_BATCH}),
+    ("so400m", {"model": "ViT-SO400M-14-SigLIP", "batch": TP_ZOO_BATCH}),
+    ("mt5_xl", {"model": "mt5-xl-ViT-H-14", "batch": TP_ZOO_MT5_BATCH,
+                "precision": "fp32", "bf16_noise": True}))
 
 
 def _tp_shards():
@@ -5658,7 +5703,66 @@ def _tp_kernel_cases(gen):
         4 * b * (h // n) * l * l * dh, 2 * 4 * b * (h // n) * l * dh,
         lambda parts, whole: torch.cat(parts, dim=2),
         lambda a=sdpa_in: F.scaled_dot_product_attention(*a)))
+    cases += _tp_zoo_flash_cases(rnd)
     return cases
+
+
+def _tp_zoo_flash_cases(rnd):
+    """#6 forward and backward on EVA02-L-14's local heads at the tp_zoo
+    step's shape, 8 of 16 heads of 64 at L = 257 (column views of a
+    rank's q|k|v projection; the backward from the rank's own forward,
+    as the sharded trunk runs it), each rank's against the whole-head
+    kernel's heads. Library yardsticks: SDPA's forward, and its backward
+    through autograd, on rank 0's heads."""
+    import torch.nn.functional as F
+
+    from xtagclip_tpu_torch.ops import flash_attn
+
+    b, l, h, dh, n = TP_ZOO_BATCH, 257, 16, 64, TP_N
+    hl = h // n
+    qkv = rnd((b, l, 3 * h * dh), dtype=torch.bfloat16)
+
+    def heads(t, hh):
+        return tuple(p.reshape(b, l, hh, dh)
+                     for p in t.split(hh * dh, dim=-1))
+    do = rnd((b, l, h, dh), dtype=torch.bfloat16)
+
+    def local(r):
+        return heads(_tp_piece(qkv, "dqkv", r), hl)
+
+    def fwd_args(r):
+        return local(r)
+
+    whole_q = heads(qkv, h)
+    o, lse = flash_attn._flash_fwd(*whole_q, "blhd", with_lse=True)
+    rank_fwd = [flash_attn._flash_fwd(*local(r), "blhd", with_lse=True)
+                for r in range(n)]
+
+    def bwd_args(r):
+        ro, rlse = rank_fwd[r]
+        return (*local(r), ro, rlse,
+                do[:, :, r * hl:(r + 1) * hl].contiguous(), "blhd")
+
+    sdpa_in = [t.transpose(1, 2) for t in local(0)]
+    leaves = [t.detach().clone().requires_grad_(True) for t in sdpa_in]
+    do_t = bwd_args(0)[5].transpose(1, 2)
+    with torch.inference_mode(False), torch.enable_grad():
+        sdpa_out = F.scaled_dot_product_attention(*leaves)
+
+    def sdpa_bwd(out=sdpa_out, leaves=leaves, do_t=do_t):
+        with torch.inference_mode(False), torch.enable_grad():
+            return torch.autograd.grad(out, leaves, do_t, retain_graph=True)
+
+    label = f"EVA02-L-14 vision ({b}, {hl} of {h}, {l}, {dh}), N_model={n}"
+    elems = b * hl * l * dh
+    return [
+        ("flash_mha", label, whole_q, fwd_args, 4 * b * hl * l * l * dh,
+         2 * 4 * elems, lambda parts, whole: torch.cat(parts, dim=2),
+         lambda a=sdpa_in: F.scaled_dot_product_attention(*a)),
+        ("flash_mha_bwd", label, (*whole_q, o, lse, do, "blhd"), bwd_args,
+         10 * b * hl * l * l * dh, 8 * 2 * elems + 4 * b * hl * l,
+         lambda parts, whole: tuple(torch.cat([p[i] for p in parts], dim=2)
+                                    for i in range(3)), sdpa_bwd)]
 
 
 def phase_tp_kernels(card: str) -> list:
@@ -5672,11 +5776,14 @@ def phase_tp_kernels(card: str) -> list:
     gen = torch.Generator(device="cuda").manual_seed(18)
     fns = _kernel_fns()
     rows = []
+    cases = _tp_kernel_cases(gen)  # outside inference mode: the library
+    # row of flash attention's backward runs autograd on its own leaves
     with torch.inference_mode():
         for name, shape, whole, rank_args, flops, nbytes, combine, \
-                library in _tp_kernel_cases(gen):
+                library in cases:
             kernel, plain = fns[name]
-            partial = {} if name == "flash_mha" else {"partial": True}
+            partial = {} if name.startswith("flash_mha") else {
+                "partial": True}
             parts, checks = [], []
             for r in range(TP_N):
                 a = rank_args(r)
@@ -5720,13 +5827,39 @@ def phase_tp_kernels(card: str) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def _trunk_layers(model_name: str, layers):
+    """``model_name``'s EVA vision trunk cut to ``layers`` blocks while
+    the context lasts (None: as it is)."""
+    if layers is None:
+        yield
+        return
+    from xtagclip_tpu_torch.factory import get_model_config
+    from xtagclip_tpu_torch.models import eva
+
+    cfg = eva.EVA_CONFIGS[get_model_config(model_name)["vision_cfg"][
+        "timm_model_name"]]
+    whole = cfg["layers"]
+    cfg["layers"] = layers
+    try:
+        yield
+    finally:
+        cfg["layers"] = whole
+
+
 def _tp_step(spec: dict) -> dict:
     """--dist-worker's tp_step task, on 2 ranks of one card: rank 0 first
-    runs the one-process step of ``spec["model"]`` (bf16 over fp32
-    masters, --grad-checkpointing, batch ``spec["batch"]``); then both
-    join a gloo group at --model-parallel 2 and run the step on the whole
-    batch with the blocks split; rank 0 judges at phase 6's bars. Each
-    rank's peak memory beside the one-process peak."""
+    runs the one-process step of ``spec["model"]`` (``spec["precision"]``,
+    bf16 over fp32 masters by default; --grad-checkpointing; batch
+    ``spec["batch"]``; its EVA trunk cut to ``spec["trunk_layers"]``
+    blocks where given), unwrapped, so that a group may exist already;
+    then both join a gloo group at --model-parallel 2 (or keep the one
+    they are in) and run the step on the whole batch with the towers
+    split; rank 0 judges at phase 6's bars. Each rank's peak memory and
+    parameter bytes beside the one-process ones. With
+    ``spec["bf16_noise"]`` (an fp32 comparison) rank 0 also judges the
+    one-process bf16 step against the fp32 one, at the same bars: what
+    bf16's rounding alone moves (recorded, not a check)."""
     import gc
     from types import SimpleNamespace
 
@@ -5734,34 +5867,61 @@ def _tp_step(spec: dict) -> dict:
 
     from xtagclip_tpu_torch.core.mesh import all_gather_object, init_distributed
 
+    t0 = time.perf_counter()
     b, name, cfg = spec["batch"], spec["model"], {"local_loss": True}
+    prec = spec.get("precision", "bf16")
     rank = int(os.environ["RANK"])
-    ref = None
-    if rank == 0:  # its gradients wait on the host: the peaks are the steps'
-        m, g, rec = _dist_step_runs(
-            name, b, cfg, [("one_process", False, slice(0, b))],
-            checkpointed=True)["one_process"]
-        ref = (m, {k: v.cpu() for k, v in g.items()}, rec)
-        del g
-    gc.collect()
-    torch.cuda.empty_cache()
-    args = SimpleNamespace(device="cuda", dist_url=None, dist_backend="gloo",
-                           no_set_device_rank=True, model_parallel=TP_N)
-    init_distributed(args)
-    got = _dist_step_runs(name, b, {**cfg, "world_size": 1, "rank": 0},
-                          [("tp", False, slice(0, b))],
-                          checkpointed=True)["tp"]
+    ref = noise = None
+    with _trunk_layers(name, spec.get("trunk_layers")):
+        if rank == 0:  # its gradients wait on the host: peaks are the steps'
+            runs = {}
+            for p in (prec, "bf16") if spec.get("bf16_noise") else (prec,):
+                m, g, rec = _dist_step_runs(
+                    name, b, cfg, [("one_process", False, slice(0, b))],
+                    checkpointed=True, wrap=False,
+                    precision=p)["one_process"]
+                runs[p] = (m, {k: v.cpu() for k, v in g.items()}, rec)
+                del g
+                gc.collect()
+            ref = runs[prec]
+            if spec.get("bf16_noise"):
+                noise = _dist_judge(runs["bf16"], ref)
+                noise["ok_at_the_bars"] = noise.pop("ok")
+            del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        args = SimpleNamespace(device="cuda", dist_url=None,
+                               dist_backend="gloo", no_set_device_rank=True,
+                               model_parallel=TP_N)
+        init_distributed(args)
+        got = _dist_step_runs(name, b, {**cfg, "world_size": 1, "rank": 0},
+                              [("tp", False, slice(0, b))],
+                              checkpointed=True, precision=prec)["tp"]
     peaks = all_gather_object(got[2]["step_peak_mem_gb"])
+    params = all_gather_object(got[2]["param_gb"])
     launches = all_gather_object(got[2]["launches_first_step"])
-    res = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+    res = {"model": name, "batch": b, "precision": prec,
+           "trunk_layers": spec.get("trunk_layers", "full"),
+           "backend": dist.get_backend(), "world_size": dist.get_world_size(),
            "model_parallel": TP_N, "peak_mem_gb_by_rank": peaks,
-           "launches_by_rank": launches}
+           "param_gb_by_rank": params, "launches_by_rank": launches}
     if rank == 0:
         ref = (ref[0], {k: v.cuda() for k, v in ref[1].items()}, ref[2])
         res.update(_dist_judge(got, ref))
         res["one_process_peak_mem_gb"] = ref[2]["step_peak_mem_gb"]
+        res["one_process_param_gb"] = ref[2]["param_gb"]
         res["one_process_launches"] = ref[2]["launches_first_step"]
+        res["peak_mem_ratio_by_rank"] = [
+            p / res["one_process_peak_mem_gb"] for p in peaks]
+        res["param_share_by_rank"] = [
+            p / res["one_process_param_gb"] for p in params]
+        res["launches_equal_one_process"] = all(
+            r == res["one_process_launches"] for r in launches)
+        res["ok"] = res["ok"] and res["launches_equal_one_process"]
+        if noise is not None:
+            res["bf16_one_process_vs_this"] = noise
     dist.barrier()
+    res["seconds"] = time.perf_counter() - t0
     return res
 
 
@@ -5807,11 +5967,6 @@ def phase_tp(card: str, tmp: str) -> dict:
     os.makedirs(d)
     c, = _run_dist(d, "tp_clipa", [["tp_step", {
         "model": "ViT-H-14-CL32-GAP", "batch": CLIPA_PATH_BATCH}]], TP_N)
-    c["peak_mem_ratio_by_rank"] = [
-        p / c["one_process_peak_mem_gb"] for p in c["peak_mem_gb_by_rank"]]
-    c["launches_equal_one_process"] = all(
-        r == c["one_process_launches"] for r in c["launches_by_rank"])
-    c["ok"] = c["ok"] and c["launches_equal_one_process"]
     result = {"phase": "tp", "card": card,
               "c_clipa_vit_h14_model_parallel_2": c, "ok": c["ok"]}
     _emit(result)
@@ -5819,6 +5974,59 @@ def phase_tp(card: str, tmp: str) -> dict:
     if not result["ok"]:
         raise AssertionError(f"tp phase failed its checks: {result}")
     return {"tp_clipa": c["launches_by_rank"][0]}
+
+
+def _launched_zoo(res: dict) -> bool:
+    """Each rank of a tp_step ran #6 forward and backward on its local
+    heads (EVA02-L-14's trunk, SO400M's text tower, ViT-H-14's trunk)."""
+    return all(r["flash_mha"] > 0 and r["flash_mha_bwd"] > 0
+               for r in res["launches_by_rank"])
+
+
+def split_share(model_name: str) -> dict:
+    """The share of ``model_name``'s parameter bytes that one rank holds
+    at --model-parallel TP_N (the split leaves' 1 / TP_N and the whole
+    rest), reckoned on a meta build: the prediction of a rank's peak
+    memory over the one-process peak, for the parameters, gradients and
+    AdamW moments (the activations aside)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.parallel.sharding import shard_tensor_parallel
+
+    model = create_model(model_name, device="meta", skip_init=True)
+    whole = sum(p.numel() for p in model.parameters())
+    shard_tensor_parallel(model, size=TP_N, rank=0)
+    local = sum(p.numel() for p in model.parameters())
+    return {"model": model_name, "params_m": whole / 1e6,
+            "rank_share": local / whole}
+
+
+def phase_tp_zoo(card: str, tmp: str) -> dict:
+    """Phase 25 (d) at full depth (module doc), behind --tp-zoo-only:
+    EVA02-L-14, ViT-SO400M-14-SigLIP and mt5-xl-ViT-H-14, each one step
+    on two gloo ranks at --model-parallel 2 against the one-process step,
+    each rank's peak memory beside the one-process peak and beside the
+    predicted share (``split_share``). Returns each model's launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers are other processes
+    d = os.path.join(tmp, "tp_zoo")
+    os.makedirs(d)
+    runs = _run_dist(d, "tp_zoo", [["tp_step", spec]
+                                   for _, spec in TP_ZOO_MODELS], TP_N)
+    result = {"phase": "tp_zoo", "card": card}
+    for (label, spec), res in zip(TP_ZOO_MODELS, runs):
+        res["predicted"] = split_share(spec["model"])
+        res["ok"] = res["ok"] and (spec.get("precision") == "fp32"
+                                   or _launched_zoo(res))
+        result[label] = res
+    result["ok"] = all(r["ok"] for r in runs)
+    _emit(result)
+    shutil.rmtree(d, ignore_errors=True)
+    if not result["ok"]:
+        raise AssertionError(f"tp_zoo phase failed its checks: {result}")
+    return {f"tp_zoo_{label}": r["launches_by_rank"][0]
+            for (label, _), r in zip(TP_ZOO_MODELS, runs)}
 
 
 def phase_tp_nccl(card: str, tmp: str) -> dict:
@@ -5996,6 +6204,10 @@ def main(argv=()) -> int:
     ap.add_argument("--tp-only", action="store_true",
                     help="run only the build, the kernel rows and the tp "
                          "phase's CLIPA ViT-H-14 step at full depth")
+    ap.add_argument("--tp-zoo-only", action="store_true",
+                    help="run only the build, the kernel rows and the tp "
+                         "phase's EVA02-L-14, ViT-SO400M-14-SigLIP and "
+                         "mt5-xl-ViT-H-14 steps at full depth")
     ap.add_argument("--tp-nccl", action="store_true",
                     help="on four cards: run only the build and the scar "
                          "flags at --model-parallel 2 on a 2 x 2 NCCL mesh "
@@ -6050,10 +6262,13 @@ def main(argv=()) -> int:
     entries = timed("kernels", phase_kernels, card)
     entries += timed("tp_kernels", phase_tp_kernels, card)
     if args.coca_only or args.siglip_only or args.zoo_only or \
-            args.pretrained_only or args.dist_only or args.tp_only:
+            args.pretrained_only or args.dist_only or args.tp_only or \
+            args.tp_zoo_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
             if args.tp_only:
                 paths = timed("tp", phase_tp, card, tmp)
+            elif args.tp_zoo_only:
+                paths = timed("tp_zoo", phase_tp_zoo, card, tmp)
             elif args.dist_only:
                 paths = timed("dist", phase_dist, card, tmp, full_depth=True)
             elif args.coca_only:

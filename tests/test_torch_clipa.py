@@ -446,15 +446,14 @@ def test_unported_messages_name_existing_roadmap_items():
     # --model coca_* (CoCa's slice), --siglip and --distill-model (SigLIP's
     # and distillation's), --remote-sync and named --pretrained tags
     # (item 9's slice), --fsdp (item 7's) and --model-parallel over
-    # ResidualAttentionBlock towers (item 10's) are ported: nothing is
-    # left for coca_ViT-B-32; --model-parallel with a timm tower (SigLIP's
-    # ViT) is item 11's
+    # ResidualAttentionBlock towers (item 10's) and over every other tower
+    # family (item 11's: SigLIP's timm ViT here) are ported: nothing is
+    # left for coca_ViT-B-32 nor for ViT-B-16-SigLIP
     assert unported(args) == []
     timm = parse_args(["--model", "ViT-B-16-SigLIP", "--siglip",
                        "--model-parallel", "2"])
     messages = unported(timm)
-    assert len(messages) == 1 and messages[0].startswith("--model-parallel")
-    assert "Queue 1 item 11" in messages[0]
+    assert messages == []
     items = _queue1_items()
     for msg in messages:
         named = [int(n) for n in re.findall(r"Queue 1 item (\d+)", msg)]

@@ -9,7 +9,8 @@ tolerances. One config per family (EVA-02, EVA-01, ViTamin, ConvNeXt,
 Swin, FastViT, mT5, NLLB) is compared with JAX's ``eval_shape`` tree
 through convert/from_jax.py's ``port_name``; its BatchNorm statistics too.
 The LiT lock groups of a toy EVA-02 and a toy ConvNeXt tower equal JAX's
-leaf for leaf.
+leaf for leaf. Every config's towers split at ``--model-parallel`` 2, and
+at 4 but for the head counts 4 does not divide.
 """
 
 import functools
@@ -29,6 +30,7 @@ from xtagclip_tpu.train import train_state as jts
 from xtagclip_tpu_torch import factory
 from xtagclip_tpu_torch.convert.from_jax import _flatten, port_name, stats_buffers
 from xtagclip_tpu_torch.models import convnext, eva, timm_vit
+from xtagclip_tpu_torch.parallel import sharding
 from xtagclip_tpu_torch.train import train_state as ts
 
 sys.path.insert(0, os.path.dirname(__file__))
@@ -47,6 +49,39 @@ def test_registry_holds_the_117_builtin_configs():
 def test_every_builtin_config_builds_on_meta(name):
     model = factory.create_model(name, device="meta", skip_init=True)
     assert all(p.device.type == "meta" for p in model.parameters())
+
+
+# the towers --model-parallel 4 refuses, by config: a head count 4 does
+# not divide (each rank holds whole heads; JAX's GSPMD rule runs them,
+# ROADMAP Queue 3). At 2 every config splits.
+REFUSED_AT_4 = {
+    **{n: {"text"} for n in ("convnext_base_w", "convnext_base_w_320",
+                             "RN50x4", "RN50x4-quickgelu",
+                             "swin_base_patch4_window7_224", "ViT-M-16-alt",
+                             "ViT-M-32-alt")},
+    **{n: {"visual", "text"} for n in ("ViT-B-16-plus", "ViT-B-16-plus-240",
+                                       "ViT-B-32-plus-256", "ViT-S-16",
+                                       "ViT-S-32", "ViTamin-S")},
+    **{n: {"visual"} for n in ("ViT-S-16-alt", "ViT-S-32-alt",
+                               "ViTamin-S-LTT")},
+}
+
+
+@pytest.mark.parametrize("name", BUILTIN)
+def test_every_builtin_config_splits_at_model_parallel_2_and_4(name):
+    """parallel/sharding.py's check on each tower of the config's meta
+    build: every config splits at --model-parallel 2, and at 4 all but
+    the towers of ``REFUSED_AT_4``, which raise ValueError."""
+    model = _meta(name)
+    refused = set()
+    for tower in ("visual", "text"):
+        sharding.check_tensor_parallel(getattr(model, tower), 2)
+        try:
+            sharding.check_tensor_parallel(getattr(model, tower), 4)
+        except ValueError as e:
+            assert "does not" in str(e) and "heads" in str(e), e
+            refused.add(tower)
+    assert refused == REFUSED_AT_4.get(name, set())
 
 
 @functools.lru_cache(maxsize=None)

@@ -14,10 +14,13 @@ same towers at (1 x 2) and (2 x 2) against JAX's ``make_train_step``
 (1 x 2) with adamw and adafactor resume at (1 x 1), (2 x 1), (1 x 2) and
 (2 x 2); (e) the GAP toy
 (non-fused route) and the CoCa toy (cross-attention and per-sample masks
-on the plain core) step under model 2, and bf16 blocks of both routes
-with the kernels on (the tensor-parallel Functions on the plain partial
-modes); (f) widths the model size does not divide, and the towers outside
-the slice, raise; (g) ``main_other`` (scar, with its eval) at (1 x 2) and
+on the plain core) step under model 2, and so does a CoCa toy whose
+decoder width (96) is not its image tokens' (64), so that the
+cross-attention's separate q/k/v projections split, and bf16 blocks of
+both routes with the kernels on (the tensor-parallel Functions on the plain partial
+modes); (f) widths the model size does not divide raise, and a timm ViT
+image tower splits and steps under model 2 (tests/test_torch_tp_zoo.py
+holds every other tower family); (g) ``main_other`` (scar, with its eval) at (1 x 2) and
 ``cli.main`` at (1 x 4) under a launcher's env against the one-process
 runs.
 
@@ -34,6 +37,7 @@ sums within 1e-5 of max|ref|.
 import json
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -93,7 +97,9 @@ def run(tmp_path_factory):
                                use_fusion=True),
             "clip": _port_init(clip_bundle, tw.CFG_NAME),
             "gap": tw.init_state_dict(tw.GAP_NAME),
-            "coca": tw.init_state_dict(tw.COCA_NAME)}
+            "coca": tw.init_state_dict(tw.COCA_NAME),
+            "coca_kv": tw.init_state_dict(tw.COCA_KV_NAME),
+            "timm": tw.init_state_dict(tw.TIMM_NAME)}
     batch = tw.global_batch()
     ckpt = {opt: str(d / f"ckpt_{opt}") for opt in OPTS}
     resume = [(f"resume_{opt}", ckpt[opt], opt) for opt in OPTS]
@@ -102,54 +108,77 @@ def run(tmp_path_factory):
               ("clip", {"kind": "clip", "opt_kw": tw.JAX_OPT,
                         "grads": False}),
               ("xtag", {"opt_kw": tw.JAX_OPT, "grads": False})]
-    ranks = {}
-    for layout, world, cases, extra in (
-            ("1x2", 2, common + [("gap", {"kind": "gap"}),
-                                 ("coca", {"kind": "coca"})] + [
-                (f"ckpt_{opt}", {"ckpt": ckpt[opt], "opt": opt})
-                for opt in OPTS],
-             {"blocks": ["fused_halves", "non_fused"], "resume": resume}),
-            ("2x2", 4, common + [("fsdp", {"fsdp": True})],
-             {"resume": resume}),
-            ("2x1", 2, [], {"resume": resume})):
+    towers = [("gap", {"kind": "gap"}), ("coca", {"kind": "coca"}),
+              ("coca_kv", {"kind": "coca_kv"}), ("timm", {"kind": "timm"})]
+    layouts = {
+        "1x2": (2, common + towers + [
+            (f"ckpt_{opt}", {"ckpt": ckpt[opt], "opt": opt})
+            for opt in OPTS],
+            {"blocks": ["fused_halves", "non_fused"], "resume": resume}),
+        "2x2": (4, common + [("fsdp", {"fsdp": True})], {"resume": resume}),
+        "2x1": (2, [], {"resume": resume})}
+
+    def spawn_layout(layout):
+        world, cases, extra = layouts[layout]
         sub = d / layout
         sub.mkdir()
-        ranks[layout] = w.spawn(
+        return w.spawn(
             "tp", world, sub, {"model": int(layout[-1]), "init": init,
                                "cfg_dir": str(d),
                                "batch": batch, "cases": cases, **extra},
             timeout=300, script=WORKER)
-    ref = {label: tw.step(init[kw.get("kind", "xtag")], batch, **kw)
-           for label, kw in common + [("gap", {"kind": "gap"}),
-                                      ("coca", {"kind": "coca"})]}
-    for label, path, opt in resume:
-        ref[label] = tw.resume(path, init["xtag"], batch, opt)
-    ref["blocks"] = {r: tw.block_bf16(5, r)
-                     for r in ("fused_halves", "non_fused")}
+
     # the train CLIs under a launcher's env: main_other's scar run with
     # eval at (1 x 2), cli.main on synthetic data at (1 x 4)
     (d / f"{tw.CLI_NAME}.json").write_text(json.dumps(tw.CLI_CFG))
     factory.add_model_config(d / f"{tw.CLI_NAME}.json")
     root = str(d / "scar")
     csv = make_scar_dataset(root, n=8, image_size=40)
-    cli = {}
-    for entry, world, model, per_rank in (("main_other", 2, 2, 4),
-                                          ("main", 4, 4, 4)):
-        data = {"root": root, "csv": csv, "batch": per_rank}
+    clis = (("main_other", 2, 2, 4), ("main", 4, 4, 4))
+
+    for entry, *_ in clis:
+        (d / f"cli_{entry}").mkdir()
+
+    def spawn_cli(entry, world, model, per_rank):
         sub = d / f"cli_{entry}"
-        sub.mkdir()
-        got = w.spawn("cli", world, sub, {"entry": entry, "model": model,
+        data = {"root": root, "csv": csv, "batch": per_rank}
+        return w.spawn("cli", world, sub, {"entry": entry, "model": model,
                                            "data": data, "cfg_dir": str(d)},
-                      timeout=300, script=WORKER)
-        one = dict(data, batch=per_rank * world // model)
-        want = tw.run_cli(entry, tw.cli_argv(entry, one, str(sub / "one"),
-                                             "one"))
-        cli[entry] = (got, want)
-    ref["cli"] = cli
-    jax_steps = {"clip": _jax_step(clip_bundle, batch),
-                 "xtag": _jax_step(xtag_bundle, batch, "xtag"),
-                 "adafactor": _jax_step(xtag_bundle, batch, "xtag",
-                                        "adafactor")}
+                       timeout=300, script=WORKER)
+
+    def spawn_layouts():
+        # (2 x 2) and (2 x 1) resume (1 x 2)'s checkpoints
+        ranks = {"1x2": spawn_layout("1x2")}
+        with ThreadPoolExecutor(2) as pool:
+            later = {layout: pool.submit(spawn_layout, layout)
+                     for layout in ("2x2", "2x1")}
+            ranks.update({layout: f.result() for layout, f in later.items()})
+        return ranks
+
+    # the spawns run in threads (their ranks are processes) beside the
+    # one-process runs and JAX's steps
+    with ThreadPoolExecutor(3) as pool:
+        layouts_done = pool.submit(spawn_layouts)
+        got_cli = {c[0]: pool.submit(spawn_cli, *c) for c in clis}
+        ref = {label: tw.step(init[kw.get("kind", "xtag")], batch, **kw)
+               for label, kw in common + towers}
+        ref["blocks"] = {r: tw.block_bf16(5, r)
+                         for r in ("fused_halves", "non_fused")}
+        cli = {}
+        for entry, world, model, per_rank in clis:
+            one = {"root": root, "csv": csv,
+                   "batch": per_rank * world // model}
+            want = tw.run_cli(entry, tw.cli_argv(
+                entry, one, str(d / f"cli_{entry}" / "one"), "one"))
+            cli[entry] = (got_cli[entry].result(), want)
+        ref["cli"] = cli
+        jax_steps = {"clip": _jax_step(clip_bundle, batch),
+                     "xtag": _jax_step(xtag_bundle, batch, "xtag"),
+                     "adafactor": _jax_step(xtag_bundle, batch, "xtag",
+                                            "adafactor")}
+        ranks = layouts_done.result()
+    for label, path, opt in resume:
+        ref[label] = tw.resume(path, init["xtag"], batch, opt)
     return {"ranks": ranks, "ref": ref, "init": init, "batch": batch,
             "ckpt": ckpt, "jax": jax_steps}
 
@@ -540,11 +569,19 @@ def test_adafactor_checkpoint_written_at_1x2_resumes(run, where):
 
 # -- (e) the GAP and CoCa towers, and bf16 blocks ----------------------------
 
-@pytest.mark.parametrize("kind", ["gap", "coca"])
+@pytest.mark.parametrize("kind", ["gap", "coca", "coca_kv"])
 def test_other_towers_step_under_model_2(run, kind):
+    """``coca_kv``: the decoder's cross-attention has a key/value width
+    (the image tokens' 64) of its own beside the decoder's 96, so its
+    separate q/k/v projections are split by heads, and the image tokens'
+    and the decoder stream's gradients are summed over the model group
+    once."""
     for rank in run["ranks"]["1x2"]:
         _check(rank[kind], run["ref"][kind])
         assert rank[kind]["sharded"]
+        if kind == "coca_kv":
+            assert "text_decoder.cross_attn.0.attn.k_proj.kernel" in \
+                rank[kind]["sharded"]
 
 
 @pytest.mark.parametrize("route", ["fused_halves", "non_fused"])
@@ -589,20 +626,16 @@ def test_non_divisible_heads_raise(run):
         sharding.shard_tensor_parallel(model, size=3, rank=0)
 
 
-def test_tower_outside_the_slice_raises_naming_item_11(tmp_path):
-    cfg = dict(embed_dim=64, vision_cfg=dict(
-        timm_model_name="vit_tiny_patch16_224", image_size=32,
-        timm_model_pretrained=False, timm_pool="token", timm_proj="linear"),
-        text_cfg=dict(context_length=16, vocab_size=1024, width=64,
-                      heads=2, layers=1))
-    path = tmp_path / "torchtinytptimm.json"
-    path.write_text(json.dumps(cfg))
-    factory.add_model_config(path)
-    model = factory.create_model("torchtinytptimm", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        sharding.shard_tensor_parallel(model, size=2, rank=0)
-    msgs = unported(parse_args(["--model", "torchtinytptimm",
-                                "--model-parallel", "2"]))
-    assert len(msgs) == 1 and "Queue 1 item 11" in msgs[0]
+def test_tower_outside_the_slice_raises_naming_item_11(run):
+    """A timm ViT image tower (once outside item 10's slice) splits by its
+    plan and steps at (1 x 2) as the one-process step; ``unported`` names
+    nothing for it."""
+    for rank in run["ranks"]["1x2"]:
+        _check(rank["timm"], run["ref"]["timm"])
+        trunk = {k.rsplit(".", 2)[-2] for k in rank["timm"]["sharded"]
+                 if k.startswith("visual.trunk.blocks.")}
+        assert trunk == {"qkv", "proj", "fc1", "fc2"}
+    assert unported(parse_args(["--model", tw.TIMM_NAME,
+                                "--model-parallel", "2"])) == []
     assert unported(parse_args(["--model", tw.CFG_NAME,
                                 "--model-parallel", "2"])) == []

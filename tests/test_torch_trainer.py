@@ -463,10 +463,10 @@ def test_main_other_unported_flags_raise(flags, match, tmp_path,
     held in tests/test_torch_file_utils.py, named --pretrained tags in
     tests/test_torch_pretrained.py, a named --distill-pretrained tag in
     tests/test_torch_distill.py, --fsdp in tests/test_torch_fsdp.py).
-    Beside --fsdp, ``--model-parallel 2`` (tests/test_torch_tp.py) raises
+    Beside --fsdp, ``--model-parallel 2`` (tests/test_torch_tp.py and,
+    for a timm tower such as SigLIP's, tests/test_torch_tp_zoo.py) raises
     before the model in one process, whose world size 2 does not divide
-    (JAX's mesh assert), and with a timm tower ROADMAP Queue 1 item 11's
-    refusal names the flag."""
+    (JAX's mesh assert), whatever the towers."""
     argv = ["--model", "ViT-B-32", "--device", "cpu", "--logs",
             str(tmp_path), "--name", "x", *flags]
     assert unported(parse_args(argv)) == []
@@ -475,5 +475,6 @@ def test_main_other_unported_flags_raise(flags, match, tmp_path,
     with pytest.raises(ValueError, match="model-parallel 2 does not divide"):
         main_other.main(argv + ["--model-parallel", "2"])
     timm = argv + ["--model-parallel", "2", "--model", "ViT-B-16-SigLIP"]
-    with pytest.raises(NotImplementedError, match="model-parallel"):
+    assert unported(parse_args(timm)) == []
+    with pytest.raises(ValueError, match="model-parallel 2 does not divide"):
         main_other.main(timm)

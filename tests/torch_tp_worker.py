@@ -70,6 +70,20 @@ COCA_CFG = dict(
                         heads=4, layers=2),
 )
 COCA_NAME = "torchtinytpcoca"
+# the CoCa toy at text and decoder width 96 beside embed_dim 64 (as
+# coca_base's 768 beside 512): the decoder's cross-attention takes the
+# image tokens through separate q/k/v projections, split by heads
+COCA_KV_CFG = dict(COCA_CFG, text_cfg=dict(COCA_CFG["text_cfg"], width=96),
+                   multimodal_cfg=dict(COCA_CFG["multimodal_cfg"], width=96))
+COCA_KV_NAME = "torchtinytpcocakv"
+# a timm ViT image tower (vit_small: 6 heads of 64, 12 blocks) beside a
+# toy text tower, split at model size 2 by its plan (parallel/sharding.py)
+TIMM_CFG = dict(embed_dim=64, vision_cfg=dict(
+    timm_model_name="vit_small_patch16_224", image_size=32,
+    timm_model_pretrained=False, timm_pool="token", timm_proj="linear"),
+    text_cfg=dict(context_length=16, vocab_size=1024, width=64, heads=2,
+                  layers=1))
+TIMM_NAME = "torchtinytptimm"
 COCA_ARGS = {"coca": True, "coca_caption_loss_weight": 2.0,
              "coca_contrastive_loss_weight": 1.0}
 GLOBAL_B = 8
@@ -85,7 +99,8 @@ def register(directory) -> None:
     import json
 
     for name, cfg in ((CFG_NAME, CFG), (GAP_NAME, GAP_CFG),
-                      (COCA_NAME, COCA_CFG)):
+                      (COCA_NAME, COCA_CFG), (COCA_KV_NAME, COCA_KV_CFG),
+                      (TIMM_NAME, TIMM_CFG)):
         path = os.path.join(str(directory), name + ".json")
         if not os.path.exists(path):  # written aside: ranks read it too
             tmp = f"{path}.{os.getpid()}"
@@ -141,14 +156,16 @@ def step(init_sd: dict, batch_np: dict, kind: str = "xtag",
          opt: str = "adamw", fsdp: bool = False, opt_kw=None,
          ckpt: str = None, grads: bool = True) -> dict:
     """One deterministic step of ``kind`` (``xtag``: CFG with tagging and
-    fusion; ``clip``: CFG's contrastive step; ``gap``, ``coca``) from
+    fusion; ``clip``: CFG's contrastive step; ``gap``, ``coca``,
+    ``coca_kv``, ``timm``) from
     ``init_sd`` on this rank's rows: the metrics, the whole parameters
     and (``grads``) gradients, and the shards' sizes. With ``ckpt`` the
     state is saved there after the step (a collective; rank 0 writes),
     stepped once more, and only the saved parameters' ``digest`` and the
     next step's fingerprint are returned."""
     name = {"xtag": CFG_NAME, "clip": CFG_NAME, "gap": GAP_NAME,
-            "coca": COCA_NAME}[kind]
+            "coca": COCA_NAME, "coca_kv": COCA_KV_NAME,
+            "timm": TIMM_NAME}[kind]
     extra = {"use_tagging": True, "use_fusion": True} if kind == "xtag" \
         else {}
     model = factory.create_model(name, device="cpu", precision="fp32",
@@ -165,9 +182,11 @@ def step(init_sd: dict, batch_np: dict, kind: str = "xtag",
     cfg = {"world_size": mesh.data_size(), "rank": mesh.data_rank()}
     keys = {"xtag": ("images", "class_ids", "additional"),
             "clip": ("images", "texts"), "gap": ("images", "texts"),
-            "coca": ("images", "captions")}[kind]
+            "coca": ("images", "captions"),
+            "coca_kv": ("images", "captions"),
+            "timm": ("images", "texts")}[kind]
     batch = {k: torch.from_numpy(batch_np[k][take]) for k in keys}
-    if kind == "coca":
+    if kind.startswith("coca"):
         batch["texts"] = batch.pop("captions")
         cfg.update(COCA_ARGS)
     if kind == "xtag":

@@ -230,13 +230,6 @@ def text_tower_type(t: dict) -> type:
     return HFTextEncoder if t.get("hf_model_name") else TextTransformer
 
 
-def tower_types(model_cfg: dict) -> Dict[str, type]:
-    """{"visual": class, "text": class}: the towers ``create_model``
-    builds from ``model_cfg``, without building them."""
-    return {"visual": vision_tower_type(model_cfg.get("vision_cfg") or {}),
-            "text": text_tower_type(model_cfg.get("text_cfg") or {})}
-
-
 def _vision_tower(embed_dim, v, act, dtype, grad_checkpointing=False):
     """The vision tower of ``vision_cfg`` ``v``, reading the keys JAX's
     ``_build_vision_tower`` reads (factory.py:166-222); others are ignored,

@@ -28,10 +28,13 @@ from xtagclip_tpu_torch.models.layers import (
     attention,
     dropout,
     gelu_exact,
+    tp_input,
 )
 
 
 class BertSelfAttentionLayer(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, hidden_size: int, num_heads: int, rate: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
@@ -43,13 +46,17 @@ class BertSelfAttentionLayer(nn.Module):
         self.out_ln = LayerNorm(hidden_size, 1e-12)
 
     def forward(self, x, mask=None, generator=None):
-        ctx = attention(self.query(x), self.key(x), self.value(x),
-                        self.num_heads, self.rate, generator, mask)
+        h = tp_input(self, x)
+        ctx = attention(self.query(h), self.key(h), self.value(h),
+                        self.num_heads // self.tp_size, self.rate, generator,
+                        mask, whole_heads=self.num_heads)
         out = dropout(self.out_dense(ctx), self.rate, generator)
         return self.out_ln(out + x)
 
 
 class BertEncoderLayer(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, hidden_size: int, num_heads: int,
                  intermediate_size: int, rate: float = 0.1):
         super().__init__()
@@ -61,7 +68,7 @@ class BertEncoderLayer(nn.Module):
 
     def forward(self, x, mask=None, generator=None):
         x = self.attention(x, mask, generator)
-        h = self.output(gelu_exact(self.intermediate(x)))
+        h = self.output(gelu_exact(self.intermediate(tp_input(self, x))))
         return self.output_ln(dropout(h, self.rate, generator) + x)
 
 

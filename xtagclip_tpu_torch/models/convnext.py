@@ -27,6 +27,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     channels_last,
     gelu_exact,
+    tp_input,
 )
 
 # timm convnext variants: (depths, dims)
@@ -41,6 +42,8 @@ CONVNEXT_CFGS = {
 
 
 class ConvNeXtBlock(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, dim: int, ls_init_value: float = 1e-6):
         super().__init__()
         self.ls_init_value = ls_init_value
@@ -54,7 +57,8 @@ class ConvNeXtBlock(nn.Module):
         nn.init.constant_(self.gamma, self.ls_init_value)
 
     def _mlp(self, h):
-        h = self.mlp_fc2(gelu_exact(self.mlp_fc1(self.norm(h))))
+        h = self.mlp_fc1(tp_input(self, self.norm(h)))
+        h = self.mlp_fc2(gelu_exact(h))
         return h * self.gamma.to(h.dtype)
 
     def forward(self, x):

@@ -31,6 +31,7 @@ from xtagclip_tpu_torch.models.layers import (
     gelu_exact,
     run_blocks,
     self_attention_core,
+    tp_input,
 )
 
 
@@ -60,6 +61,8 @@ def apply_rope(x, cos, sin):
 
 
 class EvaAttention(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, width: int, num_heads: int, qkv_fused: bool = True):
         super().__init__()
         self.num_heads = num_heads
@@ -74,8 +77,9 @@ class EvaAttention(nn.Module):
         self.proj = Dense(width, width)
 
     def forward(self, x, rope=None):
-        b, l, d = x.shape
-        nh = self.num_heads
+        b, l, _ = x.shape
+        nh = self.num_heads // self.tp_size
+        x = tp_input(self, x)
         if self.qkv_fused:
             q, k, v = self.qkv(x).chunk(3, dim=-1)
         else:
@@ -84,9 +88,10 @@ class EvaAttention(nn.Module):
             cos, sin = rope
 
             def rotate(t):  # the class token (index 0) is not rotated
-                th = t.reshape(b, l, nh, d // nh)
+                e = t.shape[-1]
+                th = t.reshape(b, l, nh, e // nh)
                 return torch.cat([th[:, :1], apply_rope(th[:, 1:], cos, sin)],
-                                 dim=1).reshape(b, l, d)
+                                 dim=1).reshape(b, l, e)
 
             q, k = rotate(q), rotate(k)
         kernels = self.use_kernels and x.dtype == torch.bfloat16
@@ -94,6 +99,8 @@ class EvaAttention(nn.Module):
 
 
 class EvaBlock(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, width: int, num_heads: int, mlp_hidden: int,
                  swiglu: bool = False, scale_mlp: bool = False,
                  qkv_fused: bool = True, post_norm: bool = False,
@@ -113,6 +120,7 @@ class EvaBlock(nn.Module):
         self.fc2 = Dense(mlp_hidden, width)
 
     def mlp(self, h):
+        h = tp_input(self, h)
         if self.swiglu:
             h = F.silu(self.fc1_g(h)) * self.fc1_x(h)
         else:

@@ -31,6 +31,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     attention,
     gelu_exact,
+    tp_input,
 )
 
 
@@ -73,6 +74,8 @@ class RepMixerBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, channels: int, head_dim: int = 32):
         super().__init__()
         self.heads = max(1, channels // head_dim)
@@ -84,8 +87,8 @@ class AttnBlock(nn.Module):
     def forward(self, x, train: bool = False):
         b, c, h, w = x.shape
         y = self.norm(x, train).flatten(2).transpose(1, 2)
-        q, k, v = self.qkv(y).chunk(3, dim=-1)
-        y = self.proj(attention(q, k, v, self.heads))
+        q, k, v = self.qkv(tp_input(self, y)).chunk(3, dim=-1)
+        y = self.proj(attention(q, k, v, self.heads // self.tp_size))
         x = x + y.transpose(1, 2).reshape(b, c, h, w)
         return x + self.ffn(x, train)
 

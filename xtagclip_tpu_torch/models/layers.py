@@ -20,6 +20,19 @@ explicit ``torch.Generator``; it is off where the generator is None, the
 ``deterministic=True`` of the JAX modules. ``patch_dropout`` draws its
 token scores from such a generator too.
 
+Tensor parallelism (parallel/sharding.py ``shard_tensor_parallel``) sets
+the roles of the leaf modules whose parameters it splits: a Dense with
+``tp_role`` ``"row"`` holds a slice of its input rows and sums its fp32
+product over the model group before its bias
+(``tensor_parallel.out_projection``); an Embed with ``tp_rows`` holds
+those vocabulary rows (``tensor_parallel.vocab_rows``); a LayerNorm with
+``tp_role`` ``"split"`` normalizes a width split over the group
+(``tensor_parallel.split_layer_norm``). A Dense split on its output
+columns has no role: its block passes the input of each split region
+(the attention's or the MLP's first products) through ``tp_input`` once,
+``copy_to_model``, whose backward sums the region's input gradient over
+the group in one all-reduce.
+
 ``Transformer(grad_checkpointing=True)`` is JAX's ``remat``
 (layers.py:617-673): each block runs under
 ``torch.utils.checkpoint(use_reentrant=False)`` while grad is on, so only
@@ -39,7 +52,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from xtagclip_tpu_torch.core.mesh import data_size
+from xtagclip_tpu_torch.core.mesh import data_size, model_rank, model_size
 from xtagclip_tpu_torch.ops import flash_attn
 from xtagclip_tpu_torch.ops import fused_attn_block as fab
 from xtagclip_tpu_torch.ops import fused_mlp
@@ -59,7 +72,10 @@ def gelu_exact(x):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with fp32 statistics, output cast back to the input dtype."""
+    """LayerNorm with fp32 statistics, output cast back to the input
+    dtype (``tp_role``: module doc)."""
+
+    tp_role = None
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -72,6 +88,8 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if self.tp_role == "split":
+            return tp.split_layer_norm(x, self.scale, self.bias, self.eps)
         x32 = x.float()
         mean = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -87,7 +105,10 @@ def channels_last(fn, x):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: y = x @ kernel + bias, kernel [in, out]."""
+    """flax ``nn.Dense``: y = x @ kernel + bias, kernel [in, out]
+    (``tp_role``: module doc)."""
+
+    tp_role = None
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
@@ -102,14 +123,26 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if self.tp_role == "row":
+            return tp.out_projection(x, self.kernel, self.bias)
         y = torch.matmul(x, self.kernel.to(x.dtype))
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
 
 
+def tp_input(block: nn.Module, x):
+    """The input of a split region of ``block`` (module doc):
+    ``copy_to_model(x)`` where parallel/sharding.py split the block, else
+    ``x``."""
+    return copy_to_model(x) if block.tp_size > 1 else x
+
+
 class Embed(nn.Module):
-    """flax ``nn.Embed``: a [num, dim] table read by index."""
+    """flax ``nn.Embed``: a [num, dim] table read by index (``tp_rows``:
+    module doc)."""
+
+    tp_rows = None
 
     def __init__(self, num: int, dim: int, init_std: float):
         super().__init__()
@@ -120,6 +153,8 @@ class Embed(nn.Module):
         nn.init.normal_(self.embedding, 0.0, self.init_std, generator=generator)
 
     def forward(self, ids):
+        if self.tp_rows is not None:
+            return tp.vocab_rows(ids, self.embedding, *self.tp_rows)
         return self.embedding[ids]
 
 
@@ -260,23 +295,35 @@ def patch_dropout(x, generator, prob: float, exclude_first_token: bool = True):
     return kept if first is None else torch.cat([first, kept], dim=1)
 
 
-def dropout(x, rate: float, generator):
+def dropout(x, rate: float, generator, split=None):
     """Inverted dropout (flax ``nn.Dropout``): each element is kept with
     probability 1 - rate and scaled by 1 / (1 - rate). The keep mask comes
-    from ``generator`` (``F.dropout`` takes none); None turns dropout off."""
+    from ``generator`` (``F.dropout`` takes none); None turns dropout off.
+    ``split`` (dim, whole size): ``x`` is this model rank's slice of a
+    tensor split over the model group on ``dim`` (its heads or hidden
+    width); the mask is drawn at the whole size, as one process draws it,
+    and this rank takes its slice, so that the ranks of a model group draw
+    the same numbers and their generators stay in step."""
     if generator is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    shape = list(x.shape)
+    if split is not None:
+        shape[split[0]] = split[1]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    if split is not None and split[1] != x.shape[split[0]]:
+        keep = keep.tensor_split(model_size(), split[0])[model_rank()]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
-              generator=None, mask=None):
+              generator=None, mask=None, whole_heads=None):
     """Multi-head attention over [B, L, E] streams
     (``jax.nn.dot_product_attention``): fp32 scores times dh^-0.5, plus
     the additive [Lq, Lk] ``mask`` if one is given, fp32 softmax, dropout
     on the fp32 probabilities when a generator is given
-    (layers.py:117-119), probabilities in the value dtype for P @ V."""
+    (layers.py:117-119), probabilities in the value dtype for P @ V.
+    ``whole_heads``: the streams hold this model rank's ``num_heads`` of
+    that many heads (the dropout mask is drawn for all of them)."""
     b, lq, e = q.shape
     lk = k.shape[1]
     dh = e // num_heads
@@ -288,7 +335,8 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
     s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * dh**-0.5
     if mask is not None:
         s = s + mask.float()
-    p = dropout(torch.softmax(s, dim=-1), dropout_rate, generator)
+    p = dropout(torch.softmax(s, dim=-1), dropout_rate, generator,
+                None if whole_heads is None else (1, whole_heads))
     out = torch.matmul(p.to(vh.dtype), vh)
     return out.transpose(1, 2).reshape(b, lq, e).to(q.dtype)
 

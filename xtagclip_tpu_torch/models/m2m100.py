@@ -28,6 +28,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     attention,
     dropout,
+    tp_input,
 )
 
 
@@ -48,10 +49,12 @@ def sinusoidal_positions(num_positions: int, dim: int,
 
 
 class M2M100EncoderLayer(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
                  dropout: float = 0.1):
         super().__init__()
-        self.num_heads, self.rate = num_heads, dropout
+        self.num_heads, self.rate, self.ffn_dim = num_heads, dropout, ffn_dim
         self.self_attn_ln = LayerNorm(d_model)
         self.q_proj = Dense(d_model, d_model)
         self.k_proj = Dense(d_model, d_model)
@@ -62,11 +65,14 @@ class M2M100EncoderLayer(nn.Module):
         self.fc2 = Dense(ffn_dim, d_model)
 
     def forward(self, x, mask=None, generator=None):
-        h = self.self_attn_ln(x)
+        h = tp_input(self, self.self_attn_ln(x))
         ctx = attention(self.q_proj(h), self.k_proj(h), self.v_proj(h),
-                        self.num_heads, self.rate, generator, mask)
+                        self.num_heads // self.tp_size, self.rate, generator,
+                        mask, whole_heads=self.num_heads)
         x = x + dropout(self.out_proj(ctx), self.rate, generator)
-        h = dropout(F.relu(self.fc1(self.final_ln(x))), self.rate, generator)
+        h = tp_input(self, self.final_ln(x))
+        h = dropout(F.relu(self.fc1(h)), self.rate, generator,
+                    (-1, self.ffn_dim))
         return x + dropout(self.fc2(h), self.rate, generator)
 
 

@@ -22,7 +22,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xtagclip_tpu_torch.models.layers import BatchNorm, Conv2d, Dense
+from xtagclip_tpu_torch.models.layers import (
+    BatchNorm,
+    Conv2d,
+    Dense,
+    tp_input,
+)
 
 
 class Bottleneck(nn.Module):
@@ -62,6 +67,8 @@ class AttentionPool2d(nn.Module):
     table, one multi-head attention over [1 + HW] tokens (fp32 scores and
     softmax), then ``c_proj`` (resnet.py:101-145)."""
 
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, grid: int, embed_dim: int, num_heads: int,
                  output_dim: int):
         super().__init__()
@@ -84,8 +91,9 @@ class AttentionPool2d(nn.Module):
         seq = x.flatten(2).transpose(1, 2)  # [B, HW, C], (h, w) row order
         seq = torch.cat([seq.mean(dim=1, keepdim=True), seq], dim=1)
         seq = seq + self.positional_embedding.to(seq.dtype)[None]
-        nh = self.num_heads
-        dh = c // nh
+        seq = tp_input(self, seq)
+        nh = self.num_heads // self.tp_size  # the local heads
+        dh = c // self.num_heads
 
         def split(t):
             return t.reshape(b, -1, nh, dh).transpose(1, 2)
@@ -95,7 +103,7 @@ class AttentionPool2d(nn.Module):
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh**-0.5
         probs = torch.softmax(scores, dim=-1)
         ctx = torch.matmul(probs.to(v.dtype), v).to(seq.dtype)
-        out = self.c_proj(ctx.transpose(1, 2).reshape(b, -1, c))
+        out = self.c_proj(ctx.transpose(1, 2).reshape(b, -1, nh * dh))
         return out[:, 0], out[:, 1:]
 
 

@@ -24,6 +24,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     gelu_exact,
+    tp_input,
 )
 
 
@@ -53,6 +54,8 @@ def _shift_attn_mask(hw: int, window: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, dim: int, num_heads: int, window: int):
         super().__init__()
         self.num_heads = num_heads
@@ -70,10 +73,10 @@ class WindowAttention(nn.Module):
     def forward(self, x, mask=None):
         """x [B*nW, W*W, C]; mask [nW, W*W, W*W] or None."""
         bnw, n, c = x.shape
-        nh = self.num_heads
-        dh = c // nh
+        nh = self.num_heads // self.tp_size  # the local heads
+        dh = c // self.num_heads
         q, k, v = (t.reshape(bnw, n, nh, dh).transpose(1, 2)
-                   for t in self.qkv(x).chunk(3, dim=-1))
+                   for t in self.qkv(tp_input(self, x)).chunk(3, dim=-1))
         attn = torch.matmul(q * dh ** -0.5, k.transpose(-1, -2)).float()
         bias = self.rel_pos_bias[self.index].permute(2, 0, 1)
         attn = attn + bias[None].float()
@@ -82,11 +85,13 @@ class WindowAttention(nn.Module):
             attn = attn.reshape(bnw // nw, nw, nh, n, n) + mask[None, :, None]
             attn = attn.reshape(bnw, nh, n, n)
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(bnw, n, c)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(bnw, n, nh * dh)
         return self.proj(out)
 
 
 class SwinBlock(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, dim: int, num_heads: int, side: int, window: int = 7,
                  shift: int = 0, mlp_ratio: float = 4.0):
         super().__init__()
@@ -116,7 +121,8 @@ class SwinBlock(nn.Module):
         if shift:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         x = x + y
-        return x + self.fc2(gelu_exact(self.fc1(self.norm2(x))))
+        h = tp_input(self, self.norm2(x))
+        return x + self.fc2(gelu_exact(self.fc1(h)))
 
 
 class SwinTrunk(nn.Module):

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xtagclip_tpu_torch.models.layers import Dense, Embed, dropout
+from xtagclip_tpu_torch.models.layers import Dense, Embed, dropout, tp_input
 
 
 class RMSNorm(nn.Module):
@@ -66,6 +66,8 @@ def relative_position_bucket(relative_position, num_buckets: int = 32,
 
 
 class T5SelfAttention(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, d_model: int, num_heads: int, d_kv: int,
                  dropout: float = 0.1):
         super().__init__()
@@ -78,29 +80,34 @@ class T5SelfAttention(nn.Module):
 
     def forward(self, x, position_bias, mask_bias=None, generator=None):
         b, l, _ = x.shape
-        q, k, v = (t(x).reshape(b, l, self.num_heads, self.d_kv).transpose(1, 2)
+        heads = self.num_heads // self.tp_size
+        h = tp_input(self, x)
+        q, k, v = (t(h).reshape(b, l, heads, self.d_kv).transpose(1, 2)
                    for t in (self.q, self.k, self.v))
         scores = torch.matmul(q, k.transpose(-1, -2)).float() + position_bias
         if mask_bias is not None:
             scores = scores + mask_bias
         attn = torch.softmax(scores, dim=-1).to(x.dtype)
-        attn = dropout(attn, self.rate, generator)
+        attn = dropout(attn, self.rate, generator, (1, self.num_heads))
         ctx = torch.matmul(attn, v).transpose(1, 2).reshape(b, l, -1)
         return self.o(ctx)
 
 
 class T5GatedFF(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, d_model: int, d_ff: int, dropout: float = 0.1):
         super().__init__()
-        self.rate = dropout
+        self.rate, self.d_ff = dropout, d_ff
         self.wi_0 = Dense(d_model, d_ff, bias=False)
         self.wi_1 = Dense(d_model, d_ff, bias=False)
         self.wo = Dense(d_ff, d_model, bias=False)
 
     def forward(self, x, generator=None):
         # gelu_new: the tanh-approximate gelu (mT5's dense_act_fn)
+        x = tp_input(self, x)
         h = F.gelu(self.wi_0(x), approximate="tanh") * self.wi_1(x)
-        return self.wo(dropout(h, self.rate, generator))
+        return self.wo(dropout(h, self.rate, generator, (-1, self.d_ff)))
 
 
 class T5EncoderStack(nn.Module):

@@ -46,10 +46,13 @@ from xtagclip_tpu_torch.models.layers import (
     attention,
     gelu_exact,
     run_blocks,
+    tp_input,
 )
 
 
 class TimmBlock(nn.Module):
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  norm_eps: float = 1e-6):
         super().__init__()
@@ -62,9 +65,11 @@ class TimmBlock(nn.Module):
         self.fc2 = Dense(int(width * mlp_ratio), width)
 
     def forward(self, x, attn_bias=None):
-        q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
-        x = x + self.proj(attention(q, k, v, self.num_heads, mask=attn_bias))
-        return x + self.fc2(gelu_exact(self.fc1(self.norm2(x))))
+        q, k, v = self.qkv(tp_input(self, self.norm1(x))).chunk(3, dim=-1)
+        x = x + self.proj(attention(q, k, v, self.num_heads // self.tp_size,
+                                    mask=attn_bias))
+        h = tp_input(self, self.norm2(x))
+        return x + self.fc2(gelu_exact(self.fc1(h)))
 
 
 class RelPosBias(nn.Module):
@@ -173,6 +178,8 @@ class MapPool(nn.Module):
     """timm's AttentionPoolLatent (SigLIP's ``map`` pool): one learned
     latent query over the tokens, proj, then LN + a residual MLP."""
 
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  norm_eps: float = 1e-6):
         super().__init__()
@@ -191,10 +198,12 @@ class MapPool(nn.Module):
 
     def forward(self, tokens):
         b = tokens.shape[0]
-        q = self.q(self.latent.to(tokens.dtype).expand(b, 1, -1))
-        k, v = self.kv(tokens).chunk(2, dim=-1)
-        x = self.proj(attention(q, k, v, self.num_heads))
-        h = self.mlp_fc2(gelu_exact(self.mlp_fc1(self.norm(x))))
+        latent = tp_input(self, self.latent.to(tokens.dtype))
+        q = self.q(latent.expand(b, 1, -1))
+        k, v = self.kv(tp_input(self, tokens)).chunk(2, dim=-1)
+        x = self.proj(attention(q, k, v, self.num_heads // self.tp_size))
+        h = tp_input(self, self.norm(x))
+        h = self.mlp_fc2(gelu_exact(self.mlp_fc1(h)))
         return (x + h)[:, 0]
 
 

@@ -33,6 +33,7 @@ from xtagclip_tpu_torch.models.layers import (
     gelu_exact,
     run_blocks,
     self_attention_core,
+    tp_input,
 )
 
 
@@ -59,6 +60,8 @@ class MbConvLN(nn.Module):
 class GeGluBlock(nn.Module):
     """A pre-norm ViT block with a GeGLU MLP (ratio 2)."""
 
+    tp_size = 1  # the model size, once parallel/sharding.py splits it
+
     def __init__(self, width: int, heads: int, mlp_ratio: float = 2.0):
         super().__init__()
         hidden = int(width * mlp_ratio)
@@ -73,10 +76,11 @@ class GeGluBlock(nn.Module):
         self.fc2 = Dense(hidden, width)
 
     def forward(self, x):
-        q, k, v = self.qkv(self.norm1(x)).chunk(3, dim=-1)
+        q, k, v = self.qkv(tp_input(self, self.norm1(x))).chunk(3, dim=-1)
         kernels = self.use_kernels and x.dtype == torch.bfloat16
-        x = x + self.proj(self_attention_core(q, k, v, self.heads, kernels))
-        h = self.norm2(x)
+        x = x + self.proj(self_attention_core(
+            q, k, v, self.heads // self.tp_size, kernels))
+        h = tp_input(self, self.norm2(x))
         return x + self.fc2(gelu_exact(self.fc1_g(h)) * self.fc1_x(h))
 
 

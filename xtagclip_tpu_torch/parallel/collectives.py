@@ -20,8 +20,10 @@ The model-axis operators carry tensor parallelism's activations
 the identity forward and an all-reduce over the model group backward (a
 replicated input that the ranks' shards each use), ``reduce_from_model``
 an all-reduce forward and the identity backward (the sum of the ranks'
-partial outputs). Both sum in fp32 whatever the dtype, and round once.
-At model size 1 both return their input.
+partial outputs), ``sum_over_model`` an all-reduce both ways (a sum over
+the ranks' slices that every rank then uses: the statistics of a
+LayerNorm over a split width). Each sums in fp32 whatever the dtype, and
+rounds once. At model size 1 each returns its input.
 """
 
 from __future__ import annotations
@@ -160,6 +162,16 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return model_all_reduce(x)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return model_all_reduce(grad)[0]
+
+
 def broadcast_over_model(batch: dict) -> dict:
     """Each tensor of ``batch`` as model rank 0 of this rank's model group
     holds it (a train batch: the ranks of a model group read the same
@@ -190,3 +202,9 @@ def reduce_from_model(x):
     """The sum of ``x`` over the model group forward; the gradient itself
     backward (module doc)."""
     return _ReduceFromModel.apply(x) if model_size() > 1 else x
+
+
+def sum_over_model(x):
+    """The sum of ``x`` over the model group forward; the gradient summed
+    over the group backward (module doc)."""
+    return _SumOverModel.apply(x) if model_size() > 1 else x

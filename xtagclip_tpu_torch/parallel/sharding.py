@@ -10,21 +10,48 @@ leaf's output dim (or its input dim) of at least 128, and a 1-D leaf of
 at least 1024, shard over ``model``.
 
 Tensor parallelism (``--model-parallel N`` > 1, ``shard_tensor_parallel``)
-is the Megatron split of every ``ResidualAttentionBlock`` over the model
-group of core/mesh.py's mesh, not JAX's rule: ``attn.in_proj`` is split
-by heads (each rank the q, k and v columns of its H / N heads, with their
-biases: a contiguous column shard of the [E, 3E] q|k|v kernel would hand
-rank 0 all of q), ``attn.out_proj.kernel`` by rows, ``mlp.c_fc`` by
-columns with its bias, ``mlp.c_proj.kernel`` by rows
-(parallel/tensor_parallel.py runs the block on them). The LNs, the
-LayerScales, ``out_proj.bias``, ``c_proj.bias`` and every module outside
-the blocks (embeddings, ``ln_post``, projections, the tag head, TQN) stay
-whole on each model rank. JAX's rule shards those over ``model`` too (and
-the blocks' leaves on their output dims): that changes where memory goes,
-not the step's numbers. A sharded leaf is a plain tensor holding this
-rank's piece, tagged with its ``ModelShard`` (and, by name,
-``model_shards``); the towers outside the slice (timm, HF text, the
-ResNets) raise, naming ROADMAP Queue 1 item 11.
+is the Megatron split of every tower over the model group of
+core/mesh.py's mesh, not JAX's rule. It goes by one table a block class
+(``plans``; ``block_plan`` for a ``ResidualAttentionBlock``): {leaf:
+``ModelShard``}.
+
+- Column-parallel, a rank's heads or its slice of the hidden width with
+  their biases: every q, k and v projection (a fused q|k|v or k|v kernel
+  by heads, each part cut alike: a contiguous column shard of the [E, 3E]
+  kernel would hand rank 0 all of q) and every first MLP projection
+  (c_fc, fc1, SwiGLU's and GeGLU's two halves, T5's wi_0 and wi_1,
+  BERT's intermediate). The Dense takes ``copy_to_model`` of its input.
+- Row-parallel: every output projection and second MLP projection, its
+  fp32 product summed over the model group, rounded once, its bias added
+  once (``tensor_parallel.out_projection``).
+- By heads: the per-head bias tables (timm's relpos, Swin's, T5's
+  bucketed one). A head count N does not divide raises ValueError naming
+  the block: heads stay whole heads.
+- The hidden width need not divide by N (EVA02-L-14's SwiGLU 2730 at
+  N = 4): the slices are ``tensor_split``'s (683, 683, 682, 682), and
+  EVA-02's ``mlp_norm``, a LayerNorm over that width, takes its
+  statistics over the model group (``tensor_parallel.split_layer_norm``)
+  with its scale and bias split alike.
+- The HF token tables (BERT's ``word_embeddings``, T5's ``shared``,
+  M2M100's ``embed_tokens``) by vocabulary rows: ids outside a rank's
+  rows read zero, then one sum over the group.
+
+A ``ResidualAttentionBlock`` runs its split halves on kernels #1-#4's
+partial modes (parallel/tensor_parallel.py); the other blocks run their
+own forwards on the split Dense, Embed and LayerNorm modules
+(models/layers.py ``tp_role``), their attention on #6 where it runs whole.
+
+The LNs, LayerScales, positional tables, patch, conv and downsample
+stems, the conv trunks (ConvNeXt's depthwise conv, FastViT's ConvFFN and
+RepMixer, the ResNets' bottlenecks), poolers, the final projections and
+every module outside the towers (the tag head, TQN) stay whole on each
+model rank. JAX's rule shards those over ``model`` too (and the blocks'
+leaves on their output dims): that changes where memory goes, not the
+step's numbers. A sharded leaf is a plain tensor holding this rank's
+piece, tagged with its ``ModelShard`` (and, by name, ``model_shards``).
+A split module's attention runs on its ``num_heads // tp_size`` local
+heads; a dropout inside a split region draws its mask at the whole width
+and takes this rank's slice (models/layers.py ``dropout``).
 
 ``wrap_model`` makes the step data-parallel over the data group once a
 process group exists (core/mesh.py ``init_distributed``), after the
@@ -36,7 +63,8 @@ tensor-parallel split:
   ``logit_scale``, kept for checkpoint parity; the tag head without
   ``--use-tagging``); ``--ddp-static-graph`` is DDP's ``static_graph``;
 - with ``--fsdp``, FSDP2's ``fully_shard`` on every block of the towers
-  (the classes whose names end in ``Block``), then on the model: each
+  (the classes whose names end in ``Block``, and the classes of
+  ``plans``: the text towers' layers), then on the model: each
   parameter is sharded on the port dim of the JAX dim that
   ``param_partition_spec`` names, else on dim 0. FSDP2 refuses 0-dim
   parameters (the logit scales and bias): they stay whole and their
@@ -60,9 +88,11 @@ at any (data, model) resumes at any other.
 from __future__ import annotations
 
 import contextlib
+import functools
 import logging
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+import operator
+from dataclasses import dataclass, replace
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -180,11 +210,25 @@ def as_sharded_piece(whole: torch.Tensor, like,
 
 @dataclass(frozen=True)
 class ModelShard:
-    """How a leaf is cut over the model group: into equal pieces along
-    port dim ``dim``; with ``qkv`` that dim holds q | k | v, each cut
-    alike, and a rank's piece is its q | k | v columns (module doc)."""
+    """How a leaf is cut over the model group, along port dim ``dim``:
+    into N contiguous pieces, ``tensor_split``'s (the first ones a row
+    longer where N does not divide the dim); with ``qkv`` (``kv``) that
+    dim holds q | k | v (k | v), each part cut alike, and a rank's piece
+    is its columns of each (module doc). ``whole``: the dim's whole size,
+    which ``shard_tensor_parallel`` records (None: N equal pieces)."""
     dim: int
     qkv: bool = False
+    kv: bool = False
+    whole: Optional[int] = None
+
+    @property
+    def parts(self) -> int:
+        return 3 if self.qkv else 2 if self.kv else 1
+
+
+def piece_sizes(whole: int, size: int) -> list:
+    """The sizes of ``tensor_split``'s ``size`` pieces of ``whole``."""
+    return [whole // size + (r < whole % size) for r in range(size)]
 
 
 def model_piece(whole: torch.Tensor, shard: ModelShard, rank: int,
@@ -192,8 +236,8 @@ def model_piece(whole: torch.Tensor, shard: ModelShard, rank: int,
     """Rank ``rank``'s piece of ``whole`` of ``size`` pieces."""
     if size == 1:
         return whole
-    parts = whole.chunk(3, shard.dim) if shard.qkv else (whole,)
-    return torch.cat([p.chunk(size, shard.dim)[rank] for p in parts],
+    return torch.cat([p.tensor_split(size, shard.dim)[rank]
+                      for p in whole.chunk(shard.parts, shard.dim)],
                      shard.dim)
 
 
@@ -201,23 +245,30 @@ def model_whole(pieces, shard: ModelShard) -> torch.Tensor:
     """The whole leaf of the ranks' ``pieces``, in rank order."""
     if len(pieces) == 1:
         return pieces[0]
-    if not shard.qkv:
+    if shard.parts == 1:
         return torch.cat(pieces, shard.dim)
-    split = [p.chunk(3, shard.dim) for p in pieces]
+    split = [p.chunk(shard.parts, shard.dim) for p in pieces]
     return torch.cat([torch.cat([s[j] for s in split], shard.dim)
-                      for j in range(3)], shard.dim)
+                      for j in range(shard.parts)], shard.dim)
 
 
 def gather_model(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     """The whole leaf of this rank's piece ``t`` (a collective over the
-    model group)."""
+    model group; uneven pieces travel padded to the longest)."""
     n = mesh.model_size()
     if n == 1:
         return t
-    t = t.detach().contiguous()
-    pieces = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(pieces, t, group=mesh.model_group())
-    return model_whole(pieces, shard)
+    t, dim = t.detach().contiguous(), shard.dim
+    sizes = (piece_sizes(shard.whole, n) if shard.whole is not None
+             else [t.shape[dim]] * n)
+    shape = list(t.shape)
+    shape[dim] = max(sizes)
+    buf = t.new_zeros(shape)
+    buf.narrow(dim, 0, t.shape[dim]).copy_(t)
+    pieces = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(pieces, buf, group=mesh.model_group())
+    return model_whole([p.narrow(dim, 0, k) for p, k in zip(pieces, sizes)],
+                       shard)
 
 
 def block_plan(block) -> Dict[str, ModelShard]:
@@ -247,75 +298,204 @@ def _is_block(m) -> bool:
     return isinstance(m, ResidualAttentionBlock)
 
 
-ITEM_11 = ("tensor parallelism of the other towers is ROADMAP Queue 1 "
-           "item 11")
+@dataclass(frozen=True)
+class Plan:
+    """A block class's split (module doc): its {leaf: ModelShard}, a leaf
+    absent from an instance skipped (EVA's fused or separate q/k/v, a
+    bias-free k); ``heads``, the instance's whole head count, which the
+    model size must divide (None: the block splits no heads)."""
+    leaves: Dict[str, ModelShard]
+    heads: Optional[Callable[[nn.Module], int]] = None
 
 
-def towers_outside_slice(towers: Dict[str, type]) -> list:
-    """The towers ({attribute: class}) that tensor parallelism does not
-    cover, each as "the <attribute> tower <class>": every tower but the
-    ``ResidualAttentionBlock`` ones (the ViT, the text transformer and
-    CoCa's decoder). The one rule: train/params.py ``unported`` applies it
-    to a config's towers, ``check_towers`` to a built model's."""
-    from xtagclip_tpu_torch.models.coca import MultimodalTransformer
-    from xtagclip_tpu_torch.models.text import TextTransformer
-    from xtagclip_tpu_torch.models.vit import VisionTransformer
-
-    covered = (VisionTransformer, TextTransformer, MultimodalTransformer)
-    return [f"the {attr} tower {cls.__name__}"
-            for attr, cls in towers.items() if not issubclass(cls, covered)]
+def _column(*names) -> dict:
+    """Column-parallel Denses: kernel columns and bias."""
+    return {f"{n}.{leaf}": ModelShard(d) for n in names
+            for leaf, d in (("kernel", 1), ("bias", 0))}
 
 
-def check_towers(model: nn.Module) -> None:
-    """Raise NotImplementedError, naming ROADMAP Queue 1 item 11, for a
-    tower of ``model`` (``visual``, ``text``, CoCa's ``text_decoder``)
-    outside the slice (``towers_outside_slice``)."""
-    towers = {attr: type(getattr(model, attr))
-              for attr in ("visual", "text", "text_decoder")
-              if getattr(model, attr, None) is not None}
-    outside = towers_outside_slice(towers)
-    if outside:
-        raise NotImplementedError(
-            f"--model-parallel: {'; '.join(outside)}; {ITEM_11}")
+def _row(*names) -> dict:
+    """Row-parallel Denses: kernel rows (the bias whole)."""
+    return {f"{n}.kernel": ModelShard(0) for n in names}
+
+
+def _fused(name: str, kv: bool = False) -> dict:
+    """A fused q|k|v (``kv``: k|v) Dense, by heads."""
+    return {f"{name}.kernel": ModelShard(1, qkv=not kv, kv=kv),
+            f"{name}.bias": ModelShard(0, qkv=not kv, kv=kv)}
+
+
+@functools.lru_cache(maxsize=None)
+def plans() -> Dict[type, Plan]:
+    """The split of every block class but ``ResidualAttentionBlock``
+    (``block_plan``), one table a class (module doc)."""
+    from xtagclip_tpu_torch.models import (
+        bert,
+        convnext,
+        eva,
+        fastvit,
+        m2m100,
+        resnet,
+        swin,
+        t5,
+        timm_vit,
+        vitamin,
+    )
+
+    heads, by_heads = operator.attrgetter, ModelShard(1)
+    return {
+        timm_vit.TimmBlock: Plan({**_fused("qkv"), **_row("proj"),
+                                  **_column("fc1"), **_row("fc2")},
+                                 heads("num_heads")),
+        timm_vit.RelPosBias: Plan({"table": by_heads},
+                                  lambda m: m.table.shape[1]),
+        timm_vit.MapPool: Plan({**_column("q"), **_fused("kv", kv=True),
+                                **_row("proj"), **_column("mlp_fc1"),
+                                **_row("mlp_fc2")}, heads("num_heads")),
+        eva.EvaAttention: Plan({**_fused("qkv"),
+                                **_column("q_proj", "k_proj", "v_proj"),
+                                **_row("proj")}, heads("num_heads")),
+        eva.EvaBlock: Plan({**_column("fc1", "fc1_g", "fc1_x"),
+                            "mlp_norm.scale": ModelShard(0),
+                            "mlp_norm.bias": ModelShard(0),
+                            **_row("fc2")}),
+        vitamin.GeGluBlock: Plan({**_fused("qkv"), **_row("proj"),
+                                  **_column("fc1_g", "fc1_x"),
+                                  **_row("fc2")}, heads("heads")),
+        bert.BertModel: Plan({"word_embeddings.embedding": ModelShard(0)}),
+        bert.BertSelfAttentionLayer: Plan(
+            {**_column("query", "key", "value"), **_row("out_dense")},
+            heads("num_heads")),
+        bert.BertEncoderLayer: Plan({**_column("intermediate"),
+                                     **_row("output")}),
+        t5.T5EncoderStack: Plan({"shared.embedding": ModelShard(0),
+                                 "relpos_bias.embedding": by_heads},
+                                lambda m: m.relpos_bias.embedding.shape[1]),
+        t5.T5SelfAttention: Plan({**_column("q", "k", "v"), **_row("o")},
+                                 heads("num_heads")),
+        t5.T5GatedFF: Plan({**_column("wi_0", "wi_1"), **_row("wo")}),
+        m2m100.M2M100Encoder: Plan({"embed_tokens.embedding":
+                                    ModelShard(0)}),
+        m2m100.M2M100EncoderLayer: Plan(
+            {**_column("q_proj", "k_proj", "v_proj", "fc1"),
+             **_row("out_proj", "fc2")}, heads("num_heads")),
+        swin.WindowAttention: Plan({**_fused("qkv"),
+                                    "rel_pos_bias": by_heads,
+                                    **_row("proj")}, heads("num_heads")),
+        swin.SwinBlock: Plan({**_column("fc1"), **_row("fc2")}),
+        convnext.ConvNeXtBlock: Plan({**_column("mlp_fc1"),
+                                      **_row("mlp_fc2")}),
+        fastvit.AttnBlock: Plan({**_fused("qkv"), **_row("proj")},
+                                heads("heads")),
+        resnet.AttentionPool2d: Plan(
+            {**_column("q_proj", "k_proj", "v_proj"), **_row("c_proj")},
+            heads("num_heads")),
+    }
+
+
+def _plan_of(m: nn.Module) -> Optional[Plan]:
+    table = plans()
+    return next((table[c] for c in type(m).__mro__ if c in table), None)
+
+
+def _leaf(module: nn.Module, name: str):
+    """(owner, attribute, tensor) of leaf ``name`` of ``module``, or None
+    where the instance has no such leaf."""
+    path, attr = name.rsplit(".", 1) if "." in name else ("", name)
+    try:
+        owner = module.get_submodule(path)
+    except AttributeError:
+        return None
+    t = getattr(owner, attr, None)
+    return None if t is None else (owner, attr, t)
+
+
+def _split_leaves(module: nn.Module) -> Dict[str, ModelShard]:
+    """{leaf: ModelShard} of ``module`` if it is a block that splits (its
+    leaves present in this instance), else {}."""
+    if _is_block(module):
+        return block_plan(module)
+    plan = _plan_of(module)
+    if plan is None:
+        return {}
+    return {k: v for k, v in plan.leaves.items()
+            if _leaf(module, k) is not None}
+
+
+def check_tensor_parallel(model: nn.Module, size: int) -> None:
+    """Raise ValueError for a block of ``model`` whose heads ``size``
+    does not divide (heads stay whole heads), or a
+    ``ResidualAttentionBlock`` whose MLP width it does not divide (the
+    partial modes of kernels #1-#4 take one width a model group)."""
+    for name, m in model.named_modules():
+        if _is_block(m):
+            hidden = m.mlp.c_fc.kernel.shape[1]
+            if m.heads % size or hidden % size:
+                raise ValueError(
+                    f"--model-parallel {size}: block {name!r} has {m.heads} "
+                    f"heads and MLP width {hidden}, which {size} does not "
+                    "both divide")
+            continue
+        plan = _plan_of(m)
+        heads = plan.heads(m) if plan is not None and plan.heads else None
+        if heads is not None and heads % size:
+            raise ValueError(
+                f"--model-parallel {size}: block {name!r} "
+                f"({type(m).__name__}) has {heads} heads, which {size} does "
+                "not divide: each rank holds whole heads")
+
+
+def _set_role(owner: nn.Module, attr: str, shard: ModelShard, rank: int,
+              size: int) -> None:
+    """How a module whose leaf ``attr`` is split runs (models/layers.py):
+    a Dense kernel cut on its rows is row-parallel (one cut on its columns
+    needs no role: its block copies the region's input to the group); an
+    Embed cut on its rows reads its vocabulary rows; a split LayerNorm
+    takes its statistics over the model group."""
+    from xtagclip_tpu_torch.models.layers import Dense, Embed, LayerNorm
+
+    if isinstance(owner, Dense) and attr == "kernel":
+        if shard.dim == 0:
+            owner.tp_role = "row"
+    elif isinstance(owner, Embed) and shard.dim == 0:
+        sizes = piece_sizes(shard.whole, size)
+        lo = sum(sizes[:rank])
+        owner.tp_rows = (lo, lo + sizes[rank])
+    elif isinstance(owner, LayerNorm):
+        owner.tp_role = "split"
 
 
 def shard_tensor_parallel(model: nn.Module, size: Optional[int] = None,
                           rank: Optional[int] = None) -> nn.Module:
-    """Split every ``ResidualAttentionBlock`` of ``model`` over the model
-    group in place (module doc): each sharded leaf becomes this rank's
-    piece, tagged ``model_shard``, and the block runs its
-    tensor-parallel route. Raises for a tower outside the slice, and for
-    a block whose heads or MLP width the model size does not divide."""
+    """Split every block of ``model`` over the model group in place
+    (module doc): each sharded leaf becomes this rank's piece, tagged
+    ``model_shard``; the block keeps its plan as ``tp_plan`` and its model
+    size as ``tp_size``, and runs its tensor-parallel route. Raises
+    (``check_tensor_parallel``) before anything is split."""
     size = mesh.model_size() if size is None else size
     rank = mesh.model_rank() if rank is None else rank
     if size == 1:
         return model
-    check_towers(model)
-    for name, block in model.named_modules():
-        if not _is_block(block):
-            continue
-        hidden = block.mlp.c_fc.kernel.shape[1]
-        if block.heads % size or hidden % size:
-            raise ValueError(
-                f"--model-parallel {size}: block {name!r} has {block.heads} "
-                f"heads and MLP width {hidden}, which {size} does not "
-                "both divide")
-        for leaf, shard in block_plan(block).items():
-            owner, attr = _owner(block, leaf)
-            old = getattr(owner, attr)
+    check_tensor_parallel(model, size)
+    for block in list(model.modules()):
+        plan = {}
+        for leaf, shard in _split_leaves(block).items():
+            owner, attr, old = _leaf(block, leaf)
+            if shard.parts == 1:
+                shard = replace(shard, whole=old.shape[shard.dim])
+            plan[leaf] = shard
             piece = model_piece(old.detach(), shard, rank, size).clone()
             new = nn.Parameter(piece, requires_grad=old.requires_grad)
             new.model_shard = shard
             setattr(owner, attr, new)
-        block.tp_size = size
-        block.local_heads = block.heads // size
+            if not _is_block(block):  # its routes read their leaves
+                _set_role(owner, attr, shard, rank, size)
+        if plan:
+            block.tp_plan = plan
+            block.tp_size = size
+            if _is_block(block):
+                block.local_heads = block.heads // size
     return model
-
-
-def _owner(module: nn.Module, name: str):
-    """(the submodule holding leaf ``name``, the leaf's attribute)."""
-    path, attr = name.rsplit(".", 1)
-    return module.get_submodule(path), attr
 
 
 def model_shards(model: nn.Module) -> Dict[str, ModelShard]:
@@ -323,9 +503,9 @@ def model_shards(model: nn.Module) -> Dict[str, ModelShard]:
     ``model`` (empty where nothing is split)."""
     out = {}
     for name, block in model.named_modules():
-        if _is_block(block) and getattr(block, "tp_size", 1) > 1:
-            prefix = f"{name}." if name else ""
-            out.update({prefix + k: v for k, v in block_plan(block).items()})
+        prefix = f"{name}." if name else ""
+        out.update({prefix + k: v
+                    for k, v in getattr(block, "tp_plan", {}).items()})
     return out
 
 
@@ -362,9 +542,12 @@ def _average_grad(p: torch.Tensor) -> None:
 
 
 def _blocks(model: nn.Module):
-    """The tower blocks FSDP shards one by one, innermost first."""
+    """The tower blocks FSDP shards one by one, innermost first: the
+    classes whose names end in ``Block`` and those that ``plans`` splits
+    (the text towers' layers among them)."""
     return [m for m in reversed(list(model.modules()))
-            if m is not model and type(m).__name__.endswith("Block")]
+            if m is not model and (type(m).__name__.endswith("Block")
+                                   or _plan_of(m) is not None)]
 
 
 def _data_mesh(device):
@@ -544,5 +727,6 @@ def _whole_shape(p, shard: Optional[ModelShard]) -> torch.Size:
     times the model size along a tensor-parallel dim)."""
     shape = list(p.shape)
     if shard is not None:
-        shape[shard.dim] *= mesh.model_size()
+        shape[shard.dim] = (shard.whole if shard.whole is not None
+                            else shape[shard.dim] * mesh.model_size())
     return torch.Size(shape)

@@ -29,6 +29,12 @@ weight gradients of the shard stay local, and the output bias's gradient
 off (an fp32 stream, or the bf16 yardstick) the same sums run as plain
 PyTorch under autograd, with ``copy_to_model`` / ``reduce_from_model``
 (parallel/collectives.py) carrying the model all-reduces.
+
+The other towers' blocks (parallel/sharding.py ``plans``) split through
+their Dense, Embed and LayerNorm modules (models/layers.py ``tp_role``,
+``tp_rows``), onto the three functions at the end: ``out_projection``
+(a row-parallel Dense), ``vocab_rows`` (a token table split by rows) and
+``split_layer_norm`` (a LayerNorm over a split width).
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from xtagclip_tpu_torch.parallel.collectives import (
     copy_to_model,
     model_all_reduce,
     reduce_from_model,
+    sum_over_model,
 )
 
 
@@ -157,18 +164,48 @@ def mlp_half(x, ln_scale, ln_bias, w1, b1, w2, b2, act_name: str,
     return _finish(x, part, b2)
 
 
-def out_projection(o, kernel, bias):
+def out_projection(o, kernel, bias=None):
     """``reduce_from_model`` of the fp32 o @ kernel over this rank's rows
-    of the out-projection, rounded once to o's dtype, + bias in o's dtype:
-    the rounding points of the whole block's ``Dense`` (a product rounded
-    once, then the bias added in the stream's dtype)."""
+    of the out-projection, rounded once to o's dtype, + bias (if any) in
+    o's dtype: the rounding points of the whole block's ``Dense`` (a
+    product rounded once, then the bias added in the stream's dtype)."""
     dt = o.dtype
     part = _mm_f32(o.reshape(-1, o.shape[-1]), kernel.to(dt))
     part = reduce_from_model(part).reshape(*o.shape[:-1], kernel.shape[1])
-    return part.to(dt) + bias.to(dt)
+    return part.to(dt) if bias is None else part.to(dt) + bias.to(dt)
 
 
 def finish_sum(part, bias, dtype):
     """``reduce_from_model`` of the fp32 partial term ``part``, + bias in
     fp32, rounded once to ``dtype`` (the fused MLP's epilogue)."""
     return (reduce_from_model(part) + bias.float()).to(dtype)
+
+
+def vocab_rows(ids, table, lo: int, hi: int):
+    """The rows of a token table split by vocabulary rows over the model
+    group (``table`` holds rows [lo, hi)): each rank reads its rows, zero
+    for the ids outside them, and ``reduce_from_model`` sums the ranks'
+    reads (one nonzero term an id: exact)."""
+    inside = (ids >= lo) & (ids < hi)
+    rows = table[(ids - lo).clamp(0, hi - lo - 1)]
+    return reduce_from_model(torch.where(inside[..., None], rows,
+                                         rows.new_zeros(())))
+
+
+def split_layer_norm(x, scale, bias, eps: float):
+    """LayerNorm over a width split over the model group (EVA-02's
+    ``mlp_norm``), in two passes as ``LayerNorm`` takes them: the sum and
+    count of this rank's slice of each row, summed over the group
+    (``sum_over_model``: fp32, and its backward sums the statistics'
+    cotangents too), give the whole row's mean; the sum of the slice's
+    squared deviations from it, summed likewise, its variance. The slice
+    is normalized and takes its slice of ``scale`` and ``bias``, in x's
+    dtype as ``LayerNorm``."""
+    x32 = x.float()
+    count = torch.full_like(x32[..., :1], x.shape[-1])
+    stats = sum_over_model(torch.cat([x32.sum(-1, keepdim=True), count], -1))
+    n = stats[..., 1:]
+    centred = x32 - stats[..., :1] / n
+    var = sum_over_model(centred.square().sum(-1, keepdim=True)) / n
+    y = centred * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)

@@ -3,9 +3,9 @@
 Same flags as reference open_clip_train/params.py:26-496 plus the 8 XTag
 custom flags (main_other_simple.py:81-141). ``--device`` defaults to
 ``cuda``; ``cpu`` runs the plain PyTorch versions of the kernels.
-``unported`` names the flags whose branches the port does not have yet:
-the train CLIs raise on them. ``--grad-checkpointing`` checkpoints every
-tower block (models/layers.py). ``--dist-url``, ``--dist-backend``,
+``unported`` names the flags whose branches the port does not have (none
+is left); the train CLIs raise on them. ``--grad-checkpointing``
+checkpoints every tower block (models/layers.py). ``--dist-url``, ``--dist-backend``,
 ``--no-set-device-rank`` and ``--ddp-static-graph`` shape the process
 group and DDP (core/mesh.py, parallel/sharding.py); ``--gather-with-grad``
 changes nothing, as in JAX (the gathers carry their gradient); the flags
@@ -208,25 +208,11 @@ def parse_args(args=None, include_xtag: bool = True):
 
 
 def unported(args) -> list:
-    """The flags set in ``args`` whose branches are not ported yet, each
-    with the ROADMAP Queue 1 item that ports it
-    (tests/test_torch_clipa.py checks that each item exists):
-    ``--model-parallel`` above 1 with a tower of ``--model``'s config
-    that tensor parallelism does not cover (parallel/sharding.py
-    ``towers_outside_slice``: a timm vision tower, the ResNets, an HF
-    text tower)."""
-    n = args.model_parallel or 1
-    if n == 1:
-        return []
-    from xtagclip_tpu_torch.factory import get_model_config, tower_types
-    from xtagclip_tpu_torch.parallel.sharding import (
-        ITEM_11,
-        towers_outside_slice,
-    )
-
-    cfg = get_model_config(str(args.model).replace("/", "-"))
-    outside = towers_outside_slice(tower_types(cfg)) if cfg else []
-    if not outside:
-        return []
-    return [f"--model-parallel {n} with {' and '.join(outside)} of "
-            f"{args.model} ({ITEM_11})"]
+    """The flags set in ``args`` whose branches the port does not have,
+    each with the ROADMAP Queue 1 item that would port it
+    (tests/test_torch_clipa.py checks that each item exists). Every flag
+    is ported, ``--model-parallel`` for every tower family
+    (parallel/sharding.py), so the list is empty; the CLIs still raise
+    on whatever it names."""
+    del args
+    return []
