@@ -37,7 +37,10 @@ fused MLP), in phases that each print one JSON line:
    kernel also at coca_ViT-L-14's shapes (its decoder's causal halves at
    B 128 x L 75 and generation's [8 or 48, 30] buffers, the MLP half at
    its decoder and text rows, ViT-L/14's flash attention and fused MLP at
-   L = 257, the normalize at 128 x 224 x 224); the device
+   L = 257, the normalize at 128 x 224 x 224); flash attention forward
+   and backward also under the causal mask (FLASH_MASK_CASES: 8 heads
+   of 128 at L = 77, 16 of 64 at L = 256, 16 of 80 at L = 77) and at
+   head dim 256 (8 x 4 heads at L = 256) without and with it; the device
    time of kernel and plain version (torch.profiler: the summed durations
    of the kernels one call runs, over 20 calls, so a wrapper whose host
    side outlasts its kernel is timed by its kernel, and the kernel's split
@@ -46,15 +49,23 @@ fused MLP), in phases that each print one JSON line:
    for one PyTorch call computing the same function where there is one
    (scaled_dot_product_attention for flash attention's forward; for its
    backward, SDPA's backward alone through autograd from a forward run
-   outside the timing, and its forward + backward beside it), and the
-   card's least time for the same work; the fused attention half, its
+   outside the timing, and its forward + backward beside it; under the
+   row's mask), and the card's least time for the same work; the fused attention half, its
    backward, the MLP half and flash attention's backward launched twice on
    the same inputs must give the same bits;
+   Then flash_block: one ResidualAttentionBlock of width 1024 with 8
+   heads of 128 under the causal mask at L = 77 (#6 with the mask, #4),
+   forward and backward, kernels on against off at phase 6's bars;
 3. serve: precompute every scar pseudo-prompt (3 classes x 2304 combos)
    twice, timing the cold and the warm pass (prompts/s is the warm one);
    then, after two warm-up batches, a timed window of 200 batches of 32
    seeded uint8 224x224 images (about 2 s on an H100): img/s is all the
-   window's images over its wall time, latencies are over all its batches;
+   window's images over its wall time, latencies are over all its batches.
+   Then decode_serve: 32 seeded 480 x 640 JPEGs through
+   ``decode_square_batch`` (its route named), ``resize_crop_normalize`` on
+   the card and the serve step, 1 + DECODE_REPS batches (decode img/s,
+   end-to-end img/s, 12 + 12 forward halves a batch and no #5), the
+   outputs against the plain halves' at phase 4's bars;
 4. path: the kernel launches counted in phase 3 (12 of each forward half
    per serve batch and per precompute chunk), and the first 8 serve
    batches run again through the plain versions: fusion logits within
@@ -67,7 +78,12 @@ fused MLP), in phases that each print one JSON line:
    prompt table and a seeded dropout generator: 3 warm-up steps, then a
    timed window of 30 steps (samples/s, p50/p90 step ms, losses,
    grad_norm), each step launching exactly 24 of each of the forward
-   halves and 24 attention-half backward kernels (12 vision + 12 text);
+   halves and 24 attention-half backward kernels (12 vision + 12 text).
+   Then multi_step: ``make_multi_step`` of MULTI_STEPS steps over stacked
+   batches against as many ``make_train_step`` calls on the same
+   batches and generator seed: parameters, AdamW state and metrics bit
+   for bit equal, launches per step as phase 5's, samples/s of one more
+   call;
 6. train path: one step from the same weights, batch and dropout seed
    with the kernels on and off (autograd through the plain halves and the
    plain normalize), on the batch's ground-truth prompts: loss within 1e-2
@@ -294,7 +310,10 @@ fused MLP), in phases that each print one JSON line:
    ``--tp-only``: CLIPA ViT-H-14 stage 2 at full width and
    depth, --grad-checkpointing, batch 32: one step on two gloo ranks at
    --model-parallel 2 against the one-process step at phase 6's bars,
-   with each rank's peak memory beside the one-process peak. (d) tp_zoo,
+   with each rank's peak memory beside the one-process peak; and
+   ViT-B-16-plus-240 at batch 32 on TP_UNEVEN_N = 4 gloo ranks, its heads
+   uneven (vision 14: 4, 4, 3, 3 on the non-fused route; text 10: 3, 3,
+   2, 2 on the fused halves' partial modes), at the same bars. (d) tp_zoo,
    the towers outside the ResidualAttentionBlocks (parallel/sharding.py's
    plans): in (b)'s two processes, after it, EVA02-L-14 at full width
    (1024, 16 heads of 64, SwiGLU 2730 with its mlp_norm, rope) cut to
@@ -543,9 +562,15 @@ DIST_CLIPA_STEPS = 3  # (b): cli.main --fsdp steps of CLIPA_BATCH
 DIST_TIMED_STEPS = 3  # (b): the FSDP and no-FSDP steps timed after the first
 DIST_GLOO_BATCH = 16  # (c): a rank's batch; the one-process step takes 32
 DIST_TIMEOUT = 900  # seconds a worker command may take
+# flash_block: a causal text block no fused half takes (8 heads of 128)
+FLASH_BLOCK = dict(width=1024, heads=8, length=77, batch=TRAIN_BATCH)
+# decode_serve: one serve batch as JPEGs of a phone photo's 480 x 640
+DECODE_SIDE_HW = (480, 640)
+DECODE_REPS = 10  # timed decode + serve batches after one warm-up
+MULTI_STEPS = 3  # multi_step: optimizer steps in one make_multi_step call
 # the device code of csrc/ (fused_attn_half.cu, fused_mlp_half.cu,
-# fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_fwd.cu,
-# flash_attn_bwd.cu, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
+# fused_attn_half_bwd.cu, normalize_images.cu, flash_attn_{fwd,bwd}.cuh
+# in four libraries, fused_mlp.cu), and gemm_bf16_kernel, the WMMA GEMM of
 # earlier commits' fused halves, for their packages run under this script
 PORT_KERNELS = ("gemm_bf16_kernel", "gemm_sm90_kernel", "attn_core_kernel",
                 "ln_rows_kernel", "mask_by_thread_kernel",
@@ -594,7 +619,9 @@ def _median_ms(fn, reps: int = 7, per_rep: int = 10, warmup: int = 3) -> float:
 
 def _profiled_split(fn, calls: int = 20, warmup: int = 3) -> dict:
     """{kernel: device ms} of one call of ``fn``: the durations of the
-    kernels and copies it runs on the card (torch.profiler), per call. For
+    kernels and copies it runs on the card (torch.profiler, tracing the
+    card's activity alone: tracing the host's ops as well gives the same
+    device times, slower), per call. For
     a call whose host side takes longer than its device side, where CUDA
     events would time the host's launch gaps. The profiler can drop events:
     each kind counts as its mean duration times its launches per call (its
@@ -606,8 +633,7 @@ def _profiled_split(fn, calls: int = 20, warmup: int = 3) -> dict:
         fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -805,50 +831,74 @@ FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
                (ZOO_FWD_BATCH, 12, 197, 64), (ZOO_FWD_BATCH, 16, 257, 88),
                (ZOO_FWD_BATCH, 16, 257, 112), (ZOO_FWD_BATCH, 16, 256, 72),
                (ZOO_FWD_BATCH, 16, 196, 72))
+# flash attention under an additive [L, L] mask (the causal mask, fp32 as
+# the text towers build it) and at head dim 256 (B, H, L, dh, causal): a
+# causal text tower of 8 heads of 128 at 77 tokens, a causal stream at dh
+# 64 past the fused half's 128 keys, dh 80 at 77 tokens, and dh 256
+# without and with the mask
+FLASH_MASK_CASES = ((32, 8, 77, 128, True), (16, 16, 256, 64, True),
+                    (32, 16, 77, 80, True), (8, 4, 256, 256, False),
+                    (8, 4, 256, 256, True))
 
 
 def _gap_kernel_cases(gen):
-    """Kernels #4 and #6 at the GAP path's shapes (and #6 at edge
-    shapes): q, k, v are column slices of one [B, L, 3 H dh] projection,
-    as the model makes them. Library yardsticks (timed, never called by
-    the port): scaled_dot_product_attention forward, and its forward and
-    backward through autograd."""
+    """Kernels #4 and #6 at the GAP path's shapes (and #6 at edge shapes,
+    and under the causal mask and at head dim 256, FLASH_MASK_CASES): q,
+    k, v are column slices of one [B, L, 3 H dh] projection, as the model
+    makes them. Library yardsticks (timed, never called by the port):
+    scaled_dot_product_attention forward (with the same mask, in bf16 as
+    SDPA takes it), and its forward and backward through autograd. A
+    masked row counts the operations of the score pairs the mask leaves
+    (its bound: the causal half of the work, what a kernel that skipped
+    the masked pairs would do) and the mask's bytes."""
     import torch.nn.functional as F
 
+    from xtagclip_tpu_torch.models.text import build_causal_mask
     from xtagclip_tpu_torch.ops import flash_attn
 
     dev, bf = "cuda", torch.bfloat16
     cases = []
-    for b, h, l, dh in FLASH_CASES:
+    for b, h, l, dh, causal in ([c + (False,) for c in FLASH_CASES]
+                                + list(FLASH_MASK_CASES)):
         d = h * dh
         qkv = torch.randn((b, l, 3 * d), generator=gen, device=dev).to(bf)
         q, k, v = (t.reshape(b, l, h, dh) for t in qkv.split(d, dim=-1))
-        shape = f"B={b} H={h} L={l} dh={dh}"
+        shape = f"B={b} H={h} L={l} dh={dh}" + (" causal" if causal else "")
         elems = b * h * l * dh
+        # the score pairs this mask leaves (every one without it), and the
+        # mask's bytes, read once
+        mask = build_causal_mask(l, device=dev) if causal else None
+        pairs = l * (l + 1) // 2 if causal else l * l
+        mask_bytes = 4 * l * l if causal else 0
+        mask_args = (mask,) if causal else ()
         sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
-        cases.append(("flash_mha", shape, (q, k, v, "blhd"),
-                      4 * b * h * l * l * dh, 4 * 2 * elems, "bf16",
-                      lambda a=sdpa_in: F.scaled_dot_product_attention(*a)))
-        o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+        sdpa_kw = {"attn_mask": mask.to(bf)} if causal else {}
+        cases.append(("flash_mha", shape, (q, k, v, "blhd", *mask_args),
+                      4 * b * h * pairs * dh, 4 * 2 * elems + mask_bytes,
+                      "bf16", lambda a=sdpa_in, kw=sdpa_kw:
+                      F.scaled_dot_product_attention(*a, **kw)))
+        o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True,
+                                       mask=mask)
         do = torch.randn(o.shape, generator=gen, device=dev).to(bf)
         leaves = [t.detach().clone().requires_grad_(True) for t in sdpa_in]
         do_t = do.transpose(1, 2)
         with torch.inference_mode(False), torch.enable_grad():
-            sdpa_out = F.scaled_dot_product_attention(*leaves)
+            sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
 
         def sdpa_bwd(out=sdpa_out, leaves=leaves, do_t=do_t):
             with torch.inference_mode(False), torch.enable_grad():
                 return torch.autograd.grad(out, leaves, do_t,
                                            retain_graph=True)
 
-        def sdpa_fwd_bwd(leaves=leaves, do_t=do_t):
+        def sdpa_fwd_bwd(leaves=leaves, do_t=do_t, kw=sdpa_kw):
             with torch.inference_mode(False), torch.enable_grad():
-                out = F.scaled_dot_product_attention(*leaves)
+                out = F.scaled_dot_product_attention(*leaves, **kw)
                 return torch.autograd.grad(out, leaves, do_t)
 
-        cases.append(("flash_mha_bwd", shape, (q, k, v, o, lse, do, "blhd"),
-                      10 * b * h * l * l * dh,
-                      8 * 2 * elems + 4 * b * h * l, "bf16",
+        cases.append(("flash_mha_bwd", shape,
+                      (q, k, v, o, lse, do, "blhd", *mask_args),
+                      10 * b * h * pairs * dh,
+                      8 * 2 * elems + 4 * b * h * l + mask_bytes, "bf16",
                       {"library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd}))
     n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
     for rows, d, hd, acts in ((n, d, hd, ("gelu", "quick_gelu")),
@@ -900,9 +950,9 @@ _KERNEL_META = {
                          "xtagclip_tpu/ops/preprocess.py:47"),
     "fused_mlp": ("xtagclip_tpu_torch/csrc/fused_mlp.cu",
                   "xtagclip_tpu/ops/fused_mlp.py:62"),
-    "flash_mha": ("xtagclip_tpu_torch/csrc/flash_attn_fwd.cu",
+    "flash_mha": ("xtagclip_tpu_torch/csrc/flash_attn_fwd.cuh",
                   "xtagclip_tpu/ops/flash_attn.py:93"),
-    "flash_mha_bwd": ("xtagclip_tpu_torch/csrc/flash_attn_bwd.cu",
+    "flash_mha_bwd": ("xtagclip_tpu_torch/csrc/flash_attn_bwd.cuh",
                       "xtagclip_tpu/ops/flash_attn.py:93"),
 }
 
@@ -960,8 +1010,9 @@ def _kernel_fns():
     from xtagclip_tpu_torch.ops import flash_attn, fused_mlp, preprocess
     from xtagclip_tpu_torch.ops import fused_attn_block as fab
 
-    def plain_flash_bwd(q, k, v, o, lse, do, layout):
-        return flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
+    def plain_flash_bwd(q, k, v, o, lse, do, layout, mask=None):
+        return flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout,
+                                                  mask)
 
     return {
         "fused_attn_half": (fab.fused_attn_half, fab.reference_attn_half),
@@ -1025,6 +1076,73 @@ def phase_kernels(card: str):
                 "bound_by": "operations" if t_flops >= t_bytes else "bytes",
             })
     return entries
+
+
+def phase_flash_block(card: str) -> dict:
+    """Phase 2's block check: one ResidualAttentionBlock of width 1024
+    with 8 heads of 128 under the causal mask at L = 77 (FLASH_BLOCK; the
+    non-fused route: #6 with the mask, #4), bf16 over fp32 masters, one
+    forward and backward with the kernels on and off from the same
+    weights, input and output cotangent: the output within atol =
+    max|ref|/128 and rtol 1e-2, then phase 6's bars (loss 1e-2, gradient
+    norm 2%, each gradient, the input's too, at cosine >= 0.99). Returns
+    the kernels-on run's launches (a path of the kernel table)."""
+    from xtagclip_tpu_torch.factory import init_params
+    from xtagclip_tpu_torch.models.layers import (
+        ResidualAttentionBlock,
+        set_use_kernels,
+    )
+    from xtagclip_tpu_torch.models.text import build_causal_mask
+
+    fb = FLASH_BLOCK
+    gen = torch.Generator().manual_seed(0)
+    blk = ResidualAttentionBlock(fb["width"], fb["heads"])
+    init_params(blk, gen)
+    blk = blk.cuda()
+    mask = build_causal_mask(fb["length"], device="cuda")
+    shape = (fb["batch"], fb["length"], fb["width"])
+    x = torch.randn(shape, generator=gen).cuda().bfloat16()
+    cot = torch.randn(shape, generator=gen).cuda()
+    route = blk.route(shape, mask)
+
+    def run(kernels):
+        set_use_kernels(blk, kernels)
+        blk.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        y = blk(xi, attn_mask=mask)
+        loss = (y.float() * cot).sum()
+        loss.backward()
+        grads = {n: p.grad.float().clone() for n, p in blk.named_parameters()
+                 if p.grad is not None}
+        grads["x"] = xi.grad.float()
+        norm = float(sum(g.square().sum() for g in grads.values()) ** 0.5)
+        return y.detach(), loss.item(), grads, norm
+
+    _reset_counts()
+    yk, lk, gk, nk = run(True)
+    torch.cuda.synchronize()
+    counts = _counts()
+    yp, lp, gp, np_ = run(False)
+    set_use_kernels(blk, True)
+    out_ok, out_err, out_atol = _close(yk, yp)
+    cos = {n: _cos(gk[n], g) for n, g in gp.items() if g.abs().max() > 0}
+    res = {"phase": "flash_block", "card": card, **fb, "route": route,
+           "launches": counts, "out_max_abs_err": out_err,
+           "out_atol": out_atol, "loss": [lk, lp],
+           "loss_rel_err": abs(lk - lp) / abs(lp),
+           "grad_norm_rel_err": abs(nk - np_) / np_,
+           "grad_cos_min": min(cos.values()),
+           "worst_cos": dict(sorted(cos.items(), key=lambda kv: kv[1])[:3])}
+    res["ok"] = (route == "non_fused" and out_ok
+                 and counts == _want(flash_mha=1, flash_mha_bwd=1,
+                                     fused_mlp=1)
+                 and res["loss_rel_err"] <= 1e-2
+                 and res["grad_norm_rel_err"] <= 2e-2
+                 and res["grad_cos_min"] >= 0.99 and set(cos) == set(gp))
+    _emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"flash_block failed its checks: {res}")
+    return {"flash_block": counts}
 
 
 def phase_flash_poison(card: str):
@@ -1284,6 +1402,162 @@ def phase_serve_and_path(card: str, path: dict):
         raise AssertionError(f"kernel path disagrees with plain path: {result}")
     return {"precompute": pre_counts, "serve": serve_counts}, model, \
         ptable, serve_one, table
+
+
+def _synth_jpegs(n: int, hw, seed: int) -> list:
+    """``n`` seeded JPEGs of ``hw`` (smooth noise upscaled, quality 90)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    out = []
+    for _ in range(n):
+        x = rng.standard_normal((h // 16, w // 16, 3))
+        img = Image.fromarray(((x - x.min()) / (np.ptp(x) + 1e-9) * 255)
+                              .astype(np.uint8)).resize((w, h),
+                                                        Image.BILINEAR)
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def phase_decode_serve(card: str, model, table) -> dict:
+    """The ViT-B-32 serve path with its host decode stage, as JAX's
+    headline runs it (bench.py:473-542): one batch of SERVE_BATCH seeded
+    480 x 640 JPEGs through ``data/native.py::decode_square_batch`` (on
+    the route the machine has: PIL without libjpeg's headers), the padded
+    squares to the card, ``resize_crop_normalize`` there with sizes
+    ``np.stack([sides, sides], 1)`` (no #5: the resize normalizes), then
+    the serve step; one warm-up and DECODE_REPS timed batches (decode
+    img/s, end-to-end img/s). The serve outputs against the plain halves'
+    on the same images at phase 4's bars. Returns the timed batches'
+    launches."""
+    from xtagclip_tpu_torch.data import native
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops.preprocess import resize_crop_normalize
+    from xtagclip_tpu_torch.serving import make_xtag_serve_step
+
+    jpegs = _synth_jpegs(SERVE_BATCH, DECODE_SIDE_HW, seed=3)
+    serve = make_xtag_serve_step(model, table)
+    dec_s = []
+
+    def one():
+        t0 = time.perf_counter()
+        u8, sides = native.decode_square_batch(jpegs, IMAGE_SIZE)
+        dec_s.append(time.perf_counter() - t0)
+        sizes = np.stack([sides, sides], 1)
+        images = resize_crop_normalize(
+            torch.from_numpy(u8).to("cuda"), torch.from_numpy(sizes).to(
+                "cuda"), out_size=IMAGE_SIZE, dtype=torch.bfloat16)
+        return images, sides, u8.shape[1], serve(images)
+
+    images, sides, slab, _ = one()
+    torch.cuda.synchronize()
+    dec_s.clear()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(DECODE_REPS):
+        _, _, _, out = one()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    counts = _counts()
+    set_use_kernels(model, False)
+    plain = serve(images)
+    set_use_kernels(model, True)
+    feat, tags, logits = out
+    p_feat, p_tags, p_logits = plain
+    res = {"phase": "decode_serve", "card": card, "model": "ViT-B-32 xtag",
+           "jpegs": SERVE_BATCH, "jpeg_hw": list(DECODE_SIDE_HW),
+           "decode_route": native.decode_route(),
+           "square_sides": sorted(set(int(v) for v in sides)),
+           "slab_side": int(slab),
+           "decode_img_per_s": SERVE_BATCH * DECODE_REPS / sum(dec_s),
+           "end_to_end_img_per_s": SERVE_BATCH * DECODE_REPS / t_all,
+           "launches": counts,
+           "logits_max_abs_err": (logits.float() - p_logits.float()).abs()
+           .max().item(),
+           "image_feature_cos_min": _cosine(feat, p_feat).min().item(),
+           "tag_agreement": (tags == p_tags).float().mean().item()}
+    res["ok"] = (bool(torch.allclose(logits.float(), p_logits.float(),
+                                     atol=5e-2, rtol=5e-2))
+                 and res["image_feature_cos_min"] >= 0.999
+                 and res["tag_agreement"] >= 0.95
+                 and bool(torch.isfinite(logits.float()).all())
+                 and min(sides) > 0
+                 and counts == _scaled(_want(fused_attn_half=12,
+                                             fused_mlp_half=12), DECODE_REPS))
+    _emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"decode_serve failed its checks: {res}")
+    return counts
+
+
+def phase_multi_step(card: str, ptable) -> dict:
+    """``train/loop.py::make_multi_step`` on the ViT-B-32 XTag step at
+    batch TRAIN_BATCH: MULTI_STEPS steps over stacked batches (their uint8
+    images normalized by #5, as train/trainer.py does) in one call,
+    against MULTI_STEPS calls of ``make_train_step`` from the same weights
+    on the same batches and dropout generator seed: every parameter, the
+    AdamW state and the stacked metrics bit for bit equal; then one more
+    call timed (samples/s). Returns the first call's launches."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.train.loop import make_multi_step, make_train_step
+
+    model = create_model("ViT-B-32", use_tagging=True, use_fusion=True,
+                         precision="bf16", init_seed=0)
+    twin = copy.deepcopy(model)
+    table = torch.from_numpy(ptable.astype(np.int64)).to("cuda")
+    host = _train_batches(ptable)[:MULTI_STEPS]
+    keys = ("class_ids", "additional")
+    state = _new_train_state(model)
+    multi = make_multi_step({}, MULTI_STEPS, prompt_table=table)
+    _reset_counts()
+    batches = [_device_batch(h, keys) for h in host]
+    stacked = {k: torch.stack([b[k] for b in batches]) for k in batches[0]}
+    state, metrics = multi(state, stacked,
+                           torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    counts = _counts()
+    seq = _new_train_state(twin)
+    step = make_train_step({}, prompt_table=table)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    want = []
+    for b in batches:
+        seq, m = step(seq, b, gen)
+        want.append(m)
+    params_equal = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), twin.state_dict().values()))
+    opt_a, opt_b = (st.tx.optimizer.state_dict()["state"]
+                    for st in (state, seq))
+    opt_equal = opt_a.keys() == opt_b.keys() and all(
+        torch.equal(v, opt_b[i][k]) if torch.is_tensor(v) else v == opt_b[i][k]
+        for i, leaf in opt_a.items() for k, v in leaf.items())
+    metrics_equal = set(metrics) == set(want[0]) and all(
+        torch.equal(v, torch.stack([m[k] for m in want]))
+        for k, v in metrics.items())
+    t0 = time.perf_counter()
+    state, _ = multi(state, stacked,
+                     torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    res = {"phase": "multi_step", "card": card,
+           "model": "ViT-B-32 xtag bf16 over fp32 masters",
+           "batch": TRAIN_BATCH, "steps": MULTI_STEPS,
+           "step_after": [state.step, seq.step], "launches": counts,
+           "params_bit_equal": params_equal, "adamw_bit_equal": opt_equal,
+           "metrics_bit_equal": metrics_equal,
+           "losses": metrics["loss"].tolist(),
+           "samples_per_s": TRAIN_BATCH * MULTI_STEPS / dt}
+    res["ok"] = (params_equal and opt_equal and metrics_equal
+                 and seq.step == MULTI_STEPS and state.step == 2 * MULTI_STEPS
+                 and all(math.isfinite(v) for v in res["losses"])
+                 and counts == _scaled(_paths()["b32"]["per_step"],
+                                       MULTI_STEPS))
+    _emit(res)
+    if not res["ok"]:
+        raise AssertionError(f"multi_step failed its checks: {res}")
+    return counts
 
 
 def _train_batches(ptable, side: int = IMAGE_SIZE):
@@ -5546,6 +5820,12 @@ def phase_dist(card: str, tmp: str, full_depth: bool = False) -> dict:
 # ---- tensor parallelism (--model-parallel) --------------------------------
 
 TP_N = 2  # the model axis of the tp phase's shards
+# --tp-only's uneven split: ViT-B-16-plus-240 at --model-parallel 4 (its
+# vision tower's 14 heads: 4, 4, 3, 3 on the non-fused route; its text
+# tower's 10: 3, 3, 2, 2 on the fused halves' partial modes)
+TP_UNEVEN_MODEL = "ViT-B-16-plus-240"
+TP_UNEVEN_N = 4
+TP_UNEVEN_HEADS = {"visual": [4, 4, 3, 3], "text": [3, 3, 2, 2]}
 TP_STEPS = 8  # --tp-nccl: steps of the scar flags a data rank
 # (d) tp_zoo: EVA02-L-14's step at this batch, its vision trunk cut to
 # TP_ZOO_LAYERS blocks in the no-argument run; with --tp-zoo-only the
@@ -5848,12 +6128,13 @@ def _trunk_layers(model_name: str, layers):
 
 
 def _tp_step(spec: dict) -> dict:
-    """--dist-worker's tp_step task, on 2 ranks of one card: rank 0 first
+    """--dist-worker's tp_step task, on ``spec["model_parallel"]`` ranks
+    of one card (TP_N by default): rank 0 first
     runs the one-process step of ``spec["model"]`` (``spec["precision"]``,
     bf16 over fp32 masters by default; --grad-checkpointing; batch
     ``spec["batch"]``; its EVA trunk cut to ``spec["trunk_layers"]``
     blocks where given), unwrapped, so that a group may exist already;
-    then both join a gloo group at --model-parallel 2 (or keep the one
+    then all join a gloo group at that --model-parallel (or keep the one
     they are in) and run the step on the whole batch with the towers
     split; rank 0 judges at phase 6's bars. Each rank's peak memory and
     parameter bytes beside the one-process ones. With
@@ -5870,6 +6151,7 @@ def _tp_step(spec: dict) -> dict:
     t0 = time.perf_counter()
     b, name, cfg = spec["batch"], spec["model"], {"local_loss": True}
     prec = spec.get("precision", "bf16")
+    n_model = spec.get("model_parallel", TP_N)
     rank = int(os.environ["RANK"])
     ref = noise = None
     with _trunk_layers(name, spec.get("trunk_layers")):
@@ -5892,7 +6174,7 @@ def _tp_step(spec: dict) -> dict:
         torch.cuda.empty_cache()
         args = SimpleNamespace(device="cuda", dist_url=None,
                                dist_backend="gloo", no_set_device_rank=True,
-                               model_parallel=TP_N)
+                               model_parallel=n_model)
         init_distributed(args)
         got = _dist_step_runs(name, b, {**cfg, "world_size": 1, "rank": 0},
                               [("tp", False, slice(0, b))],
@@ -5903,7 +6185,7 @@ def _tp_step(spec: dict) -> dict:
     res = {"model": name, "batch": b, "precision": prec,
            "trunk_layers": spec.get("trunk_layers", "full"),
            "backend": dist.get_backend(), "world_size": dist.get_world_size(),
-           "model_parallel": TP_N, "peak_mem_gb_by_rank": peaks,
+           "model_parallel": n_model, "peak_mem_gb_by_rank": peaks,
            "param_gb_by_rank": params, "launches_by_rank": launches}
     if rank == 0:
         ref = (ref[0], {k: v.cuda() for k, v in ref[1].items()}, ref[2])
@@ -5955,10 +6237,29 @@ def _tp_scar_judge(free: dict, tp: dict, steps: int) -> dict:
     return b
 
 
+def _rank_heads(model_name: str, size: int) -> dict:
+    """Each tower's head counts by rank at --model-parallel ``size``
+    (its first split block's, a meta build: uneven whole heads where
+    ``size`` does not divide them)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.parallel.sharding import shard_tensor_parallel
+
+    out = {}
+    for r in range(size):
+        model = create_model(model_name, device="meta", skip_init=True)
+        shard_tensor_parallel(model, size=size, rank=r)
+        for tower in ("visual", "text"):
+            blk = next(m for m in getattr(model, tower).modules()
+                       if hasattr(m, "local_heads"))
+            out.setdefault(tower, []).append(blk.local_heads)
+    return out
+
+
 def phase_tp(card: str, tmp: str) -> dict:
     """Phase 25 (c) (module doc), behind --tp-only: the CLIPA ViT-H-14
-    step on two gloo ranks at --model-parallel 2 against the one-process
-    step. Returns its launches."""
+    step on two gloo ranks at --model-parallel 2, and the
+    ViT-B-16-plus-240 step on TP_UNEVEN_N ranks (uneven whole heads),
+    each against the one-process step. Returns their launches."""
     import gc
 
     gc.collect()
@@ -5967,13 +6268,23 @@ def phase_tp(card: str, tmp: str) -> dict:
     os.makedirs(d)
     c, = _run_dist(d, "tp_clipa", [["tp_step", {
         "model": "ViT-H-14-CL32-GAP", "batch": CLIPA_PATH_BATCH}]], TP_N)
+    u, = _run_dist(d, "tp_uneven", [["tp_step", {
+        "model": TP_UNEVEN_MODEL, "batch": TRAIN_BATCH,
+        "model_parallel": TP_UNEVEN_N}]], TP_UNEVEN_N)
+    u["heads_by_rank"] = _rank_heads(TP_UNEVEN_MODEL, TP_UNEVEN_N)
+    u["ok"] = (u["ok"] and u["heads_by_rank"] == TP_UNEVEN_HEADS
+               and all(r["flash_mha"] > 0 and r["fused_attn_half"] > 0
+                       for r in u["launches_by_rank"]))
     result = {"phase": "tp", "card": card,
-              "c_clipa_vit_h14_model_parallel_2": c, "ok": c["ok"]}
+              "c_clipa_vit_h14_model_parallel_2": c,
+              f"c_{TP_UNEVEN_MODEL}_model_parallel_{TP_UNEVEN_N}": u,
+              "ok": c["ok"] and u["ok"]}
     _emit(result)
     shutil.rmtree(d, ignore_errors=True)
     if not result["ok"]:
         raise AssertionError(f"tp phase failed its checks: {result}")
-    return {"tp_clipa": c["launches_by_rank"][0]}
+    return {"tp_clipa": c["launches_by_rank"][0],
+            "tp_uneven": u["launches_by_rank"][0]}
 
 
 def _launched_zoo(res: dict) -> bool:
@@ -6203,7 +6514,8 @@ def main(argv=()) -> int:
                          "model at full depth")
     ap.add_argument("--tp-only", action="store_true",
                     help="run only the build, the kernel rows and the tp "
-                         "phase's CLIPA ViT-H-14 step at full depth")
+                         "phase's CLIPA ViT-H-14 step at full depth and "
+                         "ViT-B-16-plus-240 step on 4 ranks")
     ap.add_argument("--tp-zoo-only", action="store_true",
                     help="run only the build, the kernel rows and the tp "
                          "phase's EVA02-L-14, ViT-SO400M-14-SigLIP and "
@@ -6261,6 +6573,7 @@ def main(argv=()) -> int:
 
     entries = timed("kernels", phase_kernels, card)
     entries += timed("tp_kernels", phase_tp_kernels, card)
+    block_paths = timed("flash_block", phase_flash_block, card)
     if args.coca_only or args.siglip_only or args.zoo_only or \
             args.pretrained_only or args.dist_only or args.tp_only or \
             args.tp_zoo_only:
@@ -6285,6 +6598,7 @@ def main(argv=()) -> int:
                 paths.update(timed("distill", phase_distill, card, tmp))
         _emit({"phase": "seconds", "card": card, "build": build_s,
                **seconds})
+        paths.update(block_paths)
         _launches(entries, paths)
         _emit({"kernels": entries})
         print(card, flush=True)
@@ -6294,8 +6608,12 @@ def main(argv=()) -> int:
     with tempfile.TemporaryDirectory(prefix="xtag_smoke_") as tmp:
         paths, model, ptable, serve_one, table = timed(
             "serve", phase_serve_and_path, card, b32)
+        paths["decode_serve"] = timed("decode_serve", phase_decode_serve,
+                                      card, model, table)
         paths["train"], train_one = timed("train", phase_train, card, ptable,
                                           b32)
+        paths["multi_step"] = timed("multi_step", phase_multi_step, card,
+                                    ptable)
         timed("train_path", phase_train_path, card, ptable, b32)
         last_tag = os.path.join(tmp, "trainer_last")
         paths["trainer"] = timed("trainer", phase_trainer, card, last_tag,
@@ -6338,6 +6656,7 @@ def main(argv=()) -> int:
                       g_train_one)
     _emit({"phase": "seconds", "card": card, "build": build_s, **seconds,
            "total": time.perf_counter() - t0})
+    paths.update(block_paths)
     _launches(entries, paths)
     _emit({"kernels": entries})
     print(card, flush=True)

@@ -327,7 +327,10 @@ def test_reference_flash_matches_jax_xla_attention(dh, bf16):
 def test_flash_supports_the_new_head_dims(dh):
     assert flash_attn.supported(257, 257, None, dh)
     assert not flash_attn.supported(257, 257, None, dh + 4)
-    assert not flash_attn.supported(257, 257, None, 256)
+    # 256 is the stock Pallas flash's widest; widths between and past do not
+    assert flash_attn.supported(257, 257, None, 256)
+    assert not flash_attn.supported(257, 257, None, 192)
+    assert not flash_attn.supported(257, 257, None, 264)
 
 
 # -- (d) loss and gradients, checkpointing -------------------------------------

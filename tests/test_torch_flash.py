@@ -375,13 +375,21 @@ def test_block_route_is_chosen_by_shape(l, masked, fused, monkeypatch):
 
 
 def test_masked_long_stream_raises_off_the_cpu():
-    """A bf16 stream that neither route's kernels take raises on a device
-    that is not the CPU (a meta tensor stands in for the card) before
-    anything runs; nothing falls back to a plain version."""
-    blk = ResidualAttentionBlock(128, 2)
+    """A bf16 stream that neither route's kernels take (head dim 48) raises
+    on a device that is not the CPU (a meta tensor stands in for the
+    card) before anything runs; nothing falls back to a plain version. A
+    masked one at head dim 64 past the fused half's 128 keys reaches
+    flash attention's wrapper, which takes its [L, L] mask (and raises
+    for the meta device)."""
+    blk = ResidualAttentionBlock(96, 2)
+    x = torch.empty((1, 256, 96), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="neither the fused attention half"):
+        blk(x)
+    with torch.device("meta"):
+        blk = ResidualAttentionBlock(128, 2)
     x = torch.empty((1, 256, 128), dtype=torch.bfloat16, device="meta")
     mask = torch.zeros((256, 256), device="meta")
-    with pytest.raises(ValueError, match="neither the fused attention half"):
+    with pytest.raises(ValueError, match="flash_mha: no kernel for device"):
         blk(x, attn_mask=mask)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attn.flash_mha(x.reshape(1, 256, 2, 64), x.reshape(1, 256, 2, 64),

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 import torch
 
+from xtagclip_tpu_torch.factory import init_params
 from xtagclip_tpu_torch.models.layers import (
     ResidualAttentionBlock,
     set_use_kernels,
@@ -682,11 +683,83 @@ def test_flash_fwd_kernel_matches_plain_at_336px(cuda, b, h, l, dh, layout):
 
 
 def test_flash_kernels_refuse_other_head_dims(cuda):
-    for dh in (32, 56, 100, 136, 256):
+    for dh in (32, 56, 100, 136, 192, 264):
         q, k, v = (torch.zeros((1, 8, 2, dh), device=cuda,
                                dtype=torch.bfloat16) for _ in range(3))
         with pytest.raises(ValueError, match="no kernel"):
             flash_attn.flash_mha(q, k, v)
+
+
+def _flash_mask(kind, l, device):
+    """An additive [L, L] mask: causal (fp32, or bf16 as a tower may build
+    it), random, or one whose first key tile is -inf for the rows past it
+    (their running max starts at -inf)."""
+    if kind.startswith("causal"):
+        m = torch.triu(torch.full((l, l), float("-inf")), 1)
+    elif kind == "random":
+        m = torch.from_numpy(np.random.default_rng(l).standard_normal(
+            (l, l)).astype(np.float32))
+    else:
+        m = torch.zeros(l, l)
+        m[64:, :64] = float("-inf")
+    return m.to(device, torch.bfloat16 if kind.endswith("bf16")
+                else torch.float32)
+
+
+@pytest.mark.parametrize("dh,l,kind", [
+    (64, 160, "causal"), (80, 77, "causal"), (128, 77, "causal"),
+    (128, 77, "causal_bf16"), (104, 150, "random"), (64, 150, "first_tile"),
+    (256, 256, "causal"), (256, 200, "first_tile")])
+def test_flash_kernels_match_plain_under_mask(cuda, dh, l, kind):
+    """#6 forward and backward under an additive [L, L] mask, q, k, v
+    strided column slices, against the plain versions under the same
+    mask: o, dq, dk, dv at the bar."""
+    q, k, v = _flash_slices(2, 3, l, dh, "blhd", seed=l + dh, device=cuda)
+    mask = _flash_mask(kind, l, cuda)
+    o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True,
+                                   mask=mask)
+    _assert_kernel_bar(o, flash_attn.reference_flash_mha(q, k, v, "blhd",
+                                                         mask))
+    do = torch.randn(o.shape, device=cuda).bfloat16()
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, "blhd", mask)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do, "blhd", mask)
+    torch.cuda.synchronize()
+    for g, r in zip(grads, refs):
+        _assert_kernel_bar(g, r)
+
+
+@pytest.mark.parametrize("l", [1, 63, 65, 257])
+def test_flash_kernels_match_plain_at_head_dim_256(cuda, l):
+    """Head dim 256 without a mask: the 256-wide forward and the backward
+    in two column halves, at the bar."""
+    q, k, v = _flash_slices(2, 2, l, 256, "blhd", seed=l, device=cuda)
+    o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True)
+    _assert_kernel_bar(o, flash_attn.reference_flash_mha(q, k, v))
+    do = torch.randn(o.shape, device=cuda).bfloat16()
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        if l == 1 and name != "dv":
+            assert g.float().abs().max().item() <= 1e-5
+        else:
+            _assert_kernel_bar(g, r)
+
+
+def test_flash_row_with_no_key_is_nan_as_plain(cuda):
+    """A query row the mask leaves no key: NaN in the kernel's output, as
+    in the plain softmax's; every other row at the bar."""
+    q, k, v = _flash_inputs(1, 2, 100, 64, "blhd", seed=3, device=cuda)
+    mask = _flash_mask("causal", 100, cuda)
+    mask[7] = float("-inf")
+    o = flash_attn.flash_mha(q, k, v, "blhd", mask)
+    ref = flash_attn.reference_flash_mha(q, k, v, "blhd", mask)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(o), torch.isnan(ref))
+    assert torch.isnan(o[:, 7]).all() and not torch.isnan(o[:, 8:]).any()
+    keep = torch.ones(100, dtype=torch.bool)
+    keep[7] = False
+    _assert_kernel_bar(o[:, keep], ref[:, keep])
 
 
 @pytest.mark.parametrize("n", [1, 37, 127, 8192, 8256])
@@ -760,10 +833,11 @@ def test_flash_and_mlp_raise_instead_of_falling_back(cuda):
     q, k, v = _flash_inputs(1, 2, 64, 64, "bhld", seed=3, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         flash_attn.flash_mha(q.float(), k.float(), v.float(), layout="bhld")
-    # a head dim the kernels refuse (80 has run since ViT-H was ported)
-    q256 = torch.zeros((1, 2, 64, 256), device=cuda, dtype=torch.bfloat16)
+    # a head dim the kernels refuse (80 has run since ViT-H was ported,
+    # 256 since the stock Pallas flash's widest was)
+    q192 = torch.zeros((1, 2, 64, 192), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attn.flash_mha(q256, q256, q256, layout="bhld")
+        flash_attn.flash_mha(q192, q192, q192, layout="bhld")
     with pytest.raises(ValueError, match="contiguous head dim"):
         flash_attn.flash_mha(q.transpose(2, 3), k.transpose(2, 3),
                              v.transpose(2, 3), layout="bhld")
@@ -773,11 +847,22 @@ def test_flash_and_mlp_raise_instead_of_falling_back(cuda):
         x, _, _, w1, b1, w2, b2 = _mlp_args(16, d, h, seed=4, device=cuda)
         with pytest.raises(ValueError, match="multiples of 8"):
             fused_mlp.fused_mlp(x, w1, b1, w2, b2, "gelu")
-    blk = ResidualAttentionBlock(256, 4).to(cuda).bfloat16()
-    mask = torch.zeros((256, 256), device=cuda)
+    # a stream no kernel takes (head dim 48) raises before anything runs
+    blk = ResidualAttentionBlock(192, 4).to(cuda).bfloat16()
     with pytest.raises(ValueError, match="neither the fused attention half"):
-        blk(torch.zeros((1, 256, 256), device=cuda, dtype=torch.bfloat16),
-            attn_mask=mask)
+        blk(torch.zeros((1, 200, 192), device=cuda, dtype=torch.bfloat16))
+    # a masked one at head dim 64 past the fused half's 128 keys runs #6
+    # with its mask
+    blk = ResidualAttentionBlock(256, 4)
+    init_params(blk, torch.Generator().manual_seed(0))
+    blk = blk.to(cuda).bfloat16()
+    before = flash_attn.flash_mha.launches
+    with torch.inference_mode():
+        y = blk(torch.randn((1, 256, 256), device=cuda).bfloat16(),
+                attn_mask=torch.zeros((256, 256), device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attn.flash_mha.launches == before + 1
+    assert torch.isfinite(y.float()).all()
 
 
 def test_kernels_raise_instead_of_falling_back(cuda):

@@ -9,8 +9,8 @@ tolerances. One config per family (EVA-02, EVA-01, ViTamin, ConvNeXt,
 Swin, FastViT, mT5, NLLB) is compared with JAX's ``eval_shape`` tree
 through convert/from_jax.py's ``port_name``; its BatchNorm statistics too.
 The LiT lock groups of a toy EVA-02 and a toy ConvNeXt tower equal JAX's
-leaf for leaf. Every config's towers split at ``--model-parallel`` 2, and
-at 4 but for the head counts 4 does not divide.
+leaf for leaf. Every config's towers split at ``--model-parallel`` 2 and
+4, a head count 4 does not divide in uneven whole heads.
 """
 
 import functools
@@ -51,27 +51,19 @@ def test_every_builtin_config_builds_on_meta(name):
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
-# the towers --model-parallel 4 refuses, by config: a head count 4 does
-# not divide (each rank holds whole heads; JAX's GSPMD rule runs them,
-# ROADMAP Queue 3). At 2 every config splits.
-REFUSED_AT_4 = {
-    **{n: {"text"} for n in ("convnext_base_w", "convnext_base_w_320",
-                             "RN50x4", "RN50x4-quickgelu",
-                             "swin_base_patch4_window7_224", "ViT-M-16-alt",
-                             "ViT-M-32-alt")},
-    **{n: {"visual", "text"} for n in ("ViT-B-16-plus", "ViT-B-16-plus-240",
-                                       "ViT-B-32-plus-256", "ViT-S-16",
-                                       "ViT-S-32", "ViTamin-S")},
-    **{n: {"visual"} for n in ("ViT-S-16-alt", "ViT-S-32-alt",
-                               "ViTamin-S-LTT")},
-}
+# the towers --model-parallel 4 refuses, by config: none. A head count 4
+# does not divide (ViT-B-16-plus's 14 and 10, ViT-S's 6, RN50x4's text 10)
+# splits into uneven whole heads (4, 4, 3, 3; 3, 3, 2, 2; 2, 2, 1, 1), as
+# JAX's GSPMD rule runs them; only a tower with fewer heads than the model
+# size raises. At 2 every config splits.
+REFUSED_AT_4 = {}
 
 
 @pytest.mark.parametrize("name", BUILTIN)
 def test_every_builtin_config_splits_at_model_parallel_2_and_4(name):
     """parallel/sharding.py's check on each tower of the config's meta
     build: every config splits at --model-parallel 2, and at 4 all but
-    the towers of ``REFUSED_AT_4``, which raise ValueError."""
+    the towers of ``REFUSED_AT_4`` (none), which would raise ValueError."""
     model = _meta(name)
     refused = set()
     for tower in ("visual", "text"):
@@ -79,7 +71,7 @@ def test_every_builtin_config_splits_at_model_parallel_2_and_4(name):
         try:
             sharding.check_tensor_parallel(getattr(model, tower), 4)
         except ValueError as e:
-            assert "does not" in str(e) and "heads" in str(e), e
+            assert "fewer than" in str(e) and "heads" in str(e), e
             refused.add(tower)
     assert refused == REFUSED_AT_4.get(name, set())
 

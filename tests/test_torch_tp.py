@@ -621,9 +621,20 @@ def test_cli_at_model_parallel_matches_one_process(run, entry):
 # -- (f) what raises ------------------------------------------------------
 
 def test_non_divisible_heads_raise(run):
+    """4 heads over 3 ranks split into whole heads (2, 1, 1), the hidden
+    width 1024 into 342, 341, 341; over 5 ranks one would hold no head,
+    which raises before anything is split."""
     model = factory.create_model(tw.CFG_NAME, device="cpu")
-    with pytest.raises(ValueError, match=r"4 heads and MLP width 1024"):
-        sharding.shard_tensor_parallel(model, size=3, rank=0)
+    with pytest.raises(ValueError, match=r"has 4 heads, fewer than 5"):
+        sharding.shard_tensor_parallel(model, size=5, rank=0)
+    assert not sharding.model_shards(model)
+    for r, (heads, hidden) in enumerate(((2, 342), (1, 341), (1, 341))):
+        model = factory.create_model(tw.CFG_NAME, device="cpu")
+        sharding.shard_tensor_parallel(model, size=3, rank=r)
+        blk = model.text.transformer.resblocks[0]
+        assert blk.local_heads == heads
+        assert blk.mlp.c_fc.kernel.shape[1] == hidden
+        assert blk.attn.in_proj.kernel.shape[1] == 3 * 64 * heads
 
 
 def test_tower_outside_the_slice_raises_naming_item_11(run):

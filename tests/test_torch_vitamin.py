@@ -138,8 +138,9 @@ def test_causal_text_at_head_dim_72_takes_the_plain_core_on_the_card():
     kernel of either package takes a masked stream at head dim 72 (JAX
     sends it to XLA), so its core is the plain attention off the CPU too
     and the block reaches the MLP kernel's wrapper (meta stands in for the
-    card and raises there); a masked stream at head dim 64, which JAX's
-    fused half takes, still raises."""
+    card and raises there); a masked stream at head dim 64 past 128 keys,
+    which JAX's fused half takes, reaches flash attention's wrapper with
+    its mask instead."""
     from xtagclip_tpu_torch.models.layers import ResidualAttentionBlock
     from xtagclip_tpu_torch.models.text import build_causal_mask
 
@@ -147,12 +148,12 @@ def test_causal_text_at_head_dim_72_takes_the_plain_core_on_the_card():
         blk = ResidualAttentionBlock(1152, 16)
     x = torch.empty((2, 77, 1152), dtype=torch.bfloat16, device="meta")
     assert blk.route(x.shape, build_causal_mask(77, "meta")) == "non_fused"
-    with pytest.raises(ValueError, match="no kernel for device meta"):
+    with pytest.raises(ValueError, match="fused_mlp: no kernel for device meta"):
         blk(x, attn_mask=build_causal_mask(77, "meta"))
     with torch.device("meta"):
         blk = ResidualAttentionBlock(256, 4)
     x = torch.empty((1, 256, 256), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="neither the fused attention half"):
+    with pytest.raises(ValueError, match="flash_mha: no kernel for device meta"):
         blk(x, attn_mask=torch.zeros((256, 256), device="meta"))
 
 

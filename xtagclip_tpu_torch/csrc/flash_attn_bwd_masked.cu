@@ -1,0 +1,26 @@
+// Flash attention's backward under an additive [L, L] mask: the C
+// entry point of the masked instantiations of flash_attn_bwd.cuh (its
+// notes: what it computes, the TPU kernels it replaces, its bound and
+// design), a library of its own so that nvcc builds the two beside each
+// other.
+#include "flash_attn_bwd.cuh"
+
+extern "C" {
+
+const char* xtag_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// See xtag::fa_bwd::run: mask non-null. Returns a cudaError_t (0 =
+// launched).
+int xtag_flash_attn_bwd_masked(const void* q, const void* k, const void* v, const void* o,
+                               const void* dout, const float* lse, float* stat_ws, void* dq,
+                               void* dk, void* dv, const long long* strides, int B, int H,
+                               int L, int dh, float scale, const void* mask, int mask_bf16,
+                               void* stream) {
+  return static_cast<int>(xtag::fa_bwd::run<true>(
+      q, k, v, o, dout, lse, stat_ws, dq, dk, dv, strides, B, H, L, dh, scale, mask,
+      mask_bf16, stream));
+}
+
+}  // extern "C"

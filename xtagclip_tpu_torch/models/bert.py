@@ -28,6 +28,7 @@ from xtagclip_tpu_torch.models.layers import (
     attention,
     dropout,
     gelu_exact,
+    local_heads,
     tp_input,
 )
 
@@ -48,8 +49,8 @@ class BertSelfAttentionLayer(nn.Module):
     def forward(self, x, mask=None, generator=None):
         h = tp_input(self, x)
         ctx = attention(self.query(h), self.key(h), self.value(h),
-                        self.num_heads // self.tp_size, self.rate, generator,
-                        mask, whole_heads=self.num_heads)
+                        local_heads(self, self.num_heads), self.rate,
+                        generator, mask, whole_heads=self.num_heads)
         out = dropout(self.out_dense(ctx), self.rate, generator)
         return self.out_ln(out + x)
 

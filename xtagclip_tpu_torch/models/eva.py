@@ -29,6 +29,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     gelu_exact,
+    local_heads,
     run_blocks,
     self_attention_core,
     tp_input,
@@ -78,7 +79,7 @@ class EvaAttention(nn.Module):
 
     def forward(self, x, rope=None):
         b, l, _ = x.shape
-        nh = self.num_heads // self.tp_size
+        nh = local_heads(self, self.num_heads)
         x = tp_input(self, x)
         if self.qkv_fused:
             q, k, v = self.qkv(x).chunk(3, dim=-1)

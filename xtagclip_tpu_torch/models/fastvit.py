@@ -31,6 +31,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     attention,
     gelu_exact,
+    local_heads,
     tp_input,
 )
 
@@ -88,7 +89,7 @@ class AttnBlock(nn.Module):
         b, c, h, w = x.shape
         y = self.norm(x, train).flatten(2).transpose(1, 2)
         q, k, v = self.qkv(tp_input(self, y)).chunk(3, dim=-1)
-        y = self.proj(attention(q, k, v, self.heads // self.tp_size))
+        y = self.proj(attention(q, k, v, local_heads(self, self.heads)))
         x = x + y.transpose(1, 2).reshape(b, c, h, w)
         return x + self.ffn(x, train)
 

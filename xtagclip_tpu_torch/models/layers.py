@@ -131,6 +131,14 @@ class Dense(nn.Module):
         return y
 
 
+def local_heads(block: nn.Module, heads: int) -> int:
+    """This model rank's count of the block's ``heads``: all of them, or,
+    once parallel/sharding.py split the block, its share of whole heads
+    (``tensor_split``'s: 6 heads over 4 ranks are 2, 2, 1, 1)."""
+    n = block.tp_size
+    return heads if n == 1 else heads // n + (block.tp_rank < heads % n)
+
+
 def tp_input(block: nn.Module, x):
     """The input of a split region of ``block`` (module doc):
     ``copy_to_model(x)`` where parallel/sharding.py split the block, else
@@ -345,22 +353,34 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 JAX_FUSED_HEAD_DIMS = (64, 80, 88, 104, 128)
 
 
+def flash_takes(l: int, mask, dh: int) -> bool:
+    """Whether a self-attention core of length ``l`` and head dim ``dh``
+    under ``mask`` goes to flash attention (#6): ``flash_attn.supported``
+    takes it and, with an [L, L] mask, JAX has a Pallas kernel for the
+    head dim (``JAX_FUSED_HEAD_DIMS``, its fused attention half's); a
+    masked core at any other head dim (ViTamin-XL's causal text at 72, a
+    masked 256) is XLA's attention in JAX and the plain ``attention``
+    here."""
+    return flash_attn.supported(l, l, mask, dh) and (
+        mask is None or dh in JAX_FUSED_HEAD_DIMS)
+
+
 def self_attention_core(q, k, v, num_heads: int, use_kernels: bool,
                         mask=None):
     """The core of a self-attention over [B, L, E] streams without dropout,
     as JAX's ``fused_attention`` routes it (layers.py:127-170): through
-    ``flash_attn.flash_mha`` (its kernel, or with ``use_kernels`` off its
-    plain version ``reference_flash_mha``) where ``flash_attn.supported``
-    takes the stream, else through the plain ``attention`` with the
-    additive ``mask`` (XLA's attention in JAX)."""
+    ``flash_attn.flash_mha`` with the additive ``mask`` (its kernel, or
+    with ``use_kernels`` off its plain version ``reference_flash_mha``)
+    where ``flash_takes`` the stream, else through the plain ``attention``
+    with the mask (XLA's attention in JAX)."""
     b, l, e = q.shape
     dh = e // num_heads
-    if not flash_attn.supported(l, l, mask, dh):
+    if not flash_takes(l, mask, dh):
         return attention(q, k, v, num_heads, mask=mask)
     core = (flash_attn.flash_mha if use_kernels
             else flash_attn.reference_flash_mha)
     heads = (t.reshape(b, l, num_heads, dh) for t in (q, k, v))
-    return core(*heads).reshape(b, l, e)
+    return core(*heads, mask=mask).reshape(b, l, e)
 
 
 class MultiheadAttention(nn.Module):
@@ -411,7 +431,7 @@ class MultiheadAttention(nn.Module):
         [E, 3E] product plus the bias in x's dtype (two roundings in bf16,
         as flax's Dense), the attention core through
         ``flash_attn.flash_mha`` (its kernel, or with ``use_kernels`` off
-        its plain version) where ``flash_attn.supported`` takes it, else
+        its plain version) where ``flash_takes`` the stream, else
         through the plain ``attention`` with the additive ``mask`` (XLA's
         attention in JAX), then ``out_proj`` in x's dtype."""
         e = x.shape[-1]
@@ -495,15 +515,18 @@ class ResidualAttentionBlock(nn.Module):
       ``x = x + out_proj(attn(LN1(x)))`` then ``x = x + MLP(LN2(x))``,
       with the adds in x's dtype, the attention core through
       ``flash_attn.flash_mha`` and the MLP through ``fused_mlp.fused_mlp``
-      (JAX's ``XTAG_FLASH_ATTN`` and ``XTAG_FUSED_MLP`` paths). A stream
-      flash attention does not take (an [L, L] mask, another head dim)
-      runs the plain ``attention`` there; it has no kernel, so a bf16 one
-      raises on the card, but for a masked one at a head dim JAX's fused
-      half refuses too (``JAX_FUSED_HEAD_DIMS``), which XLA runs in JAX
-      and the plain core here. A LayerScale block (``ls_init_value``;
-      ``ls_1``/``ls_2.gamma`` scale the attention and MLP outputs before
-      each residual add, layers.py:577-587) never takes the fused halves,
-      as JAX keeps it off the fused kernels (:531).
+      (JAX's ``XTAG_FLASH_ATTN`` and ``XTAG_FUSED_MLP`` paths). Flash
+      attention takes an [L, L] mask at the head dims JAX's fused half
+      takes (``flash_takes``: a causal text tower at dh 80-128 or at L >
+      128, a LayerScale causal block). A stream flash attention does not
+      take runs the plain ``attention`` there; it has no kernel, so a
+      bf16 one raises on the card, but for a masked one at a head dim
+      JAX's fused half refuses too (``JAX_FUSED_HEAD_DIMS``), which XLA
+      runs in JAX and the plain core here. A LayerScale block
+      (``ls_init_value``; ``ls_1``/``ls_2.gamma`` scale the attention and
+      MLP outputs before each residual add, layers.py:577-587) never
+      takes the fused halves, as JAX keeps it off the fused kernels
+      (:531).
 
     Inside a route, a bf16 stream with ``use_kernels`` on (the default;
     ``set_use_kernels``) runs the route's kernel wrappers: their CUDA
@@ -520,8 +543,10 @@ class ResidualAttentionBlock(nn.Module):
 
     Tensor parallelism (``tp_size`` > 1, set by parallel/sharding.py
     ``shard_tensor_parallel``): the block holds ``local_heads`` of its
-    heads and 1 / ``tp_size`` of the MLP's hidden width, and every route
-    runs on them, with the model group's all-reduces in
+    heads (whole heads, uneven where ``tp_size`` does not divide them)
+    and its slice of the MLP's hidden width (``mlp_pieces``: every rank's
+    slice), and every route runs on them, with the model group's
+    all-reduces in
     parallel/tensor_parallel.py. ``fused_halves``: the partial modes of
     #1 and #2, each followed by an fp32 model all-reduce and the bias and
     residual add (``tp.attn_half``, ``tp.mlp_half``); ``non_fused``:
@@ -531,8 +556,9 @@ class ResidualAttentionBlock(nn.Module):
     on the hidden slice, ``reduce_from_model``, + c_proj's bias;
     ``plain_core``: the plain attention over the local heads (CoCa's
     cross-attention and per-sample masks), then the MLP half as above.
-    The route is chosen on the local shapes (the MLP's hidden slice), and
-    on the card a stream no kernel takes at the local shape raises."""
+    The route is chosen on the local shapes, the MLP half's on every
+    rank's hidden slice so that a group takes one route, and on the card
+    a stream no kernel takes at the local shape raises."""
 
     def __init__(self, width: int, heads: int, mlp_ratio: float = 4.0,
                  act: str = "gelu", norm_eps: float = 1e-5,
@@ -559,6 +585,7 @@ class ResidualAttentionBlock(nn.Module):
         self.layer_scale = ls_init_value is not None
         self.tp_size = 1
         self.local_heads = heads
+        self.mlp_pieces = [self.mlp.c_fc.kernel.shape[1]]
 
     def route(self, shape, attn_mask=None) -> str:
         """The route of a stream of this shape under this mask (class
@@ -567,17 +594,22 @@ class ResidualAttentionBlock(nn.Module):
                                        and attn_mask.dim() == 4):
             return "plain_core"
         mshape = None if attn_mask is None else tuple(attn_mask.shape)
-        mlp_width = self.mlp.c_fc.kernel.shape[1]
         if (not self.layer_scale
                 and fab.supported(shape, self.heads, torch.bfloat16, mshape)
-                and fab.supported_mlp(shape, mlp_width, self.act)):
+                and self._mlp_pieces_fused(shape)):
             return "fused_halves"
         return "non_fused"
 
+    def _mlp_pieces_fused(self, shape) -> bool:
+        """Whether #2 takes the MLP's hidden width, on every model rank's
+        slice (``mlp_pieces``, uneven where the model size does not
+        divide it), so that every rank of a group takes one route."""
+        return all(fab.supported_mlp(shape, w, self.act)
+                   for w in self.mlp_pieces)
+
     def _mlp_half_fused(self, shape) -> bool:
         """Whether the plain-core route's MLP half is #2 (else #4)."""
-        return (not self.layer_scale and fab.supported_mlp(
-            shape, self.mlp.c_fc.kernel.shape[1], self.act))
+        return not self.layer_scale and self._mlp_pieces_fused(shape)
 
     def forward(self, x, attn_mask=None, kv=None):
         """``kv``: the key/value stream of a cross-attention block."""
@@ -634,8 +666,8 @@ class ResidualAttentionBlock(nn.Module):
                 f"no kernel for stream {tuple(shape)} with {self.heads} heads"
                 f" and mask {None if attn_mask is None else tuple(attn_mask.shape)}"
                 ": neither the fused attention half (L <= 128, head dim 64, "
-                "no LayerScale) nor flash attention (no mask, head dim in "
-                f"{flash_attn.HEAD_DIMS}) takes it")
+                "no LayerScale) nor flash attention (no mask or [L, L], head "
+                f"dim in {flash_attn.HEAD_DIMS}) takes it")
         if not (route == "plain_core" and self._mlp_half_fused(shape)) \
                 and not fused_mlp.supported(shape, mlp_width, self.act):
             raise ValueError(

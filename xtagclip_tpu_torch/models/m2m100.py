@@ -28,6 +28,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     attention,
     dropout,
+    local_heads,
     tp_input,
 )
 
@@ -67,8 +68,8 @@ class M2M100EncoderLayer(nn.Module):
     def forward(self, x, mask=None, generator=None):
         h = tp_input(self, self.self_attn_ln(x))
         ctx = attention(self.q_proj(h), self.k_proj(h), self.v_proj(h),
-                        self.num_heads // self.tp_size, self.rate, generator,
-                        mask, whole_heads=self.num_heads)
+                        local_heads(self, self.num_heads), self.rate,
+                        generator, mask, whole_heads=self.num_heads)
         x = x + dropout(self.out_proj(ctx), self.rate, generator)
         h = tp_input(self, self.final_ln(x))
         h = dropout(F.relu(self.fc1(h)), self.rate, generator,

@@ -26,6 +26,7 @@ from xtagclip_tpu_torch.models.layers import (
     BatchNorm,
     Conv2d,
     Dense,
+    local_heads,
     tp_input,
 )
 
@@ -92,7 +93,7 @@ class AttentionPool2d(nn.Module):
         seq = torch.cat([seq.mean(dim=1, keepdim=True), seq], dim=1)
         seq = seq + self.positional_embedding.to(seq.dtype)[None]
         seq = tp_input(self, seq)
-        nh = self.num_heads // self.tp_size  # the local heads
+        nh = local_heads(self, self.num_heads)
         dh = c // self.num_heads
 
         def split(t):

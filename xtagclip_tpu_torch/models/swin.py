@@ -24,6 +24,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     gelu_exact,
+    local_heads,
     tp_input,
 )
 
@@ -73,7 +74,7 @@ class WindowAttention(nn.Module):
     def forward(self, x, mask=None):
         """x [B*nW, W*W, C]; mask [nW, W*W, W*W] or None."""
         bnw, n, c = x.shape
-        nh = self.num_heads // self.tp_size  # the local heads
+        nh = local_heads(self, self.num_heads)
         dh = c // self.num_heads
         q, k, v = (t.reshape(bnw, n, nh, dh).transpose(1, 2)
                    for t in self.qkv(tp_input(self, x)).chunk(3, dim=-1))

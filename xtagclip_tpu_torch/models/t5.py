@@ -26,7 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from xtagclip_tpu_torch.models.layers import Dense, Embed, dropout, tp_input
+from xtagclip_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    dropout,
+    local_heads,
+    tp_input,
+)
 
 
 class RMSNorm(nn.Module):
@@ -80,7 +86,7 @@ class T5SelfAttention(nn.Module):
 
     def forward(self, x, position_bias, mask_bias=None, generator=None):
         b, l, _ = x.shape
-        heads = self.num_heads // self.tp_size
+        heads = local_heads(self, self.num_heads)
         h = tp_input(self, x)
         q, k, v = (t(h).reshape(b, l, heads, self.d_kv).transpose(1, 2)
                    for t in (self.q, self.k, self.v))

@@ -45,6 +45,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     attention,
     gelu_exact,
+    local_heads,
     run_blocks,
     tp_input,
 )
@@ -66,7 +67,7 @@ class TimmBlock(nn.Module):
 
     def forward(self, x, attn_bias=None):
         q, k, v = self.qkv(tp_input(self, self.norm1(x))).chunk(3, dim=-1)
-        x = x + self.proj(attention(q, k, v, self.num_heads // self.tp_size,
+        x = x + self.proj(attention(q, k, v, local_heads(self, self.num_heads),
                                     mask=attn_bias))
         h = tp_input(self, self.norm2(x))
         return x + self.fc2(gelu_exact(self.fc1(h)))
@@ -201,7 +202,7 @@ class MapPool(nn.Module):
         latent = tp_input(self, self.latent.to(tokens.dtype))
         q = self.q(latent.expand(b, 1, -1))
         k, v = self.kv(tp_input(self, tokens)).chunk(2, dim=-1)
-        x = self.proj(attention(q, k, v, self.num_heads // self.tp_size))
+        x = self.proj(attention(q, k, v, local_heads(self, self.num_heads)))
         h = tp_input(self, self.norm(x))
         h = self.mlp_fc2(gelu_exact(self.mlp_fc1(h)))
         return (x + h)[:, 0]

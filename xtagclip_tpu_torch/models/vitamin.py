@@ -31,6 +31,7 @@ from xtagclip_tpu_torch.models.layers import (
     LayerNorm,
     channels_last,
     gelu_exact,
+    local_heads,
     run_blocks,
     self_attention_core,
     tp_input,
@@ -79,7 +80,7 @@ class GeGluBlock(nn.Module):
         q, k, v = self.qkv(tp_input(self, self.norm1(x))).chunk(3, dim=-1)
         kernels = self.use_kernels and x.dtype == torch.bfloat16
         x = x + self.proj(self_attention_core(
-            q, k, v, self.heads // self.tp_size, kernels))
+            q, k, v, local_heads(self, self.heads), kernels))
         h = tp_input(self, self.norm2(x))
         return x + self.fc2(gelu_exact(self.fc1_g(h)) * self.fc1_x(h))
 

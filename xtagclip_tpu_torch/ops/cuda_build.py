@@ -27,6 +27,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
                   "normalize_images", "flash_attn_fwd", "flash_attn_bwd",
+                  "flash_attn_fwd_masked", "flash_attn_bwd_masked",
                   "fused_mlp")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,14 +130,14 @@ _ARGTYPES = {
         _VP, _VP, _VP, _VP, _VP,                 # q, k, v, o, lse (or null)
         _I64P,                                   # (b, h, l) strides of q, k, v, o
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, dh
-        ctypes.c_float, _VP,                     # scale, stream
+        ctypes.c_float, _VP, ctypes.c_int, _VP,  # scale, mask (or null), mask bf16, stream
     ],
     "xtag_flash_attn_bwd": [
         _VP, _VP, _VP, _VP, _VP, _VP,            # q, k, v, o, dout, lse
         _VP, _VP, _VP, _VP,                      # stat scratch; dq, dk, dv
         _I64P,                                   # strides of the eight views
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, L, dh
-        ctypes.c_float, _VP,                     # scale, stream
+        ctypes.c_float, _VP, ctypes.c_int, _VP,  # scale, mask (or null), mask bf16, stream
     ],
     "xtag_normalize_images": [
         _VP, _VP, ctypes.c_longlong, ctypes.c_int,  # x, out, n, out_bf16
@@ -144,6 +145,9 @@ _ARGTYPES = {
         _VP,                                         # stream
     ],
 }
+# the masked libraries' entry points take the same arguments
+_ARGTYPES["xtag_flash_attn_fwd_masked"] = _ARGTYPES["xtag_flash_attn_fwd"]
+_ARGTYPES["xtag_flash_attn_bwd_masked"] = _ARGTYPES["xtag_flash_attn_bwd"]
 
 
 @lru_cache(maxsize=None)

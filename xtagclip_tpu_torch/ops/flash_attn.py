@@ -7,16 +7,18 @@ self-attention of the cls-free GAP towers through the stock Pallas TPU
 flash kernel and its Pallas dq / dkv backward kernels:
 
 - ``flash_mha`` / ``flash_mha_bwd``: the wrappers. On a CUDA tensor they
-  launch the sm_90a kernels of ``csrc/flash_attn_fwd.cu`` /
-  ``csrc/flash_attn_bwd.cu`` (built on first use, ops/cuda_build.py) or
+  launch the sm_90a kernels of ``csrc/flash_attn_fwd.cuh`` /
+  ``csrc/flash_attn_bwd.cuh`` (built on first use, ops/cuda_build.py,
+  the unmasked and the masked instantiations as two libraries each) or
   raise: a shape outside ``supported``, a wrong dtype, a stride the kernel
   cannot read, a build or launch failure all raise, none switches to the
   plain version. On a CPU tensor they run the plain version. Each counts
   its launches in ``<wrapper>.launches``.
 - ``reference_flash_mha`` / ``reference_flash_mha_bwd``: the plain
   versions. The forward is exact softmax attention: fp32 scores times
-  dh^-0.5, fp32 softmax, the normalized probabilities rounded to the value
-  dtype for P @ V, one output rounding. The kernel (as the Pallas kernel)
+  dh^-0.5, plus the additive mask if one is given, fp32 softmax, the
+  normalized probabilities rounded to the value dtype for P @ V, one
+  output rounding. The kernel (as the Pallas kernel)
   rounds the UNnormalized probabilities exp(s - m) and divides by the sum
   after P @ V, so the two differ by rounding only (one bf16 ULP at output
   scale). The backward is the analytic one with the Pallas kernels'
@@ -24,13 +26,20 @@ flash kernel and its Pallas dq / dkv backward kernels:
   dv products, dP and dS stay fp32, D = rowsum(dO o) in fp32.
 
 ``supported`` is derived for Hopper, not copied from the TPU gate (which
-needs L % 128 == 0 and head dim 64, 128 or 256): no mask, Lq == Lk, any L
->= 1; the kernels mask the ragged last key tile, so L = 197 and 257 run
-too. Head dim 64, or a multiple of 8 from 72 to 128 (ViT-H's 80, ViT-g's
-88, ViT-bigG's 104, ViT-e's 112): those run the kernels' 128-wide
-instantiation, whose tensor maps end at the true head dim, so the padded
-columns read as zero and only dh columns are written. Head dim 256 waits
-(ROADMAP Queue 2 (a)). The plain versions take any head dim.
+needs L % 128 == 0 and head dim 64, 128 or 256): Lq == Lk, any L >= 1;
+the kernels mask the ragged last key tile, so L = 197 and 257 run too.
+No mask, or an additive [L, L] mask (fp32 or bf16, the dtype the tower
+builds it in), which the kernels read per score and add in fp32 after
+the scale, before the running max, as JAX's ``_reference_chain`` and
+``dot_product_attention`` add it; the backward adds it again when it
+recomputes P. A row that the mask leaves no key gives NaN, as the plain
+softmax does. Head dim 64, or a multiple of 8 from 72 to 128 (ViT-H's
+80, ViT-g's 88, ViT-bigG's 104, ViT-e's 112): those run the kernels'
+128-wide instantiation, whose tensor maps end at the true head dim, so
+the padded columns read as zero and only dh columns are written. Head
+dim 256 (the stock Pallas flash's widest): a 256-wide forward with O in
+two 128-column halves, and a backward that runs each half of dQ, dK and
+dV as a work item of its own. The plain versions take any head dim.
 
 Layouts and scale follow JAX's ``flash_mha``: q, k, v in "blhd" [B, L, H,
 dh] (the model's) or "bhld" [B, H, L, dh]; the output in the same layout
@@ -46,6 +55,8 @@ launcher itself, for the log-sum-exp its backward reads.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
@@ -56,15 +67,17 @@ from xtagclip_tpu_torch.ops.fused_attn_block import (
     check_device,
 )
 
-HEAD_DIMS = (64,) + tuple(range(72, 129, 8))
+HEAD_DIMS = (64,) + tuple(range(72, 129, 8)) + (256,)
 LAYOUTS = ("blhd", "bhld")
+MASK_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def supported(l_q: int, l_k: int, mask, head_dim: int) -> bool:
-    """Shapes the kernels take: no mask, self-attention-like (Lq == Lk),
-    any length, head dim in ``HEAD_DIMS`` (module doc)."""
-    return (mask is None and l_q == l_k and l_q >= 1
-            and head_dim in HEAD_DIMS)
+    """Shapes the kernels take: self-attention-like (Lq == Lk), any
+    length, no mask or an additive [L, L] one (a tensor), head dim in
+    ``HEAD_DIMS`` (module doc)."""
+    return ((mask is None or tuple(mask.shape) == (l_q, l_k))
+            and l_q == l_k and l_q >= 1 and head_dim in HEAD_DIMS)
 
 
 def _bhld(t, layout):
@@ -74,26 +87,32 @@ def _bhld(t, layout):
     return t.transpose(1, 2) if layout == "blhd" else t
 
 
-def reference_flash_mha(q, k, v, layout: str = "blhd"):
+def _scores(qh, kh, scale, mask):
+    """fp32 q k^T * scale, plus the additive mask if one is given."""
+    s = (qh @ kh.transpose(-1, -2)) * scale
+    return s if mask is None else s + mask.float()
+
+
+def reference_flash_mha(q, k, v, layout: str = "blhd", mask=None):
     """Plain exact attention, the kernel's yardstick (module doc)."""
     qh, kh, vh = (_bhld(t, layout).float() for t in (q, k, v))
     with _full_fp32_matmul():
-        s = (qh @ kh.transpose(-1, -2)) * q.shape[-1] ** -0.5
-        p = torch.softmax(s, dim=-1)
+        p = torch.softmax(_scores(qh, kh, q.shape[-1] ** -0.5, mask), dim=-1)
         o = (p.to(v.dtype).float() @ vh).to(q.dtype)
     return _bhld(o, layout).contiguous()
 
 
-def reference_flash_mha_bwd(q, k, v, o, do, layout: str = "blhd"):
+def reference_flash_mha_bwd(q, k, v, o, do, layout: str = "blhd",
+                            mask=None):
     """Plain backward of attention from q, k, v, its output o and the
-    output cotangent do: (dq, dk, dv) in q's dtype and layout (module
-    doc)."""
+    output cotangent do (under the forward's additive ``mask``, if any):
+    (dq, dk, dv) in q's dtype and layout (module doc)."""
     dt = q.dtype
     scale = q.shape[-1] ** -0.5
     qh, kh, vh, oh, doh = (_bhld(t, layout).float()
                            for t in (q, k, v, o, do))
     with _full_fp32_matmul():
-        p = torch.softmax((qh @ kh.transpose(-1, -2)) * scale, dim=-1)
+        p = torch.softmax(_scores(qh, kh, scale, mask), dim=-1)
         dv = p.to(dt).float().transpose(-1, -2) @ doh
         dp = doh @ vh.transpose(-1, -2)
         di = (oh * doh).sum(dim=-1, keepdim=True)
@@ -109,18 +128,25 @@ def _view_strides(t, layout):
     return [s[0], s[1], s[2]]
 
 
-def _launch_checks(what, named, layout):
+def _launch_checks(what, named, layout, mask=None):
     """Device, dtype, shape, stride and alignment checks for a launch;
-    every tensor in ``named`` has q's shape."""
+    every tensor in ``named`` has q's shape; ``mask`` None or [L, L] fp32
+    or bf16 on q's device."""
     q = named["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
     if q.dim() != 4:
         raise ValueError(f"{what}: q must be 4-D ({layout}), got {tuple(q.shape)}")
     b, h, l, dh = _bhld(q, layout).shape
-    if not supported(l, l, None, dh):
+    if not supported(l, l, mask, dh):
         raise ValueError(f"{what}: no kernel for [B, H, L, dh] = "
-                         f"{(b, h, l, dh)} (needs a head dim in {HEAD_DIMS})")
+                         f"{(b, h, l, dh)} with mask "
+                         f"{None if mask is None else tuple(mask.shape)} (needs"
+                         f" a head dim in {HEAD_DIMS} and no mask or [L, L])")
+    if mask is not None and (mask.dtype not in MASK_DTYPES
+                             or mask.device != q.device):
+        raise ValueError(f"{what}: the mask must be fp32 or bf16 on "
+                         f"{q.device}, got {mask.dtype} on {mask.device}")
     for key, t in named.items():
         if t.device != q.device:
             raise ValueError(f"{what}: {key} is on {t.device}, q on {q.device}")
@@ -137,34 +163,45 @@ def _launch_checks(what, named, layout):
     return b, h, l, dh
 
 
-def flash_mha(q, k, v, layout: str = "blhd"):
-    """Exact multi-head attention (JAX's ``flash_mha``): the CUDA kernel on
-    a CUDA tensor, the plain version on a CPU tensor (module doc);
+def flash_mha(q, k, v, layout: str = "blhd", mask=None):
+    """Exact multi-head attention (JAX's ``flash_mha``), under an additive
+    [L, L] ``mask`` if one is given (it gets no gradient): the CUDA kernel
+    on a CUDA tensor, the plain version on a CPU tensor (module doc);
     differentiable through ``_FlashMHA`` when an input requires grad."""
     _bhld(q, layout)
     check_device("flash_mha", q)
     if _needs_grad(q, k, v):
-        return _FlashMHA.apply(q, k, v, layout)
-    return flash_mha_op(q, k, v, layout)
+        return _FlashMHA.apply(q, k, v, layout, mask)
+    return flash_mha_op(q, k, v, layout, mask)
 
 
-def _flash_fwd(q, k, v, layout, with_lse):
+def _mask_args(mask):
+    """(pointer, bf16 flag) of a contiguous mask for the kernels."""
+    if mask is None:
+        return None, 0
+    return mask.data_ptr(), int(mask.dtype == torch.bfloat16)
+
+
+def _flash_fwd(q, k, v, layout, with_lse, mask=None):
     """(o, lse): the forward kernel, with the fp32 log-sum-exp [B, H, L]
     when ``with_lse``; on a CPU tensor the plain version and no lse."""
     if q.device.type == "cpu":
-        return reference_flash_mha(q, k, v, layout), None
+        return reference_flash_mha(q, k, v, layout, mask), None
     what = "flash_mha"
-    b, h, l, dh = _launch_checks(what, dict(q=q, k=k, v=v), layout)
+    b, h, l, dh = _launch_checks(what, dict(q=q, k=k, v=v), layout, mask)
+    mask = None if mask is None else mask.contiguous()
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, l), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = cuda_build.int64_array(
         [s for t in (q, k, v, o) for s in _view_strides(t, layout)])
-    lib = cuda_build.load("flash_attn_fwd")
-    err = lib.xtag_flash_attn_fwd(
+    name = "flash_attn_fwd" if mask is None else "flash_attn_fwd_masked"
+    lib = cuda_build.load(name)
+    err = getattr(lib, f"xtag_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), strides, b, h, l, dh,
-        float(dh**-0.5), torch.cuda.current_stream(q.device).cuda_stream)
+        float(dh**-0.5), *_mask_args(mask),
+        torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, what)
     flash_mha.launches += 1
     return o, lse
@@ -175,28 +212,30 @@ flash_mha.launches = 0
 
 @torch.library.custom_op("xtagclip_tpu_torch::flash_mha", mutates_args=())
 def flash_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 layout: str) -> torch.Tensor:
+                 layout: str, mask: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """Attention's forward as a custom op: the kernel on a CUDA tensor (or
     a raise), the plain version on a CPU tensor; the output contiguous in
     q's layout."""
-    return _flash_fwd(q, k, v, layout, with_lse=False)[0]
+    return _flash_fwd(q, k, v, layout, with_lse=False, mask=mask)[0]
 
 
 @flash_mha_op.register_fake
-def _flash_mha_fake(q, k, v, layout):
+def _flash_mha_fake(q, k, v, layout, mask=None):
     return torch.empty(q.shape, dtype=q.dtype, device=q.device)
 
 
-def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd"):
+def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd", mask=None):
     """(dq, dk, dv) of ``flash_mha`` from q, k, v, its output o, the fp32
-    log-sum-exp of the forward kernel and the output cotangent do: the
-    CUDA kernels on a CUDA tensor, the plain version (which needs no lse)
-    on a CPU tensor."""
+    log-sum-exp of the forward kernel, the output cotangent do and the
+    forward's ``mask``: the CUDA kernels on a CUDA tensor, the plain
+    version (which needs no lse) on a CPU tensor."""
     if q.device.type == "cpu":
-        return reference_flash_mha_bwd(q, k, v, o, do, layout)
+        return reference_flash_mha_bwd(q, k, v, o, do, layout, mask)
     what = "flash_mha_bwd"
     b, h, l, dh = _launch_checks(what, dict(q=q, k=k, v=v, o=o, do=do),
-                                 layout)
+                                 layout, mask)
+    mask = None if mask is None else mask.contiguous()
     if (lse is None or lse.dtype != torch.float32 or lse.device != q.device
             or tuple(lse.shape) != (b, h, l) or not lse.is_contiguous()):
         raise ValueError(f"{what}: lse must be a contiguous fp32 [B, H, L] = "
@@ -210,12 +249,13 @@ def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd"):
     strides = cuda_build.int64_array(
         [s for t in (q, k, v, o, do, dq, dk, dv)
          for s in _view_strides(t, layout)])
-    lib = cuda_build.load("flash_attn_bwd")
-    err = lib.xtag_flash_attn_bwd(
+    name = "flash_attn_bwd" if mask is None else "flash_attn_bwd_masked"
+    lib = cuda_build.load(name)
+    err = getattr(lib, f"xtag_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), stat.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), strides, b, h, l, dh, float(dh**-0.5),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *_mask_args(mask), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, what)
     flash_mha_bwd.launches += 1
     return dq, dk, dv
@@ -230,18 +270,18 @@ class _FlashMHA(torch.autograd.Function):
     residuals and dq / dkv kernels)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, layout):
-        o, lse = _flash_fwd(q, k, v, layout, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, layout, mask):
+        o, lse = _flash_fwd(q, k, v, layout, with_lse=True, mask=mask)
+        ctx.save_for_backward(q, k, v, o, lse, mask)
         ctx.layout = layout
         return o
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, mask = ctx.saved_tensors
         dq, dk, dv = flash_mha_bwd(q, k, v, o, lse, g.contiguous(),
-                                   ctx.layout)
-        return dq, dk, dv, None
+                                   ctx.layout, mask)
+        return dq, dk, dv, None, None
 
 
 @register_flop_formula(torch.ops.xtagclip_tpu_torch.flash_mha)

@@ -25,8 +25,16 @@ core/mesh.py's mesh, not JAX's rule. It goes by one table a block class
   fp32 product summed over the model group, rounded once, its bias added
   once (``tensor_parallel.out_projection``).
 - By heads: the per-head bias tables (timm's relpos, Swin's, T5's
-  bucketed one). A head count N does not divide raises ValueError naming
-  the block: heads stay whole heads.
+  bucketed one).
+- Heads stay whole heads. A head count N does not divide splits into
+  ``piece_sizes(heads, N)`` heads a rank (14 heads over 4: 4, 4, 3, 3),
+  and every leaf that holds heads (``ModelShard.by_heads``: the q, k and
+  v columns, the out-projection rows, the bias tables) is cut on those
+  head boundaries, never mid-head (its ``unit`` is the head dim). Each
+  rank's attention runs on its own count, ``local_heads``; the partial
+  terms and the all-reduces are the same [B, L, D] on every rank. Only a
+  model size above a block's head count raises ValueError naming the
+  block: a rank would hold no head.
 - The hidden width need not divide by N (EVA02-L-14's SwiGLU 2730 at
   N = 4): the slices are ``tensor_split``'s (683, 683, 682, 682), and
   EVA-02's ``mlp_norm``, a LayerNorm over that width, takes its
@@ -211,15 +219,20 @@ def as_sharded_piece(whole: torch.Tensor, like,
 @dataclass(frozen=True)
 class ModelShard:
     """How a leaf is cut over the model group, along port dim ``dim``:
-    into N contiguous pieces, ``tensor_split``'s (the first ones a row
-    longer where N does not divide the dim); with ``qkv`` (``kv``) that
-    dim holds q | k | v (k | v), each part cut alike, and a rank's piece
-    is its columns of each (module doc). ``whole``: the dim's whole size,
-    which ``shard_tensor_parallel`` records (None: N equal pieces)."""
+    into N contiguous pieces of whole ``unit``s, ``tensor_split``'s counts
+    of units (the first ones a unit longer where N does not divide them);
+    with ``qkv`` (``kv``) that dim holds q | k | v (k | v), each part cut
+    alike, and a rank's piece is its columns of each (module doc).
+    ``by_heads``: the dim holds heads, and ``shard_tensor_parallel``
+    sets ``unit`` to the head's width there (the head dim; 1 for a bias
+    table's heads dim). ``whole``: the dim's whole size, which
+    ``shard_tensor_parallel`` records (None: N equal pieces)."""
     dim: int
     qkv: bool = False
     kv: bool = False
     whole: Optional[int] = None
+    by_heads: bool = False
+    unit: int = 1
 
     @property
     def parts(self) -> int:
@@ -231,13 +244,22 @@ def piece_sizes(whole: int, size: int) -> list:
     return [whole // size + (r < whole % size) for r in range(size)]
 
 
+def part_sizes(length: int, shard: ModelShard, size: int) -> list:
+    """Each rank's share of one part (q, k or v; the whole dim where
+    there is one part) of ``length`` along the shard's dim: whole units,
+    ``piece_sizes``' counts of them."""
+    return [shard.unit * n for n in piece_sizes(length // shard.unit, size)]
+
+
 def model_piece(whole: torch.Tensor, shard: ModelShard, rank: int,
                 size: int) -> torch.Tensor:
     """Rank ``rank``'s piece of ``whole`` of ``size`` pieces."""
     if size == 1:
         return whole
-    return torch.cat([p.tensor_split(size, shard.dim)[rank]
-                      for p in whole.chunk(shard.parts, shard.dim)],
+    parts = whole.chunk(shard.parts, shard.dim)
+    sizes = part_sizes(parts[0].shape[shard.dim], shard, size)
+    lo = sum(sizes[:rank])
+    return torch.cat([p.narrow(shard.dim, lo, sizes[rank]) for p in parts],
                      shard.dim)
 
 
@@ -259,8 +281,9 @@ def gather_model(t: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     if n == 1:
         return t
     t, dim = t.detach().contiguous(), shard.dim
-    sizes = (piece_sizes(shard.whole, n) if shard.whole is not None
-             else [t.shape[dim]] * n)
+    sizes = ([shard.parts * k for k in part_sizes(
+        shard.whole // shard.parts, shard, n)] if shard.whole is not None
+        else [t.shape[dim]] * n)
     shape = list(t.shape)
     shape[dim] = max(sizes)
     buf = t.new_zeros(shape)
@@ -280,12 +303,12 @@ def block_plan(block) -> Dict[str, ModelShard]:
     plan = {}
     if getattr(attn, "separate", False):
         for p in ("q_proj", "k_proj", "v_proj"):
-            plan[f"attn.{p}.kernel"] = ModelShard(1)
-            plan[f"attn.{p}.bias"] = ModelShard(0)
+            plan[f"attn.{p}.kernel"] = ModelShard(1, by_heads=True)
+            plan[f"attn.{p}.bias"] = ModelShard(0, by_heads=True)
     else:
-        plan["attn.in_proj.kernel"] = ModelShard(1, qkv=True)
-        plan["attn.in_proj.bias"] = ModelShard(0, qkv=True)
-    plan.update({"attn.out_proj.kernel": ModelShard(0),
+        plan["attn.in_proj.kernel"] = ModelShard(1, qkv=True, by_heads=True)
+        plan["attn.in_proj.bias"] = ModelShard(0, qkv=True, by_heads=True)
+    plan.update({"attn.out_proj.kernel": ModelShard(0, by_heads=True),
                  "mlp.c_fc.kernel": ModelShard(1),
                  "mlp.c_fc.bias": ModelShard(0),
                  "mlp.c_proj.kernel": ModelShard(0)})
@@ -302,27 +325,29 @@ def _is_block(m) -> bool:
 class Plan:
     """A block class's split (module doc): its {leaf: ModelShard}, a leaf
     absent from an instance skipped (EVA's fused or separate q/k/v, a
-    bias-free k); ``heads``, the instance's whole head count, which the
-    model size must divide (None: the block splits no heads)."""
+    bias-free k); ``heads``, the instance's whole head count, which its
+    ``by_heads`` leaves are cut by (None: the block splits no heads)."""
     leaves: Dict[str, ModelShard]
     heads: Optional[Callable[[nn.Module], int]] = None
 
 
-def _column(*names) -> dict:
-    """Column-parallel Denses: kernel columns and bias."""
-    return {f"{n}.{leaf}": ModelShard(d) for n in names
+def _column(*names, heads: bool = False) -> dict:
+    """Column-parallel Denses: kernel columns and bias (``heads``: the
+    attention's q, k or v, cut by whole heads)."""
+    return {f"{n}.{leaf}": ModelShard(d, by_heads=heads) for n in names
             for leaf, d in (("kernel", 1), ("bias", 0))}
 
 
-def _row(*names) -> dict:
-    """Row-parallel Denses: kernel rows (the bias whole)."""
-    return {f"{n}.kernel": ModelShard(0) for n in names}
+def _row(*names, heads: bool = False) -> dict:
+    """Row-parallel Denses: kernel rows (the bias whole; ``heads``: an
+    attention's out-projection, cut by whole heads)."""
+    return {f"{n}.kernel": ModelShard(0, by_heads=heads) for n in names}
 
 
 def _fused(name: str, kv: bool = False) -> dict:
     """A fused q|k|v (``kv``: k|v) Dense, by heads."""
-    return {f"{name}.kernel": ModelShard(1, qkv=not kv, kv=kv),
-            f"{name}.bias": ModelShard(0, qkv=not kv, kv=kv)}
+    return {f"{name}.kernel": ModelShard(1, qkv=not kv, kv=kv, by_heads=True),
+            f"{name}.bias": ModelShard(0, qkv=not kv, kv=kv, by_heads=True)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,54 +367,62 @@ def plans() -> Dict[type, Plan]:
         vitamin,
     )
 
-    heads, by_heads = operator.attrgetter, ModelShard(1)
+    heads, by_heads = operator.attrgetter, ModelShard(1, by_heads=True)
     return {
-        timm_vit.TimmBlock: Plan({**_fused("qkv"), **_row("proj"),
+        timm_vit.TimmBlock: Plan({**_fused("qkv"), **_row("proj", heads=True),
                                   **_column("fc1"), **_row("fc2")},
                                  heads("num_heads")),
         timm_vit.RelPosBias: Plan({"table": by_heads},
                                   lambda m: m.table.shape[1]),
-        timm_vit.MapPool: Plan({**_column("q"), **_fused("kv", kv=True),
-                                **_row("proj"), **_column("mlp_fc1"),
-                                **_row("mlp_fc2")}, heads("num_heads")),
+        timm_vit.MapPool: Plan({**_column("q", heads=True),
+                                **_fused("kv", kv=True),
+                                **_row("proj", heads=True),
+                                **_column("mlp_fc1"), **_row("mlp_fc2")},
+                               heads("num_heads")),
         eva.EvaAttention: Plan({**_fused("qkv"),
-                                **_column("q_proj", "k_proj", "v_proj"),
-                                **_row("proj")}, heads("num_heads")),
+                                **_column("q_proj", "k_proj", "v_proj",
+                                          heads=True),
+                                **_row("proj", heads=True)},
+                               heads("num_heads")),
         eva.EvaBlock: Plan({**_column("fc1", "fc1_g", "fc1_x"),
                             "mlp_norm.scale": ModelShard(0),
                             "mlp_norm.bias": ModelShard(0),
                             **_row("fc2")}),
-        vitamin.GeGluBlock: Plan({**_fused("qkv"), **_row("proj"),
+        vitamin.GeGluBlock: Plan({**_fused("qkv"), **_row("proj", heads=True),
                                   **_column("fc1_g", "fc1_x"),
                                   **_row("fc2")}, heads("heads")),
         bert.BertModel: Plan({"word_embeddings.embedding": ModelShard(0)}),
         bert.BertSelfAttentionLayer: Plan(
-            {**_column("query", "key", "value"), **_row("out_dense")},
-            heads("num_heads")),
+            {**_column("query", "key", "value", heads=True),
+             **_row("out_dense", heads=True)}, heads("num_heads")),
         bert.BertEncoderLayer: Plan({**_column("intermediate"),
                                      **_row("output")}),
         t5.T5EncoderStack: Plan({"shared.embedding": ModelShard(0),
                                  "relpos_bias.embedding": by_heads},
                                 lambda m: m.relpos_bias.embedding.shape[1]),
-        t5.T5SelfAttention: Plan({**_column("q", "k", "v"), **_row("o")},
+        t5.T5SelfAttention: Plan({**_column("q", "k", "v", heads=True),
+                                  **_row("o", heads=True)},
                                  heads("num_heads")),
         t5.T5GatedFF: Plan({**_column("wi_0", "wi_1"), **_row("wo")}),
         m2m100.M2M100Encoder: Plan({"embed_tokens.embedding":
                                     ModelShard(0)}),
         m2m100.M2M100EncoderLayer: Plan(
-            {**_column("q_proj", "k_proj", "v_proj", "fc1"),
-             **_row("out_proj", "fc2")}, heads("num_heads")),
+            {**_column("q_proj", "k_proj", "v_proj", heads=True),
+             **_column("fc1"), **_row("out_proj", heads=True),
+             **_row("fc2")}, heads("num_heads")),
         swin.WindowAttention: Plan({**_fused("qkv"),
                                     "rel_pos_bias": by_heads,
-                                    **_row("proj")}, heads("num_heads")),
+                                    **_row("proj", heads=True)},
+                                   heads("num_heads")),
         swin.SwinBlock: Plan({**_column("fc1"), **_row("fc2")}),
         convnext.ConvNeXtBlock: Plan({**_column("mlp_fc1"),
                                       **_row("mlp_fc2")}),
-        fastvit.AttnBlock: Plan({**_fused("qkv"), **_row("proj")},
+        fastvit.AttnBlock: Plan({**_fused("qkv"),
+                                 **_row("proj", heads=True)},
                                 heads("heads")),
         resnet.AttentionPool2d: Plan(
-            {**_column("q_proj", "k_proj", "v_proj"), **_row("c_proj")},
-            heads("num_heads")),
+            {**_column("q_proj", "k_proj", "v_proj", heads=True),
+             **_row("c_proj", heads=True)}, heads("num_heads")),
     }
 
 
@@ -422,27 +455,25 @@ def _split_leaves(module: nn.Module) -> Dict[str, ModelShard]:
             if _leaf(module, k) is not None}
 
 
+def _heads(module: nn.Module) -> Optional[int]:
+    """The whole head count of a block that splits heads, else None."""
+    if _is_block(module):
+        return module.heads
+    plan = _plan_of(module)
+    return plan.heads(module) if plan is not None and plan.heads else None
+
+
 def check_tensor_parallel(model: nn.Module, size: int) -> None:
-    """Raise ValueError for a block of ``model`` whose heads ``size``
-    does not divide (heads stay whole heads), or a
-    ``ResidualAttentionBlock`` whose MLP width it does not divide (the
-    partial modes of kernels #1-#4 take one width a model group)."""
+    """Raise ValueError for a block of ``model`` with fewer heads than
+    ``size``: a rank would hold no head. Any other count splits, unevenly
+    where ``size`` does not divide it (module doc)."""
     for name, m in model.named_modules():
-        if _is_block(m):
-            hidden = m.mlp.c_fc.kernel.shape[1]
-            if m.heads % size or hidden % size:
-                raise ValueError(
-                    f"--model-parallel {size}: block {name!r} has {m.heads} "
-                    f"heads and MLP width {hidden}, which {size} does not "
-                    "both divide")
-            continue
-        plan = _plan_of(m)
-        heads = plan.heads(m) if plan is not None and plan.heads else None
-        if heads is not None and heads % size:
+        heads = _heads(m)
+        if heads is not None and heads < size:
             raise ValueError(
                 f"--model-parallel {size}: block {name!r} "
-                f"({type(m).__name__}) has {heads} heads, which {size} does "
-                "not divide: each rank holds whole heads")
+                f"({type(m).__name__}) has {heads} heads, fewer than {size}: "
+                "each rank holds at least one whole head")
 
 
 def _set_role(owner: nn.Module, attr: str, shard: ModelShard, rank: int,
@@ -479,10 +510,12 @@ def shard_tensor_parallel(model: nn.Module, size: Optional[int] = None,
     check_tensor_parallel(model, size)
     for block in list(model.modules()):
         plan = {}
+        heads = _heads(block)
         for leaf, shard in _split_leaves(block).items():
             owner, attr, old = _leaf(block, leaf)
-            if shard.parts == 1:
-                shard = replace(shard, whole=old.shape[shard.dim])
+            whole = old.shape[shard.dim]
+            shard = replace(shard, whole=whole, unit=(
+                whole // shard.parts // heads if shard.by_heads else 1))
             plan[leaf] = shard
             piece = model_piece(old.detach(), shard, rank, size).clone()
             new = nn.Parameter(piece, requires_grad=old.requires_grad)
@@ -493,8 +526,11 @@ def shard_tensor_parallel(model: nn.Module, size: Optional[int] = None,
         if plan:
             block.tp_plan = plan
             block.tp_size = size
+            block.tp_rank = rank
             if _is_block(block):
-                block.local_heads = block.heads // size
+                block.local_heads = piece_sizes(block.heads, size)[rank]
+                block.mlp_pieces = piece_sizes(
+                    plan["mlp.c_fc.kernel"].whole, size)
     return model
 
 

@@ -234,6 +234,39 @@ def make_train_step(args_cfg: Dict[str, Any], prompt_table=None,
     return step
 
 
+def make_multi_step(args_cfg: Dict[str, Any], num_steps: int,
+                    prompt_table=None, teacher=None,
+                    deterministic: bool = False):
+    """(state, batches, generator) -> (state, metrics): ``num_steps``
+    optimizer steps in one call (JAX's ``make_multi_step``,
+    loop.py:220-259, a ``lax.scan`` of the step over stacked batches).
+    Every tensor of ``batches`` is stacked [K, B, ...]; step k is
+    ``make_train_step``'s step on the k-th slice, in order, drawing its
+    dropout masks from ``generator`` after step k - 1 drew its own (JAX
+    splits its key K ways instead). ``state.step`` advances by K, and the
+    metrics come back stacked [K] under ``make_train_step``'s keys."""
+    if num_steps < 1:
+        raise ValueError(f"make_multi_step: num_steps must be >= 1, got "
+                         f"{num_steps}")
+    one = make_train_step(args_cfg, prompt_table, teacher, deterministic)
+
+    def multi(state: TrainState, batches, generator):
+        for key, v in batches.items():
+            if v.shape[:1] != (num_steps,):
+                raise ValueError(f"make_multi_step: batches[{key!r}] must be "
+                                 f"stacked [{num_steps}, ...], got "
+                                 f"{tuple(v.shape)}")
+        per_step = []
+        for k in range(num_steps):
+            state, metrics = one(state, {key: v[k] for key, v in
+                                         batches.items()}, generator)
+            per_step.append(metrics)
+        return state, {key: torch.stack([m[key] for m in per_step])
+                       for key in per_step[0]}
+
+    return multi
+
+
 def make_accum_train_step(args_cfg: Dict[str, Any], accum_freq: int,
                           prompt_table=None, deterministic: bool = False):
     """(state, batch, generator) -> (state, metrics): one update from
