@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--profile] [--coca-only | --siglip-only |
                                        --zoo-only | --pretrained-only |
                                        --dist-only | --tp-only |
-                                       --tp-zoo-only]
+                                       --tp-zoo-only | --fp16-only]
     python3 chip_smoke.py --clipa-batch-probe | --siglip-batch-probe |
                           --zoo-batch-probe
 
@@ -313,7 +313,11 @@ fused MLP), in phases that each print one JSON line:
    with each rank's peak memory beside the one-process peak; and
    ViT-B-16-plus-240 at batch 32 on TP_UNEVEN_N = 4 gloo ranks, its heads
    uneven (vision 14: 4, 4, 3, 3 on the non-fused route; text 10: 3, 3,
-   2, 2 on the fused halves' partial modes), at the same bars. (d) tp_zoo,
+   2, 2 on the fused halves' partial modes), at the same bars; and
+   swin_base_patch4_window7_224, cut to one block a stage, at batch 16 on
+   TP_SWIN_N = 8 gloo ranks: its first stage's attention (4 heads, fewer
+   than the ranks) replicated whole on every rank, the rest split, at the
+   same bars. (d) tp_zoo,
    the towers outside the ResidualAttentionBlocks (parallel/sharding.py's
    plans): in (b)'s two processes, after it, EVA02-L-14 at full width
    (1024, 16 heads of 64, SwiGLU 2730 with its mlp_norm, rope) cut to
@@ -332,6 +336,23 @@ fused MLP), in phases that each print one JSON line:
    tensors through the host, so no time of (b), (c) or (d) is a speed.
    (a) holds #6 at EVA02-L-14's local shape (TP_ZOO_BATCH, 8 of 16, 257,
    64), forward and backward, to the whole-head kernel too.
+
+After phase 8, fp16: the GAP tower of phase 8 in ``pure_fp16`` (float16
+parameters but the LayerNorms'), one serve batch of 32 and one train step
+of 32, each against the plain route (use_kernels off, the plain
+normalize) at phases 4 and 6's bars (the step's noise floor from images
+one float16 step up and down): its vision cores run #6's float16
+kernels (12 forwards a batch, 12 forwards and 12 backwards a step), the
+normalize #5 (fp32, then one cast), and #1-#4 and #6's bf16 kernels
+nothing, the prompt table included. Then intermediates:
+``forward_intermediates`` of phase 3's ViT-B-32 and phase 8's GAP tower
+in bf16, every block of both towers, with the logits, on 32 images and
+32 scar prompts: the final features bit-equal to ``encode_image`` /
+``encode_text``, one forward's launches, and every block's output, the
+features and the logits against the plain route at the serve bar
+(cosine >= 0.999 a sample; logits within 5e-2). The kernel rows hold
+#6's float16 instantiations (FLASH_F16_CASES) to their plain versions in
+float16 beside SDPA in float16.
 
 After phase 2, flash_poison: flash attention at head dims 80 and 112
 (L = 257) and at the 336 px eval's L = 577 (dh 80) on q, k, v, dO whose
@@ -354,7 +375,8 @@ launches and the card; ``--siglip-only`` the same for phases 20 and 21,
 ``--zoo-only`` for phase 22, ``--pretrained-only`` for phase 23,
 ``--dist-only`` for phase 24 (with the CLIPA model at full depth) and
 phase 25's (b), ``--tp-only`` for phase 25's (c), ``--tp-zoo-only``
-for phase 25's (d) at full depth; ``--tp-nccl`` (four
+for phase 25's (d) at full depth, ``--fp16-only`` for fp16 and
+intermediates; ``--tp-nccl`` (four
 cards) runs the build and phase_tp_nccl alone.
 ``--siglip-batch-probe`` runs only the build and phase_siglip_batch_probe
 (ViT-SO400M-14-SigLIP through cli.main at growing batches until one runs
@@ -375,6 +397,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import functools
 import io
 import json
 import logging
@@ -588,10 +611,11 @@ def _card() -> str:
 
 
 def _peaks(name: str):
-    """{"bf16": FLOP/s, "fp32": FLOP/s}, bytes/s of the card ``name``."""
+    """{"bf16": FLOP/s, "fp16": FLOP/s (the same dense tensor-core rate),
+    "fp32": FLOP/s}, bytes/s of the card ``name``."""
     for key, bf16, fp32, rate in _PEAKS:
         if key in name:
-            return {"bf16": bf16, "fp32": fp32}, rate
+            return {"bf16": bf16, "fp16": bf16, "fp32": fp32}, rate
     raise RuntimeError(f"no published peak rates for {name!r}")
 
 
@@ -839,6 +863,11 @@ FLASH_CASES = ((TRAIN_BATCH, 12, GAP_L, 64), (1, 12, 128, 64),
 FLASH_MASK_CASES = ((32, 8, 77, 128, True), (16, 16, 256, 64, True),
                     (32, 16, 77, 80, True), (8, 4, 256, 256, False),
                     (8, 4, 256, 256, True))
+# flash attention's float16 instantiations (pure_fp16; no mask): the GAP
+# ViT-B-16's shape, which the fp16 phase runs, and ViT-H-14's dh 80 at
+# L = 257 (B, H, L, dh)
+FLASH_F16_CASES = ((TRAIN_BATCH, 12, GAP_L, 64),
+                   (CLIPA_PATH_BATCH, 16, 257, 80))
 
 
 def _gap_kernel_cases(gen):
@@ -850,18 +879,23 @@ def _gap_kernel_cases(gen):
     SDPA takes it), and its forward and backward through autograd. A
     masked row counts the operations of the score pairs the mask leaves
     (its bound: the causal half of the work, what a kernel that skipped
-    the masked pairs would do) and the mask's bytes."""
+    the masked pairs would do) and the mask's bytes. The float16 rows
+    (FLASH_F16_CASES: the ``_f16`` kernels, SDPA in float16) follow the
+    bf16 ones."""
     import torch.nn.functional as F
 
     from xtagclip_tpu_torch.models.text import build_causal_mask
     from xtagclip_tpu_torch.ops import flash_attn
 
-    dev, bf = "cuda", torch.bfloat16
+    dev, bf, f16 = "cuda", torch.bfloat16, torch.float16
     cases = []
-    for b, h, l, dh, causal in ([c + (False,) for c in FLASH_CASES]
-                                + list(FLASH_MASK_CASES)):
+    for b, h, l, dh, causal, dt in (
+            [c + (False, bf) for c in FLASH_CASES]
+            + [c + (bf,) for c in FLASH_MASK_CASES]
+            + [c + (False, f16) for c in FLASH_F16_CASES]):
+        sfx, kind = ("_f16", "fp16") if dt == f16 else ("", "bf16")
         d = h * dh
-        qkv = torch.randn((b, l, 3 * d), generator=gen, device=dev).to(bf)
+        qkv = torch.randn((b, l, 3 * d), generator=gen, device=dev).to(dt)
         q, k, v = (t.reshape(b, l, h, dh) for t in qkv.split(d, dim=-1))
         shape = f"B={b} H={h} L={l} dh={dh}" + (" causal" if causal else "")
         elems = b * h * l * dh
@@ -873,13 +907,14 @@ def _gap_kernel_cases(gen):
         mask_args = (mask,) if causal else ()
         sdpa_in = [t.transpose(1, 2) for t in (q, k, v)]
         sdpa_kw = {"attn_mask": mask.to(bf)} if causal else {}
-        cases.append(("flash_mha", shape, (q, k, v, "blhd", *mask_args),
+        cases.append(("flash_mha" + sfx, shape,
+                      (q, k, v, "blhd", *mask_args),
                       4 * b * h * pairs * dh, 4 * 2 * elems + mask_bytes,
-                      "bf16", lambda a=sdpa_in, kw=sdpa_kw:
+                      kind, lambda a=sdpa_in, kw=sdpa_kw:
                       F.scaled_dot_product_attention(*a, **kw)))
         o, lse = flash_attn._flash_fwd(q, k, v, "blhd", with_lse=True,
                                        mask=mask)
-        do = torch.randn(o.shape, generator=gen, device=dev).to(bf)
+        do = torch.randn(o.shape, generator=gen, device=dev).to(dt)
         leaves = [t.detach().clone().requires_grad_(True) for t in sdpa_in]
         do_t = do.transpose(1, 2)
         with torch.inference_mode(False), torch.enable_grad():
@@ -895,10 +930,10 @@ def _gap_kernel_cases(gen):
                 out = F.scaled_dot_product_attention(*leaves, **kw)
                 return torch.autograd.grad(out, leaves, do_t)
 
-        cases.append(("flash_mha_bwd", shape,
+        cases.append(("flash_mha_bwd" + sfx, shape,
                       (q, k, v, o, lse, do, "blhd", *mask_args),
                       10 * b * h * pairs * dh,
-                      8 * 2 * elems + 4 * b * h * l + mask_bytes, "bf16",
+                      8 * 2 * elems + 4 * b * h * l + mask_bytes, kind,
                       {"library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd}))
     n, d, hd = TRAIN_BATCH * GAP_L, 768, 3072
     for rows, d, hd, acts in ((n, d, hd, ("gelu", "quick_gelu")),
@@ -955,6 +990,10 @@ _KERNEL_META = {
     "flash_mha_bwd": ("xtagclip_tpu_torch/csrc/flash_attn_bwd.cuh",
                       "xtagclip_tpu/ops/flash_attn.py:93"),
 }
+# the float16 instantiations: the same kernels (flash_attn_{fwd,bwd}_f16.cu
+# instantiate them), the same Pallas kernel replaced
+_KERNEL_META["flash_mha_f16"] = _KERNEL_META["flash_mha"]
+_KERNEL_META["flash_mha_bwd_f16"] = _KERNEL_META["flash_mha_bwd"]
 
 
 def _ordered(t):
@@ -976,10 +1015,11 @@ def _close_normalize(out, ref):
     return ok and bool(torch.isfinite(out).all().item()), err, bar
 # kernels whose outputs a run checks for bit-for-bit repeats
 _REPEATS = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
-            "flash_mha_bwd")
+            "flash_mha_bwd", "flash_mha_bwd_f16")
 _OUTPUTS = {"fused_attn_half_bwd": ("dx", "dqkv", "dwout", "dbout", "dls",
                                      "dlb"),
-            "flash_mha_bwd": ("dq", "dk", "dv")}
+            "flash_mha_bwd": ("dq", "dk", "dv"),
+            "flash_mha_bwd_f16": ("dq", "dk", "dv")}
 
 
 def _times(kernel_fn, plain_fn, library) -> dict:
@@ -1024,6 +1064,9 @@ def _kernel_fns():
         "fused_mlp": (fused_mlp.fused_mlp, fused_mlp.reference_fused_mlp),
         "flash_mha": (flash_attn.flash_mha, flash_attn.reference_flash_mha),
         "flash_mha_bwd": (flash_attn.flash_mha_bwd, plain_flash_bwd),
+        "flash_mha_f16": (flash_attn.flash_mha,
+                          flash_attn.reference_flash_mha),
+        "flash_mha_bwd_f16": (flash_attn.flash_mha_bwd, plain_flash_bwd),
     }
 
 
@@ -1207,15 +1250,22 @@ def _wrappers():
 def _reset_counts() -> None:
     for w in _wrappers():
         w.launches = 0
+        if hasattr(w, "launches_f16"):
+            w.launches_f16 = 0
 
 
 def _counts() -> dict:
-    return {w.__name__: w.launches for w in _wrappers()}
+    """Each wrapper's launches; flash attention's float16 kernels count
+    apart, as ``<wrapper>_f16`` (ops/flash_attn.py)."""
+    out = {w.__name__: w.launches for w in _wrappers()}
+    out.update({f"{w.__name__}_f16": w.launches_f16 for w in _wrappers()
+                if hasattr(w, "launches_f16")})
+    return out
 
 
 def _want(**nonzero) -> dict:
     """Launches of every wrapper: ``nonzero``, and 0 for the rest."""
-    out = dict.fromkeys((w.__name__ for w in _wrappers()), 0)
+    out = dict.fromkeys(_counts(), 0)
     out.update(nonzero)
     return out
 
@@ -1591,14 +1641,14 @@ def _train_batches(ptable, side: int = IMAGE_SIZE):
     return out
 
 
-def _device_batch(host, keys, plain=False):
-    """A host batch on the card, its uint8 images normalized there (by
-    the kernel, or by its plain version)."""
+def _device_batch(host, keys, plain=False, dtype=torch.bfloat16):
+    """A host batch on the card, its uint8 images normalized there to
+    ``dtype`` (by the kernel, or by its plain version)."""
     from xtagclip_tpu_torch.ops import preprocess
 
     norm = (preprocess.normalize_images_reference if plain
             else preprocess.normalize_images)
-    batch = {"images": norm(host["images"].to("cuda"), dtype=torch.bfloat16)}
+    batch = {"images": norm(host["images"].to("cuda"), dtype=dtype)}
     for k in keys:
         batch[k] = host[k].to("cuda")
     return batch
@@ -1695,11 +1745,12 @@ ZERO_GRAD_PARAMS = ("crossattention.key.bias", "attn_pool.attn.k_proj.bias")
 
 
 def _bf16_ulp_shift(x, steps: int):
-    """x (bf16) with every element ``steps`` bf16 steps further from zero
-    (nearer for a negative ``steps``; zeros move up)."""
+    """x (bf16, or float16) with every element ``steps`` steps of its
+    dtype further from zero (nearer for a negative ``steps``; zeros move
+    up)."""
     bits = x.view(torch.int16)
     moved = torch.where(bits & 0x7FFF == 0, bits + abs(steps), bits + steps)
-    return moved.view(torch.bfloat16)
+    return moved.view(x.dtype)
 
 
 def _cos(a, b) -> float:
@@ -1828,6 +1879,181 @@ def phase_train_path(card: str, ptable, path: dict):
     if not ok:
         raise AssertionError(f"kernel train step disagrees with plain: "
                              f"{result}")
+
+
+def phase_fp16(card: str, ptable) -> dict:
+    """fp16 (module doc): the GAP ViT-B-16 XTag model at 256 px in
+    ``pure_fp16``, one serve batch of 32 and one train step of 32, each
+    against the plain route (use_kernels off, the plain normalize) at
+    phases 4 and 6's bars. Its vision blocks' cores run #6's float16
+    kernels (12 forwards a batch; 12 forwards and 12 backwards a step);
+    nothing else launches a kernel but #5, whose fp32 output one cast
+    rounds to float16: #1-#4 and #6's bf16 kernels never. Returns the
+    launches."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+    from xtagclip_tpu_torch.serving import (
+        make_xtag_serve_step,
+        precompute_prompt_features,
+    )
+    from xtagclip_tpu_torch.train.loop import make_train_step
+
+    f16, path = torch.float16, _paths()["gap"]
+    model = create_model(path["model"], use_tagging=True, use_fusion=True,
+                         precision="pure_fp16", init_seed=1,
+                         **path["kwargs"])
+    plain = copy.deepcopy(model)
+    set_use_kernels(plain, False)
+    start = copy.deepcopy(plain.state_dict())
+    # the serve batch (the prompt table: the text tower's float16 route
+    # is the plain one, kernels on or off)
+    _reset_counts()
+    with torch.inference_mode():
+        table = precompute_prompt_features(model, ptable, template_id=0,
+                                           batch_size=PRECOMPUTE_BATCH)
+        pre_counts = _counts()
+        u8 = _serve_batches(GAP_IMAGE_SIZE)[0].to("cuda")
+        _reset_counts()
+        feat, tags, logits = make_xtag_serve_step(model, table)(
+            preprocess.normalize_images(u8, dtype=f16))
+        torch.cuda.synchronize()
+        serve_counts = _counts()
+        p_feat, p_tags, p_logits = make_xtag_serve_step(plain, table)(
+            preprocess.normalize_images_reference(u8, dtype=f16))
+    serve = {
+        "launches_precompute": pre_counts, "launches_serve": serve_counts,
+        "logits_max_abs_err": (logits.float()
+                               - p_logits.float()).abs().max().item(),
+        "logits_ok": bool(torch.allclose(logits.float(), p_logits.float(),
+                                         atol=5e-2, rtol=5e-2)),
+        "image_feature_cos_min": _cosine(feat, p_feat).min().item(),
+        "tag_agreement": (tags == p_tags).float().mean().item(),
+        "finite": all(bool(torch.isfinite(t.float()).all())
+                      for t in (feat, logits, table, p_feat, p_logits)),
+        "dtypes": sorted({str(t.dtype) for t in (feat, logits, table)})}
+    serve["ok"] = (serve["logits_ok"] and serve["image_feature_cos_min"]
+                   >= 0.999 and serve["tag_agreement"] >= 0.95
+                   and serve["finite"] and pre_counts == _want()
+                   and serve_counts == _want(flash_mha_f16=12,
+                                             normalize_images=1))
+    # the train step, kernels on against the plain route (and the plain
+    # step on images one float16 step up and down: each gradient's noise
+    # floor, as phase 6)
+    host = _train_batches(ptable, GAP_IMAGE_SIZE)[0]
+    batch = _device_batch(host, ("additional", "texts"), dtype=f16)
+    p_batch = _device_batch(host, ("additional", "texts"), plain=True,
+                            dtype=f16)
+    step = make_train_step({})
+    _reset_counts()
+    out = _steps_vs_plain((("kernels", model, batch),), step, plain, start)
+    step_counts = _counts()
+    out.update(_steps_vs_plain((
+        ("plain", plain, p_batch),
+        ("plain_up", plain, dict(p_batch, images=_bf16_ulp_shift(
+            p_batch["images"], 1))),
+        ("plain_down", plain, dict(p_batch, images=_bf16_ulp_shift(
+            p_batch["images"], -1)))), step, plain, start))
+    train, _ = _judge_steps(out)
+    train["launches_step"] = step_counts
+    train["ok"] = train["ok"] and step_counts == _want(
+        flash_mha_f16=12, flash_mha_bwd_f16=12)
+    result = {"phase": "fp16", "card": card,
+              "model": f"{path['label']} xtag pure_fp16",
+              "batch": SERVE_BATCH, "serve": serve, "train_path": train,
+              "ok": serve["ok"] and train["ok"]}
+    _emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"fp16 phase failed its checks: {result}")
+    del model, plain
+    # the scar CLI at --precision pure_fp16: one epoch, its eval and its
+    # checkpoints (phase 9's checks, float16's launches)
+    cli = phase_gap_trainer(card, "pure_fp16", FP16_TRAINER_ROWS,
+                            "fp16_trainer")
+    return {"serve": serve_counts, "train": step_counts, "trainer": cli}
+
+
+def phase_intermediates(card: str, ptable) -> dict:
+    """intermediates (module doc): ``forward_intermediates`` of the
+    ViT-B-32 XTag model and the GAP tower in bf16, every block of both
+    towers (NCHW image grids), with the logits, on a serve batch of 32
+    images and 32 scar prompts: its final features bit-equal to
+    ``encode_image`` / ``encode_text`` on the same route, its launches
+    one forward's (the fused halves; the GAP tower's #6 and #4), and
+    every intermediate, feature and logit held to the plain route (the
+    same call with use_kernels off, the plain normalize) at the serve
+    bar: cosine >= 0.999 a sample, logits within 5e-2. Returns the
+    launches."""
+    from xtagclip_tpu_torch.factory import cast_for_compute, create_model
+    from xtagclip_tpu_torch.models.layers import set_use_kernels
+    from xtagclip_tpu_torch.ops import preprocess
+
+    bf = torch.bfloat16
+    texts = torch.from_numpy(ptable[0, 0, :SERVE_BATCH].astype(
+        np.int64)).to("cuda")
+    result = {"phase": "intermediates", "card": card}
+    launches = {}
+    wants = {"b32": _want(fused_attn_half=24, fused_mlp_half=24),
+             "gap": _want(flash_mha=12, fused_mlp=12, fused_attn_half=12,
+                          fused_mlp_half=12)}
+    for key in ("b32", "gap"):
+        path = _paths()[key]
+        model = create_model(path["model"], use_tagging=True,
+                             use_fusion=True, precision="bf16", init_seed=0,
+                             **path["kwargs"])
+        cast_for_compute(model, bf)
+        u8 = _serve_batches(path["image"])[0].to("cuda")
+        grid = path["image"] // model.visual.patch_size[0]
+        with torch.inference_mode():
+            images = preprocess.normalize_images(u8, dtype=bf)
+            _reset_counts()
+            out = model.forward_intermediates(images, texts,
+                                              output_logits=True)
+            torch.cuda.synchronize()
+            counts = _counts()
+            img, _ = model.encode_image(images, normalize=True)
+            txt, _ = model.encode_text(texts, normalize=True)
+            set_use_kernels(model, False)
+            ref = model.forward_intermediates(
+                preprocess.normalize_images_reference(u8, dtype=bf), texts,
+                output_logits=True)
+            set_use_kernels(model, True)
+        cos = {k: min(_cosine(a.flatten(1), b.flatten(1)).min().item()
+                      for a, b in zip(out[k], ref[k]))
+               for k in ("image_intermediates", "text_intermediates")}
+        cos.update({k: _cosine(out[k], ref[k]).min().item()
+                    for k in ("image_features", "text_features")})
+        rec = {"model": path["label"], "launches": counts,
+               "blocks": [len(out["image_intermediates"]),
+                          len(out["text_intermediates"])],
+               "image_grid": list(out["image_intermediates"][0].shape),
+               "features_equal_encode": bool(
+                   torch.equal(out["image_features"], img)
+                   and torch.equal(out["text_features"], txt)),
+               "cos_min": cos,
+               "logits_max_abs_err": (out["image_logits"]
+                                      - ref["image_logits"]).abs().max()
+               .item(),
+               "logits_ok": bool(torch.allclose(
+                   out["image_logits"], ref["image_logits"], atol=5e-2,
+                   rtol=5e-2)),
+               "finite": all(bool(torch.isfinite(t.float()).all()) for t in
+                             out["image_intermediates"]
+                             + out["text_intermediates"])}
+        rec["ok"] = (rec["features_equal_encode"] and rec["logits_ok"]
+                     and rec["finite"] and min(cos.values()) >= 0.999
+                     and counts == wants[key] and rec["blocks"] == [12, 12]
+                     and rec["image_grid"] == [SERVE_BATCH, model.visual.width,
+                                             grid, grid])
+        result[key] = rec
+        launches[key] = counts
+        del model
+    result["ok"] = result["b32"]["ok"] and result["gap"]["ok"]
+    _emit(result)
+    if not result["ok"]:
+        raise AssertionError(f"intermediates phase failed its checks: "
+                             f"{result}")
+    return launches
 
 
 # the scar label vocabulary (label_info.json) of the reference data
@@ -2126,12 +2352,14 @@ def phase_trainer(card: str, keep_tag: str, profile: bool = False):
     return counts
 
 
-def phase_gap_trainer(card: str):
+def phase_gap_trainer(card: str, precision: str = "amp",
+                      rows=GAP_TRAINER_ROWS, name: str = "gap_trainer"):
     """The GAP tower's main path, part 4: the scar training CLI as a user
     reaches a config of their own, ``--model`` naming a JSON in an
     XTAGCLIP_EXTRA_CONFIGS directory (ViT-B-16's config with the GAP
     vision overrides): one plain epoch with the scar eval and the
-    checkpoint policy. Returns the launches of the call."""
+    checkpoint policy, at ``--precision precision`` on ``rows``. Returns
+    the launches of the call."""
     from xtagclip_tpu_torch.cli import main_other
     from xtagclip_tpu_torch.factory import get_model_config
     from xtagclip_tpu_torch.train import checkpoint, zero_shot
@@ -2154,7 +2382,7 @@ def phase_gap_trainer(card: str):
         t0 = time.perf_counter()
         csvs = {split: _write_scar_split(os.path.join(tmp, split), n, rng,
                                          GAP_TRAINER_IMAGE)
-                for split, n in GAP_TRAINER_ROWS.items()}
+                for split, n in rows.items()}
         t_data = time.perf_counter() - t0
         logs = os.path.join(tmp, "logs")
         argv = [
@@ -2164,7 +2392,7 @@ def phase_gap_trainer(card: str):
             "--scar-train-csv", csvs["scar_train"],
             "--scar-val-csv", csvs["scar_val"],
             "--batch-size", str(TRAIN_BATCH), "--workers",
-            str(TRAINER_WORKERS), "--precision", "amp", "--lr",
+            str(TRAINER_WORKERS), "--precision", precision, "--lr",
             str(TRAIN_LR), "--wd", str(TRAIN_WD), "--warmup",
             str(TRAIN_WARMUP), "--prompt-template-setting", "total",
             "--logs", logs, "--name", "gap", "--log-every-n-steps", "1",
@@ -2197,7 +2425,7 @@ def phase_gap_trainer(card: str):
     trains = [c for c in log if c["what"] == "train_one_epoch"]
     evals = [c for c in log if c["what"] == "run_scar_eval"]
     builds = [c for c in log if c["what"] == "build_zero_shot_classifier"]
-    steps = GAP_TRAINER_ROWS["scar_train"] // TRAIN_BATCH
+    steps = rows["scar_train"] // TRAIN_BATCH
     eval_images = sum(c["out"]["n"] for c in evals)
     eval_batches = sum(math.ceil(c["out"]["n"] / TRAIN_BATCH) for c in evals)
     per_step = _per(trains, steps)
@@ -2209,13 +2437,13 @@ def phase_gap_trainer(card: str):
               *evals_kept.values()]
     finite = all(math.isfinite(v) for v in values)
     result = {
-        "phase": "gap_trainer", "card": card,
+        "phase": name, "card": card,
         "entry": f"xtagclip_tpu_torch.cli.main_other.main --model "
-                 f"{GAP_CONFIG} (XTAGCLIP_EXTRA_CONFIGS)",
-        "model": f"{path['label']} xtag, bf16 over fp32 masters, seeded "
-                 "random init",
+                 f"{GAP_CONFIG} (XTAGCLIP_EXTRA_CONFIGS) --precision "
+                 f"{precision}",
+        "model": f"{path['label']} xtag, seeded random init",
         "data": f"seeded PNG files {GAP_TRAINER_IMAGE}x{GAP_TRAINER_IMAGE} "
-                f"({GAP_TRAINER_ROWS}), crops {GAP_IMAGE_SIZE}, "
+                f"({rows}), crops {GAP_IMAGE_SIZE}, "
                 f"{TRAINER_WORKERS} loader threads",
         "data_write_s": t_data, "run_s": t_run, "batch": TRAIN_BATCH,
         "steps": steps, "samples_per_s": tm["samples_per_second"],
@@ -2229,12 +2457,24 @@ def phase_gap_trainer(card: str):
         "launches_per_eval_batch": per_eval_batch,
         "launches_per_classifier_build": per_build}
     _emit(result)
+    want = ((path["per_step"], path["per_batch"], path["per_chunk"])
+            if precision == "amp" else _fp16_per())
     if not (finite and not missing and cls_free
-            and per_step == path["per_step"]
-            and per_eval_batch == path["per_batch"]
-            and per_build == path["per_chunk"]):
+            and (per_step, per_eval_batch, per_build) == want):
         raise AssertionError(f"GAP trainer phase failed its checks: {result}")
     return counts
+
+
+FP16_TRAINER_ROWS = {"scar_train": 32, "scar_val": 16}
+
+
+def _fp16_per() -> tuple:
+    """The GAP tower's launches in pure_fp16 per train step, per eval
+    batch and per classifier build: #6's float16 kernels in the vision
+    blocks and #5 once a batch; nothing else (the text tower's float16
+    route is plain)."""
+    return (_want(flash_mha_f16=12, flash_mha_bwd_f16=12, normalize_images=1),
+            _want(flash_mha_f16=12, normalize_images=1), _want())
 
 
 PREDICT_IMAGES = 70  # two batches of 32 and a ragged one of 6
@@ -5826,6 +6066,12 @@ TP_N = 2  # the model axis of the tp phase's shards
 TP_UNEVEN_MODEL = "ViT-B-16-plus-240"
 TP_UNEVEN_N = 4
 TP_UNEVEN_HEADS = {"visual": [4, 4, 3, 3], "text": [3, 3, 2, 2]}
+# --tp-only's replication: swin_base_patch4_window7_224 (stages of 4, 8,
+# 16 and 32 heads) at --model-parallel 8, cut to one block a stage: its
+# first stage's attention (4 heads) is replicated whole on every rank,
+# the rest split; eight gloo ranks share the card
+TP_SWIN_MODEL = "swin_base_patch4_window7_224"
+TP_SWIN_N, TP_SWIN_BATCH = 8, 16
 TP_STEPS = 8  # --tp-nccl: steps of the scar flags a data rank
 # (d) tp_zoo: EVA02-L-14's step at this batch, its vision trunk cut to
 # TP_ZOO_LAYERS blocks in the no-argument run; with --tp-zoo-only the
@@ -6109,16 +6355,25 @@ def phase_tp_kernels(card: str) -> list:
 
 @contextlib.contextmanager
 def _trunk_layers(model_name: str, layers):
-    """``model_name``'s EVA vision trunk cut to ``layers`` blocks while
-    the context lasts (None: as it is)."""
+    """``model_name``'s EVA vision trunk cut to ``layers`` blocks, or its
+    Swin trunk to ``layers`` blocks a stage, while the context lasts
+    (None: as it is)."""
     if layers is None:
         yield
         return
     from xtagclip_tpu_torch.factory import get_model_config
-    from xtagclip_tpu_torch.models import eva
+    from xtagclip_tpu_torch.models import eva, swin
 
-    cfg = eva.EVA_CONFIGS[get_model_config(model_name)["vision_cfg"][
-        "timm_model_name"]]
+    timm_name = get_model_config(model_name)["vision_cfg"]["timm_model_name"]
+    if timm_name.startswith("swin_"):
+        whole = swin.SwinTrunk
+        swin.SwinTrunk = functools.partial(whole, depths=(layers,) * 4)
+        try:
+            yield
+        finally:
+            swin.SwinTrunk = whole
+        return
+    cfg = eva.EVA_CONFIGS[timm_name]
     whole = cfg["layers"]
     cfg["layers"] = layers
     try:
@@ -6275,16 +6530,36 @@ def phase_tp(card: str, tmp: str) -> dict:
     u["ok"] = (u["ok"] and u["heads_by_rank"] == TP_UNEVEN_HEADS
                and all(r["flash_mha"] > 0 and r["fused_attn_half"] > 0
                        for r in u["launches_by_rank"]))
+    w, = _run_dist(d, "tp_swin", [["tp_step", {
+        "model": TP_SWIN_MODEL, "batch": TP_SWIN_BATCH, "trunk_layers": 1,
+        "model_parallel": TP_SWIN_N}]], TP_SWIN_N)
+    w["replicated_blocks"] = _replicated(TP_SWIN_MODEL, TP_SWIN_N)
+    w["ok"] = (w["ok"] and w["replicated_blocks"]
+               == ["trunk.stage0_block0.attn"])
     result = {"phase": "tp", "card": card,
               "c_clipa_vit_h14_model_parallel_2": c,
               f"c_{TP_UNEVEN_MODEL}_model_parallel_{TP_UNEVEN_N}": u,
-              "ok": c["ok"] and u["ok"]}
+              f"c_{TP_SWIN_MODEL}_model_parallel_{TP_SWIN_N}": w,
+              "ok": c["ok"] and u["ok"] and w["ok"]}
     _emit(result)
     shutil.rmtree(d, ignore_errors=True)
     if not result["ok"]:
         raise AssertionError(f"tp phase failed its checks: {result}")
     return {"tp_clipa": c["launches_by_rank"][0],
-            "tp_uneven": u["launches_by_rank"][0]}
+            "tp_uneven": u["launches_by_rank"][0],
+            "tp_swin": w["launches_by_rank"][0]}
+
+
+def _replicated(model_name: str, size: int) -> list:
+    """The blocks of ``model_name``'s vision trunk (one block a stage, as
+    the tp phase cuts it) that --model-parallel ``size`` replicates whole
+    (a meta build)."""
+    from xtagclip_tpu_torch.factory import create_model
+    from xtagclip_tpu_torch.parallel.sharding import replicated_blocks
+
+    with _trunk_layers(model_name, 1):
+        model = create_model(model_name, device="meta", skip_init=True)
+    return replicated_blocks(model.visual, size)
 
 
 def _launched_zoo(res: dict) -> bool:
@@ -6475,9 +6750,14 @@ def _launches(entries, paths) -> None:
     (``tp``) counts the tp phase's paths, a whole row the others."""
     for e in entries:
         e["launches_by_path"] = {
-            k: v[e["name"]] for k, v in paths.items()
+            k: v.get(e["name"], 0) for k, v in paths.items()
             if k.startswith("tp_") == ("tp" in e)}
         e["launches"] = sum(e["launches_by_path"].values())
+
+
+def _prefixed(prefix: str, launches: dict) -> dict:
+    """A phase's {path: launches} under its phase's name."""
+    return {f"{prefix}_{k}": v for k, v in launches.items()}
 
 
 def main(argv=()) -> int:
@@ -6520,6 +6800,9 @@ def main(argv=()) -> int:
                     help="run only the build, the kernel rows and the tp "
                          "phase's EVA02-L-14, ViT-SO400M-14-SigLIP and "
                          "mt5-xl-ViT-H-14 steps at full depth")
+    ap.add_argument("--fp16-only", action="store_true",
+                    help="run only the build, the kernel rows and the fp16 "
+                         "and intermediates phases")
     ap.add_argument("--tp-nccl", action="store_true",
                     help="on four cards: run only the build and the scar "
                          "flags at --model-parallel 2 on a 2 x 2 NCCL mesh "
@@ -6576,9 +6859,15 @@ def main(argv=()) -> int:
     block_paths = timed("flash_block", phase_flash_block, card)
     if args.coca_only or args.siglip_only or args.zoo_only or \
             args.pretrained_only or args.dist_only or args.tp_only or \
-            args.tp_zoo_only:
+            args.tp_zoo_only or args.fp16_only:
         with tempfile.TemporaryDirectory(prefix="xtag_part_") as tmp:
-            if args.tp_only:
+            if args.fp16_only:
+                ptable = _scar_prompt_table()
+                paths = _prefixed("fp16", timed("fp16", phase_fp16, card,
+                                                ptable))
+                paths.update(_prefixed("intermediates", timed(
+                    "intermediates", phase_intermediates, card, ptable)))
+            elif args.tp_only:
                 paths = timed("tp", phase_tp, card, tmp)
             elif args.tp_zoo_only:
                 paths = timed("tp_zoo", phase_tp_zoo, card, tmp)
@@ -6626,6 +6915,10 @@ def main(argv=()) -> int:
         paths["gap_train"], g_train_one = timed("gap_train", phase_train,
                                                 card, ptable, gap)
         timed("gap_train_path", phase_train_path, card, ptable, gap)
+        paths.update(_prefixed("fp16", timed("fp16", phase_fp16, card,
+                                             ptable)))
+        paths.update(_prefixed("intermediates", timed(
+            "intermediates", phase_intermediates, card, ptable)))
         paths["gap_trainer"] = timed("gap_trainer", phase_gap_trainer, card)
         paths["gap_predict"] = timed("gap_predict", phase_gap_predict, card,
                                      g_model, g_table, tmp)

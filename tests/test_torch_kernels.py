@@ -480,16 +480,16 @@ FLASH_SHAPES = [
 ]
 
 
-def _flash_inputs(b, h, l, dh, layout, seed, device):
+def _flash_inputs(b, h, l, dh, layout, seed, device, dtype=torch.bfloat16):
     """q, k, v as the model makes them: column slices of one [B, L, 3 H dh]
     projection (blhd views with row stride 3 H dh), or bhld tensors."""
     rng = np.random.default_rng(seed)
     if layout == "blhd":
         qkv = torch.from_numpy(rng.standard_normal(
-            (b, l, 3 * h * dh)).astype(np.float32)).to(device, torch.bfloat16)
+            (b, l, 3 * h * dh)).astype(np.float32)).to(device, dtype)
         return [t.reshape(b, l, h, dh) for t in qkv.split(h * dh, dim=-1)]
     return [torch.from_numpy(rng.standard_normal((b, h, l, dh)).astype(
-        np.float32)).to(device, torch.bfloat16) for _ in range(3)]
+        np.float32)).to(device, dtype) for _ in range(3)]
 
 
 @pytest.mark.parametrize("b,h,l,dh", FLASH_SHAPES)
@@ -680,6 +680,48 @@ def test_flash_fwd_kernel_matches_plain_at_336px(cuda, b, h, l, dh, layout):
         ref = flash_attn.reference_flash_mha(q, k, v, layout=layout)
     torch.cuda.synchronize()
     _assert_kernel_bar(o, ref)
+
+
+@pytest.mark.parametrize("b,h,l,dh", [
+    (32, 12, 256, 64),   # the pure_fp16 GAP ViT-B-16's shape
+    (4, 16, 257, 80),    # ViT-H-14's head dim at L = 257
+    (2, 4, 197, 128), (2, 2, 65, 256), (3, 2, 1, 64)])
+@pytest.mark.parametrize("layout", ["blhd", "bhld"])
+def test_flash_f16_kernels_match_plain(cuda, b, h, l, dh, layout):
+    """#6's float16 instantiations (pure_fp16): forward and backward
+    against the plain versions in float16 at the bar, float16 outputs,
+    counted as ``launches_f16`` and not as the bf16 kernels' launches."""
+    q, k, v = _flash_inputs(b, h, l, dh, layout, seed=l + dh, device=cuda,
+                            dtype=torch.float16)
+    fwd, bwd = flash_attn.flash_mha, flash_attn.flash_mha_bwd
+    before = (fwd.launches, bwd.launches, fwd.launches_f16,
+              bwd.launches_f16)
+    o, lse = flash_attn._flash_fwd(q, k, v, layout, with_lse=True)
+    assert o.dtype == torch.float16
+    _assert_kernel_bar(o, flash_attn.reference_flash_mha(q, k, v, layout))
+    do = torch.randn(o.shape, device=cuda).half()
+    grads = flash_attn.flash_mha_bwd(q, k, v, o, lse, do, layout)
+    refs = flash_attn.reference_flash_mha_bwd(q, k, v, o, do, layout)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches, fwd.launches_f16,
+            bwd.launches_f16) == (before[0], before[1], before[2] + 1,
+                                  before[3] + 1)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == torch.float16
+        if l == 1 and name != "dv":
+            assert g.float().abs().max().item() <= 1e-5
+        else:
+            _assert_kernel_bar(g, r)
+
+
+def test_flash_f16_refuses_a_mask(cuda):
+    """No float16 kernel takes a mask (JAX's masked Pallas route, its
+    fused halves, takes bf16 alone): the wrapper raises; the model's
+    float16 masked cores take the plain attention (models/layers.py)."""
+    q, k, v = _flash_inputs(1, 2, 77, 64, "blhd", seed=1, device=cuda,
+                            dtype=torch.float16)
+    with pytest.raises(ValueError, match="under a mask"):
+        flash_attn.flash_mha(q, k, v, "blhd", _flash_mask("causal", 77, cuda))
 
 
 def test_flash_kernels_refuse_other_head_dims(cuda):

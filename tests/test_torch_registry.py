@@ -51,29 +51,28 @@ def test_every_builtin_config_builds_on_meta(name):
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
-# the towers --model-parallel 4 refuses, by config: none. A head count 4
-# does not divide (ViT-B-16-plus's 14 and 10, ViT-S's 6, RN50x4's text 10)
-# splits into uneven whole heads (4, 4, 3, 3; 3, 3, 2, 2; 2, 2, 1, 1), as
-# JAX's GSPMD rule runs them; only a tower with fewer heads than the model
-# size raises. At 2 every config splits.
-REFUSED_AT_4 = {}
+# the towers with a block --model-parallel 4 replicates whole, by config:
+# none. A head count 4 does not divide (ViT-B-16-plus's 14 and 10, ViT-S's
+# 6, RN50x4's text 10) splits into uneven whole heads (4, 4, 3, 3; 3, 3,
+# 2, 2; 2, 2, 1, 1), as JAX's GSPMD rule runs them; only a block with
+# fewer heads than the model size is replicated (Swin's first stage, 4
+# heads, at 8). At 2 every config splits every block.
+REPLICATED_AT_4 = {}
 
 
 @pytest.mark.parametrize("name", BUILTIN)
 def test_every_builtin_config_splits_at_model_parallel_2_and_4(name):
-    """parallel/sharding.py's check on each tower of the config's meta
-    build: every config splits at --model-parallel 2, and at 4 all but
-    the towers of ``REFUSED_AT_4`` (none), which would raise ValueError."""
+    """parallel/sharding.py's ``replicated_blocks`` on each tower of the
+    config's meta build: every block splits at --model-parallel 2, and at
+    4 every block of every tower but those of ``REPLICATED_AT_4`` (none),
+    which would stay whole on each rank."""
     model = _meta(name)
-    refused = set()
+    replicated = set()
     for tower in ("visual", "text"):
-        sharding.check_tensor_parallel(getattr(model, tower), 2)
-        try:
-            sharding.check_tensor_parallel(getattr(model, tower), 4)
-        except ValueError as e:
-            assert "fewer than" in str(e) and "heads" in str(e), e
-            refused.add(tower)
-    assert refused == REFUSED_AT_4.get(name, set())
+        assert sharding.replicated_blocks(getattr(model, tower), 2) == []
+        if sharding.replicated_blocks(getattr(model, tower), 4):
+            replicated.add(tower)
+    assert replicated == REPLICATED_AT_4.get(name, set())
 
 
 @functools.lru_cache(maxsize=None)

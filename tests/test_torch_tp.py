@@ -622,12 +622,15 @@ def test_cli_at_model_parallel_matches_one_process(run, entry):
 
 def test_non_divisible_heads_raise(run):
     """4 heads over 3 ranks split into whole heads (2, 1, 1), the hidden
-    width 1024 into 342, 341, 341; over 5 ranks one would hold no head,
-    which raises before anything is split."""
+    width 1024 into 342, 341, 341; over 5 ranks one would hold no head, so
+    every block of 4 heads is replicated whole (parallel/sharding.py):
+    nothing is split and each leaf keeps its whole shape."""
     model = factory.create_model(tw.CFG_NAME, device="cpu")
-    with pytest.raises(ValueError, match=r"has 4 heads, fewer than 5"):
-        sharding.shard_tensor_parallel(model, size=5, rank=0)
+    shapes = {k: v.shape for k, v in model.state_dict().items()}
+    assert sharding.replicated_blocks(model, 5)
+    sharding.shard_tensor_parallel(model, size=5, rank=0)
     assert not sharding.model_shards(model)
+    assert {k: v.shape for k, v in model.state_dict().items()} == shapes
     for r, (heads, hidden) in enumerate(((2, 342), (1, 341), (1, 341))):
         model = factory.create_model(tw.CFG_NAME, device="cpu")
         sharding.shard_tensor_parallel(model, size=3, rank=r)

@@ -12,6 +12,12 @@ that one process wrote and steps on. Each is held to the one-process
 step in fp32: the metrics within 1e-5 relative, the parameters'
 fingerprint within 1e-6 relative, every gradient's cosine at least
 0.99999 (or zero in exact arithmetic in both).
+
+A model size above a block's head count replicates that block whole on
+every rank (parallel/sharding.py): a (1 x 2) gloo spawn beside it steps
+a toy whose 1-head vision block is replicated and whose 2-head text block
+splits, held to the one-process step at tests/test_torch_tp.py's bars
+(each gradient within 1e-6 of the gradient norm).
 """
 
 import os
@@ -40,21 +46,28 @@ RANK_HEADS = (2, 2, 1, 1)
 def run(tmp_path_factory):
     d = tmp_path_factory.mktemp("tpuneven")
     uw.register(d)
-    init = {kind: uw.init_state_dict(kind, d) for kind in uw.KINDS}
+    init = {kind: uw.init_state_dict(kind, d)
+            for kind in uw.KINDS + ("mixed",)}
     batch = zw.global_batch()
     ckpt = str(d / "ckpt")
     written = uw.step("rab6", init["rab6"], batch, d, ckpt=ckpt)
-    sub = d / "1x4"
+    sub, sub2 = d / "1x4", d / "1x2"
     sub.mkdir()
-    with ThreadPoolExecutor(1) as pool:
+    sub2.mkdir()
+    with ThreadPoolExecutor(2) as pool:
         ranks = pool.submit(
             w.spawn, "uneven", 4, sub,
             {"model": 4, "init": init, "cfg_dir": str(d), "batch": batch,
              "cases": CASES, "resume": ckpt}, 300, uw.__file__)
+        mixed = pool.submit(
+            w.spawn, "replicated", 2, sub2,
+            {"model": 2, "init": init["mixed"], "cfg_dir": str(d),
+             "batch": batch}, 300, uw.__file__)
         ref = {kind: uw.step(kind, init[kind], batch, d)
-               for kind in uw.KINDS}
-        ranks = ranks.result()
-    return {"ranks": ranks, "ref": ref, "init": init, "written": written}
+               for kind in uw.KINDS + ("mixed",)}
+        ranks, mixed = ranks.result(), mixed.result()
+    return {"ranks": ranks, "ref": ref, "init": init, "written": written,
+            "mixed": mixed}
 
 
 def _check(got, ref):
@@ -153,9 +166,58 @@ def test_pieces_cut_on_head_boundaries():
 
 
 def test_more_ranks_than_heads_raise(tmp_path):
-    """A rank would hold no head: ValueError naming the block, before
-    anything is split."""
-    model = uw.build("rab6", tmp_path)
-    with pytest.raises(ValueError, match=r"has 6 heads, fewer than 8"):
-        sharding.shard_tensor_parallel(model, size=8, rank=0)
-    assert not sharding.model_shards(model)
+    """More ranks than a block's heads (6 heads at --model-parallel 8): a
+    rank would hold no head, so every such block is replicated whole, as
+    JAX's GSPMD rule replicates it: on every rank each leaf keeps its
+    whole shape and values, nothing is tagged or listed in
+    ``model_shards``, and the blocks run their one-process route
+    (``tp_size`` 1, all 6 heads)."""
+    init = uw.init_state_dict("rab6", tmp_path)
+    names = {"visual.transformer.resblocks.0",
+             "text.transformer.resblocks.0"}
+    assert set(sharding.replicated_blocks(uw.build("rab6", tmp_path),
+                                          8)) == names
+    for rank in (0, 7):
+        model = uw.build("rab6", tmp_path)
+        model.load_state_dict(init)
+        sharding.shard_tensor_parallel(model, size=8, rank=rank)
+        assert not sharding.model_shards(model)
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, init[k]), (rank, k)
+        for n in names:
+            blk = model.get_submodule(n)
+            assert blk.tp_size == 1 and blk.local_heads == uw.HEADS
+            assert not any(sharding.is_model_sharded(p)
+                           for p in blk.parameters())
+
+
+def test_replicated_block_step_at_1x2_matches_one_process(run):
+    """The (1 x 2) step of the ``mixed`` toy: its 1-head vision block
+    whole on both ranks (its leaves at their whole shapes, none in
+    ``model_shards``), its 2-head text block split one head a rank, and
+    the step held to the one-process step at tests/test_torch_tp.py's
+    bars: metrics within 1e-5, the parameters' fingerprint within 1e-6,
+    each gradient within 1e-6 of the gradient norm."""
+    ref = run["ref"]["mixed"]
+    init = run["init"]["mixed"]
+    vis = "visual.transformer.resblocks.0."
+    txt = "text.transformer.resblocks.0."
+    for got in run["mixed"]:
+        errs = w.metric_errors(got["metrics"], ref["metrics"])
+        assert max(errs.values()) <= 1e-5, errs
+        a, r = w.fingerprint(got["params"]), w.fingerprint(ref["params"])
+        assert abs(a - r) <= 1e-6 * r, (a, r)
+        norm = float(sum(g.double().square().sum()
+                         for g in ref["grads"].values()) ** 0.5)
+        gerr = w.grad_errors(got["grads"], ref["grads"], norm)
+        worst = max(gerr, key=gerr.get)
+        assert gerr[worst] <= 1e-6, (worst, gerr[worst])
+        assert set(got["grads"]) == set(ref["grads"])
+        assert not any(k.startswith(vis) for k in got["shards"])
+        for k, shape in got["local_shape"].items():
+            if k.startswith(vis):
+                assert shape == tuple(init[k].shape), k
+        assert got["local_shape"][txt + "attn.in_proj.kernel"] == (128, 192)
+        assert got["local_shape"][txt + "mlp.c_fc.kernel"] == (128, 256)
+    assert torch.equal(run["mixed"][0]["params"][vis + "attn.in_proj.kernel"],
+                       run["mixed"][1]["params"][vis + "attn.in_proj.kernel"])

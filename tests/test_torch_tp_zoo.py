@@ -22,6 +22,7 @@ tests/test_torch_tp.py's ``test_step_matches_jax_2x2_mesh``.
 
 import json
 import os
+import re
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -294,14 +295,40 @@ def test_checkpoint_written_at_1x2_resumes_at_1x1(run):
     ("t5", 5, r"\(T5EncoderStack\) has 4 heads")])
 def test_non_divisible_heads_raise(run, kind, size, match):
     """Heads stay whole heads: a head count the model size does not
-    divide splits unevenly (tests/test_torch_tp_uneven.py), and one below
-    the model size, where a rank would hold no head, raises ValueError
-    naming the block, before anything is split."""
-    tower = getattr(zw.build(kind, run["dir"]),
+    divide splits unevenly (tests/test_torch_tp_uneven.py), and a block
+    with fewer heads than the model size, where a rank would hold no head,
+    is replicated whole on every rank, as JAX's GSPMD rule replicates it:
+    ``match`` names it as "'<name>' (<class>) has <heads> heads, fewer
+    than <size>". Its leaves keep their whole shapes and are absent from
+    ``model_shards``; its neighbours still split."""
+    def tower():
+        t = getattr(zw.build(kind, run["dir"]),
                     "text" if kind in zw.HF_KINDS else "visual")
-    with pytest.raises(ValueError, match=match):
-        sharding.shard_tensor_parallel(tower, size=size, rank=0)
-    assert not sharding.model_shards(tower)
+        t.load_state_dict(whole)
+        return t
+
+    whole = {k: v.clone() for k, v in getattr(
+        zw.build(kind, run["dir"]),
+        "text" if kind in zw.HF_KINDS else "visual").state_dict().items()}
+    sharded = tower()
+    sharding.shard_tensor_parallel(sharded, size=size, rank=0)
+    found = [f"'{n}' ({type(m).__name__}) has {sharding._heads(m)} heads, "
+             f"fewer than {size}"
+             for n, m in sharded.named_modules()
+             if n in sharding.replicated_blocks(tower(), size)]
+    assert any(re.search(match, f) for f in found), found
+    shards = sharding.model_shards(sharded)
+    assert shards  # the neighbours split
+    local = dict(sharded.state_dict())
+    for n in sharding.replicated_blocks(tower(), size):
+        # the leaves its own plan would split (a block holding other
+        # blocks, T5's stack, leaves theirs to their own plans)
+        own = [f"{n}.{k}" for k in
+               sharding._split_leaves(sharded.get_submodule(n))]
+        assert own and not any(k in shards for k in own), n
+        for k in own:
+            assert local[k].shape == whole[k].shape, k
+    assert any(local[k].shape != whole[k].shape for k in shards)
 
 
 def test_uneven_pieces_round_trip():

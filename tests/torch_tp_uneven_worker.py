@@ -13,6 +13,11 @@ Two toy CLIPs, built as tests/torch_tp_zoo_worker.py builds its own (its
 - ``vitamin6``: a ViTamin tower whose one ``GeGluBlock`` has 6 heads of
   16, beside the ``rab6`` text tower.
 
+and, for ``--model-parallel 2`` on two ranks, ``mixed``: a vision tower
+whose ``ResidualAttentionBlock`` has 1 head of 64 (fewer than the ranks:
+replicated whole) beside a text tower whose block has 2 heads of 64 (split,
+on the fused halves' partial modes).
+
     python tests/torch_tp_uneven_worker.py <scenario> <rank> <world> <dir>
 """
 
@@ -49,19 +54,28 @@ CFG = dict(
     text_cfg=dict(context_length=zw.CTX, vocab_size=zw.VOCAB, width=WIDTH,
                   heads=HEADS, layers=1))
 KINDS = ("rab6", "vitamin6")
+MIXED_NAME = "torchtinytpmixed"
+MIXED_CFG = dict(
+    embed_dim=EMBED,
+    vision_cfg=dict(layers=1, width=64, head_width=64, patch_size=4,
+                    image_size=zw.IMAGE),
+    text_cfg=dict(context_length=zw.CTX, vocab_size=zw.VOCAB, width=128,
+                  heads=2, layers=1))
 
 
 def register(directory) -> None:
-    path = os.path.join(str(directory), f"{NAME}.json")
-    zw._write(path, CFG)
-    factory.add_model_config(path)
+    for name, cfg in ((NAME, CFG), (MIXED_NAME, MIXED_CFG)):
+        path = os.path.join(str(directory), f"{name}.json")
+        zw._write(path, cfg)
+        factory.add_model_config(path)
 
 
 def build(kind: str, directory):
     """The toy CLIP of ``kind`` (module doc), uninitialized, with a toy tag
     head (the contrastive step reads none)."""
     register(directory)
-    model = factory.create_model(NAME, device="cpu", precision="fp32",
+    model = factory.create_model(MIXED_NAME if kind == "mixed" else NAME,
+                                 device="cpu", precision="fp32",
                                  skip_init=True)
     if kind == "vitamin6":
         model.visual = timm_vit.TimmModel(
@@ -125,6 +139,14 @@ def scenario_uneven(inputs, directory):
     return out
 
 
+def scenario_replicated(inputs, directory):
+    """The ``mixed`` toy's step on the (1 x 2) mesh: its 1-head vision
+    block replicated, its 2-head text block split."""
+    mesh.init_mesh(inputs["model"])
+    return step("mixed", inputs["init"], inputs["batch"], inputs["cfg_dir"])
+
+
 if __name__ == "__main__":
     w.main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
-           scenarios={"uneven": scenario_uneven})
+           scenarios={"uneven": scenario_uneven,
+                      "replicated": scenario_replicated})

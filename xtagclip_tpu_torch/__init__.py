@@ -48,7 +48,8 @@ _EXPORTS = {
     **{n: (_EXPORT, n) for n in (
         "push_to_hf_hub", "push_pretrained_to_hf_hub")},
     **{n: (_LOSSES, n) for n in (
-        "ClipLoss", "CoCaLoss", "DistillClipLoss", "SigLipLoss")},
+        "AsymmetricLoss", "ClipLoss", "CoCaLoss", "DQNCOSLoss",
+        "DistillClipLoss", "SigLipLoss")},
     "CLIP": ("xtagclip_tpu_torch.models.clip", "CLIP"),
     "CustomTextCLIP": ("xtagclip_tpu_torch.models.clip", "CLIP"),
     "CoCa": ("xtagclip_tpu_torch.models.coca", "CoCa"),

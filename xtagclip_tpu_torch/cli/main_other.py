@@ -81,9 +81,12 @@ from xtagclip_tpu_torch.train.train_state import (
 from xtagclip_tpu_torch.train.trainer import train_one_epoch
 from xtagclip_tpu_torch.train.zero_shot import train_data_eval, zero_shot_eval
 
+# the tag of the newest epoch's clone (JAX main_other.py:47)
+LATEST_CHECKPOINT_NAME = "epoch_latest"
 # --precision -> the factory's precision (main_other.py:106-110): bf16
-# compute over fp32 masters, or bf16 parameters (pure_bf16); pure_fp16 runs
-# only on the CPU (factory.py)
+# compute over fp32 masters, or bf16 parameters (pure_bf16), or float16
+# parameters (pure_fp16, routed as factory.py says); fp16 is bf16, as JAX
+# maps it
 PRECISION = {"amp": "bf16", "amp_bf16": "bf16", "amp_bfloat16": "bf16",
              "fp16": "bf16", "bf16": "bf16", "fp32": "fp32",
              "pure_bf16": "pure_bf16", "pure_fp16": "pure_fp16"}

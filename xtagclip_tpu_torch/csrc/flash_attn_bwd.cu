@@ -1,5 +1,5 @@
 // Flash attention's backward without a mask: the C
-// entry point of the unmasked instantiations of flash_attn_bwd.cuh (its
+// entry point of the unmasked bf16 instantiations of flash_attn_bwd.cuh (its
 // notes: what it computes, the TPU kernels it replaces, its bound and
 // design), a library of its own so that nvcc builds the two beside each
 // other.
@@ -18,7 +18,7 @@ int xtag_flash_attn_bwd(const void* q, const void* k, const void* v, const void*
                         void* dk, void* dv, const long long* strides, int B, int H, int L,
                         int dh, float scale, const void* mask, int mask_bf16,
                         void* stream) {
-  return static_cast<int>(xtag::fa_bwd::run<false>(
+  return static_cast<int>(xtag::fa_bwd::run<xtag::bf16, false>(
       q, k, v, o, dout, lse, stat_ws, dq, dk, dv, strides, B, H, L, dh, scale, mask,
       mask_bf16, stream));
 }

@@ -1,7 +1,8 @@
 // Flash attention backward on Hopper (the kernels; flash_attn_bwd.cu and
-// flash_attn_bwd_masked.cu instantiate them without and with the mask):
-// dq, dk, dv of
-//   o = softmax(q k^T * dh^-0.5 + mask) v   over [B, H, L, dh] bf16 views,
+// flash_attn_bwd_masked.cu instantiate them in bf16 without and with the
+// mask, flash_attn_bwd_f16.cu in float16 without it): dq, dk, dv of
+//   o = softmax(q k^T * dh^-0.5 + mask) v   over [B, H, L, dh] bf16 (or
+// float16) views,
 // with an optional additive [L, L] mask (fp32 or bf16), from q, k, v, the
 // forward's output o and fp32 log-sum-exp, and dO.
 // Replaces the stock Pallas TPU flash backward that
@@ -13,8 +14,11 @@
 // P = exp(s - lse) in fp32 from the recomputed scores s = q.k * scale
 // (as 2^(s * scale * log2 e - lse * log2 e): the scale folds into one FFMA,
 // as in the forward); dP = dO V^T in fp32; dS = (dP - D_i) P scale in fp32;
-// P and dS round to bf16 before their products; dV = P^T dO, dK = dS^T Q
-// and dQ = dS K accumulate in fp32 and each gradient rounds once to bf16.
+// P and dS round to the element dtype before their products; dV = P^T dO,
+// dK = dS^T Q and dQ = dS K accumulate in fp32 and each gradient rounds once
+// to the element dtype. The element type T is bf16 or __half, as in the
+// forward (flash_attn_fwd.cuh): f16 wgmma and FLOAT16 tensor maps, every
+// statistic in fp32.
 // Queries past L get P = 0 (their lse reads as +inf); keys past L load as
 // zero rows, and the dq kernel sets their P to 0. With a mask, P is
 // recomputed as 2^(s * scale * log2 e + mask * log2 e - lse * log2 e): the
@@ -122,9 +126,9 @@ __device__ __forceinline__ float mask_log2(const void* mask, bool bf, int row, i
 // past L: stat[((b H + h) n_t + tile) 128 + r] and [... + 64 + r]. A block
 // is one tile (blockIdx.y) of one (b, h) (blockIdx.x): 64 rows of CH / 8
 // lanes each, a lane 8 elements of each of the NH column halves.
-template <int DH>
+template <typename T, int DH>
 __global__ void __launch_bounds__(BT * Smem<DH>::CH / 8)
-flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ stat, Strides so,
                    Strides sd, int H, int L, int dh) {
   constexpr int CH = Smem<DH>::CH;
@@ -142,12 +146,12 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
       const uint4 ov = *reinterpret_cast<const uint4*>(o + b * so.b + h * so.h + l * so.l + c);
       const uint4 dv =
           *reinterpret_cast<const uint4*>(dout + b * sd.b + h * sd.h + l * sd.l + c);
-      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+      const uint32_t* op = reinterpret_cast<const uint32_t*>(&ov);
+      const uint32_t* dp = reinterpret_cast<const uint32_t*>(&dv);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 a = __bfloat1622float2(op[e]);
-        const float2 d = __bfloat1622float2(dp[e]);
+        const float2 a = unpack2<T>(op[e]);
+        const float2 d = unpack2<T>(dp[e]);
         s = fmaf(a.x, d.x, s);
         s = fmaf(a.y, d.y, s);
       }
@@ -163,12 +167,12 @@ flash_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 }
 
 // A warp's 16 rows of a [64 x DH] fp32 accumulator (rows g, g + 8 of each
-// 16), rounded to bf16, staged in rows ``r0`` .. ``r0`` + 15 of a
+// 16), rounded to T, staged in rows ``r0`` .. ``r0`` + 15 of a
 // [ROWS x DH] tile in the panel layout (pan), then stored as 16-byte
 // vectors to rows row0 .. row0 + 15 (those < L) of dst.
-template <int DH, int ROWS>
-__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* tile, int r0,
-                                           bf16* dst, long long row_stride, int row0, int L,
+template <typename T, int DH, int ROWS>
+__device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], T* tile, int r0,
+                                           T* dst, long long row_stride, int row0, int L,
                                            int dh, int lane) {
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -176,9 +180,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* til
   for (int j = 0; j < DH / 8; ++j) {
     const int col = 8 * j + 2 * t;
     *reinterpret_cast<uint32_t*>(tile + pan<ROWS>(r0 + g, col)) =
-        pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        pack2<T>(acc[4 * j], acc[4 * j + 1]);
     *reinterpret_cast<uint32_t*>(tile + pan<ROWS>(r0 + g + 8, col)) =
-        pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+        pack2<T>(acc[4 * j + 2], acc[4 * j + 3]);
   }
   __syncwarp();
   constexpr int CPR = DH / 8;
@@ -197,7 +201,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 2], bf16* til
 // rows); both K-major along dh, a k-step of 16 is 32 bytes along the
 // swizzled row; KS k-steps, ceil(dh / 16) (the columns past dh are
 // zero). Started and committed as one group, not waited for.
-template <int KS>
+template <typename T, int KS>
 __device__ __forceinline__ void score_products(float (&s)[BT / 2], float (&dp)[BT / 2],
                                                uint32_t a_s, uint32_t b_s, uint32_t a_dp,
                                                uint32_t b_dp) {
@@ -209,14 +213,14 @@ __device__ __forceinline__ void score_products(float (&s)[BT / 2], float (&dp)[B
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t ao = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
     const uint32_t bo = (kk >> 2) * (BT * 128) + (kk & 3) * 32;
-    wgmma_ss<0>(s, wgmma_desc(a_s + ao, 16, 1024), wgmma_desc(b_s + bo, 16, 1024),
+    wgmma_ss<0, 0, T>(s, wgmma_desc(a_s + ao, 16, 1024), wgmma_desc(b_s + bo, 16, 1024),
                 kk > 0 ? 1 : 0);
   }
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     const uint32_t ao = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
     const uint32_t bo = (kk >> 2) * (BT * 128) + (kk & 3) * 32;
-    wgmma_ss<0>(dp, wgmma_desc(a_dp + ao, 16, 1024), wgmma_desc(b_dp + bo, 16, 1024),
+    wgmma_ss<0, 0, T>(dp, wgmma_desc(a_dp + ao, 16, 1024), wgmma_desc(b_dp + bo, 16, 1024),
                 kk > 0 ? 1 : 0);
   }
   wgmma_commit();
@@ -227,23 +231,23 @@ __device__ __forceinline__ void score_products(float (&s)[BT / 2], float (&dp)[B
 // acc += A B over the 64 columns of the score tile: A from registers (four
 // k-steps of 16), B a streamed tile read N-major (a k-step is 16 rows,
 // 2048 bytes; 64-column panels BT * 128 bytes apart).
-template <int DH>
+template <typename T, int DH>
 __device__ __forceinline__ void grad_product(float (&acc)[DH / 2], const uint32_t (&a)[BT / 16][4],
                                              uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < BT / 16; ++kk)
-    sm90::wgmma_rs<1>(acc, a[kk], sm90::wgmma_desc(b + kk * 2048, BT * 128, 1024), 1);
+    sm90::wgmma_rs<1, T>(acc, a[kk], sm90::wgmma_desc(b + kk * 2048, BT * 128, 1024), 1);
 }
 
 // MASKED: mask is an [L, L] additive mask (bf16 when mask_bf16, else
 // fp32); else it is null and the kernel carries no mask code.
-template <int DH, int KS, bool MASKED>
+template <typename T, int DH, int KS, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_do, int h_first,
-                 const float* __restrict__ stat, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 const float* __restrict__ stat, T* __restrict__ dk, T* __restrict__ dv,
                  Strides sdk, Strides sdv, int B, int H, int L, int dh, float scale,
                  const void* __restrict__ mask, int mask_bf16) {
   using namespace sm90;
@@ -340,8 +344,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       const int b = (item / (n_kb * H)) % B;
       const int hf = item / (n_kb * H * B);  // the column half of dK and dV
       const int buf = n % OWN_BUFS;
-      bf16* kt = reinterpret_cast<bf16*>(own + buf * 2 * Sm::OWN_BYTES);
-      bf16* vt = kt + BR * DH;
+      T* kt = reinterpret_cast<T*>(own + buf * 2 * Sm::OWN_BYTES);
+      T* vt = kt + BR * DH;
       const uint32_t k_addr = smem_u32(kt) + wg * 64 * 128;
       const uint32_t v_addr = smem_u32(vt) + wg * 64 * 128;
 #pragma unroll
@@ -353,7 +357,7 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t q_addr = smem_u32(ring + stage * 2 * Sm::RING_BYTES);
         const uint32_t do_addr = q_addr + Sm::RING_BYTES;
         float s[BT / 2], dp[BT / 2];
-        score_products<KS>(s, dp, k_addr, q_addr, v_addr, do_addr);
+        score_products<T, KS>(s, dp, k_addr, q_addr, v_addr, do_addr);
         wgmma_wait<0>();
         fence_operands(s);
         fence_operands(dp);
@@ -377,11 +381,11 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
           const float p1 = exp2_approx(fmaf(s[4 * jj + 1], scale_log2, c[1]));
           const float p2 = exp2_approx(fmaf(s[4 * jj + 2], scale_log2, c[2]));
           const float p3 = exp2_approx(fmaf(s[4 * jj + 3], scale_log2, c[3]));
-          pa[jj >> 1][(jj & 1) * 2] = pack_bf16(p0, p1);
-          pa[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
+          pa[jj >> 1][(jj & 1) * 2] = pack2<T>(p0, p1);
+          pa[jj >> 1][(jj & 1) * 2 + 1] = pack2<T>(p2, p3);
           da[jj >> 1][(jj & 1) * 2] =
-              pack_bf16((dp[4 * jj] - dd.x) * p0 * scale, (dp[4 * jj + 1] - dd.y) * p1 * scale);
-          da[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16((dp[4 * jj + 2] - dd.x) * p2 * scale,
+              pack2<T>((dp[4 * jj] - dd.x) * p0 * scale, (dp[4 * jj + 1] - dd.y) * p1 * scale);
+          da[jj >> 1][(jj & 1) * 2 + 1] = pack2<T>((dp[4 * jj + 2] - dd.x) * p2 * scale,
                                                     (dp[4 * jj + 3] - dd.y) * p3 * scale);
         }
         // dV += P^T dO, dK += dS^T Q
@@ -391,8 +395,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
         fence_operands(da);
         wgmma_fence();
         // the gradients' columns hf CH .. hf CH + CH - 1: that half's panels
-        grad_product<CH>(dv_acc, pa, do_addr + hf * (CH / 64) * (BT * 128));
-        grad_product<CH>(dk_acc, da, q_addr + hf * (CH / 64) * (BT * 128));
+        grad_product<T, CH>(dv_acc, pa, do_addr + hf * (CH / 64) * (BT * 128));
+        grad_product<T, CH>(dk_acc, da, q_addr + hf * (CH / 64) * (BT * 128));
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dv_acc);
@@ -411,9 +415,9 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
       // producer
       const int key0 = kb * BR + r0;
       const int c0 = hf * CH;
-      store_rows<CH, BR>(dk_acc, kt, r0, dk + b * sdk.b + h * sdk.h + c0, sdk.l, key0, L,
+      store_rows<T, CH, BR>(dk_acc, kt, r0, dk + b * sdk.b + h * sdk.h + c0, sdk.l, key0, L,
                          dh - c0, lane);
-      store_rows<CH, BR>(dv_acc, vt, r0, dv + b * sdv.b + h * sdv.h + c0, sdv.l, key0, L,
+      store_rows<T, CH, BR>(dv_acc, vt, r0, dv + b * sdv.b + h * sdv.h + c0, sdv.l, key0, L,
                          dh - c0, lane);
       fence_proxy_async();  // these shared reads and writes before the next TMA fill
       __syncwarp();
@@ -422,13 +426,13 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH, int KS, bool MASKED>
+template <typename T, int DH, int KS, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 const __grid_constant__ CUtensorMap map_do, int h_first,
-                const float* __restrict__ stat, bf16* __restrict__ dq, Strides sdq, int B,
+                const float* __restrict__ stat, T* __restrict__ dq, Strides sdq, int B,
                 int H, int L, int dh, float scale, const void* __restrict__ mask,
                 int mask_bf16) {
   using namespace sm90;
@@ -522,7 +526,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       const int b = (item / (n_qb * H)) % B;
       const int hf = item / (n_qb * H * B);  // the column half of dQ
       const int buf = n % OWN_BUFS;
-      bf16* qt = reinterpret_cast<bf16*>(own + buf * 2 * Sm::OWN_BYTES);
+      T* qt = reinterpret_cast<T*>(own + buf * 2 * Sm::OWN_BYTES);
       const uint32_t q_addr = smem_u32(qt) + wg * 64 * 128;
       const uint32_t do_addr = q_addr + Sm::OWN_BYTES;
       // the statistics of this lane's rows g and g + 8
@@ -544,7 +548,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         const uint32_t k_addr = smem_u32(ring + stage * 2 * Sm::RING_BYTES);
         const uint32_t v_addr = k_addr + Sm::RING_BYTES;
         float s[BT / 2], dp[BT / 2];
-        score_products<KS>(s, dp, q_addr, k_addr, do_addr, v_addr);
+        score_products<T, KS>(s, dp, q_addr, k_addr, do_addr, v_addr);
         wgmma_wait<0>();
         fence_operands(s);
         fence_operands(dp);
@@ -566,16 +570,16 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
             p[e] = exp2_approx(fmaf(s[4 * jj + e], scale_log2, c));
             if (ragged && key >= L) p[e] = 0.0f;
           }
-          da[jj >> 1][(jj & 1) * 2] = pack_bf16((dp[4 * jj] - dd[0]) * p[0] * scale,
+          da[jj >> 1][(jj & 1) * 2] = pack2<T>((dp[4 * jj] - dd[0]) * p[0] * scale,
                                                 (dp[4 * jj + 1] - dd[0]) * p[1] * scale);
-          da[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16((dp[4 * jj + 2] - dd[1]) * p[2] * scale,
+          da[jj >> 1][(jj & 1) * 2 + 1] = pack2<T>((dp[4 * jj + 2] - dd[1]) * p[2] * scale,
                                                     (dp[4 * jj + 3] - dd[1]) * p[3] * scale);
         }
         // dQ += dS K
         fence_operands(dq_acc);
         fence_operands(da);
         wgmma_fence();
-        grad_product<CH>(dq_acc, da, k_addr + hf * (CH / 64) * (BT * 128));
+        grad_product<T, CH>(dq_acc, da, k_addr + hf * (CH / 64) * (BT * 128));
         wgmma_commit();
         wgmma_wait<0>();
         fence_operands(dq_acc);
@@ -587,7 +591,7 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
         }
       }
 
-      store_rows<CH, BR>(dq_acc, qt, r0, dq + b * sdq.b + h * sdq.h + hf * CH, sdq.l,
+      store_rows<T, CH, BR>(dq_acc, qt, r0, dq + b * sdq.b + h * sdq.h + hf * CH, sdq.l,
                          qb * BR + r0, L, dh - hf * CH, lane);
       fence_proxy_async();
       __syncwarp();
@@ -596,12 +600,12 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH, int KS, bool MASKED>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
-                   const bf16* dout, const float* lse, float* stat, bf16* dq, bf16* dk,
-                   bf16* dv, const Strides* st, int B, int H, int L, int dh, float scale,
+template <typename T, int DH, int KS, bool MASKED>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* o,
+                   const T* dout, const float* lse, float* stat, T* dq, T* dk,
+                   T* dv, const Strides* st, int B, int H, int L, int dh, float scale,
                    const void* mask, int mask_bf16, cudaStream_t stream) {
-  flash_delta_kernel<DH><<<dim3(B * H, (L + BT - 1) / BT), BT * Smem<DH>::CH / 8, 0, stream>>>(
+  flash_delta_kernel<T, DH><<<dim3(B * H, (L + BT - 1) / BT), BT * Smem<DH>::CH / 8, 0, stream>>>(
       o, dout, lse, stat, st[3], st[4], H, L, dh);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
@@ -625,32 +629,33 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   const int items = (L + BR - 1) / BR * H * B * Smem<DH>::NH;
   const int grid = items < sm90::sm_count() ? items : sm90::sm_count();
 
-  e = cudaFuncSetAttribute(flash_dkv_kernel<DH, KS, MASKED>,
+  e = cudaFuncSetAttribute(flash_dkv_kernel<T, DH, KS, MASKED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_dkv_kernel<DH, KS, MASKED><<<grid, THREADS, smem, stream>>>(
+  flash_dkv_kernel<T, DH, KS, MASKED><<<grid, THREADS, smem, stream>>>(
       mq_t, mk_o, mv_o, mdo_t, h_first, stat, dk, dv, st[6], st[7], B, H, L, dh, scale, mask,
       mask_bf16);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(flash_dq_kernel<DH, KS, MASKED>,
+  e = cudaFuncSetAttribute(flash_dq_kernel<T, DH, KS, MASKED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  flash_dq_kernel<DH, KS, MASKED><<<grid, THREADS, smem, stream>>>(
+  flash_dq_kernel<T, DH, KS, MASKED><<<grid, THREADS, smem, stream>>>(
       mq_o, mk_t, mv_t, mdo_o, h_first, stat, dq, st[5], B, H, L, dh, scale, mask, mask_bf16);
   return cudaGetLastError();
 }
 
-// Checks the arguments and launches the instantiation for head dim dh,
-// as fa_fwd::run picks it (the masked library, flash_attn_bwd_masked.cu,
-// holds three; the unmasked one, flash_attn_bwd.cu, six). q, k, v, o,
-// dout, dq, dk, dv: [B, H, L, dh] bf16 views with dh contiguous; strides
+// Checks the arguments and launches the instantiation of element type T
+// (bf16 or __half) for head dim dh, as fa_fwd::run picks it (the masked
+// library, flash_attn_bwd_masked.cu, holds three; the unmasked ones,
+// flash_attn_bwd.cu and flash_attn_bwd_f16.cu, six each). q, k, v, o,
+// dout, dq, dk, dv: [B, H, L, dh] views of T with dh contiguous; strides
 // holds the (b, h, l) element strides of the eight in that order (24
 // values). lse: the forward's [B, H, L] fp32 log-sum-exp. Scratch from the
 // caller: stat, B H ceil(L / 64) 128 fp32, 16-byte aligned. mask: the
 // forward's contiguous [L, L] additive mask (bf16 when mask_bf16 != 0,
 // else fp32) with MASKED, null without.
-template <bool MASKED>
+template <typename T, bool MASKED>
 cudaError_t run(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const float* lse, float* stat_ws, void* dq, void* dk, void* dv,
                 const long long* strides, int B, int H, int L, int dh, float scale,
@@ -661,23 +666,23 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o, cons
   Strides st[8];
   for (int i = 0; i < 8; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  auto in = [](const void* p) { return static_cast<const bf16*>(p); };
-  auto out = [](void* p) { return static_cast<bf16*>(p); };
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto launcher) {
     return launcher(in(q), in(k), in(v), in(o), in(dout), lse, stat_ws, out(dq), out(dk),
                     out(dv), st, B, H, L, dh, scale, mask, mask_bf16, s);
   };
-  if (dh == 64) return go(launch<64, 4, MASKED>);
-  if (dh == 256) return go(launch<256, 16, MASKED>);
+  if (dh == 64) return go(launch<T, 64, 4, MASKED>);
+  if (dh == 256) return go(launch<T, 256, 16, MASKED>);
   if constexpr (MASKED) {
-    return go(launch<128, 8, true>);
+    return go(launch<T, 128, 8, true>);
   } else {
     switch ((dh + 15) / 16) {  // the k-steps of the score products
-      case 5: return go(launch<128, 5, false>);
-      case 6: return go(launch<128, 6, false>);
-      case 7: return go(launch<128, 7, false>);
-      default: return go(launch<128, 8, false>);
+      case 5: return go(launch<T, 128, 5, false>);
+      case 6: return go(launch<T, 128, 6, false>);
+      case 7: return go(launch<T, 128, 7, false>);
+      default: return go(launch<T, 128, 8, false>);
     }
   }
 }

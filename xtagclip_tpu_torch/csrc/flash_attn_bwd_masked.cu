@@ -1,5 +1,5 @@
 // Flash attention's backward under an additive [L, L] mask: the C
-// entry point of the masked instantiations of flash_attn_bwd.cuh (its
+// entry point of the masked (bf16) instantiations of flash_attn_bwd.cuh (its
 // notes: what it computes, the TPU kernels it replaces, its bound and
 // design), a library of its own so that nvcc builds the two beside each
 // other.
@@ -18,7 +18,7 @@ int xtag_flash_attn_bwd_masked(const void* q, const void* k, const void* v, cons
                                void* dk, void* dv, const long long* strides, int B, int H,
                                int L, int dh, float scale, const void* mask, int mask_bf16,
                                void* stream) {
-  return static_cast<int>(xtag::fa_bwd::run<true>(
+  return static_cast<int>(xtag::fa_bwd::run<xtag::bf16, true>(
       q, k, v, o, dout, lse, stat_ws, dq, dk, dv, strides, B, H, L, dh, scale, mask,
       mask_bf16, stream));
 }

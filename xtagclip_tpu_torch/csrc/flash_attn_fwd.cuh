@@ -1,7 +1,9 @@
 // Flash attention forward on Hopper (the kernel; flash_attn_fwd.cu and
-// flash_attn_fwd_masked.cu instantiate it without and with the mask):
+// flash_attn_fwd_masked.cu instantiate it in bf16 without and with the
+// mask, flash_attn_fwd_f16.cu in float16 without it):
 // exact-softmax multi-head attention
-//   o = softmax(q k^T * dh^-0.5 + mask) v   over [B, H, L, dh] bf16 views,
+//   o = softmax(q k^T * dh^-0.5 + mask) v   over [B, H, L, dh] bf16 (or
+// float16) views,
 // with an optional additive [L, L] mask (fp32 or bf16), and, for the
 // backward, the fp32 log-sum-exp of each query row [B, H, L].
 // Replaces the stock Pallas TPU flash kernel that
@@ -10,10 +12,18 @@
 //
 // Numerics (the Pallas kernel's): scores q.k accumulated in fp32 and scaled
 // after the dot; an online softmax with an fp32 running max m and sum l
-// over key tiles; the probabilities exp(s - m) rounded to bf16 UNnormalized
-// for P V (as the Pallas kernel's p.astype(v.dtype)), accumulated in fp32;
-// the output divided by l at the end and rounded once to bf16. Keys past L
-// score -inf. lse = m + log(l).
+// over key tiles; the probabilities exp(s - m) rounded to the value dtype
+// UNnormalized for P V (as the Pallas kernel's p.astype(v.dtype)),
+// accumulated in fp32; the output divided by l at the end and rounded once
+// to the element dtype. Keys past L score -inf. lse = m + log(l).
+//
+// The element type T is bf16 or __half (float16, which JAX's flash kernel
+// takes as it takes bf16: xtagclip_tpu/ops/flash_attn.py:51-62 gates on
+// shape and mask only): the same kernel, its wgmma in the f16 form, its
+// tensor maps of FLOAT16 elements, P and O rounded to float16. Scores,
+// the softmax, the running statistics and the lse stay fp32. The float16
+// instantiations are unmasked only: JAX's fused halves, the one Pallas
+// route under a mask, take bf16 alone.
 //
 // What bounds it on the H100. At the GAP shape (B=32, H=12, L=256, dh=64)
 // q, k, v and o are 50.3 MB: 0.015 ms at 3.35 TB/s, against 6.44 GFLOP,
@@ -112,12 +122,12 @@ struct Smem {
 // MASKED: mask is an [L, L] additive mask (bf16 when mask_bf16, else
 // fp32); else it is null. The unmasked instantiations carry no mask code
 // (their registers and spills are the mask-free kernel's).
-template <int DH, int KS, bool MASKED>
+template <typename T, int DH, int KS, bool MASKED>
 __global__ void __launch_bounds__(THREADS, min_blocks<DH>())
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v, int h_first,
-                 bf16* __restrict__ o, float* __restrict__ lse, Strides so, int B, int H,
+                 T* __restrict__ o, float* __restrict__ lse, Strides so, int B, int H,
                  int L, int dh, float scale, const void* __restrict__ mask, int mask_bf16) {
   using namespace sm90;
   using Sm = Smem<DH>;
@@ -125,7 +135,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* Qs = reinterpret_cast<bf16*>(base);             // [2][BM x DH]
+  T* Qs = reinterpret_cast<T*>(base);                   // [2][BM x DH]
   unsigned char* Kb = base + 2 * Sm::Q_BYTES;           // [STAGES][BN x DH]
   unsigned char* Vb = Kb + STAGES * Sm::KV_BYTES;       // [STAGES][BN x DH]
   uint64_t* q_full = reinterpret_cast<uint64_t*>(Vb + STAGES * Sm::KV_BYTES);
@@ -172,8 +182,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int it = 0; it < n_kt; ++it) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], 2 * Sm::KV_BYTES);
-          bf16* kt = reinterpret_cast<bf16*>(Kb + stage * Sm::KV_BYTES);
-          bf16* vt = reinterpret_cast<bf16*>(Vb + stage * Sm::KV_BYTES);
+          T* kt = reinterpret_cast<T*>(Kb + stage * Sm::KV_BYTES);
+          T* vt = reinterpret_cast<T*>(Vb + stage * Sm::KV_BYTES);
 #pragma unroll
           for (int p = 0; p < DH / 64; ++p) {
             load_box(&map_k, h_first & 2, kt + p * BN * 64, &full[stage], 64 * p, it * BN, h,
@@ -217,7 +227,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)
-      wgmma_ss<0>(s,
+      wgmma_ss<0, 0, T>(s,
                   wgmma_desc(q_addr + (kk >> 2) * (BM * 128) + (kk & 3) * 32, 16, 1024),
                   wgmma_desc(k_addr + (kk >> 2) * (BN * 128) + (kk & 3) * 32, 16, 1024),
                   kk > 0 ? 1 : 0);
@@ -240,7 +250,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int hf = 0; hf < NH; ++hf)  // half hf reads V's panels 2 hf, 2 hf + 1
-        wgmma_rs<1>(acc[hf], pa[kk],
+        wgmma_rs<1, T>(acc[hf], pa[kk],
                     wgmma_desc(v_addr + hf * (CH / 64) * (BN * 128) + kk * 2048, BN * 128, 1024),
                     1);
     wgmma_commit();
@@ -293,8 +303,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         const float p3 = exp2_approx(s[4 * jj + 3] - m_use[1]);
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
-        pa[jj >> 1][(jj & 1) * 2] = pack_bf16(p0, p1);
-        pa[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[jj >> 1][(jj & 1) * 2] = pack2<T>(p0, p1);
+        pa[jj >> 1][(jj & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
     } else {
 #pragma unroll
@@ -320,8 +330,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         const float p3 = exp2_approx(fmaf(s[4 * jj + 3], scale_log2, -m[1]));
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
-        pa[jj >> 1][(jj & 1) * 2] = pack_bf16(p0, p1);
-        pa[jj >> 1][(jj & 1) * 2 + 1] = pack_bf16(p2, p3);
+        pa[jj >> 1][(jj & 1) * 2] = pack2<T>(p0, p1);
+        pa[jj >> 1][(jj & 1) * 2 + 1] = pack2<T>(p2, p3);
       }
     }
 #pragma unroll
@@ -355,7 +365,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const int h = (item / n_qt) % H;
     const int b = item / (n_qt * H);
     const int qb = n & 1;
-    bf16* Qi = Qs + qb * BM * DH;
+    T* Qi = Qs + qb * BM * DH;
     q_addr = smem_u32(Qi) + wg * 64 * 128;
     q_row0 = q0 + r0;
 #pragma unroll
@@ -418,7 +428,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_acc();
     if (lane == 0) mbar_arrive(&empty[cur]);
 
-    // stage o / l as bf16 in this warp's own Q rows, then 16-byte stores;
+    // stage o / l as T in this warp's own Q rows, then 16-byte stores;
     // then the Q buffer goes back to the producer
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -431,12 +441,12 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int j = 0; j < CH / 8; ++j) {
         const int col = hf * CH + 8 * j + 2 * t;
         *reinterpret_cast<uint32_t*>(Qi + pan<BM>(r0 + g, col)) =
-            pack_bf16(acc[hf][4 * j] / l[0], acc[hf][4 * j + 1] / l[0]);
+            pack2<T>(acc[hf][4 * j] / l[0], acc[hf][4 * j + 1] / l[0]);
         *reinterpret_cast<uint32_t*>(Qi + pan<BM>(r0 + g + 8, col)) =
-            pack_bf16(acc[hf][4 * j + 2] / l[1], acc[hf][4 * j + 3] / l[1]);
+            pack2<T>(acc[hf][4 * j + 2] / l[1], acc[hf][4 * j + 3] / l[1]);
       }
     __syncwarp();
-    bf16* ob = o + b * so.b + h * so.h;
+    T* ob = o + b * so.b + h * so.h;
     constexpr int CPR = DH / 8;
 #pragma unroll
     for (int i = lane; i < 16 * CPR; i += 32) {
@@ -461,8 +471,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH, int KS, bool MASKED>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+template <typename T, int DH, int KS, bool MASKED>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse,
                    const Strides* st, int B, int H, int L, int dh, float scale,
                    const void* mask, int mask_bf16, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
@@ -474,30 +484,31 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* 
       !make_view_map(&mv, v, st[2], B, H, L, dh, BN, &hv))
     return cudaErrorInvalidValue;
   constexpr size_t smem = Smem<DH>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<DH, KS, MASKED>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, DH, KS, MASKED>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const int items = (L + BM - 1) / BM * H * B;
   const int slots = min_blocks<DH>() * sm90::sm_count();
-  flash_fwd_kernel<DH, KS, MASKED><<<items < slots ? items : slots, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, DH, KS, MASKED><<<items < slots ? items : slots, THREADS, smem, stream>>>(
       mq, mk, mv, (hq ? 1 : 0) | (hk ? 2 : 0) | (hv ? 4 : 0), o, lse, st[3], B, H, L, dh,
       scale, mask, mask_bf16);
   return cudaGetLastError();
 }
 
-// Checks the arguments and launches the instantiation for head dim dh:
+// Checks the arguments and launches the instantiation of element type T
+// (bf16 or __half) for head dim dh:
 // 64 and 256 as they are; 72-128 at the padded width 128, unmasked at
 // KS = ceil(dh / 16) k-steps, masked at KS = 8 for every such dh (its
 // k-steps past dh read TMA's zero fill), so that the masked library
 // (flash_attn_fwd_masked.cu) holds three instantiations and builds beside
-// the unmasked one (flash_attn_fwd.cu). q, k, v, o: [B, H, L, dh] bf16
-// views with dh contiguous; strides holds (b, h, l) element strides of q,
+// the unmasked one (flash_attn_fwd.cu). q, k, v, o: [B, H, L, dh] views of
+// T with dh contiguous; strides holds (b, h, l) element strides of q,
 // k, v and o in that order (12 values). lse: [B, H, L] fp32, or null when
 // no backward follows. dh: 64, a multiple of 8 from 72 to 128, or 256.
 // mask: a contiguous [L, L] additive mask (bf16 when mask_bf16 != 0, else
 // fp32) with MASKED, null without.
-template <bool MASKED>
+template <typename T, bool MASKED>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, float* lse,
                 const long long* strides, int B, int H, int L, int dh, float scale,
                 const void* mask, int mask_bf16, void* stream) {
@@ -507,24 +518,24 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, float* lse
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(o);
+  const T* qb = static_cast<const T*>(q);
+  const T* kb = static_cast<const T*>(k);
+  const T* vb = static_cast<const T*>(v);
+  T* ob = static_cast<T*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto go = [&](auto launcher) {
     return launcher(qb, kb, vb, ob, lse, st, B, H, L, dh, scale, mask, mask_bf16, s);
   };
-  if (dh == 64) return go(launch<64, 4, MASKED>);
-  if (dh == 256) return go(launch<256, 16, MASKED>);
+  if (dh == 64) return go(launch<T, 64, 4, MASKED>);
+  if (dh == 256) return go(launch<T, 256, 16, MASKED>);
   if constexpr (MASKED) {
-    return go(launch<128, 8, true>);
+    return go(launch<T, 128, 8, true>);
   } else {
     switch ((dh + 15) / 16) {  // the k-steps of Q K^T
-      case 5: return go(launch<128, 5, false>);
-      case 6: return go(launch<128, 6, false>);
-      case 7: return go(launch<128, 7, false>);
-      default: return go(launch<128, 8, false>);
+      case 5: return go(launch<T, 128, 5, false>);
+      case 6: return go(launch<T, 128, 6, false>);
+      case 7: return go(launch<T, 128, 7, false>);
+      default: return go(launch<T, 128, 8, false>);
     }
   }
 }

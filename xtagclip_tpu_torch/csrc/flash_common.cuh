@@ -3,7 +3,8 @@
 // attention half (fused_attn_half.cu) and its backward
 // (fused_attn_half_bwd.cu), share: the Strides of a [B, H, L, dh] view,
 // the tensor maps that TMA reads such views through, the shared-memory
-// layout of the tiles it writes, and two register helpers.
+// layout of the tiles it writes, and the register helpers of the element
+// type (bf16, or __half for flash attention's float16 instantiations).
 //
 // A tensor is read as [B, H, L, dh] through its element strides over b, h
 // and l, with dh contiguous, so the model's q/k/v views of one [B, L, 3D]
@@ -12,6 +13,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "hopper.cuh"
 
@@ -48,6 +50,33 @@ __device__ __forceinline__ float exp2_approx(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to nearest into a pair of the element type T (bf16
+// or __half), as 32 bits; and such a pair back to two floats (exact)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (std::is_same<T, __half>::value)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// The tensor-map element type of T
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // e / d rounded to nearest, for d >= 1 and a normal or zero quotient (the
@@ -156,11 +185,13 @@ __device__ __forceinline__ void softmax_rows(float (&s)[NK / 2], int row0, int t
                           : 0.0f;
 }
 
-// The tensor map of a [B, H, L, DH] bf16 view with element strides ``st``,
+// The tensor map of a [B, H, L, DH] view of 16-bit elements T (bf16 or
+// __half) with element strides ``st``,
 // read in boxes of [rows x 64]; sets ``h_first`` when h's stride is below
 // l's (see load_box). DH is the true head dim: a box's columns past it
 // load as zero. False if cuTensorMapEncodeTiled refuses it.
-inline bool make_view_map(CUtensorMap* map, const bf16* ptr, const Strides& st, int B, int H,
+template <typename T>
+inline bool make_view_map(CUtensorMap* map, const T* ptr, const Strides& st, int B, int H,
                           int L, int DH, int rows, bool* h_first) {
   sm90::EncodeTiledFn encode = sm90::encode_tiled();
   if (encode == nullptr) return false;
@@ -173,7 +204,7 @@ inline bool make_view_map(CUtensorMap* map, const bf16* ptr, const Strides& st, 
   const cuuint32_t box[4] = {64, (cuuint32_t)(*h_first ? 1 : rows),
                              (cuuint32_t)(*h_first ? rows : 1), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims, strides,
+  return encode(map, map_type<T>(), 4, const_cast<T*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -29,8 +29,12 @@ fp32 parameters, as JAX's ``LayerNorm`` module does (layers.py:44-61; only
 its TPU fused halves declare them in ``param_dtype``). The kernels' fp32
 bias operands are upcast at the call, which is exact, and AdamW steps the
 bf16 parameters, as optax does; ``"fp16"`` and ``"pure_fp16"``
-compute in float16, which no kernel takes, so they run the plain versions
-on the CPU and raise on the card. The model comes back trainable. For
+compute in float16 (``"pure_fp16"`` with float16 parameters but the
+LayerNorms'), on the CPU and on the card, routed as JAX routes float16:
+flash attention (#6) has float16 kernels and takes the blocks' unmasked
+cores, and everything else runs the plain versions, as XLA runs it in JAX
+(models/layers.py ``ResidualAttentionBlock``). The model comes back
+trainable. For
 serving, ``cast_for_compute`` casts the matmul weights to the compute
 dtype once, so the casts at use cost nothing;
 LayerNorm parameters (CoCa's pooler and cross-attention ``ln_1_kv``
@@ -351,11 +355,6 @@ def create_model(model_name: str, pretrained: Optional[str] = None,
     ``use_bn_sync`` marks a ModifiedResNet tower's BatchNorms ``sync``,
     as JAX gives them ``bn_axis_name`` (factory.py:327); their statistics
     span every rank either way (models/layers.py ``BatchNorm``)."""
-    if get_cast_dtype(precision) == torch.float16 and \
-            torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            f"precision {precision!r}: every kernel of the port is bf16, so "
-            "float16 runs only on the CPU (its plain versions)")
     dev = resolve_device(device)
     hub_id = None
     if model_name.startswith("hf-hub:"):

@@ -1,5 +1,7 @@
-"""Asymmetric multi-label loss (port of xtagclip_tpu/losses/asl.py:16-44):
-SUM reduction, and no gradient through the focal weight."""
+"""Asymmetric multi-label loss (port of xtagclip_tpu/losses/asl.py): the
+function (:16-44; SUM reduction, no gradient through the focal weight)
+and ``AsymmetricLoss``, its callable with the reference's defaults
+(:47-60)."""
 
 from __future__ import annotations
 
@@ -26,3 +28,22 @@ def asymmetric_loss(logits, targets, gamma_neg: float = 4.0,
             w = w.detach()
         loss = loss * w
     return -loss.sum()
+
+
+class AsymmetricLoss:
+    """``asymmetric_loss`` with fixed hyperparameters, called as
+    ``loss(logits, targets)`` (JAX asl.py:47-60; the reference's
+    ``disable_torch_grad_focal_loss`` names the focal weight's stop)."""
+
+    def __init__(self, gamma_neg=4, gamma_pos=1, clip=0.05, eps=1e-8,
+                 disable_torch_grad_focal_loss=True):
+        self.gamma_neg = gamma_neg
+        self.gamma_pos = gamma_pos
+        self.clip = clip
+        self.eps = eps
+        self.disable_grad_focal = disable_torch_grad_focal_loss
+
+    def __call__(self, logits, targets):
+        return asymmetric_loss(logits, targets, self.gamma_neg,
+                               self.gamma_pos, self.clip, self.eps,
+                               self.disable_grad_focal)

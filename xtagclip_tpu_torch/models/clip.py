@@ -110,6 +110,12 @@ class CLIP(nn.Module):
         the model has one (SigLIP), in fp32 (JAX clip.py:157-164)."""
         image_features, _ = self.encode_image(image, normalize=True)
         text_features, _ = self.encode_text(text, normalize=True)
+        image_logits = self._scaled_logits(image_features, text_features)
+        return image_logits, image_logits.t()
+
+    def _scaled_logits(self, image_features, text_features):
+        """``exp(logit_scale)`` times the features' products, plus
+        ``logit_bias`` where the model has one, in fp32."""
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
@@ -119,7 +125,65 @@ class CLIP(nn.Module):
             torch.backends.cuda.matmul.allow_tf32 = prev
         if self.logit_bias is not None:
             image_logits = image_logits + self.logit_bias.float()
-        return image_logits, image_logits.t()
+        return image_logits
+
+    def forward_intermediates(self, image=None, text=None, image_indices=None,
+                              text_indices=None, normalize: bool = True,
+                              normalize_intermediates: bool = False,
+                              intermediates_only: bool = False,
+                              image_output_fmt: str = "NCHW",
+                              image_output_extra_tokens: bool = False,
+                              text_output_fmt: str = "NLC",
+                              text_output_extra_tokens: bool = False,
+                              output_logits: bool = False,
+                              output_logit_scale_bias: bool = False) -> dict:
+        """Per-block features of either tower or both (JAX clip.py:166-230,
+        the reference's model.py:395-456 contract): each tower's
+        ``forward_intermediates`` (models/vit.py, models/text.py) with its
+        indices, ``normalize_intermediates``, ``intermediates_only``, the
+        image layout (NCHW or NLC; the text's is NLC) and extra tokens;
+        ``image_features`` / ``text_features`` l2-normalized with
+        ``normalize``; ``image_logits`` / ``text_logits`` with
+        ``output_logits`` (both inputs needed), and ``logit_scale`` (its
+        exp) and ``logit_bias`` with ``output_logit_scale_bias``.
+        ``intermediates_only`` turns ``normalize`` and ``output_logits``
+        off. A tower without the method (the timm, HF and ResNet towers, as
+        in JAX) raises TypeError; an attentional-pool tower raises
+        NotImplementedError."""
+        del text_output_fmt  # NLC is the text's one layout (JAX's too)
+        if intermediates_only:
+            normalize = output_logits = False
+        if output_logits and (image is None or text is None):
+            raise ValueError("both image and text inputs are required to "
+                             "compute logits")
+        out = {}
+        for x, tower, kw in (
+                (image, self.visual, dict(
+                    indices=image_indices, output_fmt=image_output_fmt,
+                    output_extra_tokens=image_output_extra_tokens)),
+                (text, self.text, dict(
+                    indices=text_indices,
+                    output_extra_tokens=text_output_extra_tokens))):
+            if x is None:
+                continue
+            if not hasattr(tower, "forward_intermediates"):
+                raise TypeError(f"{type(tower).__name__} has no "
+                                "forward_intermediates")
+            out.update(tower.forward_intermediates(
+                x, normalize_intermediates=normalize_intermediates,
+                intermediates_only=intermediates_only, **kw))
+        for key in ("image_features", "text_features"):
+            if key in out and normalize:
+                out[key] = l2_normalize(out[key])
+        if output_logits:
+            out["image_logits"] = self._scaled_logits(out["image_features"],
+                                                      out["text_features"])
+            out["text_logits"] = out["image_logits"].t()
+        if output_logit_scale_bias:
+            out["logit_scale"] = self.logit_scale.exp()
+            if self.logit_bias is not None:
+                out["logit_bias"] = self.logit_bias
+        return out
 
     # ---- XTag pieces -----------------------------------------------------
     def tag_forward(self, image_tokens, generator=None):

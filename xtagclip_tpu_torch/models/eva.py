@@ -28,6 +28,7 @@ from torch import nn
 from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    flash_on,
     gelu_exact,
     local_heads,
     run_blocks,
@@ -95,7 +96,7 @@ class EvaAttention(nn.Module):
                                  dim=1).reshape(b, l, e)
 
             q, k = rotate(q), rotate(k)
-        kernels = self.use_kernels and x.dtype == torch.bfloat16
+        kernels = flash_on(self.use_kernels, x.dtype)
         return self.proj(self_attention_core(q, k, v, nh, kernels))
 
 

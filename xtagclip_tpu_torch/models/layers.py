@@ -353,16 +353,26 @@ def attention(q, k, v, num_heads: int, dropout_rate: float = 0.0,
 JAX_FUSED_HEAD_DIMS = (64, 80, 88, 104, 128)
 
 
-def flash_takes(l: int, mask, dh: int) -> bool:
-    """Whether a self-attention core of length ``l`` and head dim ``dh``
-    under ``mask`` goes to flash attention (#6): ``flash_attn.supported``
-    takes it and, with an [L, L] mask, JAX has a Pallas kernel for the
-    head dim (``JAX_FUSED_HEAD_DIMS``, its fused attention half's); a
-    masked core at any other head dim (ViTamin-XL's causal text at 72, a
-    masked 256) is XLA's attention in JAX and the plain ``attention``
-    here."""
+def flash_takes(l: int, mask, dh: int, dtype=torch.bfloat16) -> bool:
+    """Whether a self-attention core of length ``l``, head dim ``dh`` and
+    ``dtype`` under ``mask`` goes to flash attention (#6):
+    ``flash_attn.supported`` takes it and, with an [L, L] mask, JAX has a
+    Pallas kernel for the stream (its fused attention half's: bf16 at
+    ``JAX_FUSED_HEAD_DIMS``); a masked core at any other head dim
+    (ViTamin-XL's causal text at 72, a masked 256) or in float16 (JAX's
+    fused half takes bf16 alone) is XLA's attention in JAX and the plain
+    ``attention`` here. An fp32 stream goes where a bf16 one would, to
+    the plain version of its route."""
     return flash_attn.supported(l, l, mask, dh) and (
-        mask is None or dh in JAX_FUSED_HEAD_DIMS)
+        mask is None or (dh in JAX_FUSED_HEAD_DIMS
+                         and dtype != torch.float16))
+
+
+def flash_on(use_kernels: bool, dtype) -> bool:
+    """Whether a stream of ``dtype`` runs #6's kernels where its route
+    takes flash attention: ``use_kernels`` and bf16 or float16 (JAX's
+    flash kernel takes both; the other kernels take bf16 alone)."""
+    return use_kernels and dtype in flash_attn.DTYPES
 
 
 def self_attention_core(q, k, v, num_heads: int, use_kernels: bool,
@@ -375,7 +385,7 @@ def self_attention_core(q, k, v, num_heads: int, use_kernels: bool,
     with the mask (XLA's attention in JAX)."""
     b, l, e = q.shape
     dh = e // num_heads
-    if not flash_takes(l, mask, dh):
+    if not flash_takes(l, mask, dh, q.dtype):
         return attention(q, k, v, num_heads, mask=mask)
     core = (flash_attn.flash_mha if use_kernels
             else flash_attn.reference_flash_mha)
@@ -498,7 +508,8 @@ class ResidualAttentionBlock(nn.Module):
       stream that ``fab.supported`` and ``fab.supported_mlp`` take (L <=
       128, head dim 64, D and the MLP width multiples of 64, no mask or an
       [L, L] one; the ViT-B-32 towers, the text towers, CoCa's causal
-      decoder blocks): ``fab.fused_attn_half`` then ``fab.fused_mlp_half``;
+      decoder blocks) but a float16 one: ``fab.fused_attn_half`` then
+      ``fab.fused_mlp_half``;
     - ``"plain_core"``, for a cross-attention block (``is_cross_attention``:
       CoCa's decoder, whose key/value stream, the image embeddings, passes
       ``ln_1_kv`` first, layers.py:560-566) and for self-attention under a
@@ -527,6 +538,15 @@ class ResidualAttentionBlock(nn.Module):
       MLP outputs before each residual add, layers.py:577-587) never
       takes the fused halves, as JAX keeps it off the fused kernels
       (:531).
+
+    Float16 (``fp16``, ``pure_fp16``): JAX's fused halves and fused MLP
+    gate on bf16 (fused_attn_block.py:255, 749; fused_mlp.py:32), so its
+    float16 block is the non-fused one, its attention core on its flash
+    kernel where that takes the stream and XLA's elsewhere, its MLP XLA's.
+    Here a float16 stream takes ``"non_fused"`` (never the fused halves):
+    its core is #6's float16 kernel where ``flash_takes`` it (no mask;
+    ``flash_on``), else the plain ``attention``; its MLP is #4's plain
+    version. #1-#4 never see float16.
 
     Inside a route, a bf16 stream with ``use_kernels`` on (the default;
     ``set_use_kernels``) runs the route's kernel wrappers: their CUDA
@@ -587,14 +607,15 @@ class ResidualAttentionBlock(nn.Module):
         self.local_heads = heads
         self.mlp_pieces = [self.mlp.c_fc.kernel.shape[1]]
 
-    def route(self, shape, attn_mask=None) -> str:
-        """The route of a stream of this shape under this mask (class
-        doc): ``"fused_halves"``, ``"plain_core"`` or ``"non_fused"``."""
+    def route(self, shape, attn_mask=None, dtype=torch.bfloat16) -> str:
+        """The route of a stream of this shape and dtype under this mask
+        (class doc): ``"fused_halves"``, ``"plain_core"`` or
+        ``"non_fused"``."""
         if self.is_cross_attention or (attn_mask is not None
                                        and attn_mask.dim() == 4):
             return "plain_core"
         mshape = None if attn_mask is None else tuple(attn_mask.shape)
-        if (not self.layer_scale
+        if (not self.layer_scale and dtype != torch.float16
                 and fab.supported(shape, self.heads, torch.bfloat16, mshape)
                 and self._mlp_pieces_fused(shape)):
             return "fused_halves"
@@ -614,14 +635,15 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x, attn_mask=None, kv=None):
         """``kv``: the key/value stream of a cross-attention block."""
         kernels = self.use_kernels and x.dtype == torch.bfloat16
-        route = self.route(x.shape, attn_mask)
+        route = self.route(x.shape, attn_mask, x.dtype)
         if route == "fused_halves":
             return self._fused_halves(x, attn_mask, kernels)
         if kernels and x.device.type != "cpu":
             self._check_kernels_take(x.shape, attn_mask, route)
+        flash = flash_on(self.use_kernels, x.dtype)
         if route == "plain_core":
-            return self._plain_core(x, attn_mask, kv, kernels)
-        return self._non_fused(x, attn_mask, kernels)
+            return self._plain_core(x, attn_mask, kv, kernels, flash)
+        return self._non_fused(x, attn_mask, kernels, flash)
 
     def _halves(self, kernels):
         """(attention half, MLP half) of the fused route: the kernel
@@ -674,33 +696,34 @@ class ResidualAttentionBlock(nn.Module):
                 f"no kernel for MLP rows {tuple(shape)}, hidden width "
                 f"{mlp_width}, act {self.act!r}")
 
-    def _plain_core(self, x, attn_mask, kv, kernels):
+    def _plain_core(self, x, attn_mask, kv, kernels, flash):
+        """``kernels``: #1-#4 (bf16); ``flash``: #6 (``flash_on``)."""
         h = self.ln_1(x)
         if self.tp_size > 1:
-            a = self._attn_tp(h, attn_mask, kernels, kv)
+            a = self._attn_tp(h, attn_mask, flash, kv)
         elif self.is_cross_attention:
             a = self.attn(h, self.ln_1_kv(kv))
         else:  # a 4-D mask: flash attention takes no mask
-            a = self.attn.self_attention(h, kernels, attn_mask)
+            a = self.attn.self_attention(h, flash, attn_mask)
         x = x + (self.ls_1(a) if self.layer_scale else a)
         if not self._mlp_half_fused(x.shape):
             m = self._mlp(self.ln_2(x), kernels)
             return x + (self.ls_2(m) if self.layer_scale else m)
         return self._mlp_half(x, self._halves(kernels)[1])
 
-    def _non_fused(self, x, attn_mask, kernels):
+    def _non_fused(self, x, attn_mask, kernels, flash):
         h = self.ln_1(x)
-        a = (self._attn_tp(h, attn_mask, kernels) if self.tp_size > 1
-             else self.attn.self_attention(h, kernels, attn_mask))
+        a = (self._attn_tp(h, attn_mask, flash) if self.tp_size > 1
+             else self.attn.self_attention(h, flash, attn_mask))
         x = x + (self.ls_1(a) if self.layer_scale else a)
         m = self._mlp(self.ln_2(x), kernels)
         return x + (self.ls_2(m) if self.layer_scale else m)
 
-    def _attn_tp(self, h, attn_mask, kernels, kv=None):
+    def _attn_tp(self, h, attn_mask, flash, kv=None):
         """out_proj(MHA(h)) of a sharded block off the fused half (class
         doc): the local heads' projections of ``copy_to_model(h)``, the
-        core over the local heads (#6 where it takes them, else the plain
-        attention), then ``tp.out_projection``. ``kv`` is a
+        core over the local heads (#6 where it takes them and ``flash``,
+        else the plain attention), then ``tp.out_projection``. ``kv`` is a
         cross-attention block's key/value stream, before ``ln_1_kv``."""
         a, h = self.attn, copy_to_model(h)
         if self.is_cross_attention:
@@ -715,7 +738,7 @@ class ResidualAttentionBlock(nn.Module):
         else:
             el = a.in_proj.kernel.shape[1] // 3
             q, k, v = a._proj(h, 0, 3 * el).split(el, dim=-1)
-            o = self_attention_core(q, k, v, self.local_heads, kernels,
+            o = self_attention_core(q, k, v, self.local_heads, flash,
                                     attn_mask)
         return tp.out_projection(o, a.out_proj.kernel, a.out_proj.bias)
 
@@ -751,9 +774,11 @@ def set_grad_checkpointing(module: nn.Module, enabled: bool = True) -> None:
             m.grad_checkpointing = enabled
 
 
-def run_blocks(blocks, x, checkpointed: bool, *args):
+def run_blocks(blocks, x, checkpointed: bool, *args, intermediates=None):
     """x through ``blocks`` (each called as ``blk(x, *args)``), each under
-    ``torch.utils.checkpoint`` while ``checkpointed`` and grad is on."""
+    ``torch.utils.checkpoint`` while ``checkpointed`` and grad is on;
+    each block's output is appended to the list ``intermediates`` if one
+    is given."""
     remat = checkpointed and torch.is_grad_enabled()
     for blk in blocks:
         if remat:
@@ -761,13 +786,41 @@ def run_blocks(blocks, x, checkpointed: bool, *args):
                 blk, x, *args, use_reentrant=False, preserve_rng_state=False)
         else:
             x = blk(x, *args)
+        if intermediates is not None:
+            intermediates.append(x)
     return x
+
+
+def feature_take_indices(num_features: int, indices=None):
+    """(the block indices to take, the largest) of ``indices`` over
+    ``num_features`` blocks (JAX layers.py:64-80, the reference's
+    utils.py:94-133): None takes all, an int the last n, a list those
+    indices, negatives counted from the end. Out of range raises
+    ValueError (an assertion in JAX)."""
+    if indices is None:
+        indices = num_features
+    if isinstance(indices, int):
+        if not 0 < indices <= num_features:
+            raise ValueError(f"last-n ({indices}) out of range (1 to "
+                             f"{num_features})")
+        take = [num_features - indices + i for i in range(indices)]
+    else:
+        take = []
+        for i in indices:
+            idx = num_features + i if i < 0 else i
+            if not 0 <= idx < num_features:
+                raise ValueError(f"feature index {idx} out of range (0 to "
+                                 f"{num_features - 1})")
+            take.append(idx)
+    return take, max(take)
 
 
 class Transformer(nn.Module):
     """Stack of residual attention blocks (unrolled); with
     ``grad_checkpointing`` each block is checkpointed while grad is on
-    (module doc)."""
+    (module doc). ``return_intermediates`` (JAX's, layers.py:639-680)
+    returns (x, [each block's output]) through the same blocks and
+    routes, so the kernels run as in the plain forward."""
 
     def __init__(self, width: int, layers: int, heads: int,
                  mlp_ratio: float = 4.0, act: str = "gelu",
@@ -780,7 +833,12 @@ class Transformer(nn.Module):
                                    ls_init_value)
             for _ in range(layers))
 
-    def forward(self, x, attn_mask=None):
-        return run_blocks(self.resblocks, x, self.grad_checkpointing,
-                          attn_mask)
+    def forward(self, x, attn_mask=None, return_intermediates: bool = False):
+        if not return_intermediates:
+            return run_blocks(self.resblocks, x, self.grad_checkpointing,
+                              attn_mask)
+        inters = []
+        x = run_blocks(self.resblocks, x, self.grad_checkpointing, attn_mask,
+                       intermediates=inters)
+        return x, inters
 

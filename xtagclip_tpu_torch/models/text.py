@@ -23,6 +23,15 @@ Options (text.py:46-66), as JAX applies them:
   whose blocks take the plain attention core (models/layers.py). The
   pooled feature is ``ln_final`` of the class token's row, and the
   returned sequence is the other rows, without ``ln_final``.
+
+``forward_intermediates`` (JAX's ``intermediates_cfg``, text.py:70-177)
+returns each chosen block's output [B, L, width] through the same blocks,
+mask and routes as ``forward``: ``indices``
+(``layers.feature_take_indices``), ``normalize_intermediates`` (through
+``ln_final``), ``output_extra_tokens`` (an ``embed_cls`` tower's class
+token, cut off the intermediates, as ``text_intermediates_suffix``), and
+``intermediates_only``; else the projected feature ``forward`` gives, as
+``text_features``.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from xtagclip_tpu_torch.models.layers import (
     Embed,
     LayerNorm,
     Transformer,
+    feature_take_indices,
 )
 
 POOL_TYPES = ("argmax", "first", "last", "none")
@@ -114,6 +124,38 @@ class TextTransformer(nn.Module):
         """[B, L] token ids -> (projected [B, E], sequence [B, L, D]). The
         blocks draw no random numbers (JAX's are rate-0), so ``generator``
         changes nothing."""
+        x, mask = self._embed(text)
+        return self._head(self.transformer(x, attn_mask=mask), text)
+
+    def forward_intermediates(self, text, indices=None,
+                              normalize_intermediates: bool = False,
+                              intermediates_only: bool = False,
+                              output_extra_tokens: bool = False) -> dict:
+        """The blocks' outputs of [B, L] token ids (module doc):
+        {"text_intermediates": [...], "text_intermediates_suffix": [...]
+        for an ``embed_cls`` tower with ``output_extra_tokens``,
+        "text_features": the projected feature unless
+        ``intermediates_only``}."""
+        take, _ = feature_take_indices(len(self.transformer.resblocks),
+                                       indices)
+        x, mask = self._embed(text)
+        x, inters = self.transformer(x, attn_mask=mask,
+                                     return_intermediates=True)
+        sel = [inters[i] for i in take]
+        if normalize_intermediates:
+            sel = [self.ln_final(t) for t in sel]
+        out = {}
+        if self.embed_cls:
+            if output_extra_tokens:
+                out["text_intermediates_suffix"] = [t[:, -1:] for t in sel]
+            sel = [t[:, :-1] for t in sel]
+        out["text_intermediates"] = sel
+        if not intermediates_only:
+            out["text_features"] = self._head(x, text)[0]
+        return out
+
+    def _embed(self, text):
+        """(the blocks' input, their additive mask or None)."""
         seq_len = text.shape[1] + (1 if self.embed_cls else 0)
         x = self.token_embedding(text).to(self.dtype)
         mask = (None if self.no_causal_mask
@@ -126,7 +168,10 @@ class TextTransformer(nn.Module):
                 mask = mask + torch.where(pad, float("-inf"), 0.0)[
                     :, None, None, :]
         x = x + self.positional_embedding[:seq_len].to(x.dtype)
-        x = self.transformer(x, attn_mask=mask)
+        return x, mask
+
+    def _head(self, x, text):
+        """(projected, sequence) of the blocks' output (module doc)."""
         if self.embed_cls:
             pooled, x = self.ln_final(x[:, -1]), x[:, :-1]
         else:

@@ -6,7 +6,10 @@ pooled feature AND to every token (the XTag edit, vit.py:272-280), so the
 tag head cross-attends in embed_dim space.
 
 Pooling (vit.py:103-107, 226-235): ``pool_type="tok"`` takes the class
-token; ``"avg"`` the mean of the patch tokens. ``no_class_token`` (with
+token; ``"avg"`` the mean of the patch tokens; any other value (the
+reference's ``"none"``) the whole token sequence, which ``ln_post`` and
+``proj`` then take as they take the tokens, so the pooled output is
+[B, L, output_dim]. ``no_class_token`` (with
 ``"avg"`` only, as in JAX) drops the class embedding: the cls-free GAP
 tower, L = gh * gw (256 for ViT-B-16 at 256 px), whose blocks leave the
 fused halves for flash attention and the fused MLP (models/layers.py).
@@ -37,6 +40,16 @@ Options (vit.py:42-79), as JAX applies them:
   [output_dim, output_dim] is the pooled feature, and the other rows,
   unprojected, are the returned tokens (255 image embeddings for CoCa's
   256 queries).
+
+``forward_intermediates`` (JAX's ``intermediates_cfg``, vit.py:187-270)
+returns each chosen block's output through the same blocks and routes as
+``forward``: ``indices`` (``layers.feature_take_indices``),
+``normalize_intermediates`` (through ``ln_post``), ``output_fmt`` NCHW
+(the patch tokens as [B, width, gh, gw]) or NLC, ``output_extra_tokens``
+(the class token as ``image_intermediates_prefix``), and
+``intermediates_only``; else the pooled feature ``forward`` gives, as
+``image_features``. It refuses an attentional-pool tower, and NCHW with
+learnable tokens, as JAX does.
 """
 
 from __future__ import annotations
@@ -49,6 +62,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     Transformer,
+    feature_take_indices,
     patch_dropout,
 )
 from xtagclip_tpu_torch.models.pos_embed import get_2d_sincos_pos_embed
@@ -80,9 +94,6 @@ class VisionTransformer(nn.Module):
         unknown = sorted(set(options) - _INERT)
         if unknown:
             raise TypeError(f"unknown vision tower options: {unknown}")
-        if pool_type not in ("tok", "avg"):
-            raise NotImplementedError(
-                f"vision pool_type {pool_type!r} is not ported yet")
         if no_class_token and pool_type != "avg":
             raise ValueError(
                 "no_class_token requires pool_type='avg' (GAP); "
@@ -157,6 +168,50 @@ class VisionTransformer(nn.Module):
     def forward(self, x, generator=None):
         """[B, H, W, 3] normalized images -> (pooled [B, E], tokens [B, L,
         E]). ``generator`` (training) turns patch dropout on."""
+        return self._head(self.transformer(self._embed(x, generator)))
+
+    def forward_intermediates(self, x, indices=None,
+                              normalize_intermediates: bool = False,
+                              intermediates_only: bool = False,
+                              output_fmt: str = "NCHW",
+                              output_extra_tokens: bool = False) -> dict:
+        """The blocks' outputs of [B, H, W, 3] normalized images (module
+        doc): {"image_intermediates": [...], "image_intermediates_prefix":
+        [...] with ``output_extra_tokens``, "image_features": the pooled
+        feature unless ``intermediates_only``}."""
+        if self.attentional_pool:
+            raise NotImplementedError(
+                "forward_intermediates is not supported with "
+                "attentional_pool towers")
+        if output_fmt not in ("NCHW", "NLC"):
+            raise ValueError(f"output_fmt {output_fmt!r}: NCHW or NLC")
+        if output_fmt == "NCHW" and self.n_learnable_tokens > 0:
+            raise ValueError("NCHW output requires a pure spatial token grid "
+                             "(no learnable tokens)")
+        take, _ = feature_take_indices(len(self.transformer.resblocks),
+                                       indices)
+        b, h, w, _ = x.shape
+        gh, gw = h // self.patch_size[0], w // self.patch_size[1]
+        x, inters = self.transformer(self._embed(x),
+                                     return_intermediates=True)
+        sel = [inters[i] for i in take]
+        if normalize_intermediates:
+            sel = [self.ln_post(t) for t in sel]
+        ncls = 0 if self.no_class_token else 1
+        spatial = [t[:, ncls:] for t in sel]
+        if output_fmt == "NCHW":
+            spatial = [t.reshape(b, gh, gw, -1).permute(0, 3, 1, 2)
+                       for t in spatial]
+        out = {"image_intermediates": spatial}
+        if output_extra_tokens:
+            out["image_intermediates_prefix"] = [t[:, :ncls] for t in sel]
+        if not intermediates_only:
+            out["image_features"] = self._head(x)[0]
+        return out
+
+    def _embed(self, x, generator=None):
+        """The blocks' input: patches, class token, positions, learnable
+        tokens, patch dropout (with ``generator``), ``ln_pre``."""
         x = self.conv1(self.patchify(x.to(self.dtype)))
         if not self.no_class_token:
             cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, -1)
@@ -171,18 +226,21 @@ class VisionTransformer(nn.Module):
             x = patch_dropout(x, generator, self.patch_dropout)
         if self.ln_pre is not None:
             x = self.ln_pre(x)
-        tokens = self.transformer(x)
+        return x
+
+    def _head(self, tokens):
+        """(pooled, tokens) of the blocks' output (module doc)."""
         if self.attentional_pool:
             normed = self.ln_post(self.attn_pool(tokens))
             pooled = torch.matmul(normed[:, 0], self.proj.to(normed.dtype))
             return pooled, normed[:, 1:]
+        proj = self.proj.to(tokens.dtype)
+        projected = torch.matmul(self.ln_post(tokens), proj)
         if self.pool_type == "tok":
             pooled = tokens[:, 0]
-        else:  # the mean of the patch tokens, in fp32 as jnp.mean
+        elif self.pool_type == "avg":  # the patch tokens' mean, in fp32
             patches = tokens if self.no_class_token else tokens[:, 1:]
             pooled = patches.float().mean(dim=1).to(tokens.dtype)
-        pooled = self.ln_post(pooled)
-        proj = self.proj.to(pooled.dtype)
-        pooled = torch.matmul(pooled, proj)
-        tokens = torch.matmul(self.ln_post(tokens), proj)
-        return pooled, tokens
+        else:  # the token sequence itself
+            return projected, projected
+        return torch.matmul(self.ln_post(pooled), proj), projected

@@ -30,6 +30,7 @@ from xtagclip_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     channels_last,
+    flash_on,
     gelu_exact,
     local_heads,
     run_blocks,
@@ -78,7 +79,7 @@ class GeGluBlock(nn.Module):
 
     def forward(self, x):
         q, k, v = self.qkv(tp_input(self, self.norm1(x))).chunk(3, dim=-1)
-        kernels = self.use_kernels and x.dtype == torch.bfloat16
+        kernels = flash_on(self.use_kernels, x.dtype)
         x = x + self.proj(self_attention_core(
             q, k, v, local_heads(self, self.heads), kernels))
         h = tp_input(self, self.norm2(x))

@@ -28,7 +28,7 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("fused_attn_half", "fused_mlp_half", "fused_attn_half_bwd",
                   "normalize_images", "flash_attn_fwd", "flash_attn_bwd",
                   "flash_attn_fwd_masked", "flash_attn_bwd_masked",
-                  "fused_mlp")
+                  "flash_attn_fwd_f16", "flash_attn_bwd_f16", "fused_mlp")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -145,9 +145,10 @@ _ARGTYPES = {
         _VP,                                         # stream
     ],
 }
-# the masked libraries' entry points take the same arguments
-_ARGTYPES["xtag_flash_attn_fwd_masked"] = _ARGTYPES["xtag_flash_attn_fwd"]
-_ARGTYPES["xtag_flash_attn_bwd_masked"] = _ARGTYPES["xtag_flash_attn_bwd"]
+# the masked and float16 libraries' entry points take the same arguments
+for _lib in ("masked", "f16"):
+    _ARGTYPES[f"xtag_flash_attn_fwd_{_lib}"] = _ARGTYPES["xtag_flash_attn_fwd"]
+    _ARGTYPES[f"xtag_flash_attn_bwd_{_lib}"] = _ARGTYPES["xtag_flash_attn_bwd"]
 
 
 @lru_cache(maxsize=None)

@@ -9,11 +9,13 @@ flash kernel and its Pallas dq / dkv backward kernels:
 - ``flash_mha`` / ``flash_mha_bwd``: the wrappers. On a CUDA tensor they
   launch the sm_90a kernels of ``csrc/flash_attn_fwd.cuh`` /
   ``csrc/flash_attn_bwd.cuh`` (built on first use, ops/cuda_build.py,
-  the unmasked and the masked instantiations as two libraries each) or
-  raise: a shape outside ``supported``, a wrong dtype, a stride the kernel
-  cannot read, a build or launch failure all raise, none switches to the
-  plain version. On a CPU tensor they run the plain version. Each counts
-  its launches in ``<wrapper>.launches``.
+  the unmasked and the masked bf16 instantiations and the unmasked
+  float16 ones as three libraries each) or raise: a shape outside
+  ``supported``, a dtype other than bf16 or float16 (or float16 under a
+  mask), a stride the kernel cannot read, a build or launch failure all
+  raise, none switches to the plain version. On a CPU tensor they run the
+  plain version. Each counts its launches in ``<wrapper>.launches`` (bf16)
+  and ``<wrapper>.launches_f16`` (float16).
 - ``reference_flash_mha`` / ``reference_flash_mha_bwd``: the plain
   versions. The forward is exact softmax attention: fp32 scores times
   dh^-0.5, plus the additive mask if one is given, fp32 softmax, the
@@ -24,6 +26,14 @@ flash kernel and its Pallas dq / dkv backward kernels:
   scale). The backward is the analytic one with the Pallas kernels'
   rounding points: P and dS round to the input dtype before the dq, dk and
   dv products, dP and dS stay fp32, D = rowsum(dO o) in fp32.
+
+Float16 (``pure_fp16``): JAX's flash gate (xtagclip_tpu/ops/flash_attn.py:
+51-62) tests shape and mask, not dtype, so its Pallas kernel takes a
+float16 stream as it takes a bf16 one; the kernels have a float16
+instantiation of the same code (wgmma's f16 form, fp32 scores, softmax
+and lse, P and the gradients rounded to float16). JAX's kernels under a
+mask (its fused halves) take bf16 alone, so a float16 stream under a mask
+has no kernel: ``takes_dtype`` says which streams go here.
 
 ``supported`` is derived for Hopper, not copied from the TPU gate (which
 needs L % 128 == 0 and head dim 64, 128 or 256): Lq == Lk, any L >= 1;
@@ -70,6 +80,9 @@ from xtagclip_tpu_torch.ops.fused_attn_block import (
 HEAD_DIMS = (64,) + tuple(range(72, 129, 8)) + (256,)
 LAYOUTS = ("blhd", "bhld")
 MASK_DTYPES = (torch.float32, torch.bfloat16)
+# the stream dtypes the kernels take: both unmasked, bf16 alone under a
+# mask (module doc)
+DTYPES = (torch.bfloat16, torch.float16)
 
 
 def supported(l_q: int, l_k: int, mask, head_dim: int) -> bool:
@@ -78,6 +91,13 @@ def supported(l_q: int, l_k: int, mask, head_dim: int) -> bool:
     ``HEAD_DIMS`` (module doc)."""
     return ((mask is None or tuple(mask.shape) == (l_q, l_k))
             and l_q == l_k and l_q >= 1 and head_dim in HEAD_DIMS)
+
+
+def takes_dtype(dtype, mask) -> bool:
+    """Whether the kernels take a stream of ``dtype`` under ``mask`` (None
+    or a tensor): bf16 with or without a mask, float16 without one."""
+    return dtype == torch.bfloat16 or (dtype == torch.float16
+                                       and mask is None)
 
 
 def _bhld(t, layout):
@@ -130,8 +150,9 @@ def _view_strides(t, layout):
 
 def _launch_checks(what, named, layout, mask=None):
     """Device, dtype, shape, stride and alignment checks for a launch;
-    every tensor in ``named`` has q's shape; ``mask`` None or [L, L] fp32
-    or bf16 on q's device."""
+    every tensor in ``named`` has q's shape and dtype (bf16, or float16
+    without a mask: ``takes_dtype``); ``mask`` None or [L, L] fp32 or bf16
+    on q's device."""
     q = named["q"]
     if q.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {q.device}")
@@ -147,11 +168,17 @@ def _launch_checks(what, named, layout, mask=None):
                              or mask.device != q.device):
         raise ValueError(f"{what}: the mask must be fp32 or bf16 on "
                          f"{q.device}, got {mask.dtype} on {mask.device}")
+    if not takes_dtype(q.dtype, mask):
+        raise ValueError(
+            f"{what}: no kernel for q of {q.dtype}"
+            f"{'' if mask is None else ' under a mask'} (bf16, or float16 "
+            "without a mask)")
     for key, t in named.items():
         if t.device != q.device:
             raise ValueError(f"{what}: {key} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"{what}: {key} must be torch.bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: {key} must be {q.dtype} as q is, got "
+                             f"{t.dtype}")
         if t.shape != q.shape:
             raise ValueError(f"{what}: {key} must have shape {tuple(q.shape)}, "
                              f"got {tuple(t.shape)}")
@@ -182,6 +209,22 @@ def _mask_args(mask):
     return mask.data_ptr(), int(mask.dtype == torch.bfloat16)
 
 
+def _library(base: str, dtype, mask) -> str:
+    """The kernel library of a launch: the bf16 unmasked or masked
+    instantiations, or the float16 ones."""
+    if dtype == torch.float16:
+        return f"{base}_f16"
+    return base if mask is None else f"{base}_masked"
+
+
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s bf16 or float16 kernels."""
+    if dtype == torch.float16:
+        wrapper.launches_f16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def _flash_fwd(q, k, v, layout, with_lse, mask=None):
     """(o, lse): the forward kernel, with the fp32 log-sum-exp [B, H, L]
     when ``with_lse``; on a CPU tensor the plain version and no lse."""
@@ -195,7 +238,7 @@ def _flash_fwd(q, k, v, layout, with_lse, mask=None):
            if with_lse else None)
     strides = cuda_build.int64_array(
         [s for t in (q, k, v, o) for s in _view_strides(t, layout)])
-    name = "flash_attn_fwd" if mask is None else "flash_attn_fwd_masked"
+    name = _library("flash_attn_fwd", q.dtype, mask)
     lib = cuda_build.load(name)
     err = getattr(lib, f"xtag_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -203,11 +246,12 @@ def _flash_fwd(q, k, v, layout, with_lse, mask=None):
         float(dh**-0.5), *_mask_args(mask),
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_build.check(lib, err, what)
-    flash_mha.launches += 1
+    _count(flash_mha, q.dtype)
     return o, lse
 
 
 flash_mha.launches = 0
+flash_mha.launches_f16 = 0
 
 
 @torch.library.custom_op("xtagclip_tpu_torch::flash_mha", mutates_args=())
@@ -249,7 +293,7 @@ def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd", mask=None):
     strides = cuda_build.int64_array(
         [s for t in (q, k, v, o, do, dq, dk, dv)
          for s in _view_strides(t, layout)])
-    name = "flash_attn_bwd" if mask is None else "flash_attn_bwd_masked"
+    name = _library("flash_attn_bwd", q.dtype, mask)
     lib = cuda_build.load(name)
     err = getattr(lib, f"xtag_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
@@ -257,11 +301,12 @@ def flash_mha_bwd(q, k, v, o, lse, do, layout: str = "blhd", mask=None):
         dv.data_ptr(), strides, b, h, l, dh, float(dh**-0.5),
         *_mask_args(mask), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(lib, err, what)
-    flash_mha_bwd.launches += 1
+    _count(flash_mha_bwd, q.dtype)
     return dq, dk, dv
 
 
 flash_mha_bwd.launches = 0
+flash_mha_bwd.launches_f16 = 0
 
 
 class _FlashMHA(torch.autograd.Function):

@@ -11,6 +11,11 @@ images are, as one multiply-add with folded scale and bias.
   failure all raise, none switches to the plain version. On a CPU tensor
   it runs the plain version, because there is no kernel to run there. It
   counts its kernel launches in ``normalize_images.launches``.
+- float16 (``pure_fp16``): JAX normalizes with XLA's ``normalize_images``
+  (:31-44, the serving export's, convert/serving.py:54), whose fp32
+  multiply-add rounds once to the model's float16; the Pallas kernel's
+  outputs are bf16 or fp32. On the card the kernel writes fp32 and one
+  cast rounds it to float16: one rounding, as JAX's.
 - ``normalize_images_reference``: the plain version, a multiply and then
   an add in fp32. The kernel fuses them into one FMA, so the two may
   differ by one fp32 ulp before the downcast, which moves a bf16 result by
@@ -99,20 +104,22 @@ def normalize_images_op(images_u8: torch.Tensor, mean: Sequence[float],
                          f"{tuple(images_u8.shape)}")
     if not images_u8.is_contiguous():
         raise ValueError(f"{what}: images must be contiguous")
-    if dtype not in _OUT_DTYPES:
+    if dtype not in _OUT_DTYPES and dtype != torch.float16:
         raise ValueError(f"{what}: no kernel for output dtype {dtype} "
-                         "(bfloat16 or float32)")
+                         "(bfloat16, float32, or float16 through float32)")
     scale, bias = _scale_bias(mean, std)
-    out = torch.empty(images_u8.shape, dtype=dtype, device=images_u8.device)
+    kernel_dtype = torch.float32 if dtype == torch.float16 else dtype
+    out = torch.empty(images_u8.shape, dtype=kernel_dtype,
+                      device=images_u8.device)
     lib = cuda_build.load("normalize_images")
     err = lib.xtag_normalize_images(
         images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
-        _OUT_DTYPES[dtype], *(float(v) for v in scale),
+        _OUT_DTYPES[kernel_dtype], *(float(v) for v in scale),
         *(float(v) for v in bias),
         torch.cuda.current_stream(images_u8.device).cuda_stream)
     cuda_build.check(lib, err, what)
     normalize_images.launches += 1
-    return out
+    return out.to(dtype)
 
 
 @normalize_images_op.register_fake

@@ -32,9 +32,21 @@ core/mesh.py's mesh, not JAX's rule. It goes by one table a block class
   v columns, the out-projection rows, the bias tables) is cut on those
   head boundaries, never mid-head (its ``unit`` is the head dim). Each
   rank's attention runs on its own count, ``local_heads``; the partial
-  terms and the all-reduces are the same [B, L, D] on every rank. Only a
-  model size above a block's head count raises ValueError naming the
-  block: a rank would hold no head.
+  terms and the all-reduces are the same [B, L, D] on every rank.
+- A block with fewer heads than N (a ``ResidualAttentionBlock`` or a
+  class of ``plans`` that splits heads; Swin's first stage, 4 heads, at
+  N = 8) is replicated whole on the model group, as JAX's GSPMD rule
+  replicates a leaf it cannot split (sharding.py:38-49): a rank would
+  hold no head. Its leaves stay whole tensors on every rank (no
+  ``model_shard``, absent from ``model_shards``), every rank computes
+  every head, and the block runs its one-process route: no
+  ``copy_to_model``, no all-reduce. Its input is the same on every rank
+  of the group, so its gradients are whole on each and take the data
+  group's reduction alone, as the LayerNorms' do; ``full_state_dict``,
+  ``load_full_state_dict`` and ``shard_optimizer_state`` move its leaves
+  as they are. Its neighbours still split (the MLP block of EVA, Swin,
+  BERT or T5 beside a replicated attention). ``replicated_blocks`` names
+  them.
 - The hidden width need not divide by N (EVA02-L-14's SwiGLU 2730 at
   N = 4): the slices are ``tensor_split``'s (683, 683, 682, 682), and
   EVA-02's ``mlp_norm``, a LayerNorm over that width, takes its
@@ -463,17 +475,20 @@ def _heads(module: nn.Module) -> Optional[int]:
     return plan.heads(module) if plan is not None and plan.heads else None
 
 
-def check_tensor_parallel(model: nn.Module, size: int) -> None:
-    """Raise ValueError for a block of ``model`` with fewer heads than
-    ``size``: a rank would hold no head. Any other count splits, unevenly
-    where ``size`` does not divide it (module doc)."""
-    for name, m in model.named_modules():
-        heads = _heads(m)
-        if heads is not None and heads < size:
-            raise ValueError(
-                f"--model-parallel {size}: block {name!r} "
-                f"({type(m).__name__}) has {heads} heads, fewer than {size}: "
-                "each rank holds at least one whole head")
+def _replicated(module: nn.Module, size: int) -> bool:
+    """Whether ``module`` is a block with fewer heads than ``size``, which
+    stays whole on every model rank (module doc)."""
+    heads = _heads(module)
+    return heads is not None and heads < size
+
+
+def replicated_blocks(model: nn.Module, size: int) -> list:
+    """The names of ``model``'s blocks that ``shard_tensor_parallel``
+    replicates at model size ``size``: those with fewer heads than
+    ``size``. Any other count splits, unevenly where ``size`` does not
+    divide it (module doc)."""
+    return [name for name, m in model.named_modules()
+            if _replicated(m, size)]
 
 
 def _set_role(owner: nn.Module, attr: str, shard: ModelShard, rank: int,
@@ -501,14 +516,15 @@ def shard_tensor_parallel(model: nn.Module, size: Optional[int] = None,
     """Split every block of ``model`` over the model group in place
     (module doc): each sharded leaf becomes this rank's piece, tagged
     ``model_shard``; the block keeps its plan as ``tp_plan`` and its model
-    size as ``tp_size``, and runs its tensor-parallel route. Raises
-    (``check_tensor_parallel``) before anything is split."""
+    size as ``tp_size``, and runs its tensor-parallel route. A block with
+    fewer heads than ``size`` (``replicated_blocks``) stays whole."""
     size = mesh.model_size() if size is None else size
     rank = mesh.model_rank() if rank is None else rank
     if size == 1:
         return model
-    check_tensor_parallel(model, size)
     for block in list(model.modules()):
+        if _replicated(block, size):
+            continue
         plan = {}
         heads = _heads(block)
         for leaf, shard in _split_leaves(block).items():

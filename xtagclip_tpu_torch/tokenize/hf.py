@@ -19,6 +19,7 @@ with ``local_files_only``, so it is never given one.)
 from __future__ import annotations
 
 import os
+import warnings
 from typing import List, Optional, Union
 
 import numpy as np
@@ -94,11 +95,22 @@ class HFTokenizer:
             self.path, local_files_only=True, **kwargs)
         set_lang = getattr(self.tokenizer, "set_src_lang_special_tokens",
                            None)
-        if callable(set_lang) and language is not None:
-            set_lang(language)
+        if callable(set_lang):
+            self.set_lang_fn = set_lang
+            if language is not None:
+                self.set_language(language)
         self.context_length = context_length
         self.clean_fn = get_clean_fn(clean)
         self.strip_sep_token = strip_sep_token
+
+    def set_language(self, src_lang: str) -> None:
+        """The source language of a tokenizer with a language hook
+        (``set_src_lang_special_tokens``: NLLB's, M2M100's); without one
+        it warns and changes nothing, as JAX's (tokenize/hf.py:63-67)."""
+        if hasattr(self, "set_lang_fn"):
+            self.set_lang_fn(src_lang)
+        else:
+            warnings.warn("Cannot set language for the tokenizer.")
 
     def save_pretrained(self, dest: str) -> None:
         """Write the tokenizer's files into ``dest`` (the HF export)."""

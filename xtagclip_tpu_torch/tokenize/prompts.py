@@ -137,6 +137,17 @@ class PromptTable:
                 out[ti, ci] = np.asarray(self.tokenizer(prompts), np.int32)
         return out
 
+    def template_index(self, prompt_template_setting: str, rng=None) -> int:
+        """The table row of ``--prompt-template-setting`` (JAX
+        prompts.py:152-158): a template's row, or for ``"total"`` one drawn
+        uniformly from ``rng``, a ``numpy.random.Generator`` (a fresh
+        unseeded one when None, as JAX's; the reference draws one per step,
+        model.py:523-527)."""
+        if prompt_template_setting == "total":
+            rng = rng or np.random.default_rng()
+            return int(rng.integers(len(self.templates)))
+        return self.templates.index(prompt_template_setting)
+
 
 def tag_indices_to_words(global_idx, tag_list: Optional[Sequence[str]] = None):
     """[B, 6] global tag indices -> reference-format 'tag,tag,...' strings."""

@@ -174,6 +174,11 @@ class CheckpointManager:
     def save_last(self, tree: Any):
         self._save_or_clone("last", tree)
 
+    def latest_tag(self) -> Optional[str]:
+        """The tag ``--resume latest`` resumes from in this manager's
+        directory (``find_latest_checkpoint``), or None."""
+        return find_latest_checkpoint(self.dir)
+
 
 def find_latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     """'--resume latest' discovery (main_other.py:195-227)."""
